@@ -1,0 +1,414 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (`hept_tpu_torch`) on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--steps 5] [--points 60000] [--seed 0]
+
+Phases, one line each (plus per-kernel lines):
+  1. build the CUDA kernels from `hept_tpu_torch/csrc` (one nvcc per source,
+     in parallel) and print the card's name and power limit;
+  2. hold every kernel of the main path (K1-K4) against its plain PyTorch
+     version at the main path's shapes, with the tolerance printed beside
+     the error, and time kernel, plain version and, where one exists, the
+     single PyTorch call computing the same function; K2 also against the
+     f32 autograd gradient of the bf16 forward (the bf16-gradient contract);
+  3. the main path: the full-width `hept_acc` model (random weights from the
+     seed) takes `--steps` Adam steps at lr 1e-2 with dropout on, through the
+     trainer's `train_step`, on one synthetic 60k-point event; launch
+     counters are zeroed just before and read just after;
+  4. the first step's loss and gradients again, dropout off, once with the
+     kernels and once with the plain versions, compared: in the hept_acc
+     configuration, and with its bf16 modes off (f32 kernels).
+Before the last line: one JSON line of per-kernel numbers, and the
+`nvidia-smi` name/power-limit line. The last line is
+{"ok": true, "device": {...}}. Any failed check raises (exit code != 0).
+Exits with code 2 and prints no result without a CUDA device or without the
+`hept_tpu_torch` package beside this script.
+"""
+
+from __future__ import annotations
+
+import argparse
+import copy
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+BF16_FLOP_PER_S = 989e12  # dense bf16 tensor-core peak
+F32_FLOP_PER_S = 67e12  # f32 outside the tensor cores
+DEVICE = "cuda"
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(nbytes: float, flops: float, flop_rate: float) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def scale(a) -> float:
+    return float(a.float().abs().max())
+
+
+def check(name: str, err: float, tol: float) -> None:
+    ok = err <= tol and math.isfinite(err)
+    log(f"  {name}: {err:.3e} (tol {tol:.3e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: {err:.3e} above tolerance {tol:.3e}")
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def make_batch(points: int, seed: int, block_size: int):
+    import numpy as np
+
+    from hept_tpu_torch.data.batching import pack_events, slab_friendly_n
+    from hept_tpu_torch.data.synthetic import synthetic_tracking_event
+
+    ev = synthetic_tracking_event(np.random.default_rng(seed), n_points=points,
+                                  avg_track_size=8, pairs_per_point=16)
+    batch = pack_events([ev], block_size=block_size,
+                        n_max=slab_friendly_n(points, block_size), window_pairs=128)
+    # the pack-time layout K4 relies on: anchor-sorted, 128-pair windows
+    # spanning < 128 rows, reversal-closed real pairs
+    p, m, rev = batch["pairs"][0], batch["pair_mask"][0], batch["pair_rev"][0]
+    w = p[0].reshape(-1, 128)
+    real = m.reshape(-1, 128)
+    span = np.where(real, w, w[:, :1]).max(1) - np.where(real, w, w[:, :1]).min(1)
+    if not ((np.diff(p[0]) >= 0).all() and (span < 128).all()
+            and (p[0, rev[m]] == p[1, m]).all()):
+        raise AssertionError("packed pairs break the windowed layout")
+    return batch
+
+
+def phase_kernels(torch, batch, seed: int) -> dict:
+    """K1-K4 against their plain versions at the main path's shapes."""
+    from hept_tpu_torch.ops import bucket_attn_cuda as ba
+    from hept_tpu_torch.ops import pair_ops as po
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    r, d, dv, bs = 16, 30, 24, 512  # 2 rounds x 8 heads; 24 + 6 RPE columns
+    n = batch["x"].shape[1]
+    nb = n // bs
+
+    def randn(*shape, s=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * s
+
+    # the main path's regime: x part O(0.3), RPE part centred per bucket
+    # (kernel_center) with O(0.5) local spread
+    def qk(common):
+        rpe = (common + randn(r, 6, nb, bs, s=0.5)).reshape(r, 6, n)
+        return torch.cat([randn(r, 24, n, s=0.3), rpe], 1).to(torch.bfloat16).contiguous()
+
+    zero = torch.zeros((r, 6, nb, 1), device=dev)
+    sq, sk = qk(zero), qk(zero)
+    sv = randn(r, dv, n).to(torch.bfloat16)
+    g_den = randn(r, 1, n)
+    g_so = randn(r, dv, n)
+    rows = []
+
+    # K1
+    den_k, so_k = ba.bucket_attn_fwd_cuda(sq, sk, sv, bs)
+    den_p, so_p = ba.bucket_attn_fwd_plain(sq, sk, sv, bs)
+    torch.cuda.synchronize()
+    log("kernel K1 bucket_attn_fwd (bf16, r=16 d=30 dv=24 n=%d bs=512):" % n)
+    # pt is rounded to bf16 before the value product; kernel and plain sum the
+    # logits in different orders, so a rounding can flip (2^-8 relative on
+    # one term of a 512-term sum)
+    e_den, e_so = max_err(den_k, den_p), max_err(so_k, so_p)
+    check("denom max|d|", e_den, 1e-4 * scale(den_p))
+    check("so max|d|", e_so, 5e-3 * scale(so_p))
+    by = 2 * (2 * r * d * n + r * dv * n) + 4 * (r * n + r * dv * n)
+    fl = 2.0 * r * n * bs * (d + dv)
+    b_ms, b_by = bound_ms(by, fl, BF16_FLOP_PER_S)
+    rows.append(dict(name="K1 bucket_attn_fwd", route="cuda",
+                     source="hept_tpu_torch/csrc/bucket_attn.cu",
+                     replaces="hept_tpu/ops/bucket_attn_pallas.py:858",
+                     max_abs_err=max(e_den, e_so),
+                     ms=time_ms(lambda: ba.bucket_attn_fwd_cuda(sq, sk, sv, bs)),
+                     plain_ms=time_ms(lambda: ba.bucket_attn_fwd_plain(sq, sk, sv, bs), 3, 1),
+                     bound_ms=b_ms, bound_by=b_by, library_ms=None))
+
+    # K2
+    dq_k, dk_k, dv_k = ba.bucket_attn_bwd_cuda(sq, sk, sv, g_den, g_so, bs)
+    dq_p, dk_p, dv_p = ba.bucket_attn_bwd_plain(sq, sk, sv, g_den, g_so, bs)
+    torch.cuda.synchronize()
+    log("kernel K2 bucket_attn_bwd (bf16 in/out, f32 cotangents):")
+    # outputs are bf16: one rounding of slightly different f32 values can
+    # differ by 1 bf16 ulp (2^-8 relative); the plain dl is a hi/lo pair
+    errs = []
+    for nm, a, b in (("dq", dq_k, dq_p), ("dk", dk_k, dk_p), ("dv", dv_k, dv_p)):
+        errs.append(max_err(a, b))
+        check(f"{nm} max|d|", errs[-1], 1e-2 * scale(b))
+    # the contract: K2 is the gradient of the bf16 forward -- f32 autograd of
+    # the K1 math at the same bf16 values, 2e-2 x scale (as the JAX test), in
+    # the regime that broke the old TPU backward: uncentred RPE rows with a
+    # per-bucket common mode ~40
+    common = randn(r, 6, nb, 1, s=40.0)
+    cq, ck = qk(common), qk(common)
+    ins = [t.float().requires_grad_(True) for t in (cq, ck, sv)]
+    den_f, so_f = ba.bucket_attn_fwd_plain(*ins, bs)
+    ref = torch.autograd.grad((den_f * g_den).sum() + (so_f * g_so).sum(), ins)
+    del den_f, so_f, ins
+    got = ba.bucket_attn_bwd_cuda(cq, ck, sv, g_den, g_so, bs)
+    for nm, a, b in zip(("dq", "dk", "dv"), got, ref):
+        check(f"{nm} max|d| vs f32 autograd of the bf16 forward (common mode 40)", max_err(a, b),
+              2e-2 * scale(b))
+    del ref, got, cq, ck
+    by = (2 * r * d * n + r * dv * n) * 2 * 2 + 4 * (r * dv * n + r * n)
+    fl = 2.0 * r * n * bs * (3 * d + 2 * dv + 2)
+    b_ms, b_by = bound_ms(by, fl, BF16_FLOP_PER_S)
+    rows.append(dict(name="K2 bucket_attn_bwd", route="cuda",
+                     source="hept_tpu_torch/csrc/bucket_attn.cu",
+                     replaces="hept_tpu/ops/bucket_attn_pallas.py:893",
+                     max_abs_err=max(errs),
+                     ms=time_ms(lambda: ba.bucket_attn_bwd_cuda(sq, sk, sv, g_den, g_so, bs)),
+                     plain_ms=time_ms(
+                         lambda: ba.bucket_attn_bwd_plain(sq, sk, sv, g_den, g_so, bs), 3, 1),
+                     bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    del sq, sk, sv, g_den, g_so, den_k, so_k, den_p, so_p, dq_k, dk_k, dv_k, dq_p, dk_p, dv_p
+    torch.cuda.empty_cache()
+
+    # K3 / K4 on the batch's anchor index, 12-wide embeddings (the loss's
+    # similarity gather and its backward) and 1-wide (negative sums)
+    idx = torch.as_tensor(batch["pairs"][0, 0]).to(dev).contiguous()
+    mask = torch.as_tensor(batch["pair_mask"][0]).to(dev)
+    e = idx.shape[0]
+    errs3, errs4 = [], []
+    log(f"kernel K3 pair_gather / K4 pair_segment_sum (E={e}, n={n}):")
+    for width in (12, 1):
+        emb = randn(n, width)
+        vals = (randn(e, width) * mask[:, None]).contiguous()
+        errs3.append(max_err(po.gather_rows_cuda(emb, idx), po.gather_rows_plain(emb, idx)))
+        check(f"K3 d={width} max|d| (exact copy)", errs3[-1], 0.0)
+        ref4 = po.segment_sum_plain(vals, idx, n)
+        errs4.append(max_err(po.segment_sum_cuda(vals, idx, n), ref4))
+        # index_add_ sums with atomics in another order
+        check(f"K4 d={width} max|d|", errs4[-1], 1e-5 * scale(ref4) + 1e-6)
+    # the training loader's cached layout is sorted per block only: K4 must
+    # not depend on a globally sorted index
+    perm = torch.randperm(e, generator=gen, device=dev)
+    ref4 = po.segment_sum_plain(vals[perm].contiguous(), idx[perm].contiguous(), n)
+    errs4.append(max_err(po.segment_sum_cuda(vals[perm].contiguous(), idx[perm].contiguous(), n),
+                         ref4))
+    check("K4 d=1 max|d| (unsorted index)", errs4[-1], 1e-5 * scale(ref4) + 1e-6)
+    emb = randn(n, 12)
+    vals = (randn(e, 12) * mask[:, None]).contiguous()
+    idx64 = idx.long()
+    b_ms, b_by = bound_ms(4.0 * (n * 12 + e + e * 12), 0.0, F32_FLOP_PER_S)
+    rows.append(dict(name="K3 pair_gather", route="cuda", source="hept_tpu_torch/csrc/pair_ops.cu",
+                     replaces="hept_tpu/ops/pair_ops.py:142", max_abs_err=max(errs3),
+                     ms=time_ms(lambda: po.gather_rows_cuda(emb, idx), 20),
+                     plain_ms=time_ms(lambda: po.gather_rows_plain(emb, idx), 20),
+                     bound_ms=b_ms, bound_by=b_by,
+                     library_ms=time_ms(lambda: emb.index_select(0, idx64), 20)))
+    zeros = torch.zeros((n, 12), device=dev)
+    b_ms, b_by = bound_ms(4.0 * (e * 12 + e + n * 12), 1.0 * e * 12, F32_FLOP_PER_S)
+    rows.append(dict(name="K4 pair_segment_sum", route="cuda",
+                     source="hept_tpu_torch/csrc/pair_ops.cu",
+                     replaces="hept_tpu/ops/pair_ops.py:93", max_abs_err=max(errs4),
+                     ms=time_ms(lambda: po.segment_sum_cuda(vals, idx, n), 20),
+                     plain_ms=time_ms(lambda: po.segment_sum_plain(vals, idx, n), 20),
+                     bound_ms=b_ms, bound_by=b_by,
+                     library_ms=time_ms(lambda: zeros.clone().index_add_(0, idx64, vals), 20)))
+    for row in rows:
+        lib = "-" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
+        log(f"  {row['name']}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+            f"library {lib}, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return {row["name"].split()[0]: row for row in rows}
+
+
+def loss_and_grads(torch, model, loss_fn, batch):
+    from hept_tpu_torch.train.trainer import model_apply
+
+    model.zero_grad(set_to_none=True)
+    out = model_apply(model, batch)
+    if out.shape != (1, batch["x"].shape[1], 12) or not torch.isfinite(out).all():
+        raise AssertionError(f"model output {tuple(out.shape)} not finite / wrong shape")
+    loss = loss_fn(out, batch)
+    loss.backward()
+    return float(loss.detach()), {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--points", type=int, default=60000)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if args.steps < 3:
+        ap.error("--steps must be at least 3")
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    try:
+        import hept_tpu_torch  # noqa: F401
+    except ImportError as exc:
+        print(f"chip_smoke: the hept_tpu_torch package is not beside this script ({exc})",
+              file=sys.stderr)
+        return 2
+    from hept_tpu_torch.ops import bucket_attn_cuda, cuda_lib, pair_ops
+    from hept_tpu_torch.ops.dispatch import plain_reference
+    from hept_tpu_torch.train import trainer
+    from hept_tpu_torch.train.config import hept_acc_config
+
+    t_start = time.perf_counter()
+    # 1. build
+    secs = cuda_lib.build(force=True)
+    smi = nvidia_smi_line()
+    log(f"phase build: {secs:.1f} s for {len(cuda_lib.SOURCES)} sources in parallel; "
+        f"card: {smi}")
+    for nm in cuda_lib.SOURCES:
+        for line in cuda_lib.build_log[nm].splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {nm}: {line.strip()}")
+
+    cfg = hept_acc_config(device=DEVICE, num_epochs=1)
+    block_size = cfg.model_kwargs["block_size"]
+    t0 = time.perf_counter()
+    batch_np = make_batch(args.points, args.seed, block_size)
+    batch = trainer.batch_to_device(batch_np, DEVICE)
+    log(f"phase data: one synthetic event, {args.points} points -> n={batch_np['x'].shape[1]}, "
+        f"E={batch_np['pairs'].shape[-1]} windowed pairs ({time.perf_counter() - t0:.1f} s)")
+
+    # 2. kernels vs plain versions
+    rows = phase_kernels(torch, batch_np, args.seed)
+    log("phase kernels: K1-K4 match their plain versions")
+
+    # 3. the main path
+    gen_init = torch.Generator(device=DEVICE).manual_seed(args.seed)
+    model = trainer.build_model(cfg, batch_np["x"].shape[2], batch_np["coords"].shape[2],
+                                gen_init, DEVICE)
+    init_state = copy.deepcopy(model.state_dict())
+    opt = trainer.make_optimizer(model.parameters(), cfg.optimizer_name,
+                                 cfg.optimizer_kwargs["lr"])
+    loss_fn = trainer.make_loss_fn(cfg)
+    gen_drop = torch.Generator(device=DEVICE).manual_seed(args.seed + 1)
+    torch.cuda.synchronize()
+    for counts in (bucket_attn_cuda.LAUNCHES, pair_ops.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    step_ms, losses = [], []
+    for s in range(args.steps):
+        t0 = time.perf_counter()
+        m = trainer.train_step(model, opt, loss_fn, batch, gen_drop)
+        loss = float(m["loss"])  # synchronises
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        log(f"  step {s}: loss={loss:.6f} grad_norm={float(m['grad_norm']):.4f} "
+            f"{step_ms[-1]:.1f} ms")
+    launches = {**bucket_attn_cuda.LAUNCHES, **pair_ops.LAUNCHES}
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    want = {"bucket_attn_fwd": 4 * args.steps, "bucket_attn_bwd": 4 * args.steps}
+    for k, v in want.items():
+        if launches[k] != v:
+            raise AssertionError(f"{k} launched {launches[k]}x in {args.steps} steps, want {v}")
+    for k in ("pair_gather", "pair_segment_sum"):
+        if launches[k] < args.steps:
+            raise AssertionError(f"{k} launched {launches[k]}x in {args.steps} steps")
+    steady = statistics.median(step_ms[1:])
+    log(f"phase main: {args.steps} hept_acc steps (4 layers, 8 heads, h_dim 24, bs 512, "
+        f"8 static rounds, dropout on), losses {losses}; step ms {step_ms}; "
+        f"median after the first {steady:.1f} ms; launches {launches}; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for key, name in (("K1", "bucket_attn_fwd"), ("K2", "bucket_attn_bwd"),
+                      ("K3", "pair_gather"), ("K4", "pair_segment_sum")):
+        rows[key]["launches"] = launches[name]
+
+    # 4. the first step with kernels vs with plain versions, dropout off
+    model.load_state_dict(init_state)
+    loss_k, grads_k = loss_and_grads(torch, model, loss_fn, batch)
+    with plain_reference():
+        loss_p, grads_p = loss_and_grads(torch, model, loss_fn, batch)
+    log(f"phase compare (hept_acc, bf16 kernels): loss kernels {loss_k:.6f} plain {loss_p:.6f}")
+    check("loss |d|", abs(loss_k - loss_p), 1e-3 * abs(loss_p))
+    # pt is rounded to bf16 in K1 and the bf16 gradients in K2; the two
+    # paths' f32 sums differ in order, so some roundings flip. At init the
+    # q/k projection weights' gradients are tiny and ill-conditioned under
+    # such flips (a perturbation at f32 rounding level of K1's output moves
+    # them by a sizeable share of their own scale), so in bf16 the gradient
+    # is held as a whole: relative L2 error over all parameters.
+    diff2 = sum(float((grads_k[k] - grads_p[k]).double().pow(2).sum()) for k in grads_p)
+    norm2 = sum(float(grads_p[k].double().pow(2).sum()) for k in grads_p)
+    check("gradient, |g_kernels - g_plain| / |g_plain| over all parameters",
+          math.sqrt(diff2 / norm2), 1e-2)
+    ratios = {k: max_err(grads_k[k], grads_p[k]) / (scale(grads_p[k]) + 1e-6) for k in grads_p}
+    worst = sorted(ratios, key=ratios.get, reverse=True)[:3]
+    log("  per tensor, max|d| / (max|plain| + 1e-6), largest: "
+        + ", ".join(f"{k} {ratios[k]:.3e}" for k in worst))
+    # the same step with the bf16 modes off (f32 transport, f32 K1/K2):
+    # no bf16 rounding to flip, so every parameter gradient is held on its own
+    cfg32 = hept_acc_config(device=DEVICE, num_epochs=1)
+    cfg32.model_kwargs.update(sort_pack=False, unsort_pack=False, kernel_bf16=False)
+    model32 = trainer.build_model(cfg32, batch_np["x"].shape[2], batch_np["coords"].shape[2],
+                                  gen_init, DEVICE)
+    model32.load_state_dict(init_state)
+    loss_k, grads_k = loss_and_grads(torch, model32, loss_fn, batch)
+    with plain_reference():
+        loss_p, grads_p = loss_and_grads(torch, model32, loss_fn, batch)
+    log(f"phase compare (f32 kernels): loss kernels {loss_k:.6f} plain {loss_p:.6f}")
+    check("loss |d|", abs(loss_k - loss_p), 1e-5 * abs(loss_p))
+    # each tensor against its own scale, floored at 1e-3 of the largest
+    # gradient (the output bias's gradient is zero up to rounding: the loss
+    # depends on embedding differences only); 1e-2 because a point whose ReLU
+    # pre-activation or RBF logit sits at its kink within f32 rounding can
+    # switch sides between the paths and move a weight's gradient by ~1e-3
+    floor = 1e-3 * max(scale(g) for g in grads_p.values())
+    ratios = {k: max_err(grads_k[k], grads_p[k]) / max(scale(grads_p[k]), floor)
+              for k in grads_p}
+    worst = sorted(ratios, key=ratios.get, reverse=True)[:3]
+    log("  per tensor, max|d| / max(max|plain|, 1e-3 max over tensors), largest: "
+        + ", ".join(f"{k} {ratios[k]:.3e}" for k in worst))
+    check(f"all {len(ratios)} parameter gradients, worst {worst[0]}", ratios[worst[0]], 1e-2)
+    del model32, grads_k, grads_p
+
+    log(json.dumps({"kernels": [
+        {k: rows[key][k] for k in ("name", "route", "source", "replaces", "launches",
+                                   "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")}
+        for key in ("K1", "K2", "K3", "K4")]}))
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(smi)
+    log(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                           "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

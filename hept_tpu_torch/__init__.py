@@ -1,0 +1,18 @@
+"""PyTorch/CUDA port of `hept_tpu` for one NVIDIA H100.
+
+The package mirrors `hept_tpu`'s layout (core/, ops/, models/, data/, train/,
+utils/) and holds the `hept_acc` training step: synthetic tracking events,
+the static-plan HEPT transformer, the windowed InfoNCE loss and Adam. The
+four kernels of that step are hand-written CUDA (`csrc/`), built with `nvcc`
+on first use and loaded with ctypes; on CPU tensors every kernel wrapper runs
+its plain PyTorch version instead.
+
+Importing the package touches no GPU and builds nothing. It turns TF32 off
+for float32 matmuls and convolutions: the reference asks for full-f32
+products (`Precision.HIGHEST`) wherever it computes in float32.
+"""
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False

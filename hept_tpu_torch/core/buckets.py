@@ -1,0 +1,122 @@
+"""Gather plumbing for the static bucket plan (port of the main-path parts
+of `hept_tpu/core/buckets.py`).
+
+`permute_gather` and `permute_gather_rows` apply KNOWN per-round permutations
+(from `ops.bucket_attn.static_bucket_plan`) with index gathers, and their
+backward gathers the cotangent by the inverse permutation. `pack=True` keeps
+the JAX package's transport rounding: values (and, in the backward,
+cotangents) pass through bfloat16. The JAX side moved them as bf16 pairs
+bit-packed into u32 words, which was a TPU transport trick; only the rounding
+is carried over.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def bit_shift(base: torch.Tensor, shift_idx: torch.Tensor) -> torch.Tensor:
+    """Pack `shift_idx` into the bits above `base`, per row of (R, n):
+    `num_bits = ceil(log2(max(base) + 1))`, then `(shift_idx << num_bits) |
+    base` (the AND-code packing of the replicate padding mode)."""
+    base = base.to(torch.int32)
+    shift_idx = shift_idx.to(torch.int32)
+    max_base = base.amax(dim=1, keepdim=True)
+    num_bits = torch.ceil(torch.log2(max_base.to(torch.float32) + 1.0)).to(torch.int32)
+    return torch.bitwise_left_shift(shift_idx, num_bits) | base
+
+
+def invert_permutation(perm: torch.Tensor) -> torch.Tensor:
+    """`inv[..., perm[..., i]] = i` along the last axis."""
+    ar = torch.arange(perm.shape[-1], dtype=perm.dtype, device=perm.device)
+    return torch.empty_like(perm).scatter_(-1, perm, ar.expand_as(perm).contiguous())
+
+
+def _transport(x: torch.Tensor, pack: bool) -> torch.Tensor:
+    return x.to(torch.bfloat16) if pack else x.to(torch.float32)
+
+
+def _gather_cols(payload: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """payload (n_ev, d, ne), src (c, n_ev, ne) -> (c, n_ev, d, ne) with
+    out[r, b, :, s] = payload[b, :, src[r, b, s]]."""
+    c, n_ev, ne = src.shape
+    d = payload.shape[1]
+    idx = src[:, :, None, :].expand(c, n_ev, d, ne)
+    return torch.gather(payload[None].expand(c, n_ev, d, ne), 3, idx)
+
+
+class _PermuteGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, payload, src, inv, pack, out_bf16):
+        ctx.save_for_backward(inv)
+        ctx.pack = pack
+        ctx.in_dtype = payload.dtype
+        out = _gather_cols(_transport(payload, pack), src)
+        return out if (pack and out_bf16) else out.to(torch.float32)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (inv,) = ctx.saved_tensors
+        # out[r,b,:,s] = payload[b,:,src[r,b,s]] with src a permutation per
+        # (r, b): d payload[b,:,i] = sum_r ct[r,b,:,inv[r,b,i]]
+        c, n_ev, d, ne = ct.shape
+        g = torch.gather(_transport(ct, ctx.pack), 3,
+                         inv[:, :, None, :].expand(c, n_ev, d, ne))
+        return g.to(torch.float32).sum(dim=0).to(ctx.in_dtype), None, None, None, None
+
+
+def permute_gather(payload: torch.Tensor, src: torch.Tensor, inv: torch.Tensor,
+                   pack: bool = False, out_bf16: bool = False) -> torch.Tensor:
+    """Apply known per-round permutations to a column payload.
+
+    Args:
+      payload: (n_ev, d, ne) column payload.
+      src: (c, n_ev, ne) int64 source slot of each sorted position.
+      inv: (c, n_ev, ne) inverse permutations (used by the backward).
+      pack: round values (and cotangents) through bfloat16.
+      out_bf16: with pack, return bfloat16 instead of float32.
+    Returns: (c, n_ev, d, ne) with payload[b, :, src[r, b, s]] at [r, b, :, s].
+    """
+    return _PermuteGather.apply(payload, src, inv, bool(pack), bool(out_bf16))
+
+
+def _gather_rows(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """rows (S, ne, W), idx (R, ne) with S | R -> out[r, p] = rows[r % S, idx[r, p]]."""
+    s, ne, w = rows.shape
+    r = idx.shape[0]
+    offs = (torch.arange(r, device=idx.device) % s) * ne
+    flat = rows.reshape(s * ne, w)
+    return flat[(idx + offs[:, None]).reshape(-1)].reshape(r, ne, w)
+
+
+class _PermuteGatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, rows, idx, inv, pack):
+        ctx.save_for_backward(inv)
+        ctx.pack = pack
+        ctx.s = rows.shape[0]
+        return _gather_rows(_transport(rows, pack), idx).to(torch.float32)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (inv,) = ctx.saved_tensors
+        # out[p] = rows[idx[p]] with idx a permutation: d rows[s] = ct[inv[s]];
+        # broadcast sources (S < R) sum their R/S copies' cotangents
+        g = _gather_rows(_transport(ct, ctx.pack), inv).to(torch.float32)
+        if g.shape[0] != ctx.s:
+            g = g.reshape(-1, ctx.s, *g.shape[1:]).sum(dim=0)
+        return g, None, None, None
+
+
+def permute_gather_rows(rows: torch.Tensor, idx: torch.Tensor, inv: torch.Tensor,
+                        pack: bool = False) -> torch.Tensor:
+    """Apply known per-batch-row permutations to a row-major payload.
+
+    Args:
+      rows: (S, ne, W) row payload; S may divide R (broadcast source).
+      idx: (R, ne) -- out[r, p, :] = rows[r % S, idx[r, p], :].
+      inv: (R, ne) idx's inverse permutation (for the backward).
+      pack: round values (and cotangents) through bfloat16.
+    Returns: (R, ne, W) float32.
+    """
+    return _PermuteGatherRows.apply(rows, idx, inv, bool(pack))

@@ -1,0 +1,69 @@
+"""Synthetic tracking dataset with the reference's 80/10/10 split (own copy
+of the synthetic part of `hept_tpu/data/datasets.py`)."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from .batching import pack_events
+from .synthetic import synthetic_tracking_event
+
+
+@dataclasses.dataclass
+class SplitDataset:
+    train: list
+    valid: list
+    test: list
+    in_dim: int
+    coords_dim: int
+
+    def iter_batches(self, split: str, batch_size: int, block_size: int,
+                     n_max: int | None = None,
+                     shuffle_rng: np.random.Generator | None = None,
+                     aug_pair_p: float = 0.0, window_pairs: int = 0):
+        """Yield packed batches. Training (shuffle_rng set) drops a trailing
+        partial batch and draws the pair augmentation from `shuffle_rng`.
+        Events keep their processed base pairs between calls (`cache`)."""
+        events = getattr(self, split)
+        order = np.arange(len(events))
+        if shuffle_rng is not None:
+            shuffle_rng.shuffle(order)
+        for i in range(0, len(order), batch_size):
+            chunk = order[i : i + batch_size]
+            if len(chunk) < batch_size and shuffle_rng is not None:
+                break
+            yield pack_events(
+                [events[j] for j in chunk], block_size, n_max=n_max,
+                aug_pair_p=aug_pair_p if shuffle_rng is not None else 0.0,
+                aug_rng=shuffle_rng, window_pairs=window_pairs, cache=True,
+            )
+
+
+def make_synthetic_tracking(n_events: int = 20, n_points: int = 1000,
+                            seed: int = 0, **kwargs) -> SplitDataset:
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(int(n_points * 0.8), n_points + 1, n_events)
+    events = [
+        synthetic_tracking_event(rng, n_points=int(s), **kwargs) for s in sizes
+    ]
+    n_tr = int(n_events * 0.8)
+    n_va = max(1, int(n_events * 0.1))
+    return SplitDataset(
+        train=events[:n_tr],
+        valid=events[n_tr : n_tr + n_va],
+        test=events[n_tr + n_va :] or events[-1:],
+        in_dim=events[0].x.shape[1],
+        coords_dim=events[0].coords.shape[1],
+    )
+
+
+def get_dataset(name: str, seed: int = 0, **kwargs) -> SplitDataset:
+    """`synthetic-tracking-<n>[k]` datasets, e.g. synthetic-tracking-60k."""
+    if not name.startswith("synthetic-tracking"):
+        raise NotImplementedError(f"{name}: only synthetic tracking is ported")
+    tail = name.rsplit("-", 1)[-1]
+    n_points = int(tail.replace("k", "000")) if tail[-1] in "k0123456789" \
+        and tail[0].isdigit() else 1000
+    return make_synthetic_tracking(n_points=n_points, seed=seed, **kwargs)

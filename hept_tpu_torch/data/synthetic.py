@@ -1,0 +1,100 @@
+"""Synthetic tracking events (own copy of `hept_tpu/data/synthetic.py`).
+
+Tracks are clusters of hits around an (eta, phi) centre whose features
+correlate with the track, so contrastive embedding learning is possible.
+coords = [eta, phi, x[:, :4]] -> coords_dim = 6.
+
+Supervision pairs always come from scipy's cKDTree (up to k neighbours within
+a radius). The JAX package may build them with its native grid-hash library
+instead, which returns a different pair set; the two generators draw the same
+points from the same seed, and only the pairs can differ.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+from scipy.spatial import cKDTree
+
+from .batching import Event
+
+
+def synthetic_tracking_event(
+    rng: np.random.Generator,
+    n_points: int = 1000,
+    avg_track_size: int = 8,
+    max_track_size: int = 20,
+    noise_frac: float = 0.1,
+    n_feature_dim: int = 10,
+    pairs_per_point: int = 32,
+    pair_radius: float = 0.5,
+) -> Event:
+    """Generate one tracking event; cluster sizes are capped at
+    max_track_size."""
+    n_noise = int(n_points * noise_frac)
+    n_hits = n_points - n_noise
+    sizes = []
+    while sum(sizes) < n_hits:
+        sizes.append(int(np.clip(rng.poisson(avg_track_size), 2, max_track_size)))
+    sizes[-1] -= sum(sizes) - n_hits
+    if sizes[-1] < 2:
+        sizes.pop()
+        n_noise = n_points - sum(sizes)
+
+    etas, phis, cids, pts_l, recons_l, feats = [], [], [], [], [], []
+    for tid, size in enumerate(sizes, start=1):
+        center = rng.uniform(-3, 3), rng.uniform(-np.pi, np.pi)
+        pt = float(rng.lognormal(0.0, 0.8))
+        recon = 1.0 if size >= 3 else 0.0
+        spread = 0.05
+        etas.append(center[0] + rng.normal(0, spread, size))
+        phis.append(center[1] + rng.normal(0, spread, size))
+        cids.append(np.full(size, tid))
+        pts_l.append(np.full(size, pt))
+        recons_l.append(np.full(size, recon))
+        base = rng.normal(0, 1, n_feature_dim)
+        feats.append(base[None, :] + rng.normal(0, 0.3, (size, n_feature_dim)))
+    # noise points: cluster id 0
+    etas.append(rng.uniform(-4, 4, n_noise))
+    phis.append(rng.uniform(-np.pi, np.pi, n_noise))
+    cids.append(np.zeros(n_noise))
+    pts_l.append(np.zeros(n_noise))
+    recons_l.append(np.zeros(n_noise))
+    feats.append(rng.normal(0, 1, (n_noise, n_feature_dim)))
+
+    eta = np.concatenate(etas).astype(np.float32)
+    phi = np.concatenate(phis).astype(np.float32)
+    cid = np.concatenate(cids).astype(np.int32)
+    pts = np.concatenate(pts_l).astype(np.float32)
+    recons = np.concatenate(recons_l).astype(np.float32)
+    x = np.concatenate(feats).astype(np.float32)
+
+    perm = rng.permutation(n_points)
+    eta, phi, cid, pts, recons, x = (
+        eta[perm], phi[perm], cid[perm], pts[perm], recons[perm], x[perm]
+    )
+    coords = np.concatenate([eta[:, None], phi[:, None], x[:, :4]], axis=1)
+    pairs = radius_pairs(eta, phi, pair_radius, pairs_per_point)
+    return Event(
+        x=x, coords=coords.astype(np.float32), cluster_ids=cid,
+        recons=recons, pts=pts, pairs=pairs,
+    )
+
+
+def radius_pairs(eta, phi, radius, k):
+    """Supervision pairs: up to k nearest neighbours within `radius` per
+    point, (2, E) int32 with the anchor in row 0."""
+    n = len(eta)
+    pos = np.stack([eta, phi], axis=1).astype(np.float64)
+    tree = cKDTree(pos)
+    # query k+1 nearest (self included), keep those within radius
+    kk = min(k + 1, n)
+    dist, idx = tree.query(pos, k=kk)
+    if kk == 1:
+        dist, idx = dist[:, None], idx[:, None]
+    src = np.repeat(np.arange(n), kk - 1)
+    dst = idx[:, 1:].reshape(-1)
+    good = dist[:, 1:].reshape(-1) < radius
+    src, dst = src[good], dst[good]
+    if len(src) == 0:
+        return np.zeros((2, 0), np.int32)
+    return np.stack([src, dst]).astype(np.int32)

@@ -1,0 +1,209 @@
+"""HEPT transformer backbone on the static-plan path (port of
+`hept_tpu/models/transformer.py` for the `hept_acc` configuration).
+
+Feature-MLP encoder -> N pre-LN attention blocks with residual + FF ->
+concat of all layer outputs -> bias-free `W` -> 5-layer tanh/LayerNorm MLP
+residual head. Keys are hashed once per step from the encoder output and
+coords (`static_hash`); one plan of `static_rounds` rounds is built, and
+layer l uses rounds [(l * n_hashes + j) % static_rounds for j < n_hashes].
+Layers run as a Python loop (the JAX package's `scan_layers` is a compile-
+time device with the same math).
+
+The model is defined on ONE event: x (N, in_dim), coords (N, coords_dim),
+valid (N,) with N a multiple of block_size; it returns (N, h_dim // 2).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import torch
+from torch import nn
+
+from ..core.buckets import bit_shift
+from ..core.hashing import e2lsh_init
+from ..core.padding import replication_pad_plan
+from ..core.regions import get_regions, region_codes
+from ..ops.bucket_attn import static_bucket_plan, static_hash
+from .attention.hept import HeptAttention
+from .mlp import FeedForward, OutMLP, TorchLinear, dropout, layer_norm, uniform_
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    """Model hyperparameters, with the JAX TransformerConfig's names.
+
+    The port implements the static-plan path of the `hept_acc` profile:
+    attn_type "hept", padding "replicate", qkv_post_sort + share_heads +
+    static_keys + unsort_rows. `attn_impl`, `sort_ops` and `scan_layers`
+    select TPU implementations of the same math, and `shared_sort` is
+    implied by `share_heads`: they are accepted and ignored.
+    """
+
+    in_dim: int
+    coords_dim: int
+    task: str = "tracking"
+    attn_type: str = "hept"
+    h_dim: int = 24
+    num_heads: int = 8
+    n_layers: int = 4
+    block_size: int = 100
+    n_hashes: int = 3
+    num_regions: int = 150
+    num_w_per_dist: int = 10
+    num_and_hashes: int = 2
+    dropout: float = 0.1
+    padding_mode: str = "replicate"
+    attn_impl: str = "slab2"
+    sort_pack: bool = False
+    sort_ops: int = 1
+    unsort_pack: bool = False
+    qkv_post_sort: bool = False
+    shared_sort: bool = False
+    share_heads: bool = False
+    kernel_bf16: bool = False
+    kernel_center: bool = False
+    static_keys: Any = False
+    static_rounds: int = 0
+    unsort_rows: bool = False
+    scan_layers: bool = False
+
+    def check_supported(self) -> None:
+        need = {
+            "task == 'tracking'": self.task == "tracking",
+            "attn_type == 'hept'": self.attn_type == "hept",
+            "padding_mode == 'replicate'": self.padding_mode == "replicate",
+            "qkv_post_sort": bool(self.qkv_post_sort),
+            "share_heads": bool(self.share_heads),
+            "static_keys in (True, 'x0')": self.static_keys in (True, "x0"),
+            "unsort_rows": bool(self.unsort_rows),
+            "static_rounds a multiple of n_hashes":
+                (self.static_rounds or self.n_hashes) % self.n_hashes == 0,
+            "num_and_hashes == 2": self.num_and_hashes == 2,
+        }
+        missing = [k for k, ok in need.items() if not ok]
+        if missing:
+            raise NotImplementedError(
+                "the port runs the static-plan HEPT path only; unsupported: "
+                + ", ".join(missing)
+            )
+
+
+def prepare_event(x, coords, valid, regions, block_size: int):
+    """Per-event precompute, replicate padding mode: AND codes from quantile
+    regions of the event's real points, then trailing-bucket pad slots copy
+    real rows by sorted code rank and slots beyond ceil(n/B)*B become inert.
+
+    Returns (x, coords, codes (c, h, N) int32, inert (N,) bool).
+    """
+    n_valid = valid.sum()
+    region_eta, region_phi = region_codes(coords, regions, valid_mask=valid, n_points=n_valid)
+    packed = bit_shift(region_eta.to(torch.int32), region_phi.to(torch.int32))
+    c, _, h = regions.shape
+    codes = packed.reshape(c, h, -1)
+    code00 = torch.where(valid, codes[0, 0], torch.iinfo(torch.int32).max)
+    sorted_code_idx = torch.argsort(code00, stable=True)
+    gather, _, inert = replication_pad_plan(n_valid, x.shape[0], block_size, sorted_code_idx)
+    x = torch.where(inert[:, None], torch.zeros_like(x), x[gather])
+    coords = torch.where(inert[:, None], torch.zeros_like(coords), coords[gather])
+    return x, coords, codes[..., gather], inert
+
+
+class AttnBlock(nn.Module):
+    """Pre-LN attention block; q/k/v kernels are applied after the plan's
+    gather inside the attention core."""
+
+    def __init__(self, cfg: TransformerConfig, generator=None, device=None):
+        super().__init__()
+        self.cfg = cfg
+        h, d = cfg.num_heads, cfg.h_dim
+        rpe_in = cfg.num_w_per_dist * (cfg.coords_dim - 1)
+        self.w_rpe = nn.Parameter(torch.empty((h * d, rpe_in), device=device))
+        uniform_(self.w_rpe, 1.0 / math.sqrt(rpe_in), generator)
+        self.norm1 = layer_norm(d, device)
+        self.w_q = TorchLinear(d, h * d, bias=False, generator=generator, device=device)
+        self.w_k = TorchLinear(d, h * d, bias=False, generator=generator, device=device)
+        self.w_v = TorchLinear(d, h * d, bias=False, generator=generator, device=device)
+        self.attn = HeptAttention(cfg, generator, device)
+        self.norm2 = layer_norm(d, device)
+        self.ff = FeedForward(d, generator, device)
+
+    def _heads(self, lin: TorchLinear) -> torch.Tensor:
+        # nn.Linear weight (h*d, d) -> kernel (d, h*d) -> (h, d, d) head-major
+        h, d = self.cfg.num_heads, self.cfg.h_dim
+        return lin.weight.t().reshape(d, h, d).permute(1, 0, 2)
+
+    def forward(self, x, coords, invalid, plan, generator=None):
+        aggr = self.attn(self.norm1(x), coords, invalid, plan, self.w_rpe,
+                         self._heads(self.w_q), self._heads(self.w_k), self._heads(self.w_v))
+        x = x + dropout(aggr, self.cfg.dropout, generator)
+        ff = self.ff(self.norm2(x))
+        return x + dropout(ff, self.cfg.dropout, generator)
+
+
+class HeptTransformer(nn.Module):
+    """Single-event HEPT transformer on a static bucket plan.
+
+    `generator` seeds the initial weights and the frozen constants
+    (`regions`, `static_alpha`, each layer's `e2lsh_alpha`).
+    """
+
+    def __init__(self, cfg: TransformerConfig, generator: torch.Generator | None = None,
+                 device=None):
+        super().__init__()
+        cfg.check_supported()
+        self.cfg = cfg
+        self.total_rounds = cfg.static_rounds or cfg.n_hashes
+        self.register_buffer("regions", get_regions(
+            generator, cfg.num_regions, cfg.n_hashes, cfg.num_heads, cfg.num_and_hashes,
+            device=device))
+        self.feat_enc_0 = TorchLinear(cfg.in_dim, cfg.h_dim, generator=generator, device=device)
+        self.feat_enc_1 = TorchLinear(cfg.h_dim, cfg.h_dim, generator=generator, device=device)
+        self.register_buffer("static_alpha", e2lsh_init(
+            generator, 1, cfg.h_dim + cfg.coords_dim, self.total_rounds, device=device))
+        self.blocks = nn.ModuleList(
+            AttnBlock(cfg, generator, device) for _ in range(cfg.n_layers)
+        )
+        self.W = TorchLinear(cfg.h_dim * (cfg.n_layers + 1), cfg.h_dim // 2, bias=False,
+                             generator=generator, device=device)
+        self.mlp_out = OutMLP(cfg.h_dim // 2, cfg.h_dim // 2, generator=generator,
+                              device=device)
+
+    def build_plan(self, h, coords, codes, invalid):
+        """The once-per-step plan of `total_rounds` rounds (static_hash of the
+        encoder output + coords, AND codes of head 0 cycled over rounds)."""
+        cfg = self.cfg
+        scale = float(math.sqrt(2.0 * cfg.num_w_per_dist))
+        hashed = static_hash(h.t(), coords.t(), self.static_alpha, scale)
+        rows = [t % cfg.n_hashes for t in range(self.total_rounds)]
+        codes0 = codes[:, 0][torch.as_tensor(rows, device=codes.device)]
+        return static_bucket_plan(hashed, codes0, invalid, coords.t(),
+                                  sort_pack=cfg.sort_pack, coords_f32=cfg.kernel_center)
+
+    def layer_plan(self, plan, layer: int):
+        nh = self.cfg.n_hashes
+        idx = torch.as_tensor([(layer * nh + j) % self.total_rounds for j in range(nh)],
+                              device=plan[0].device)
+        return tuple(a[idx] for a in plan)
+
+    def forward(self, x, coords, valid, generator: torch.Generator | None = None,
+                plan=None):
+        """`generator` draws the dropout masks (no generator: no dropout).
+        `plan` overrides the step's bucket plan (src, inv, scoords) of
+        `total_rounds` rounds, as built by `build_plan`."""
+        cfg = self.cfg
+        if x.shape[0] % cfg.block_size:
+            raise ValueError("N must be a multiple of block_size")
+        x, coords, codes, invalid = prepare_event(x, coords, valid, self.regions,
+                                                  cfg.block_size)
+        h = self.feat_enc_1(torch.relu(self.feat_enc_0(x)))
+        if plan is None:
+            plan = self.build_plan(h, coords, codes, invalid)
+        layers = [h]
+        for i, block in enumerate(self.blocks):
+            h = block(h, coords, invalid, self.layer_plan(plan, i), generator)
+            layers.append(h)
+        out = self.W(torch.cat(layers, dim=-1))
+        return out + dropout(self.mlp_out(out), cfg.dropout, generator)

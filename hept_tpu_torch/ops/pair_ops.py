@@ -1,0 +1,168 @@
+"""Pair gather / anchor segment sum: the InfoNCE loss's kernels K3 and K4
+(`csrc/pair_ops.cu`) and the ops built on them (port of
+`hept_tpu/ops/pair_ops.py`).
+
+Embeddings travel as (n, d) f32 rows and pair values as (E, d) rows. The
+anchor index comes from the pack-time layout (`data/batching.py`):
+anchor-sorted aligned 128-pair windows, in one block, or two (base and
+augmentation) under the training loader's cache. K3 is a plain indexed copy
+and K4 a CSR segment sum over the pairs in stable anchor order, so neither
+needs the windows or a globally sorted index.
+
+  gather_rows (K3):  out[e] = emb[idx[e]]     plain version: index_select
+  segment_sum (K4):  out[i] = sum_{idx[e]=i} vals[e]   plain: index_add_
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import cuda_lib
+from .dispatch import use_kernel
+
+# launches of each kernel since the last reset (plain integer counters)
+LAUNCHES = {"pair_gather": 0, "pair_segment_sum": 0}
+
+
+def gather_rows_plain(emb: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Plain K3: emb (n, d) f32, idx (E,) in [0, n) -> (E, d)."""
+    return emb.index_select(0, idx.to(torch.int64))
+
+
+def segment_sum_plain(vals: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """Plain K4: vals (E, d) f32, idx (E,) -> (n, d) sums by index."""
+    out = torch.zeros((n, vals.shape[1]), dtype=vals.dtype, device=vals.device)
+    return out.index_add_(0, idx.to(torch.int64), vals)
+
+
+def _check(t: torch.Tensor, idx: torch.Tensor, what: str):
+    if t.dim() != 2 or t.dtype != torch.float32 or not t.is_contiguous() or not t.is_cuda:
+        raise ValueError(f"{what}: need a contiguous 2-D f32 CUDA tensor, got "
+                         f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    if idx.dim() != 1 or idx.dtype != torch.int32 or not idx.is_contiguous() \
+            or idx.device != t.device:
+        raise ValueError(f"{what}: index must be a contiguous int32 vector on {t.device}")
+
+
+def gather_rows_cuda(emb: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """K3 on the card: out[e, :] = emb[idx[e], :] (NaN where idx is out of range)."""
+    _check(emb, idx, "gather_rows")
+    n, d = emb.shape
+    e = idx.shape[0]
+    out = torch.empty((e, d), dtype=torch.float32, device=emb.device)
+    lib = cuda_lib.load("pair_ops")
+    fn = lib.hept_pair_gather
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                                           ctypes.c_void_p]
+    err = fn(emb.data_ptr(), idx.data_ptr(), out.data_ptr(), n, d, e,
+             cuda_lib.stream_ptr(emb.device))
+    cuda_lib.check(err, lib, "hept_pair_error_string", "pair_gather")
+    LAUNCHES["pair_gather"] += 1
+    return out
+
+
+def segment_sum_cuda(vals: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """K4 on the card: sums of vals (E, d) by the index idx (E,) in [0, n)."""
+    _check(vals, idx, "segment_sum")
+    if vals.shape[0] != idx.shape[0]:
+        raise ValueError(f"segment_sum: {vals.shape[0]} values for {idx.shape[0]} indices")
+    d = vals.shape[1]
+    # CSR over the pairs in stable anchor order (deterministic)
+    sorted_idx, order = torch.sort(idx, stable=True)
+    bounds = torch.arange(n + 1, dtype=torch.int32, device=idx.device)
+    rowptr = torch.searchsorted(sorted_idx, bounds)  # int64 row pointers
+    out = torch.empty((n, d), dtype=torch.float32, device=vals.device)
+    lib = cuda_lib.load("pair_ops")
+    fn = lib.hept_pair_segment_sum
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    err = fn(vals.data_ptr(), order.data_ptr(), rowptr.data_ptr(), out.data_ptr(), n, d,
+             cuda_lib.stream_ptr(vals.device))
+    cuda_lib.check(err, lib, "hept_pair_error_string", "pair_segment_sum")
+    LAUNCHES["pair_segment_sum"] += 1
+    return out
+
+
+def gather_rows(emb: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    if use_kernel(emb):
+        return gather_rows_cuda(emb.contiguous(), idx)
+    return gather_rows_plain(emb, idx)
+
+
+def segment_sum(vals: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    if use_kernel(vals):
+        return segment_sum_cuda(vals.contiguous(), idx, n)
+    return segment_sum_plain(vals, idx, n)
+
+
+class _PairGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, emb, idx):
+        ctx.save_for_backward(idx)
+        ctx.n = emb.shape[0]
+        return gather_rows(emb, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        return segment_sum(g, idx, ctx.n), None
+
+
+def pair_gather(emb: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """emb (n, d) gathered at the anchor idx (E,) -> (E, d); the backward is
+    the K4 segment sum."""
+    return _PairGather.apply(emb, idx)
+
+
+class _AnchorSegmentSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, vals, idx, n):
+        ctx.save_for_backward(idx)
+        return segment_sum(vals[:, None], idx, n)[:, 0]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        return gather_rows(g[:, None], idx)[:, 0], None, None
+
+
+def anchor_segment_sum(vals: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """Sum vals (E,) into (n,) segments keyed by the anchor idx; the backward
+    is the K3 gather."""
+    return _AnchorSegmentSum.apply(vals, idx, n)
+
+
+class _PairL2RBFSim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, emb, p0, p1, rev, mask, sigma):
+        e0 = gather_rows(emb, p0)
+        e1 = emb[p1]
+        diff = e0 - e1
+        d = torch.sqrt(torch.sum(diff * diff, dim=-1) + 1e-12)
+        sim = torch.exp(-d / (2 * sigma**2))
+        ctx.save_for_backward(diff, d, sim, p0, rev, mask)
+        ctx.sigma = sigma
+        ctx.n = emb.shape[0]
+        return sim
+
+    @staticmethod
+    def backward(ctx, c):
+        diff, d, sim, p0, rev, mask = ctx.saved_tensors
+        sigma = ctx.sigma
+        # v_e = d sim_e / d e0 = -sim / (2 sigma^2 d) * (e0 - e1). The partner
+        # side's contribution at row p1[e] is the reversed pair's anchor-side
+        # term, so the whole backward is ONE anchor-side segment sum of
+        # (c_e + c_rev[e]) * v_e (pads masked: rev[pad] aliases a real pair).
+        g = (-sim / (2 * sigma**2 * d))[:, None] * diff
+        c2 = torch.where(mask, c + c[rev], torch.zeros_like(c))
+        return segment_sum(c2[:, None] * g, p0, ctx.n), None, None, None, None, None
+
+
+def pair_l2rbf_sim(emb, p0, p1, rev, mask, sigma: float = 0.75) -> torch.Tensor:
+    """Per-pair RBF similarity exp(-|e0 - e1| / (2 sigma^2)) with the
+    symmetry-folded backward. Requires the pack-time reversal-closed windowed
+    layout; the folded backward equals the unfolded gradient there."""
+    return _PairL2RBFSim.apply(emb, p0, p1, rev, mask, sigma)

@@ -1,0 +1,41 @@
+"""InfoNCE tracking loss on the windowed pair layout (port of the windowed
+path of `hept_tpu/train/losses.py:infonce_loss`)."""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops.pair_ops import anchor_segment_sum, pair_gather, pair_l2rbf_sim
+
+
+def infonce_loss(embeddings: torch.Tensor, pairs: torch.Tensor, pair_mask: torch.Tensor,
+                 pair_rev: torch.Tensor, pair_weight: torch.Tensor, pair_neg: torch.Tensor,
+                 *, tau: float = 0.05, dist_metric: str = "l2_rbf") -> torch.Tensor:
+    """Contrastive InfoNCE over windowed supervision pairs.
+
+    Args:
+      embeddings: (N, d).
+      pairs: (2, E) int32 anchor-sorted windowed pairs (data/batching.py).
+      pair_mask: (E,) bool real pairs.
+      pair_rev: (E,) reverse-pair index (folds the partner-side backward into
+        the anchor-side segment sum).
+      pair_weight: (E,) pack-time cluster weights: the per-cluster mean of
+        positive-pair losses, averaged over clusters, is one dot product.
+      pair_neg: (E,) pack-time negative-pair mask.
+    Returns: scalar loss.
+    """
+    if dist_metric != "l2_rbf":
+        raise NotImplementedError(f"dist_metric {dist_metric}: the port has l2_rbf")
+    n = embeddings.shape[0]
+    p0, p1 = pairs[0], pairs[1]
+    # similarity exp(-|e0 - e1| / (2 sigma^2)); the distance is
+    # sqrt(|.|^2 + 1e-12), finite-gradient at zero distance (pad self-pairs)
+    sim = pair_l2rbf_sim(embeddings, p0, p1, pair_rev, pair_mask, 0.75)
+    logit = sim / tau
+    max_sim = torch.max(torch.where(pair_mask, logit, torch.full_like(logit, -torch.inf)))
+    exp_sim = torch.exp(logit - max_sim.detach())
+    # per-anchor negative mass, looked up per pair
+    neg_sum = anchor_segment_sum(torch.where(pair_neg, exp_sim, torch.zeros_like(exp_sim)), p0, n)
+    denominator = pair_gather(neg_sum[:, None], p0)[:, 0]
+    loss_per_pair = -torch.log(exp_sim / (exp_sim + denominator + 1e-30) + 1e-30)
+    return torch.sum(loss_per_pair * pair_weight)

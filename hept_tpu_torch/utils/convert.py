@@ -1,0 +1,83 @@
+"""Carry weights across from the JAX package.
+
+`from_jax_variables` turns the flax `{"params", "constants"}` tree of a
+`hept_tpu` HeptTransformer (static-plan path) into a state dict for
+`hept_tpu_torch.models.transformer.HeptTransformer`. It takes any nested
+mapping of arrays (numpy, or anything `np.asarray` reads) and imports no
+JAX. The frozen constants (`regions`, `static_alpha`, each layer's
+`e2lsh_alpha`) are copied, not redrawn: `jax.random` cannot be reproduced in
+torch.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _layers(tree, n_layers: int | None = None) -> list:
+    """Per-layer subtrees: the scan layout {"blocks": {"block": stacked on
+    axis 0}} is unstacked; the loop layout is {"block_0": .., ...}."""
+    if "blocks" in tree:
+        stacked = tree["blocks"]["block"]
+
+        def take(node, i):
+            if hasattr(node, "keys"):
+                return {k: take(node[k], i) for k in node.keys()}
+            return np.asarray(node)[i]
+
+        def depth(node):
+            return depth(node[next(iter(node.keys()))]) if hasattr(node, "keys") \
+                else np.asarray(node).shape[0]
+
+        return [take(stacked, i) for i in range(depth(stacked))]
+    keys = sorted((k for k in tree.keys() if k.startswith("block_")),
+                  key=lambda k: int(k.split("_")[1]))
+    return [tree[k] for k in keys]
+
+
+def from_jax_variables(variables) -> dict[str, torch.Tensor]:
+    """flax variables -> torch state dict (TorchLinear kernels (in, out)
+    become nn.Linear weights (out, in); LayerNorm scale -> weight)."""
+    params = variables["params"]
+    consts = variables.get("constants", {}) if hasattr(variables, "get") \
+        else variables["constants"]
+    sd: dict[str, torch.Tensor] = {}
+
+    def lin(prefix, node):
+        sd[f"{prefix}.weight"] = _t(node["kernel"]).t().contiguous()
+        if "bias" in node:
+            sd[f"{prefix}.bias"] = _t(node["bias"])
+
+    def norm(prefix, node):
+        sd[f"{prefix}.weight"] = _t(node["scale"])
+        sd[f"{prefix}.bias"] = _t(node["bias"])
+
+    lin("feat_enc_0", params["feat_enc_0"])
+    lin("feat_enc_1", params["feat_enc_1"])
+    lin("W", params["W"])
+    mlp = params["mlp_out"]
+    n_lin = sum(1 for k in mlp.keys() if k.startswith("TorchLinear_"))
+    for i in range(n_lin):
+        lin(f"mlp_out.lins.{i}", mlp[f"TorchLinear_{i}"])
+    for i in range(n_lin - 1):
+        norm(f"mlp_out.norms.{i}", mlp[f"LayerNorm_{i}"])
+    const_layers = _layers(consts)
+    for i, blk in enumerate(_layers(params)):
+        p = f"blocks.{i}"
+        sd[f"{p}.w_rpe"] = _t(blk["w_rpe"])
+        norm(f"{p}.norm1", blk["norm1"])
+        norm(f"{p}.norm2", blk["norm2"])
+        for nm in ("w_q", "w_k", "w_v"):
+            sd[f"{p}.{nm}.weight"] = _t(blk[nm]["kernel"]).t().contiguous()
+        lin(f"{p}.attn.out_linear", blk["attn"]["out_linear"])
+        lin(f"{p}.ff.fc1", blk["ff"]["TorchLinear_0"])
+        lin(f"{p}.ff.fc2", blk["ff"]["TorchLinear_1"])
+        sd[f"{p}.attn.e2lsh_alpha"] = _t(const_layers[i]["attn"]["e2lsh_alpha"])
+    sd["regions"] = _t(consts["regions"])
+    sd["static_alpha"] = _t(consts["static_alpha"])
+    return sd

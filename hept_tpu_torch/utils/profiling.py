@@ -1,0 +1,105 @@
+"""Where a full-width `hept_acc` training step spends its time on the GPU.
+
+    python -m hept_tpu_torch.utils.profiling [--points 60000] [--steps 3]
+        [--out torch_step_profile]
+
+Builds the step chip_smoke.py drives (one synthetic event, 16 pairs per
+point, the hept_acc model at full width, dropout on), warms up two steps,
+then records `--steps` steps with torch.profiler. Prints the step's wall
+time, the device's busy and idle shares (kernel time over wall time), the
+device time of the port's own kernels and of everything else, and writes
+the top operators by device time to `<out>.txt` and the summary to
+`<out>.json`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..data.batching import pack_events, slab_friendly_n
+from ..data.synthetic import synthetic_tracking_event
+from ..train.config import hept_acc_config
+from ..train.trainer import batch_to_device, build_model, make_loss_fn, train_step
+from ..train.optim import make_optimizer
+from .device import resolve_device
+
+# kernels of csrc/*.cu (all in an anonymous namespace) as the profiler names them
+PORT_KERNELS = {"fwd_kernel": "K1", "bwd_kernel": "K2", "gather_kernel": "K3",
+                "segment_sum_kernel": "K4"}
+_PORT_KERNEL_RE = re.compile(r"anonymous namespace\)::(fwd_kernel|bwd_kernel|gather_kernel|"
+                             r"segment_sum_kernel)\b")
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--points", type=int, default=60000)
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default="torch_step_profile")
+    args = ap.parse_args(argv)
+    device = resolve_device("cuda")
+
+    cfg = hept_acc_config(device="cuda")
+    bs = cfg.model_kwargs["block_size"]
+    ev = synthetic_tracking_event(np.random.default_rng(args.seed), n_points=args.points,
+                                  pairs_per_point=16)
+    batch = batch_to_device(pack_events([ev], bs, n_max=slab_friendly_n(args.points, bs),
+                                        window_pairs=128), device)
+    model = build_model(cfg, ev.x.shape[1], ev.coords.shape[1],
+                        torch.Generator(device=device).manual_seed(args.seed), device)
+    opt = make_optimizer(model.parameters(), lr=cfg.optimizer_kwargs["lr"])
+    loss_fn = make_loss_fn(cfg)
+    gen = torch.Generator(device=device).manual_seed(args.seed + 1)
+    for _ in range(2):
+        train_step(model, opt, loss_fn, batch, gen)
+    torch.cuda.synchronize()
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            train_step(model, opt, loss_fn, batch, gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+
+    kernel_us: dict[str, float] = {}
+    for evt in prof.events():
+        # device-side kernels only: user annotations (e.g. the optimizer's
+        # step range) span kernels that are counted on their own
+        if evt.device_type == torch.autograd.DeviceType.CUDA and not evt.is_user_annotation:
+            kernel_us[evt.name] = kernel_us.get(evt.name, 0.0) + evt.time_range.elapsed_us()
+    busy_ms = sum(kernel_us.values()) / 1e3 / args.steps
+    ours = {}
+    for name, us in kernel_us.items():
+        m = _PORT_KERNEL_RE.search(name)
+        if m:
+            kid = PORT_KERNELS[m.group(1)]
+            ours[kid] = ours.get(kid, 0.0) + us / 1e3 / args.steps
+    top = sorted(kernel_us.items(), key=lambda kv: -kv[1])[:25]
+    summary = {
+        "device": torch.cuda.get_device_name(0),
+        "step_wall_ms": wall_ms,
+        "device_busy_ms": busy_ms,
+        "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+        "port_kernels_ms": ours,
+        "other_kernels_ms": busy_ms - sum(ours.values()),
+        "top_kernels_ms": [(name[:120], us / 1e3 / args.steps) for name, us in top],
+    }
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.with_suffix(".json").write_text(json.dumps(summary, indent=1))
+    print(json.dumps(summary))
+    out.with_suffix(".txt").write_text(
+        prof.key_averages().table(sort_by="device_time_total", row_limit=40))
+    return summary
+
+
+if __name__ == "__main__":
+    main()
