@@ -4,20 +4,30 @@
     python3 chip_smoke.py [--steps 5] [--points 60000] [--seed 0]
 
 Phases, one line each (plus per-kernel lines):
-  1. build the CUDA kernels from `hept_tpu_torch/csrc` (one nvcc per source,
-     in parallel) and print the card's name and power limit;
-  2. hold every kernel of the main path (K1-K4) against its plain PyTorch
+  1. build the CUDA kernels from `hept_tpu_torch/csrc` (three sources, one
+     nvcc each, in parallel) and print the card's name and power limit;
+  2. hold every kernel of the main path (K1-K5) against its plain PyTorch
      version at the main path's shapes, with the tolerance printed beside
      the error, and time kernel, plain version and, where one exists, the
      single PyTorch call computing the same function; K2 also against the
      f32 autograd gradient of the bf16 forward (the bf16-gradient contract);
+     K5 (the unsort row gather) exactly, on bf16 and f32 rows, the forward's
+     and the backward's index, a broadcast source and a ragged n;
   3. the main path: the full-width `hept_acc` model (random weights from the
      seed) takes `--steps` Adam steps at lr 1e-2 with dropout on, through the
      trainer's `train_step`, on one synthetic 60k-point event; launch
-     counters are zeroed just before and read just after;
+     counters are zeroed just before and read just after (K5: 8 per step);
   4. the first step's loss and gradients again, dropout off, once with the
      kernels and once with the plain versions, compared: in the hept_acc
-     configuration, and with its bf16 modes off (f32 kernels).
+     configuration, and with its bf16 modes off (f32 kernels);
+  5. the eval path: the trainer's `evaluate` (forward, loss, retrieval
+     metrics) on the same event with the phase-3 weights, timed, with the
+     metrics' share; launch counters zeroed just before (K5: 4 per event);
+     then the same under `plain_reference()`, compared;
+  6. the trainer: `run_one_seed` for one epoch on a 3-event synthetic
+     dataset in a temporary log dir: it writes a checkpoint, restores it
+     into a fresh model and re-evaluates; the re-eval must equal the
+     in-loop best test metrics.
 Before the last line: one JSON line of per-kernel numbers, and the
 `nvidia-smi` name/power-limit line. The last line is
 {"ok": true, "device": {...}}. Any failed check raises (exit code != 0).
@@ -34,7 +44,9 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 BF16_FLOP_PER_S = 989e12  # dense bf16 tensor-core peak
@@ -89,6 +101,7 @@ def nvidia_smi_line() -> str:
 
 
 def make_batch(points: int, seed: int, block_size: int):
+    """One synthetic event and its packed batch."""
     import numpy as np
 
     from hept_tpu_torch.data.batching import pack_events, slab_friendly_n
@@ -107,7 +120,7 @@ def make_batch(points: int, seed: int, block_size: int):
     if not ((np.diff(p[0]) >= 0).all() and (span < 128).all()
             and (p[0, rev[m]] == p[1, m]).all()):
         raise AssertionError("packed pairs break the windowed layout")
-    return batch
+    return ev, batch
 
 
 def phase_kernels(torch, batch, seed: int) -> dict:
@@ -248,6 +261,60 @@ def phase_kernels(torch, batch, seed: int) -> dict:
     return {row["name"].split()[0]: row for row in rows}
 
 
+def phase_row_gather(torch, n: int, seed: int) -> dict:
+    """K5 against its plain version at the main path's shapes, exactly."""
+    from hept_tpu_torch.ops import row_gather as rg
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    c, w = 2, 8 * (24 + 1)  # rounds per layer; h * (dv + 1) features per row
+
+    def perms(count, size):
+        return torch.stack([torch.randperm(size, generator=gen, device=dev)
+                            for _ in range(count)])
+
+    src32 = torch.randn((c, n, w), generator=gen, device=dev)
+    src16 = src32.to(torch.bfloat16)
+    plan_src = perms(c, n)  # sorted slot -> row: the backward's index
+    plan_inv = torch.argsort(plan_src, dim=-1)  # row -> sorted slot: the forward's
+    n_rag = n - 37
+    rag16 = torch.randn((c, n_rag, w), generator=gen, device=dev).to(torch.bfloat16)
+    cases = [("bf16 rows, forward index (inv)", src16, plan_inv),
+             ("bf16 rows, backward index (src)", src16, plan_src),
+             ("f32 rows, forward index (inv)", src32, plan_inv),
+             ("f32 rows, backward index (src)", src32, plan_src),
+             ("bf16 broadcast source S=1, R=2", src16[:1], plan_inv),
+             (f"bf16 ragged n={n_rag}", rag16, perms(c, n_rag))]
+    log(f"kernel K5 row_gather (R=S={c}, n={n}, W={w}; exact copies):")
+    errs = []
+    for name, s, i in cases:
+        k, p = rg.row_gather_cuda(s, i), rg.row_gather_plain(s, i)
+        torch.cuda.synchronize()
+        bits = torch.int16 if s.element_size() == 2 else torch.int32
+        if not torch.equal(k.view(bits), p.view(bits)):
+            raise AssertionError(f"K5 {name}: kernel and plain version differ in "
+                                 f"{int((k.view(bits) != p.view(bits)).sum())} elements")
+        errs.append(max_err(k, p))
+        check(f"{name} max|d|", errs[-1], 0.0)
+    del rag16
+    offs = torch.arange(c, device=dev)[:, None] * n  # S = R: source row r
+    flat16, flat_idx = src16.reshape(c * n, w), (plan_inv + offs).reshape(-1)
+    flat32 = src32.reshape(c * n, w)
+    ms32 = time_ms(lambda: rg.row_gather_cuda(src32, plan_inv), 50)
+    lib32 = time_ms(lambda: flat32.index_select(0, flat_idx), 50)
+    b32, _ = bound_ms(c * n * (2.0 * w * 4 + 8), 0.0, F32_FLOP_PER_S)
+    log(f"  f32 rows: kernel {ms32:.4f} ms, index_select {lib32:.4f} ms, bound {b32:.4f} ms")
+    b_ms, b_by = bound_ms(c * n * (2.0 * w * 2 + 8), 0.0, F32_FLOP_PER_S)
+    return dict(name="K5 row_gather", route="cuda", source="hept_tpu_torch/csrc/row_gather.cu",
+                replaces="hept_tpu/ops/gather_pallas.py:208 (K5 row_gather_dma) and "
+                         "hept_tpu/ops/gather_pallas.py:124 (K11 row_gather_vreg)",
+                max_abs_err=max(errs),
+                ms=time_ms(lambda: rg.row_gather_cuda(src16, plan_inv), 50),
+                plain_ms=time_ms(lambda: rg.row_gather_plain(src16, plan_inv), 50),
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=time_ms(lambda: flat16.index_select(0, flat_idx), 50))
+
+
 def loss_and_grads(torch, model, loss_fn, batch):
     from hept_tpu_torch.train.trainer import model_apply
 
@@ -258,6 +325,105 @@ def loss_and_grads(torch, model, loss_fn, batch):
     loss = loss_fn(out, batch)
     loss.backward()
     return float(loss.detach()), {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+
+
+def phase_eval(torch, trainer, model, cfg, event, batch, zero_counts, read_counts) -> None:
+    """`evaluate` on one full-width event: timed, launches counted, metrics
+    in [0, 1], and against the same evaluation under `plain_reference()`."""
+    from hept_tpu_torch.data.datasets import SplitDataset
+    from hept_tpu_torch.ops.dispatch import plain_reference
+    from hept_tpu_torch.train.metrics import tracking_metrics_batch
+
+    block_size = cfg.model_kwargs["block_size"]
+    n_max = batch["x"].shape[1]
+    ds = SplitDataset(train=[], valid=[], test=[event], in_dim=event.x.shape[1],
+                      coords_dim=event.coords.shape[1])
+    t0 = time.perf_counter()
+    trainer.evaluate(cfg, model, ds, "test", block_size, n_max)  # packs and caches the split
+    log(f"phase eval: first call (packs the event) {time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    res = trainer.evaluate(cfg, model, ds, "test", block_size, n_max)  # ends in a host read
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = {"bucket_attn_fwd": 4, "bucket_attn_bwd": 0, "row_gather": 4}
+    for k, v in want.items():
+        if launches[k] != v:
+            raise AssertionError(f"eval of one event launched {k} {launches[k]}x, want {v}")
+    for k in ("pair_gather", "pair_segment_sum"):
+        if launches[k] < 1:
+            raise AssertionError(f"eval of one event did not launch {k}")
+    bad = {k: v for k, v in res.items()
+           if not math.isfinite(v) or (k != "loss" and not 0.0 <= v <= 1.0)}
+    if bad:
+        raise AssertionError(f"eval metrics out of range: {bad}")
+    with torch.inference_mode():
+        out = trainer.model_apply(model, batch)
+        args = (out, batch["cluster_ids"], batch["recons"], batch["pts"], batch["valid"])
+        tracking_metrics_batch(*args)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tm = tracking_metrics_batch(*args)
+        torch.cuda.synchronize()
+        metrics_ms = (time.perf_counter() - t0) * 1e3
+    del out, tm, args
+    log(f"phase eval: evaluate() of one {event.n}-point event {eval_ms:.1f} ms, of which "
+        f"the retrieval metrics (kNN, 3 thresholds) {metrics_ms:.1f} ms "
+        f"({100 * metrics_ms / eval_ms:.1f} %); peak memory {peak:.2f} GiB; "
+        f"launches {launches}")
+    log("  " + " ".join(f"{k}={v:.6f}" for k, v in res.items()))
+    with plain_reference():
+        plain = trainer.evaluate(cfg, model, ds, "test", block_size, n_max)
+    log("  plain: " + " ".join(f"{k}={v:.6f}" for k, v in plain.items()))
+    # K1 rounds pt to bf16 where the plain version sums in another order, so
+    # a few of the ~60k points' 20-neighbour lists can flip
+    check("eval loss |d| (kernels vs plain)", abs(res["loss"] - plain["loss"]),
+          1e-3 * abs(plain["loss"]))
+    worst = max((k for k in res if k != "loss"), key=lambda k: abs(res[k] - plain[k]))
+    check(f"eval metrics max|d| (kernels vs plain, worst {worst})",
+          abs(res[worst] - plain[worst]), 5e-3)
+
+
+def phase_trainer(torch, trainer, points: int, seed: int) -> None:
+    """`run_one_seed`, one epoch on three synthetic events: a checkpoint is
+    written, restored into a fresh model and re-evaluated to the in-loop
+    best test metrics."""
+    from hept_tpu_torch.data.datasets import make_synthetic_tracking
+    from hept_tpu_torch.train.config import hept_acc_config
+    from hept_tpu_torch.train.state import CheckpointManager
+
+    t0 = time.perf_counter()
+    ds = make_synthetic_tracking(n_events=3, n_points=points, seed=seed, avg_track_size=8,
+                                 pairs_per_point=16)
+    log(f"phase trainer: 3 synthetic events ({len(ds.train)} train, {len(ds.valid)} valid, "
+        f"{len(ds.test)} test; {time.perf_counter() - t0:.1f} s)")
+    lines = []
+
+    def run_log(*a):
+        lines.append(" ".join(str(x) for x in a))
+        log("  " + lines[-1])
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = hept_acc_config(device=DEVICE, num_epochs=1, log_dir=tmp, seed=seed)
+        t0 = time.perf_counter()
+        res = trainer.run_one_seed(cfg, ds, log=run_log)
+        secs = time.perf_counter() - t0
+        (run_dir,) = Path(tmp).iterdir()
+        step = CheckpointManager(run_dir / "ckpt").latest_step()
+        recs = [json.loads(x) for x in (run_dir / "scalars.jsonl").read_text().splitlines()]
+    if step is None:
+        raise AssertionError("run_one_seed wrote no checkpoint")
+    in_loop = [r for r in recs if "test/loss" in r][-1]
+    if any("WARNING" in x for x in lines):
+        raise AssertionError("run_one_seed warned about its re-eval")
+    diffs = {k: abs(v - in_loop[f"test/{k}"]) for k, v in res.items()}
+    log(f"phase trainer: 1 epoch in {secs:.1f} s; checkpoint at step {step}; restored re-eval "
+        + " ".join(f"{k}={v:.6f}" for k, v in res.items()))
+    check("re-eval of the restored checkpoint vs in-loop best test, max|d|",
+          max(diffs.values()), 1e-6)
 
 
 def main(argv=None) -> int:
@@ -280,7 +446,7 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the hept_tpu_torch package is not beside this script ({exc})",
               file=sys.stderr)
         return 2
-    from hept_tpu_torch.ops import bucket_attn_cuda, cuda_lib, pair_ops
+    from hept_tpu_torch.ops import bucket_attn_cuda, cuda_lib, pair_ops, row_gather
     from hept_tpu_torch.ops.dispatch import plain_reference
     from hept_tpu_torch.train import trainer
     from hept_tpu_torch.train.config import hept_acc_config
@@ -299,14 +465,19 @@ def main(argv=None) -> int:
     cfg = hept_acc_config(device=DEVICE, num_epochs=1)
     block_size = cfg.model_kwargs["block_size"]
     t0 = time.perf_counter()
-    batch_np = make_batch(args.points, args.seed, block_size)
+    event, batch_np = make_batch(args.points, args.seed, block_size)
     batch = trainer.batch_to_device(batch_np, DEVICE)
     log(f"phase data: one synthetic event, {args.points} points -> n={batch_np['x'].shape[1]}, "
         f"E={batch_np['pairs'].shape[-1]} windowed pairs ({time.perf_counter() - t0:.1f} s)")
 
     # 2. kernels vs plain versions
     rows = phase_kernels(torch, batch_np, args.seed)
-    log("phase kernels: K1-K4 match their plain versions")
+    rows["K5"] = phase_row_gather(torch, batch_np["x"].shape[1], args.seed)
+    log(f"  {rows['K5']['name']}: kernel {rows['K5']['ms']:.4f} ms, plain "
+        f"{rows['K5']['plain_ms']:.4f} ms, library {rows['K5']['library_ms']:.4f} ms, bound "
+        f"{rows['K5']['bound_ms']:.4f} ms ({rows['K5']['bound_by']})")
+    torch.cuda.empty_cache()
+    log("phase kernels: K1-K5 match their plain versions")
 
     # 3. the main path
     gen_init = torch.Generator(device=DEVICE).manual_seed(args.seed)
@@ -318,9 +489,17 @@ def main(argv=None) -> int:
     loss_fn = trainer.make_loss_fn(cfg)
     gen_drop = torch.Generator(device=DEVICE).manual_seed(args.seed + 1)
     torch.cuda.synchronize()
-    for counts in (bucket_attn_cuda.LAUNCHES, pair_ops.LAUNCHES):
-        for k in counts:
-            counts[k] = 0
+    counters = (bucket_attn_cuda.LAUNCHES, pair_ops.LAUNCHES, row_gather.LAUNCHES)
+
+    def zero_counts():
+        for counts in counters:
+            for k in counts:
+                counts[k] = 0
+
+    def read_counts() -> dict:
+        return {k: v for counts in counters for k, v in counts.items()}
+
+    zero_counts()
     step_ms, losses = [], []
     for s in range(args.steps):
         t0 = time.perf_counter()
@@ -331,10 +510,12 @@ def main(argv=None) -> int:
         losses.append(loss)
         log(f"  step {s}: loss={loss:.6f} grad_norm={float(m['grad_norm']):.4f} "
             f"{step_ms[-1]:.1f} ms")
-    launches = {**bucket_attn_cuda.LAUNCHES, **pair_ops.LAUNCHES}
+    launches = read_counts()
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite loss: {losses}")
-    want = {"bucket_attn_fwd": 4 * args.steps, "bucket_attn_bwd": 4 * args.steps}
+    # per step and layer: one K1, one K2, and the unsort's K5 forward and backward
+    want = {"bucket_attn_fwd": 4 * args.steps, "bucket_attn_bwd": 4 * args.steps,
+            "row_gather": 8 * args.steps}
     for k, v in want.items():
         if launches[k] != v:
             raise AssertionError(f"{k} launched {launches[k]}x in {args.steps} steps, want {v}")
@@ -347,8 +528,9 @@ def main(argv=None) -> int:
         f"median after the first {steady:.1f} ms; launches {launches}; "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     for key, name in (("K1", "bucket_attn_fwd"), ("K2", "bucket_attn_bwd"),
-                      ("K3", "pair_gather"), ("K4", "pair_segment_sum")):
+                      ("K3", "pair_gather"), ("K4", "pair_segment_sum"), ("K5", "row_gather")):
         rows[key]["launches"] = launches[name]
+    trained_state = copy.deepcopy(model.state_dict())
 
     # 4. the first step with kernels vs with plain versions, dropout off
     model.load_state_dict(init_state)
@@ -395,13 +577,23 @@ def main(argv=None) -> int:
     log("  per tensor, max|d| / max(max|plain|, 1e-3 max over tensors), largest: "
         + ", ".join(f"{k} {ratios[k]:.3e}" for k in worst))
     check(f"all {len(ratios)} parameter gradients, worst {worst[0]}", ratios[worst[0]], 1e-2)
-    del model32, grads_k, grads_p
+    del model32, grads_k, grads_p, opt
+    torch.cuda.empty_cache()
+
+    # 5. the eval path, with the phase-3 weights
+    model.load_state_dict(trained_state)
+    phase_eval(torch, trainer, model, cfg, event, batch, zero_counts, read_counts)
+
+    # 6. the trainer: one epoch, checkpoint, restore, re-eval
+    del model, init_state, trained_state
+    torch.cuda.empty_cache()
+    phase_trainer(torch, trainer, args.points, args.seed)
 
     log(json.dumps({"kernels": [
         {k: rows[key][k] for k in ("name", "route", "source", "replaces", "launches",
                                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms")}
-        for key in ("K1", "K2", "K3", "K4")]}))
+        for key in ("K1", "K2", "K3", "K4", "K5")]}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -3,7 +3,9 @@ of `hept_tpu/core/buckets.py`).
 
 `permute_gather` and `permute_gather_rows` apply KNOWN per-round permutations
 (from `ops.bucket_attn.static_bucket_plan`) with index gathers, and their
-backward gathers the cotangent by the inverse permutation. `pack=True` keeps
+backward gathers the cotangent by the inverse permutation. The row gather,
+forward and backward, is kernel K5 (`ops/row_gather.py`,
+`csrc/row_gather.cu`) on CUDA tensors. `pack=True` keeps
 the JAX package's transport rounding: values (and, in the backward,
 cotangents) pass through bfloat16. The JAX side moved them as bf16 pairs
 bit-packed into u32 words, which was a TPU transport trick; only the rounding
@@ -13,6 +15,8 @@ is carried over.
 from __future__ import annotations
 
 import torch
+
+from ..ops.row_gather import row_gather
 
 
 def bit_shift(base: torch.Tensor, shift_idx: torch.Tensor) -> torch.Tensor:
@@ -80,29 +84,20 @@ def permute_gather(payload: torch.Tensor, src: torch.Tensor, inv: torch.Tensor,
     return _PermuteGather.apply(payload, src, inv, bool(pack), bool(out_bf16))
 
 
-def _gather_rows(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """rows (S, ne, W), idx (R, ne) with S | R -> out[r, p] = rows[r % S, idx[r, p]]."""
-    s, ne, w = rows.shape
-    r = idx.shape[0]
-    offs = (torch.arange(r, device=idx.device) % s) * ne
-    flat = rows.reshape(s * ne, w)
-    return flat[(idx + offs[:, None]).reshape(-1)].reshape(r, ne, w)
-
-
 class _PermuteGatherRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, rows, idx, inv, pack):
         ctx.save_for_backward(inv)
         ctx.pack = pack
         ctx.s = rows.shape[0]
-        return _gather_rows(_transport(rows, pack), idx).to(torch.float32)
+        return row_gather(_transport(rows, pack), idx).to(torch.float32)
 
     @staticmethod
     def backward(ctx, ct):
         (inv,) = ctx.saved_tensors
         # out[p] = rows[idx[p]] with idx a permutation: d rows[s] = ct[inv[s]];
         # broadcast sources (S < R) sum their R/S copies' cotangents
-        g = _gather_rows(_transport(ct, ctx.pack), inv).to(torch.float32)
+        g = row_gather(_transport(ct, ctx.pack), inv).to(torch.float32)
         if g.shape[0] != ctx.s:
             g = g.reshape(-1, ctx.s, *g.shape[1:]).sum(dim=0)
         return g, None, None, None

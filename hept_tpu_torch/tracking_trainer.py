@@ -1,8 +1,13 @@
 """CLI: `python -m hept_tpu_torch.tracking_trainer -m hept_acc
-[--dataset synthetic-tracking-60k] [--epochs 1] [--device cpu]`.
+[--dataset synthetic-tracking-60k] [--epochs 1] [--device cpu]
+[--log-dir runs/] [--resume RUN_DIR] [--only-eval]`.
 
-`-m` selects `configs/tracking/tracking_trans_<model>.yaml` (needs PyYAML);
-the run is on the GPU unless `--device cpu` is given.
+`-m` selects `configs/tracking/tracking_trans_<model>.yaml` (needs PyYAML).
+The run trains with best-by-valid selection (`train/trainer.py:
+run_one_seed`) and prints the best checkpoint's test metrics. `--resume`
+goes on from an earlier run dir's latest checkpoint; `--only-eval` only
+evaluates the test split (of the resumed weights, with `--resume`). The run
+is on the GPU unless `--device cpu` is given.
 """
 
 from __future__ import annotations
@@ -10,7 +15,7 @@ from __future__ import annotations
 import argparse
 
 from .train.config import CONFIG_DIR, load_config
-from .train.trainer import run_training
+from .train.trainer import run_one_seed
 
 
 def main(argv=None):
@@ -20,18 +25,22 @@ def main(argv=None):
     ap.add_argument("--dataset", default=None)
     ap.add_argument("--epochs", type=int, default=None)
     ap.add_argument("--device", default=None, help="cuda (default) | cpu")
+    ap.add_argument("--log-dir", default=None)
+    ap.add_argument("--resume", default=None, help="run dir to go on from")
+    ap.add_argument("--only-eval", action="store_true")
     args = ap.parse_args(argv)
 
     path = args.config or CONFIG_DIR / f"tracking_trans_{args.model}.yaml"
     overrides = {"task": "tracking"}
-    if args.dataset:
-        overrides["dataset_name"] = args.dataset
-    if args.epochs is not None:
-        overrides["num_epochs"] = args.epochs
-    if args.device:
-        overrides["device"] = args.device
-    result = run_training(load_config(path, **overrides))
-    print("train losses:", result["train_loss"])
+    for key, val in (("dataset_name", args.dataset), ("num_epochs", args.epochs),
+                     ("device", args.device), ("log_dir", args.log_dir),
+                     ("resume", args.resume)):
+        if val is not None:
+            overrides[key] = val
+    if args.only_eval:
+        overrides["only_eval"] = True
+    res = run_one_seed(load_config(path, **overrides))
+    print("best test:", " ".join(f"{k}={v:.4f}" for k, v in res.items()))
 
 
 if __name__ == "__main__":

@@ -46,12 +46,22 @@ class ExperimentConfig:
     main_metric: str = "accuracy@0.9"
     mode: str = "max"
 
+    # a run dir of an earlier run to go on from (its ckpt/), or None
+    resume: Optional[str] = None
+    # evaluate the test split (of the initial or resumed weights) and stop
+    only_eval: bool = False
+    # time-stamped run dirs (scalars.jsonl, ckpt/) go under this directory
+    log_dir: str = "runs/"
+
     # "cuda" (default) | "cpu"
     device: Optional[str] = None
     attn_impl: str = "slab2"
     padding_mode: str = "replicate"
     # train-time random supervision-pair augmentation fraction
     pair_aug_p: float = 0.2
+    # pack pairs in the 128-window layout for the pair kernels; the port's
+    # loss has only this path, so False is refused
+    windowed_pairs: bool = True
 
     def model_config(self, in_dim: int, coords_dim: int) -> TransformerConfig:
         kw = dict(self.model_kwargs)

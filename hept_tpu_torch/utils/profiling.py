@@ -5,8 +5,9 @@
 
 Builds the step chip_smoke.py drives (one synthetic event, 16 pairs per
 point, the hept_acc model at full width, dropout on), warms up two steps,
-then records `--steps` steps with torch.profiler. Prints the step's wall
-time, the device's busy and idle shares (kernel time over wall time), the
+times `--steps` steps without the profiler, then records `--steps` steps
+with torch.profiler. Prints the step's wall time (both ways), the device's
+busy and idle shares (kernel time over the profiled wall time), the
 device time of the port's own kernels and of everything else, and writes
 the top operators by device time to `<out>.txt` and the summary to
 `<out>.json`.
@@ -32,9 +33,9 @@ from .device import resolve_device
 
 # kernels of csrc/*.cu (all in an anonymous namespace) as the profiler names them
 PORT_KERNELS = {"fwd_kernel": "K1", "bwd_kernel": "K2", "gather_kernel": "K3",
-                "segment_sum_kernel": "K4"}
+                "segment_sum_kernel": "K4", "row_gather_kernel": "K5"}
 _PORT_KERNEL_RE = re.compile(r"anonymous namespace\)::(fwd_kernel|bwd_kernel|gather_kernel|"
-                             r"segment_sum_kernel)\b")
+                             r"segment_sum_kernel|row_gather_kernel)\b")
 
 
 def main(argv=None) -> dict:
@@ -60,6 +61,11 @@ def main(argv=None) -> dict:
     for _ in range(2):
         train_step(model, opt, loss_fn, batch, gen)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(args.steps):
+        train_step(model, opt, loss_fn, batch, gen)
+    torch.cuda.synchronize()
+    plain_wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -85,6 +91,7 @@ def main(argv=None) -> dict:
     top = sorted(kernel_us.items(), key=lambda kv: -kv[1])[:25]
     summary = {
         "device": torch.cuda.get_device_name(0),
+        "step_wall_ms_unprofiled": plain_wall_ms,
         "step_wall_ms": wall_ms,
         "device_busy_ms": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),

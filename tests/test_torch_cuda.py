@@ -1,4 +1,4 @@
-"""K1-K4 CUDA kernels against their plain versions, on the card.
+"""K1-K5 CUDA kernels against their plain versions, on the card.
 
 Marked `cuda`: each test skips (inside the fixture, never at import) when no
 CUDA device is present, which is the case on CPU-only hosts. On a GPU
@@ -13,6 +13,7 @@ torch = pytest.importorskip("torch")
 
 from hept_tpu_torch.ops import bucket_attn_cuda as ba  # noqa: E402
 from hept_tpu_torch.ops import pair_ops as po  # noqa: E402
+from hept_tpu_torch.ops import row_gather as rg  # noqa: E402
 from hept_tpu_torch.ops.bucket_attn import bucket_rbf_attention_cols  # noqa: E402
 from hept_tpu_torch.ops.dispatch import plain_reference  # noqa: E402
 
@@ -100,3 +101,61 @@ def test_wrappers_reject_bad_inputs(dev):
         ba.bucket_attn_fwd_cuda(sq[:, :6].contiguous(), sk[:, :6].contiguous(), sv, bs)
     with pytest.raises(ValueError):
         po.gather_rows_cuda(torch.zeros(4, 2, device=dev), torch.zeros(3, device=dev).long())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.int32])
+@pytest.mark.parametrize("S,R,n,w", [(2, 2, 1000, 200), (1, 2, 999, 200), (3, 6, 257, 7),
+                                     (2, 2, 64, 300)])
+def test_k5_matches_plain_bit_for_bit(dev, dtype, S, R, n, w):
+    """16-byte rows (200 bf16 / f32), 4- and 2-byte rows (7 elements), a
+    broadcast source, a ragged n and a row wider than the TPU's 128 words."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    src = torch.randint(-2**15, 2**15, (S, n, w), generator=g, device=dev,
+                        dtype=torch.int32)
+    src = src.to(torch.int16).view(torch.bfloat16) if dtype == torch.bfloat16 \
+        else src.view(dtype)
+    idx = torch.stack([torch.randperm(n, generator=g, device=dev) for _ in range(R)])
+    before = rg.LAUNCHES["row_gather"]
+    got = rg.row_gather_cuda(src, idx)
+    assert rg.LAUNCHES["row_gather"] == before + 1
+    want = rg.row_gather_plain(src, idx)
+    bits = torch.int16 if src.element_size() == 2 else torch.int32
+    assert torch.equal(got.view(bits), want.view(bits))
+
+
+def test_k5_runs_the_unsort_and_its_backward(dev):
+    from hept_tpu_torch.core.buckets import permute_gather_rows
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    rows = torch.randn((2, 500, 200), generator=g, device=dev, requires_grad=True)
+    idx = torch.stack([torch.randperm(500, generator=g, device=dev) for _ in range(2)])
+    inv = torch.argsort(idx, dim=-1)
+    ct = torch.randn((2, 500, 200), generator=g, device=dev)
+    before = rg.LAUNCHES["row_gather"]
+    for pack in (False, True):
+        out = permute_gather_rows(rows, idx, inv, pack=pack)
+        (grad,) = torch.autograd.grad(out, rows, ct)
+        with plain_reference():
+            out_p = permute_gather_rows(rows, idx, inv, pack=pack)
+            (grad_p,) = torch.autograd.grad(out_p, rows, ct)
+        assert torch.equal(out, out_p) and torch.equal(grad, grad_p)
+    assert rg.LAUNCHES["row_gather"] == before + 4
+
+
+def test_k5_rejects_what_it_does_not_take(dev):
+    src = torch.zeros((2, 10, 8), device=dev)
+    idx = torch.zeros((2, 10), dtype=torch.int64, device=dev)
+    bad = [
+        (src.double(), idx),  # 8-byte elements
+        (src.to(torch.uint8), idx),  # 1-byte elements
+        (src.transpose(1, 2), idx[:, :8]),  # not contiguous
+        (src.cpu(), idx.cpu()),  # not on the card
+        (src, idx.int()),  # int32 index
+        (src, idx.cpu()),  # index elsewhere
+        (src, idx[:, :9]),  # n mismatch
+        (src[:, :, :].repeat(3, 1, 1)[:3], idx),  # S = 3 does not divide R = 2
+        (src[0], idx),  # not (S, n, W)
+    ]
+    for s_, i_ in bad:
+        with pytest.raises(ValueError):
+            rg.row_gather_cuda(s_, i_)

@@ -111,17 +111,22 @@ def test_hept_acc_yaml_equals_dataclass():
             mc.static_rounds) == (512, 2, 4, 8, 24, 8)
 
 
-def test_trainer_cli_runs_an_epoch_on_cpu(monkeypatch, capsys):
-    """The CLI's epoch loop at full hept_acc width on three small events."""
+def test_trainer_cli_runs_an_epoch_on_cpu(monkeypatch, capsys, tmp_path):
+    """The CLI's epoch loop at full hept_acc width on three small events:
+    one epoch, valid and test eval, checkpoint, re-eval of the restored
+    best; it prints the best test metrics."""
     pytest.importorskip("yaml")
     from hept_tpu_torch import tracking_trainer
 
     monkeypatch.setattr(trainer, "get_dataset",
                         lambda name, seed: make_synthetic_tracking(3, 300, seed))
     tracking_trainer.main(["-m", "hept_acc", "--epochs", "1", "--device", "cpu",
-                           "--dataset", "synthetic-tracking-300"])
+                           "--dataset", "synthetic-tracking-300", "--log-dir", str(tmp_path)])
     out = capsys.readouterr().out
-    assert "epoch 0: train_loss=" in out and "nan" not in out.split("train losses:")[1]
+    assert "epoch 0: train_loss=" in out
+    best = out.split("best test:")[1]
+    assert "accuracy@0.9=" in best and "nan" not in best
+    assert list(tmp_path.glob("*/ckpt/step_*.pt"))
 
 
 def test_entry_points_default_to_cuda():
@@ -130,8 +135,12 @@ def test_entry_points_default_to_cuda():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             resolve_device()
-        with pytest.raises(RuntimeError):
-            trainer.run_training(dataclasses.replace(hept_acc_config(), num_epochs=0))
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            trainer.run_one_seed(dataclasses.replace(hept_acc_config(), num_epochs=0))
+        from hept_tpu_torch.scripts import train_60k_demo
+
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train_60k_demo.main([])
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
 
