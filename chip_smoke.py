@@ -6,13 +6,16 @@
 Phases, one line each (plus per-kernel lines):
   1. build the CUDA kernels from `hept_tpu_torch/csrc` (three sources, one
      nvcc each, in parallel) and print the card's name and power limit;
-  2. hold every kernel of the main path (K1-K5) against its plain PyTorch
-     version at the main path's shapes, with the tolerance printed beside
+  2. hold every kernel of the ported paths (K1-K7) against its plain PyTorch
+     version at the paths' shapes, with the tolerance printed beside
      the error, and time kernel, plain version and, where one exists, the
-     single PyTorch call computing the same function; K2 also against the
-     f32 autograd gradient of the bf16 forward (the bf16-gradient contract);
-     K5 (the unsort row gather) exactly, on bf16 and f32 rows, the forward's
-     and the backward's index, a broadcast source and a ragged n;
+     single PyTorch call computing the same function; K2 and K7 v2 also
+     against the f32 autograd gradient of the bf16 forward (the
+     bf16-gradient contract); K5 (the unsort row gather) exactly, on bf16
+     and f32 rows, the forward's and the backward's index, a broadcast
+     source and a ragged n; K6 / K7 (the small-bucket column kernels) at the
+     parity profile's shapes in f32 and hept_fast's in bf16, in K6's three
+     modes and both K7 variants, and on a ragged bucket count;
   3. the main path: the full-width `hept_acc` model (random weights from the
      seed) takes `--steps` Adam steps at lr 1e-2 with dropout on, through the
      trainer's `train_step`, on one synthetic 60k-point event; launch
@@ -27,7 +30,16 @@ Phases, one line each (plus per-kernel lines):
   6. the trainer: `run_one_seed` for one epoch on a 3-event synthetic
      dataset in a temporary log dir: it writes a checkpoint, restores it
      into a fresh model and re-evaluates; the re-eval must equal the
-     in-loop best test metrics.
+     in-loop best test metrics;
+  7. the reference-parity `hept` profile (dynamic per-layer keys, f32, K6 /
+     K7 v1) and 8. the `hept_fast` profile (bf16, K6 / K7 v2): each takes
+     `--profile-steps` Adam steps at full width on one synthetic 60k event
+     (block_size 100), timed, with launch counters zeroed just before and
+     read just after (K6 4, K7 4, K5 8 per step, K1/K2 none); one timed
+     `evaluate` of the event, counters zeroed just before (K6 4, K5 4, K7
+     and K1/K2 none); then its
+     first step, dropout off, with kernels and under `plain_reference()`,
+     compared (the parity run on the kernel run's permutations).
 Before the last line: one JSON line of per-kernel numbers, and the
 `nvidia-smi` name/power-limit line. The last line is
 {"ok": true, "device": {...}}. Any failed check raises (exit code != 0).
@@ -315,11 +327,136 @@ def phase_row_gather(torch, n: int, seed: int) -> dict:
                 library_ms=time_ms(lambda: flat16.index_select(0, flat_idx), 50))
 
 
-def loss_and_grads(torch, model, loss_fn, batch):
-    from hept_tpu_torch.train.trainer import model_apply
+def phase_cols_kernels(torch, seed: int) -> dict:
+    """K6/K7 against their plain versions: the parity profile's shapes in f32
+    (r = 3 hashes x 8 heads), hept_fast's in bf16 (r = 2 x 8) in K6's three
+    modes and both K7 variants, and a ragged bucket count; timed at both."""
+    from hept_tpu_torch.ops import bucket_attn_cuda as ba
 
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    d, dv, bs = 30, 24, 100
+
+    def inputs(r, n, dtype, common=0.0):
+        """q/k: 24 projection rows O(0.5) and 6 RPE rows with a per-bucket
+        common mode shared by q and k; values, cotangents."""
+        nb = n // bs
+        shared = torch.randn((r, 6, nb, 1), generator=gen, device=dev) * common
+
+        def qk():
+            x = torch.randn((r, d, nb, bs), generator=gen, device=dev) * 0.5
+            x[:, 24:] += shared
+            return x.reshape(r, d, n).to(dtype).contiguous()
+
+        rn = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
+        return qk(), qk(), rn(r, dv, n).to(dtype), rn(r, 1, n), rn(r, dv, n)
+
+    def compare(label, got, want, tols):
+        errs = []
+        for nm, a, b, tol in zip(("denom", "so") if len(got) == 2 else ("dq", "dk", "dv"),
+                                 got, want, tols):
+            errs.append(max_err(a, b))
+            check(f"{label} {nm} max|d|", errs[-1], tol * scale(b))
+        return max(errs)
+
+    def bounds(r, n, nbytes_el, fwd: bool, flop_rate):
+        nb = n // bs
+        if fwd:
+            by = nbytes_el * r * n * (2 * d + dv) + 4 * r * n * (dv + 1)
+            fl = 2.0 * r * nb * bs * bs * (d + dv)
+        else:
+            by = 2 * nbytes_el * r * n * (2 * d + dv) + 4 * r * n * (dv + 1)
+            fl = 2.0 * r * nb * bs * bs * (3 * d + 2 * dv)
+        return bound_ms(by, fl, flop_rate)
+
+    rows, n = {}, 60000
+    # parity shapes, f32: FP32-FMA peak bounds (no TF32, no tensor cores)
+    r = 24
+    sq, sk, sv, gden, gso = inputs(r, n, torch.float32, common=2.0)
+    log(f"kernel K6 cols_fwd / K7 cols_bwd (parity: f32, r={r} d={d} dv={dv} n={n} bs={bs}):")
+    # f32 sums of 100 terms in other orders: ~1e-6 relative per output; the
+    # max over 1.4M outputs is held at 1e-4 x scale
+    e6 = compare("K6 f32", ba.cols_fwd_cuda(sq, sk, sv, bs), ba.cols_fwd_plain(sq, sk, sv, bs),
+                 (1e-4, 1e-4))
+    e7 = compare("K7 v1 f32", ba.cols_bwd_cuda(sq, sk, sv, gden, gso, bs, False),
+                 ba.cols_bwd_plain(sq, sk, sv, gden, gso, bs, False), (1e-4,) * 3)
+    for key, name, fwd, err, kern, plain in (
+            ("K6", "K6 cols_fwd", True, e6, lambda: ba.cols_fwd_cuda(sq, sk, sv, bs),
+             lambda: ba.cols_fwd_plain(sq, sk, sv, bs)),
+            ("K7", "K7 cols_bwd", False, e7,
+             lambda: ba.cols_bwd_cuda(sq, sk, sv, gden, gso, bs, False),
+             lambda: ba.cols_bwd_plain(sq, sk, sv, gden, gso, bs, False))):
+        b_ms, b_by = bounds(r, n, 4, fwd, F32_FLOP_PER_S)
+        rows[key] = dict(name=name, route="cuda", source="hept_tpu_torch/csrc/bucket_attn.cu",
+                         replaces=("hept_tpu/ops/bucket_attn_pallas.py:1196" if fwd else
+                                   "hept_tpu/ops/bucket_attn_pallas.py:1273"),
+                         max_abs_err=err, ms=time_ms(kern), plain_ms=time_ms(plain, 3, 1),
+                         bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    del sq, sk, sv, gden, gso
+    torch.cuda.empty_cache()
+
+    # hept_fast shapes, bf16: the three K6 modes and both K7 variants
+    r = 16
+    sq, sk, sv, gden, gso = inputs(r, n, torch.bfloat16)
+    log(f"kernel K6 / K7 (hept_fast: bf16, r={r}, centred RPE rows):")
+    extra = {}
+    for hilo in (False, True):
+        label = "K6 bf16 " + ("hi/lo bias" if hilo else "exact bias")
+        # pt is rounded to bf16 before the value product: a rounding can flip
+        compare(label, ba.cols_fwd_cuda(sq, sk, sv, bs, hilo),
+                ba.cols_fwd_plain(sq, sk, sv, bs, hilo), (1e-4, 5e-3))
+        extra[label] = (time_ms(lambda: ba.cols_fwd_cuda(sq, sk, sv, bs, hilo)),
+                        time_ms(lambda: ba.cols_fwd_plain(sq, sk, sv, bs, hilo), 3, 1),
+                        bounds(r, n, 2, True, BF16_FLOP_PER_S))
+    for v2 in (True, False):
+        label = "K7 bf16 " + ("v2" if v2 else "v1 (upcast)")
+        # bf16 outputs: one rounding of slightly different f32 values
+        compare(label, ba.cols_bwd_cuda(sq, sk, sv, gden, gso, bs, v2),
+                ba.cols_bwd_plain(sq, sk, sv, gden, gso, bs, v2), (1e-2,) * 3)
+        extra[label] = (time_ms(lambda: ba.cols_bwd_cuda(sq, sk, sv, gden, gso, bs, v2)),
+                        time_ms(lambda: ba.cols_bwd_plain(sq, sk, sv, gden, gso, bs, v2), 3, 1),
+                        bounds(r, n, 2, False, BF16_FLOP_PER_S if v2 else F32_FLOP_PER_S))
+    # the contract: K7 v2 is the gradient of the bf16 forward, held against
+    # f32 autograd of the K6 math at the same bf16 values (2e-2 x scale), with
+    # uncentred RPE rows (per-bucket common mode ~40)
+    cq, ck, _, _, _ = inputs(r, n, torch.bfloat16, common=40.0)
+    ins = [t.float().requires_grad_(True) for t in (cq, ck, sv)]
+    den_f, so_f = ba.cols_fwd_plain(*ins, bs)
+    ref = torch.autograd.grad((den_f * gden).sum() + (so_f * gso).sum(), ins)
+    del den_f, so_f, ins
+    got = ba.cols_bwd_cuda(cq, ck, sv, gden, gso, bs, True)
+    for nm, a, b in zip(("dq", "dk", "dv"), got, ref):
+        check(f"K7 v2 {nm} max|d| vs f32 autograd of the bf16 forward (common mode 40)",
+              max_err(a, b), 2e-2 * scale(b))
+    del ref, got, cq, ck, sq, sk, sv, gden, gso
+    torch.cuda.empty_cache()
+
+    # a ragged bucket count: 601 buckets, CTAs of two, the last one alone
+    n_rag = 60100
+    sq, sk, sv, gden, gso = inputs(4, n_rag, torch.float32, common=2.0)
+    log(f"kernel K6 / K7 (ragged: f32, r=4, n={n_rag}, 601 buckets):")
+    compare("K6 ragged", ba.cols_fwd_cuda(sq, sk, sv, bs), ba.cols_fwd_plain(sq, sk, sv, bs),
+            (1e-4, 1e-4))
+    compare("K7 v1 ragged", ba.cols_bwd_cuda(sq, sk, sv, gden, gso, bs, False),
+            ba.cols_bwd_plain(sq, sk, sv, gden, gso, bs, False), (1e-4,) * 3)
+    del sq, sk, sv, gden, gso
+    torch.cuda.empty_cache()
+    for key in ("K6", "K7"):
+        row = rows[key]
+        log(f"  {row['name']} (parity, f32): kernel {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
+            f"operations at the FP32 peak {F32_FLOP_PER_S / 1e12:.0f} TFLOP/s)")
+    for label, (ms, plain_ms, (b_ms, b_by)) in extra.items():
+        log(f"  {label} (hept_fast): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}; operations at the bf16 peak, K7 v1's at the FP32 peak)")
+    return rows
+
+
+def loss_and_grads(torch, model, loss_fn, batch, **forward_kw):
+    """Loss and parameter gradients of one event's batch, no dropout;
+    `forward_kw` go to the model's forward."""
     model.zero_grad(set_to_none=True)
-    out = model_apply(model, batch)
+    out = model(batch["x"][0], batch["coords"][0], batch["valid"][0], **forward_kw)[None]
     if out.shape != (1, batch["x"].shape[1], 12) or not torch.isfinite(out).all():
         raise AssertionError(f"model output {tuple(out.shape)} not finite / wrong shape")
     loss = loss_fn(out, batch)
@@ -349,7 +486,8 @@ def phase_eval(torch, trainer, model, cfg, event, batch, zero_counts, read_count
     eval_ms = (time.perf_counter() - t0) * 1e3
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    want = {"bucket_attn_fwd": 4, "bucket_attn_bwd": 0, "row_gather": 4}
+    want = {"bucket_attn_fwd": 4, "bucket_attn_bwd": 0, "cols_fwd": 0, "cols_bwd": 0,
+            "row_gather": 4}
     for k, v in want.items():
         if launches[k] != v:
             raise AssertionError(f"eval of one event launched {k} {launches[k]}x, want {v}")
@@ -392,7 +530,7 @@ def phase_trainer(torch, trainer, points: int, seed: int) -> None:
     written, restored into a fresh model and re-evaluated to the in-loop
     best test metrics."""
     from hept_tpu_torch.data.datasets import make_synthetic_tracking
-    from hept_tpu_torch.train.config import hept_acc_config
+    from hept_tpu_torch.train.config import profile_config
     from hept_tpu_torch.train.state import CheckpointManager
 
     t0 = time.perf_counter()
@@ -407,7 +545,7 @@ def phase_trainer(torch, trainer, points: int, seed: int) -> None:
         log("  " + lines[-1])
 
     with tempfile.TemporaryDirectory() as tmp:
-        cfg = hept_acc_config(device=DEVICE, num_epochs=1, log_dir=tmp, seed=seed)
+        cfg = profile_config("hept_acc", device=DEVICE, num_epochs=1, log_dir=tmp, seed=seed)
         t0 = time.perf_counter()
         res = trainer.run_one_seed(cfg, ds, log=run_log)
         secs = time.perf_counter() - t0
@@ -426,14 +564,121 @@ def phase_trainer(torch, trainer, points: int, seed: int) -> None:
           max(diffs.values()), 1e-6)
 
 
+def phase_profile(torch, trainer, profile: str, batch_np, ds, steps: int, seed: int,
+                  zero_counts, read_counts) -> dict:
+    """A bs-100 profile (`hept` or `hept_fast`) at full width: `steps` timed
+    Adam steps with dropout, launches counted; one timed `evaluate` of the
+    event (split "test" of `ds`), launches counted; then the first step,
+    dropout off, with kernels and with plain versions, compared."""
+    from hept_tpu_torch.ops.dispatch import plain_reference
+    from hept_tpu_torch.train.config import profile_config
+
+    cfg = profile_config(profile, device=DEVICE, num_epochs=1)
+    batch = trainer.batch_to_device(batch_np, DEVICE)
+    model = trainer.build_model(cfg, batch_np["x"].shape[2], batch_np["coords"].shape[2],
+                                torch.Generator(device=DEVICE).manual_seed(seed), DEVICE)
+    init_state = copy.deepcopy(model.state_dict())
+    opt = trainer.make_optimizer(model.parameters(), cfg.optimizer_name,
+                                 cfg.optimizer_kwargs["lr"])
+    loss_fn = trainer.make_loss_fn(cfg)
+    gen_drop = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    step_ms, losses = [], []
+    for s in range(steps):
+        t0 = time.perf_counter()
+        m = trainer.train_step(model, opt, loss_fn, batch, gen_drop)
+        losses.append(float(m["loss"]))  # synchronises
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        log(f"  {profile} step {s}: loss={losses[-1]:.6f} "
+            f"grad_norm={float(m['grad_norm']):.4f} {step_ms[-1]:.1f} ms")
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{profile}: non-finite loss: {losses}")
+    # per step and layer: one K6, one K7, the unsort's K5 forward and backward
+    want = {"cols_fwd": 4 * steps, "cols_bwd": 4 * steps, "bucket_attn_fwd": 0,
+            "bucket_attn_bwd": 0, "row_gather": 8 * steps}
+    for k, v in want.items():
+        if launches[k] != v:
+            raise AssertionError(f"{profile}: {k} launched {launches[k]}x in {steps} steps, "
+                                 f"want {v}")
+    for k in ("pair_gather", "pair_segment_sum"):
+        if launches[k] < steps:
+            raise AssertionError(f"{profile}: {k} launched {launches[k]}x in {steps} steps")
+    steady = statistics.median(step_ms[1:])
+    log(f"phase {profile}: {steps} steps (bs {cfg.model_kwargs['block_size']}, "
+        f"{cfg.model_kwargs['n_hashes']} hashes, attn_impl {cfg.attn_impl}, dropout on), "
+        f"losses {losses}; step ms {step_ms}; median after the first {steady:.1f} ms; "
+        f"launches {launches}; peak memory {peak:.2f} GiB")
+    del opt
+
+    block_size, n_max = cfg.model_kwargs["block_size"], batch_np["x"].shape[1]
+    trainer.evaluate(cfg, model, ds, "test", block_size, n_max)  # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    res = trainer.evaluate(cfg, model, ds, "test", block_size, n_max)  # ends in a host read
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    eval_launches = read_counts()
+    # per layer: one K6 and the unsort's K5; no backward
+    want = {"cols_fwd": 4, "cols_bwd": 0, "bucket_attn_fwd": 0, "bucket_attn_bwd": 0,
+            "row_gather": 4}
+    for k, v in want.items():
+        if eval_launches[k] != v:
+            raise AssertionError(f"{profile}: eval launched {k} {eval_launches[k]}x, want {v}")
+    bad = {k: v for k, v in res.items()
+           if not math.isfinite(v) or (k != "loss" and not 0.0 <= v <= 1.0)}
+    if bad:
+        raise AssertionError(f"{profile}: eval metrics out of range: {bad}")
+    log(f"phase {profile} eval: evaluate() of the event {eval_ms:.1f} ms; "
+        f"launches {eval_launches}; " + " ".join(f"{k}={v:.6f}" for k, v in res.items()))
+
+    model.load_state_dict(init_state)
+    f32 = not cfg.model_kwargs.get("kernel_bf16", False)
+    perms = [] if cfg.model_kwargs.get("static_keys") is None else None
+    kw_k = {} if perms is None else {"record_perms": perms}
+    loss_k, grads_k = loss_and_grads(torch, model, loss_fn, batch, **kw_k)
+    with plain_reference():
+        # the parity run sorts by keys computed from the previous layer's
+        # output: the plain run takes the kernel run's permutations, so a
+        # near-tie flipped by f32 rounding cannot move a point's bucket
+        loss_p, grads_p = loss_and_grads(torch, model, loss_fn, batch,
+                                         **({} if perms is None else {"perms": perms}))
+    log(f"phase {profile} compare: loss kernels {loss_k:.6f} plain {loss_p:.6f}")
+    if f32:
+        check(f"{profile} loss |d| / |loss|", abs(loss_k - loss_p) / abs(loss_p), 1e-4)
+        floor = 1e-3 * max(scale(g) for g in grads_p.values())
+        ratios = {k: max_err(grads_k[k], grads_p[k]) / max(scale(grads_p[k]), floor)
+                  for k in grads_p}
+        worst = sorted(ratios, key=ratios.get, reverse=True)[:3]
+        log("  per tensor, max|d| / max(max|plain|, 1e-3 max over tensors), largest: "
+            + ", ".join(f"{k} {ratios[k]:.3e}" for k in worst))
+        check(f"{profile}: all {len(ratios)} parameter gradients, worst {worst[0]}",
+              ratios[worst[0]], 1e-3)
+    else:
+        check(f"{profile} loss |d| / |loss|", abs(loss_k - loss_p) / abs(loss_p), 1e-3)
+        diff2 = sum(float((grads_k[k] - grads_p[k]).double().pow(2).sum()) for k in grads_p)
+        norm2 = sum(float(grads_p[k].double().pow(2).sum()) for k in grads_p)
+        check(f"{profile} gradient, |g_kernels - g_plain| / |g_plain| over all parameters",
+              math.sqrt(diff2 / norm2), 1e-2)
+    del model, init_state, grads_k, grads_p, perms
+    torch.cuda.empty_cache()
+    return {"launches": launches, "eval_launches": eval_launches, "steady_ms": steady,
+            "eval_ms": eval_ms, "peak_gib": peak}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--points", type=int, default=60000)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--profile-steps", type=int, default=3)
     args = ap.parse_args(argv)
-    if args.steps < 3:
-        ap.error("--steps must be at least 3")
+    if args.steps < 3 or args.profile_steps < 2:
+        ap.error("--steps must be at least 3 and --profile-steps at least 2")
 
     import torch
 
@@ -446,10 +691,11 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the hept_tpu_torch package is not beside this script ({exc})",
               file=sys.stderr)
         return 2
+    from hept_tpu_torch.data.datasets import SplitDataset
     from hept_tpu_torch.ops import bucket_attn_cuda, cuda_lib, pair_ops, row_gather
     from hept_tpu_torch.ops.dispatch import plain_reference
     from hept_tpu_torch.train import trainer
-    from hept_tpu_torch.train.config import hept_acc_config
+    from hept_tpu_torch.train.config import profile_config
 
     t_start = time.perf_counter()
     # 1. build
@@ -462,7 +708,7 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {nm}: {line.strip()}")
 
-    cfg = hept_acc_config(device=DEVICE, num_epochs=1)
+    cfg = profile_config("hept_acc", device=DEVICE, num_epochs=1)
     block_size = cfg.model_kwargs["block_size"]
     t0 = time.perf_counter()
     event, batch_np = make_batch(args.points, args.seed, block_size)
@@ -477,7 +723,8 @@ def main(argv=None) -> int:
         f"{rows['K5']['plain_ms']:.4f} ms, library {rows['K5']['library_ms']:.4f} ms, bound "
         f"{rows['K5']['bound_ms']:.4f} ms ({rows['K5']['bound_by']})")
     torch.cuda.empty_cache()
-    log("phase kernels: K1-K5 match their plain versions")
+    rows.update(phase_cols_kernels(torch, args.seed))
+    log("phase kernels: K1-K7 match their plain versions")
 
     # 3. the main path
     gen_init = torch.Generator(device=DEVICE).manual_seed(args.seed)
@@ -515,7 +762,7 @@ def main(argv=None) -> int:
         raise AssertionError(f"non-finite loss: {losses}")
     # per step and layer: one K1, one K2, and the unsort's K5 forward and backward
     want = {"bucket_attn_fwd": 4 * args.steps, "bucket_attn_bwd": 4 * args.steps,
-            "row_gather": 8 * args.steps}
+            "cols_fwd": 0, "cols_bwd": 0, "row_gather": 8 * args.steps}
     for k, v in want.items():
         if launches[k] != v:
             raise AssertionError(f"{k} launched {launches[k]}x in {args.steps} steps, want {v}")
@@ -555,7 +802,7 @@ def main(argv=None) -> int:
         + ", ".join(f"{k} {ratios[k]:.3e}" for k in worst))
     # the same step with the bf16 modes off (f32 transport, f32 K1/K2):
     # no bf16 rounding to flip, so every parameter gradient is held on its own
-    cfg32 = hept_acc_config(device=DEVICE, num_epochs=1)
+    cfg32 = profile_config("hept_acc", device=DEVICE, num_epochs=1)
     cfg32.model_kwargs.update(sort_pack=False, unsort_pack=False, kernel_bf16=False)
     model32 = trainer.build_model(cfg32, batch_np["x"].shape[2], batch_np["coords"].shape[2],
                                   gen_init, DEVICE)
@@ -589,11 +836,25 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_trainer(torch, trainer, args.points, args.seed)
 
+    # 7./8. the bs-100 profiles on one event packed for block_size 100
+    t0 = time.perf_counter()
+    event100, batch100 = make_batch(args.points, args.seed, 100)
+    ds100 = SplitDataset(train=[], valid=[], test=[event100], in_dim=event100.x.shape[1],
+                         coords_dim=event100.coords.shape[1])
+    log(f"phase data: the event packed for block_size 100 -> n={batch100['x'].shape[1]} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    parity = phase_profile(torch, trainer, "hept", batch100, ds100, args.profile_steps,
+                           args.seed, zero_counts, read_counts)
+    rows["K6"]["launches"] = parity["launches"]["cols_fwd"]
+    rows["K7"]["launches"] = parity["launches"]["cols_bwd"]
+    phase_profile(torch, trainer, "hept_fast", batch100, ds100, args.profile_steps, args.seed,
+                  zero_counts, read_counts)
+
     log(json.dumps({"kernels": [
         {k: rows[key][k] for k in ("name", "route", "source", "replaces", "launches",
                                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms")}
-        for key in ("K1", "K2", "K3", "K4", "K5")]}))
+        for key in ("K1", "K2", "K3", "K4", "K5", "K6", "K7")]}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

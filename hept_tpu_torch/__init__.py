@@ -1,12 +1,14 @@
 """PyTorch/CUDA port of `hept_tpu` for one NVIDIA H100.
 
 The package mirrors `hept_tpu`'s layout (core/, ops/, models/, data/, train/,
-utils/) and holds the `hept_acc` training step (synthetic tracking events,
-the static-plan HEPT transformer, the windowed InfoNCE loss and Adam) and
-its evaluation path (kNN retrieval metrics, the best-by-valid run with
-checkpoints). The five kernels of that path are hand-written CUDA (`csrc/`),
-built with `nvcc` on first use and loaded with ctypes; on CPU tensors every
-kernel wrapper runs its plain PyTorch version instead.
+utils/) and holds the training steps of the `hept_acc`, `hept_fast` and
+`hept_turbo` profiles (static bucket plan) and of the reference-parity
+`hept` profile (dynamic per-layer keys), with synthetic tracking events, the
+windowed InfoNCE loss and Adam, and their evaluation path (kNN retrieval
+metrics, the best-by-valid run with checkpoints). The seven kernels of
+these paths are hand-written CUDA (`csrc/`), built with `nvcc` on first use
+and loaded with ctypes; on CPU tensors every kernel wrapper runs its plain
+PyTorch version instead.
 
 Importing the package touches no GPU and builds nothing. It turns TF32 off
 for float32 matmuls and convolutions: the reference asks for full-f32

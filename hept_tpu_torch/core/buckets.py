@@ -1,9 +1,11 @@
-"""Gather plumbing for the static bucket plan (port of the main-path parts
-of `hept_tpu/core/buckets.py`).
+"""Bucket transport (port of the parts of `hept_tpu/core/buckets.py` the
+ported profiles run).
 
 `permute_gather` and `permute_gather_rows` apply KNOWN per-round permutations
 (from `ops.bucket_attn.static_bucket_plan`) with index gathers, and their
-backward gathers the cotangent by the inverse permutation. The row gather,
+backward gathers the cotangent by the inverse permutation. `sort_carry` and
+`unsort_carry` are the dynamic-key transport on top of them: a stable
+argsort of each key row, then the same gathers. The row gather,
 forward and backward, is kernel K5 (`ops/row_gather.py`,
 `csrc/row_gather.cu`) on CUDA tensors. `pack=True` keeps
 the JAX package's transport rounding: values (and, in the backward,
@@ -115,3 +117,55 @@ def permute_gather_rows(rows: torch.Tensor, idx: torch.Tensor, inv: torch.Tensor
     Returns: (R, ne, W) float32.
     """
     return _PermuteGatherRows.apply(rows, idx, inv, bool(pack))
+
+
+def sort_carry(keys: torch.Tensor | None, payload: torch.Tensor,
+               src: torch.Tensor | None = None):
+    """Sort column payloads by per-(round, head) keys (the column layout of
+    JAX's `grouped_sort_carry`, one group per call).
+
+    Args:
+      keys: (c, h, n) sort keys; each row is argsorted stably. Ignored when
+        `src` is given.
+      payload: (h, d, n) (broadcast over rounds), (d, n) (broadcast over
+        rounds and heads) or (c, h, d, n) columns.
+      src: optional (c, h, n) int64 permutations to apply instead of sorting.
+    Returns: (sorted (c, h, d, n) float32, src (c, h, n)): sorted slot s
+      holds column src[..., s]. The backward gathers the cotangent by the
+      inverse permutation and sums it over the broadcast axes.
+
+    JAX sorts unstably and carries the payload through one sort call for
+    several groups (the TPU pays per call); the port sorts the keys stably
+    and gathers, so rows with equal keys keep their order.
+    """
+    if src is None:
+        src = torch.argsort(keys, dim=-1, stable=True)
+    c, h, n = src.shape
+    if payload.dim() == 4:  # one source row per (round, head)
+        flat = payload.reshape(c * h, -1, n)
+        out = permute_gather(flat, src.reshape(1, c * h, n),
+                             invert_permutation(src).reshape(1, c * h, n))
+    elif payload.dim() == 3:  # (h, d, n): one source row per head
+        out = permute_gather(payload, src, invert_permutation(src))
+    else:  # (d, n): one source row
+        out = permute_gather(payload[None], src.reshape(c * h, 1, n),
+                             invert_permutation(src).reshape(c * h, 1, n))
+    return out.reshape(c, h, -1, n), src
+
+
+def unsort_carry(src: torch.Tensor, rows: torch.Tensor, pack: bool = False) -> torch.Tensor:
+    """Inverse of `sort_carry` for ROW payloads (JAX's `unsort_carry`).
+
+    Args:
+      src: (c, h, n) permutations of the sort (sorted slot s holds row src[s]).
+      rows: (c, h, n, w) rows in sorted order.
+      pack: round values (and cotangents) through bfloat16.
+    Returns: (c, h, n, w) float32 rows in the original order: row j is
+      sorted slot inv[j]. One row gather (kernel K5 on CUDA tensors); the
+      backward gathers by `src`.
+    """
+    c, h, n, w = rows.shape
+    src2 = src.reshape(c * h, n)
+    out = permute_gather_rows(rows.reshape(c * h, n, w), invert_permutation(src2), src2,
+                              pack=pack)
+    return out.reshape(c, h, n, w)

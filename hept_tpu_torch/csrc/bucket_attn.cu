@@ -1,4 +1,6 @@
-// Per-bucket RBF attention, forward (K1) and backward (K2), for Hopper.
+// Per-bucket RBF attention for Hopper: forward K1 / backward K2 (one CTA per
+// bucket), and forward K6 / backward K7 (several small buckets per CTA;
+// their own notes below).
 //
 // Replaces the TPU's flat-slab Pallas kernels
 //   K1  hept_tpu/ops/bucket_attn_pallas.py:_fwd_slab128_kernel (pallas_call at :858)
@@ -44,6 +46,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -70,14 +74,16 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// Copy one bucket's (C, bs) column block into shared rows dst[j*C + e].
-// Reads coalesce along n.
-template <int C, bool BF16>
+// Copy a (C, count) column block into shared rows dst[j*CP + e], the CP - C
+// padding columns zeroed. Reads coalesce along n.
+template <int C, int CP, bool BF16>
 __device__ __forceinline__ void load_rows(const typename Io<BF16>::T* src, size_t n,
-                                          size_t base, int bs, float* dst) {
-  for (int j = threadIdx.x; j < bs; j += kThreads) {
+                                          size_t base, int count, float* dst) {
+  for (int j = threadIdx.x; j < count; j += blockDim.x) {
 #pragma unroll
-    for (int e = 0; e < C; ++e) dst[j * C + e] = Io<BF16>::load(src + e * n + base + j);
+    for (int e = 0; e < C; ++e) dst[j * CP + e] = Io<BF16>::load(src + e * n + base + j);
+#pragma unroll
+    for (int e = C; e < CP; ++e) dst[j * CP + e] = 0.f;
   }
 }
 
@@ -94,8 +100,8 @@ fwd_kernel(const typename Io<BF16>::T* __restrict__ q, const typename Io<BF16>::
   const size_t r = blockIdx.y;
   const size_t base = (size_t)blockIdx.x * bs;
   const auto* qr = q + r * D * nn;
-  load_rows<D, BF16>(k + r * D * nn, nn, base, bs, k_s);
-  load_rows<DV, BF16>(v + r * DV * nn, nn, base, bs, v_s);
+  load_rows<D, D, BF16>(k + r * D * nn, nn, base, bs, k_s);
+  load_rows<DV, DV, BF16>(v + r * DV * nn, nn, base, bs, v_s);
   __syncthreads();
   for (int j = threadIdx.x; j < bs; j += kThreads) {
     float acc = 0.f;
@@ -157,8 +163,8 @@ bwd_kernel(const typename Io<BF16>::T* __restrict__ q, const typename Io<BF16>::
     float* k_s = smem;             // [bs][D]
     float* v_s = k_s + bs * D;     // [bs][DV]
     float* ksq_s = v_s + bs * DV;  // [bs]
-    load_rows<D, BF16>(kr, nn, base, bs, k_s);
-    load_rows<DV, BF16>(vr, nn, base, bs, v_s);
+    load_rows<D, D, BF16>(kr, nn, base, bs, k_s);
+    load_rows<DV, DV, BF16>(vr, nn, base, bs, v_s);
     __syncthreads();
     for (int j = threadIdx.x; j < bs; j += kThreads) {
       float acc = 0.f;
@@ -210,7 +216,7 @@ bwd_kernel(const typename Io<BF16>::T* __restrict__ q, const typename Io<BF16>::
     float* g_s = q_s + bs * D;      // [bs][DV]
     float* qsq_s = g_s + bs * DV;   // [bs]
     float* gd_s = qsq_s + bs;       // [bs]
-    load_rows<D, BF16>(qr, nn, base, bs, q_s);
+    load_rows<D, D, BF16>(qr, nn, base, bs, q_s);
     for (int i = threadIdx.x; i < bs; i += kThreads) {
 #pragma unroll
       for (int e = 0; e < DV; ++e) {
@@ -300,6 +306,323 @@ int launch_bwd(const void* q, const void* k, const void* v, const float* gso, co
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// K6 / K7: the per-bucket column kernels for small buckets.
+//
+// Replace the TPU's per-bucket column kernels
+//   K6  hept_tpu/ops/bucket_attn_pallas.py:_fwd_cols_kernel (:273) and
+//       _fwd_cols_kernel_loop (:529), via _fwd_cols_impl (pallas_call at :1196)
+//   K7  _bwd_cols_kernel (:334), _bwd_cols_kernel_v2 (:420) / _bwd_v2_bucket
+//       (:447) and _bwd_cols_kernel_v2_loop (:511), via _bwd_cols_impl
+//       (pallas_call at :1273)
+// the bucket kernels of attn_impl pallas / hybrid / hybrid2 / hybrid2l /
+// loop2 and of slab2 where no flat slab fits (block_size 100).
+//
+// What they compute (per bucket, as K1/K2 above):
+//   K6, f32 inputs: exact f32 (fmaf, no TF32), logit = q.k + q_sq + k_sq.
+//   K6, bf16 inputs, HILO (attn_impl pallas): each bias -|x|^2/2 is carried
+//       as two bf16 rows hi + lo (_split_rows), logit = q.k + (q_hi + q_lo)
+//       + (k_hi + k_lo). The TPU computes |q|^2 there with a default-
+//       precision dot; this follows its interpret-mode value, exact f32.
+//   K6, bf16 inputs, exact bias (the einsum / loop contract): K1's math.
+//   bf16 inputs: pt rounded to bf16 before the value product.
+//   K7 v1: f32 math (the wrapper upcasts bf16 residuals, as _bwd_cols_impl).
+//   K7 v2 (bf16): exact f32 bias, g_so rounded to bf16, and dl carried as
+//       hi + lo bf16 (_bwd_v2_bucket): the dq/dk products and the row and
+//       column sums that cancel the common mode use the very same dl values.
+//
+// Design. At block_size 100 K1's one-CTA-per-bucket with a fixed 256-thread
+// CTA leaves 156 threads idle; the TPU groups g buckets per grid step for
+// the same reason. Here a CTA owns g = 256 / bs consecutive buckets (g * bs
+// columns, one contiguous slice of n) with one thread per query (K6, K7's
+// query half) or key (K7's key half) of one of them, and round_up(g*bs, 32)
+// threads: 200 of 224 busy at bs 100. A ragged last CTA takes the buckets
+// left. Shared rows are padded to a multiple of 4 floats so each shared load
+// brings 4 operands (LDS.128); at d = 30, dv = 24 a bucket's keys and values
+// take 22.8 KB, a CTA's 45.6 KB. K7 runs its two halves in one grid
+// (blockIdx.z), each recomputing pt: no atomics, deterministic results.
+//
+// What bounds them on the H100: the pairwise work, r * nb * bs^2 * (2d +
+// 2dv) flop for K6 (K7 ~2.5x), on scalar FP32 FMAs (f32 inputs must not use
+// TF32 or bf16 tensor cores), so the least time is operations at the FP32
+// peak (~67 TFLOP/s) for f32; for bf16 inputs the bound is the bytes (the
+// bf16 tensor-core rate would allow ~16x the FP32 one). These are the simple
+// first version: scalar FMAs with shared-memory operands, not wgmma.
+
+constexpr int kColsThreads = 256;  // most threads (and columns) of a column CTA
+constexpr size_t kMaxSmem = 227 * 1024;
+
+__host__ __device__ constexpr int pad4(int c) { return (c + 3) / 4 * 4; }
+
+__host__ __device__ constexpr int cols_group(int bs) {
+  return bs >= kColsThreads ? 1 : kColsThreads / bs;
+}
+
+// sum_e x[e] * s[e] in order e = 0..CP-1, four shared operands per load
+template <int CP>
+__device__ __forceinline__ float dot_row(const float (&x)[CP], const float* s) {
+  const float4* s4 = reinterpret_cast<const float4*>(s);
+  float acc = 0.f;
+#pragma unroll
+  for (int e = 0; e < CP / 4; ++e) {
+    const float4 w = s4[e];
+    acc = fmaf(x[4 * e], w.x, acc);
+    acc = fmaf(x[4 * e + 1], w.y, acc);
+    acc = fmaf(x[4 * e + 2], w.z, acc);
+    acc = fmaf(x[4 * e + 3], w.w, acc);
+  }
+  return acc;
+}
+
+// acc[e] += s[e] * a, four shared operands per load
+template <int CP>
+__device__ __forceinline__ void axpy_row(float (&acc)[CP], const float* s, float a) {
+  const float4* s4 = reinterpret_cast<const float4*>(s);
+#pragma unroll
+  for (int e = 0; e < CP / 4; ++e) {
+    const float4 w = s4[e];
+    acc[4 * e] = fmaf(w.x, a, acc[4 * e]);
+    acc[4 * e + 1] = fmaf(w.y, a, acc[4 * e + 1]);
+    acc[4 * e + 2] = fmaf(w.z, a, acc[4 * e + 2]);
+    acc[4 * e + 3] = fmaf(w.w, a, acc[4 * e + 3]);
+  }
+}
+
+// x as hi + lo, two bf16 values (~2^-16 relative)
+__device__ __forceinline__ float split_bf16(float x) {
+  const float hi = round_bf16(x);
+  return hi + round_bf16(x - hi);
+}
+
+// -|x|^2/2 of a shared row, summed in column order
+template <int C>
+__device__ __forceinline__ float half_sq(const float* row) {
+  float acc = 0.f;
+#pragma unroll
+  for (int e = 0; e < C; ++e) acc = fmaf(row[e], row[e], acc);
+  return -0.5f * acc;
+}
+
+template <int D, int DV, bool BF16, bool HILO>
+__global__ void __launch_bounds__(kColsThreads)
+cols_fwd_kernel(const typename Io<BF16>::T* __restrict__ q,
+                const typename Io<BF16>::T* __restrict__ k,
+                const typename Io<BF16>::T* __restrict__ v, float* __restrict__ denom,
+                float* __restrict__ so, int n, int bs) {
+  constexpr int DP = pad4(D), DVP = pad4(DV);
+  extern __shared__ float4 smem_cols[];
+  const int g = cols_group(bs);
+  const int b0 = blockIdx.x * g;
+  const int span = min(g, n / bs - b0) * bs;  // this CTA's columns
+  float* k_s = reinterpret_cast<float*>(smem_cols);  // [g*bs][DP]
+  float* v_s = k_s + g * bs * DP;                     // [g*bs][DVP]
+  float* kb_s = v_s + g * bs * DVP;                   // [g*bs]
+  const size_t nn = n;
+  const size_t r = blockIdx.y;
+  const size_t base = (size_t)b0 * bs;
+  load_rows<D, DP, BF16>(k + r * D * nn, nn, base, span, k_s);
+  load_rows<DV, DVP, BF16>(v + r * DV * nn, nn, base, span, v_s);
+  __syncthreads();
+  for (int j = threadIdx.x; j < span; j += blockDim.x) {
+    const float x_sq = half_sq<D>(k_s + j * DP);
+    kb_s[j] = HILO ? split_bf16(x_sq) : x_sq;
+  }
+  __syncthreads();
+  const auto* qr = q + r * D * nn;
+  for (int c = threadIdx.x; c < span; c += blockDim.x) {
+    const int b = c / bs * bs;  // the bucket's first column in the CTA
+    float qi[DP];
+    float qsq = 0.f;
+#pragma unroll
+    for (int e = 0; e < DP; ++e) {
+      qi[e] = e < D ? Io<BF16>::load(qr + e * nn + base + c) : 0.f;
+      qsq = fmaf(qi[e], qi[e], qsq);
+    }
+    qsq *= -0.5f;
+    const float qb = HILO ? split_bf16(qsq) : qsq;
+    float acc[DVP];
+#pragma unroll
+    for (int e = 0; e < DVP; ++e) acc[e] = 0.f;
+    float den = 0.f;
+    for (int j = b; j < b + bs; ++j) {
+      const float pt = expf(fminf(dot_row<DP>(qi, k_s + j * DP) + qb + kb_s[j], 0.f));
+      den += pt;
+      axpy_row<DVP>(acc, v_s + j * DVP, BF16 ? round_bf16(pt) : pt);
+    }
+    denom[r * nn + base + c] = den + kDenomEps;
+#pragma unroll
+    for (int e = 0; e < DV; ++e) so[(r * DV + e) * nn + base + c] = acc[e];
+  }
+}
+
+// V2: bf16 inputs and outputs, the v2 contract; otherwise f32 (v1).
+template <int D, int DV, bool V2>
+__global__ void __launch_bounds__(kColsThreads)
+cols_bwd_kernel(const typename Io<V2>::T* __restrict__ q, const typename Io<V2>::T* __restrict__ k,
+                const typename Io<V2>::T* __restrict__ v, const float* __restrict__ gso,
+                const float* __restrict__ gden, typename Io<V2>::T* __restrict__ dq,
+                typename Io<V2>::T* __restrict__ dk, typename Io<V2>::T* __restrict__ dv,
+                int n, int bs) {
+  constexpr int DP = pad4(D), DVP = pad4(DV);
+  extern __shared__ float4 smem_cols[];
+  float* smem = reinterpret_cast<float*>(smem_cols);
+  const int g = cols_group(bs);
+  const int b0 = blockIdx.x * g;
+  const int span = min(g, n / bs - b0) * bs;
+  const int cap = g * bs;  // columns the shared layout is sized for
+  const size_t nn = n;
+  const size_t r = blockIdx.y;
+  const size_t base = (size_t)b0 * bs;
+  const auto* qr = q + r * D * nn;
+  const auto* kr = k + r * D * nn;
+  const auto* vr = v + r * DV * nn;
+  const float* gr = gso + r * DV * nn;
+  const float* gdr = gden + r * nn;
+
+  if (blockIdx.z == 0) {
+    // query side: thread per query i, loop over its bucket's keys -> dq
+    float* k_s = smem;               // [cap][DP]
+    float* v_s = k_s + cap * DP;     // [cap][DVP]
+    float* ksq_s = v_s + cap * DVP;  // [cap]
+    load_rows<D, DP, V2>(kr, nn, base, span, k_s);
+    load_rows<DV, DVP, V2>(vr, nn, base, span, v_s);
+    __syncthreads();
+    for (int j = threadIdx.x; j < span; j += blockDim.x) ksq_s[j] = half_sq<D>(k_s + j * DP);
+    __syncthreads();
+    for (int c = threadIdx.x; c < span; c += blockDim.x) {
+      const int b = c / bs * bs;
+      float qi[DP], gi[DVP], acc[DP];
+      float qsq = 0.f;
+#pragma unroll
+      for (int e = 0; e < DP; ++e) {
+        qi[e] = e < D ? Io<V2>::load(qr + e * nn + base + c) : 0.f;
+        qsq = fmaf(qi[e], qi[e], qsq);
+        acc[e] = 0.f;
+      }
+      qsq *= -0.5f;
+#pragma unroll
+      for (int e = 0; e < DVP; ++e) {
+        const float gv = e < DV ? gr[e * nn + base + c] : 0.f;
+        gi[e] = V2 ? round_bf16(gv) : gv;
+      }
+      const float gd = gdr[base + c];
+      float rowsum = 0.f;
+      for (int j = b; j < b + bs; ++j) {
+        const float logit = dot_row<DP>(qi, k_s + j * DP) + qsq + ksq_s[j];
+        const float pt = expf(fminf(logit, 0.f));
+        const float gp = dot_row<DVP>(gi, v_s + j * DVP);
+        float dl = logit < 0.f ? pt * (gp + gd) : 0.f;
+        if (V2) dl = split_bf16(dl);
+        axpy_row<DP>(acc, k_s + j * DP, dl);
+        rowsum += dl;
+      }
+#pragma unroll
+      for (int e = 0; e < D; ++e)
+        dq[(r * D + e) * nn + base + c] = Io<V2>::store(acc[e] - rowsum * qi[e]);
+    }
+  } else {
+    // key side: thread per key j, loop over its bucket's queries -> dk, dv
+    float* q_s = smem;               // [cap][DP]
+    float* g_s = q_s + cap * DP;     // [cap][DVP]
+    float* qsq_s = g_s + cap * DVP;  // [cap]
+    float* gd_s = qsq_s + cap;       // [cap]
+    load_rows<D, DP, V2>(qr, nn, base, span, q_s);
+    for (int i = threadIdx.x; i < span; i += blockDim.x) {
+#pragma unroll
+      for (int e = 0; e < DVP; ++e) {
+        const float gv = e < DV ? gr[e * nn + base + i] : 0.f;
+        g_s[i * DVP + e] = V2 ? round_bf16(gv) : gv;
+      }
+      gd_s[i] = gdr[base + i];
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < span; i += blockDim.x) qsq_s[i] = half_sq<D>(q_s + i * DP);
+    __syncthreads();
+    for (int c = threadIdx.x; c < span; c += blockDim.x) {
+      const int b = c / bs * bs;
+      float kj[DP], vj[DVP], acck[DP], accv[DVP];
+      float ksq = 0.f;
+#pragma unroll
+      for (int e = 0; e < DP; ++e) {
+        kj[e] = e < D ? Io<V2>::load(kr + e * nn + base + c) : 0.f;
+        ksq = fmaf(kj[e], kj[e], ksq);
+        acck[e] = 0.f;
+      }
+      ksq *= -0.5f;
+#pragma unroll
+      for (int e = 0; e < DVP; ++e) {
+        vj[e] = e < DV ? Io<V2>::load(vr + e * nn + base + c) : 0.f;
+        accv[e] = 0.f;
+      }
+      float colsum = 0.f;
+      for (int i = b; i < b + bs; ++i) {
+        // the query side's products in the same order: identical pt and dl
+        const float logit = dot_row<DP>(kj, q_s + i * DP) + qsq_s[i] + ksq;
+        const float pt = expf(fminf(logit, 0.f));
+        const float gp = dot_row<DVP>(vj, g_s + i * DVP);
+        float dl = logit < 0.f ? pt * (gp + gd_s[i]) : 0.f;
+        if (V2) dl = split_bf16(dl);
+        axpy_row<DP>(acck, q_s + i * DP, dl);
+        colsum += dl;
+        axpy_row<DVP>(accv, g_s + i * DVP, V2 ? round_bf16(pt) : pt);
+      }
+#pragma unroll
+      for (int e = 0; e < D; ++e)
+        dk[(r * D + e) * nn + base + c] = Io<V2>::store(acck[e] - colsum * kj[e]);
+#pragma unroll
+      for (int e = 0; e < DV; ++e) dv[(r * DV + e) * nn + base + c] = Io<V2>::store(accv[e]);
+    }
+  }
+}
+
+// grid, threads and shared bytes of a column kernel; false if the shared
+// rows of one CTA do not fit
+inline bool cols_launch_shape(int r, int n, int bs, int shared_cols, dim3* grid, int* threads,
+                              size_t* smem) {
+  const int g = cols_group(bs);
+  const int nb = n / bs;
+  *grid = dim3((nb + g - 1) / g, r);
+  *threads = std::min(kColsThreads, (g * bs + 31) / 32 * 32);
+  *smem = (size_t)g * bs * shared_cols * sizeof(float);
+  return *smem <= kMaxSmem;
+}
+
+template <int D, int DV, bool BF16, bool HILO>
+int launch_cols_fwd(const void* q, const void* k, const void* v, float* denom, float* so, int r,
+                    int n, int bs, cudaStream_t stream) {
+  using T = typename Io<BF16>::T;
+  dim3 grid;
+  int threads;
+  size_t smem;
+  if (!cols_launch_shape(r, n, bs, pad4(D) + pad4(DV) + 1, &grid, &threads, &smem))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(cols_fwd_kernel<D, DV, BF16, HILO>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cols_fwd_kernel<D, DV, BF16, HILO><<<grid, threads, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, denom, so, n, bs);
+  return (int)cudaGetLastError();
+}
+
+template <int D, int DV, bool V2>
+int launch_cols_bwd(const void* q, const void* k, const void* v, const float* gso,
+                    const float* gden, void* dq, void* dk, void* dv, int r, int n, int bs,
+                    cudaStream_t stream) {
+  using T = typename Io<V2>::T;
+  dim3 grid;
+  int threads;
+  size_t smem;
+  if (!cols_launch_shape(r, n, bs, pad4(D) + pad4(DV) + 2, &grid, &threads, &smem))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(cols_bwd_kernel<D, DV, V2>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  grid.z = 2;
+  cols_bwd_kernel<D, DV, V2><<<grid, threads, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, gso, gden, (T*)dq, (T*)dk, (T*)dv, n, bs);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // (d, dv) pairs compiled; ops/bucket_attn_cuda.py SUPPORTED_DIMS lists the same.
@@ -331,6 +654,37 @@ extern "C" int hept_bucket_attn_bwd(const void* q, const void* k, const void* v,
                 : launch_bwd<D_, DV_, false>(q, k, v, gso, gden, dq, dk, dv_out, r, n, bs, s);
   HEPT_DIMS(HEPT_BWD_CASE)
 #undef HEPT_BWD_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int hept_cols_fwd(const void* q, const void* k, const void* v, float* denom, float* so,
+                             int r, int d, int dv, int n, int bs, int bf16, int hilo,
+                             void* stream) {
+  if (bs <= 0 || n % bs != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+#define HEPT_COLS_FWD_CASE(D_, DV_)                                                        \
+  if (d == D_ && dv == DV_) {                                                              \
+    if (!bf16) return launch_cols_fwd<D_, DV_, false, false>(q, k, v, denom, so, r, n, bs, s); \
+    return hilo ? launch_cols_fwd<D_, DV_, true, true>(q, k, v, denom, so, r, n, bs, s)      \
+                : launch_cols_fwd<D_, DV_, true, false>(q, k, v, denom, so, r, n, bs, s);    \
+  }
+  HEPT_DIMS(HEPT_COLS_FWD_CASE)
+#undef HEPT_COLS_FWD_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// v2 = 1: bf16 inputs and outputs (the v2 contract); 0: f32 (v1)
+extern "C" int hept_cols_bwd(const void* q, const void* k, const void* v, const float* gso,
+                             const float* gden, void* dq, void* dk, void* dv_out, int r, int d,
+                             int dv, int n, int bs, int v2, void* stream) {
+  if (bs <= 0 || n % bs != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+#define HEPT_COLS_BWD_CASE(D_, DV_)                                                          \
+  if (d == D_ && dv == DV_)                                                                  \
+    return v2 ? launch_cols_bwd<D_, DV_, true>(q, k, v, gso, gden, dq, dk, dv_out, r, n, bs, s) \
+              : launch_cols_bwd<D_, DV_, false>(q, k, v, gso, gden, dq, dk, dv_out, r, n, bs, s);
+  HEPT_DIMS(HEPT_COLS_BWD_CASE)
+#undef HEPT_COLS_BWD_CASE
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,5 +1,6 @@
-"""HEPT attention module on the static-plan path (port of the post-sort
-branch of `hept_tpu/models/attention/hept.py`)."""
+"""HEPT attention module (port of `hept_tpu/models/attention/hept.py`): the
+post-sort branch on a static bucket plan and the pre-sort branch with
+per-layer, per-head dynamic keys."""
 
 from __future__ import annotations
 
@@ -7,7 +8,7 @@ import torch
 from torch import nn
 
 from ...core.hashing import e2lsh_init
-from ...ops.bucket_attn import hept_attention_core_xcols
+from ...ops.bucket_attn import hept_attention_core_cols, hept_attention_core_xcols
 from ..mlp import TorchLinear
 
 
@@ -23,12 +24,13 @@ def rpe_scales(w_rpe: torch.Tensor, num_heads: int, h_dim: int, coords_dim: int,
 
 
 class HeptAttention(nn.Module):
-    """LSH-bucketed block-local RBF attention over a static bucket plan.
+    """LSH-bucketed block-local RBF attention for one event.
 
-    The caller passes the shared normed hidden state and the per-head q/k/v
-    kernels; they are applied after the plan's gather. `e2lsh_alpha` is the
-    per-layer hash constant the reference declares; a static plan does not
-    read it, and it is kept so weights carry across unchanged.
+    Post-sort (static plan): the caller passes the shared normed hidden state
+    and the per-head q/k/v kernels, applied after the plan's gather; the
+    plan does not read `e2lsh_alpha` (1 head), which is kept so weights carry
+    across unchanged. Pre-sort (dynamic keys): the caller passes the q/k/v
+    projections, and `e2lsh_alpha` (h, d + cd, n_hashes) hashes each head.
     """
 
     def __init__(self, cfg, generator=None, device=None):
@@ -38,17 +40,48 @@ class HeptAttention(nn.Module):
         self.out_linear = TorchLinear(h * d, d, generator=generator, device=device)
         self.register_buffer(
             "e2lsh_alpha",
-            e2lsh_init(generator, 1, d + cfg.coords_dim, cfg.n_hashes, device=device),
+            e2lsh_init(generator, 1 if cfg.share_heads else h, d + cfg.coords_dim,
+                       cfg.n_hashes, device=device),
         )
 
-    def forward(self, x_normed, coords, invalid, plan, w_rpe, wq, wk, wv):
+    def _sqrt_w(self, w_rpe):
         cfg = self.cfg
-        sqrt_w = rpe_scales(w_rpe, cfg.num_heads, cfg.h_dim, cfg.coords_dim,
-                            cfg.num_w_per_dist)
+        return rpe_scales(w_rpe, cfg.num_heads, cfg.h_dim, cfg.coords_dim, cfg.num_w_per_dist)
+
+    def forward_static(self, x_normed, coords, invalid, plan, w_rpe, wq, wk, wv):
+        """Post-sort path. x_normed: (n, d) normed hidden state; wq/wk/wv:
+        (h, d, d) head-major kernels, applied after the plan's gather.
+        Returns (n, d)."""
+        cfg = self.cfg
         out = hept_attention_core_xcols(
-            x_normed.t(), coords.t(), wq, wk, wv, sqrt_w, invalid, plan,
-            block_size=cfg.block_size, sort_pack=cfg.sort_pack,
+            x_normed.t(), coords.t(), wq, wk, wv, self._sqrt_w(w_rpe), invalid, plan,
+            block_size=cfg.block_size, impl=cfg.attn_impl, sort_pack=cfg.sort_pack,
             unsort_pack=cfg.unsort_pack, kernel_bf16=cfg.kernel_bf16,
             kernel_center=cfg.kernel_center,
+        )  # (n, h * d) rows
+        return self.out_linear(out)
+
+    def forward_dynamic(self, query, key, value, coords, codes, invalid, w_rpe, perms=None,
+                        record_perms=None):
+        """Pre-sort path. query/key/value: (n, h * d) projections; codes:
+        (c, h, n) AND codes. `perms` / `record_perms`: see
+        `hept_attention_core_cols`. Returns (n, d)."""
+        cfg = self.cfg
+        h, d = cfg.num_heads, cfg.h_dim
+        n = query.shape[0]
+        # prep_qk in column layout: RPE columns sqrt(2 w) * coords per head
+        w_cols = self._sqrt_w(w_rpe)[:, :, None] * coords.t()[None]  # (h, cd, n)
+        q_hat = torch.cat([query.t().reshape(h, d, n), w_cols], dim=1)
+        k_hat = torch.cat([key.t().reshape(h, d, n), w_cols], dim=1)
+        v_cols = value.t().reshape(h, d, n)
+        if invalid is not None:
+            keep = torch.logical_not(invalid)
+            q_hat = torch.where(keep, q_hat, 0.0)
+            k_hat = torch.where(keep, k_hat, 0.0)
+            v_cols = torch.where(keep, v_cols, 0.0)
+        out = hept_attention_core_cols(
+            q_hat, k_hat, v_cols, self.e2lsh_alpha, codes, invalid,
+            block_size=cfg.block_size, impl=cfg.attn_impl, unsort_pack=cfg.unsort_pack,
+            perms=perms, record_perms=record_perms,
         )  # (n, h * d) rows
         return self.out_linear(out)

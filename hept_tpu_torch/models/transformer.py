@@ -1,11 +1,16 @@
-"""HEPT transformer backbone on the static-plan path (port of
-`hept_tpu/models/transformer.py` for the `hept_acc` configuration).
+"""HEPT transformer backbone (port of `hept_tpu/models/transformer.py` for the
+ported profiles).
 
 Feature-MLP encoder -> N pre-LN attention blocks with residual + FF ->
 concat of all layer outputs -> bias-free `W` -> 5-layer tanh/LayerNorm MLP
-residual head. Keys are hashed once per step from the encoder output and
-coords (`static_hash`); one plan of `static_rounds` rounds is built, and
-layer l uses rounds [(l * n_hashes + j) % static_rounds for j < n_hashes].
+residual head. Two ways to bucket the points:
+- static plan (hept_acc, hept_fast, hept_turbo): keys are hashed once per
+  step from the encoder output and coords (`static_hash`); one plan of
+  `static_rounds` rounds is built, and layer l uses rounds
+  [(l * n_hashes + j) % static_rounds for j < n_hashes];
+- dynamic keys (the reference-parity `hept`): each layer projects q/k/v
+  before the sort and hashes every head on its own, with the per-head AND
+  codes of `prepare_event`.
 Layers run as a Python loop (the JAX package's `scan_layers` is a compile-
 time device with the same math).
 
@@ -27,19 +32,24 @@ from ..core.hashing import e2lsh_init
 from ..core.padding import replication_pad_plan
 from ..core.regions import get_regions, region_codes
 from ..ops.bucket_attn import static_bucket_plan, static_hash
+from ..ops.bucket_attn_cuda import ATTN_IMPLS
 from .attention.hept import HeptAttention
 from .mlp import FeedForward, OutMLP, TorchLinear, dropout, layer_norm, uniform_
+
+_ROADMAP = "ROADMAP.md queue 1, item 2 (other HEPT profiles)"
 
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """Model hyperparameters, with the JAX TransformerConfig's names.
 
-    The port implements the static-plan path of the `hept_acc` profile:
-    attn_type "hept", padding "replicate", qkv_post_sort + share_heads +
-    static_keys + unsort_rows. `attn_impl`, `sort_ops` and `scan_layers`
-    select TPU implementations of the same math, and `shared_sort` is
-    implied by `share_heads`: they are accepted and ignored.
+    The port implements two paths of attn_type "hept" with replicate
+    padding (`check_supported`): the static plan (qkv_post_sort +
+    share_heads + static_keys + unsort_rows) and dynamic per-layer keys
+    (all four off). `attn_impl` selects the bucket kernels
+    (`ops/bucket_attn_cuda.py`); `sort_ops` and `scan_layers` select TPU
+    implementations of the same math and are ignored, and `shared_sort` is
+    implied by `share_heads`.
     """
 
     in_dim: int
@@ -68,26 +78,50 @@ class TransformerConfig:
     static_keys: Any = False
     static_rounds: int = 0
     unsort_rows: bool = False
+    gather_sort: bool = False
+    canon_residual: bool = False
+    transport_groups: int = 1
     scan_layers: bool = False
 
     def check_supported(self) -> None:
         need = {
             "task == 'tracking'": self.task == "tracking",
             "attn_type == 'hept'": self.attn_type == "hept",
-            "padding_mode == 'replicate'": self.padding_mode == "replicate",
-            "qkv_post_sort": bool(self.qkv_post_sort),
-            "share_heads": bool(self.share_heads),
-            "static_keys in (True, 'x0')": self.static_keys in (True, "x0"),
-            "unsort_rows": bool(self.unsort_rows),
-            "static_rounds a multiple of n_hashes":
-                (self.static_rounds or self.n_hashes) % self.n_hashes == 0,
+            f"padding_mode == 'replicate' (zero padding: {_ROADMAP})":
+                self.padding_mode == "replicate",
             "num_and_hashes == 2": self.num_and_hashes == 2,
+            f"attn_impl in {ATTN_IMPLS} (xla / slab / hybrid_slab run kernels K8/K9: "
+            "ROADMAP.md queue 2)": self.attn_impl in ATTN_IMPLS,
+            f"no gather_sort ({_ROADMAP})": not self.gather_sort,
+            f"no canon_residual ({_ROADMAP})": not self.canon_residual,
+            f"transport_groups == 1 ({_ROADMAP})": self.transport_groups == 1,
         }
+        if self.static_keys:
+            need.update({
+                "static_keys in (True, 'x0')": self.static_keys in (True, "x0"),
+                "static plan: qkv_post_sort": bool(self.qkv_post_sort),
+                "static plan: share_heads": bool(self.share_heads),
+                "static plan: unsort_rows": bool(self.unsort_rows),
+                "static_rounds a multiple of n_hashes":
+                    (self.static_rounds or self.n_hashes) % self.n_hashes == 0,
+            })
+        else:
+            # dynamic keys: the reference-parity path; post-sort projections,
+            # shared sorts and the bf16 modes without a static plan are not
+            # ported
+            need.update({
+                f"dynamic keys: no qkv_post_sort ({_ROADMAP})": not self.qkv_post_sort,
+                f"dynamic keys: no shared_sort / share_heads ({_ROADMAP})":
+                    not (self.shared_sort or self.share_heads),
+                f"dynamic keys: no sort_pack ({_ROADMAP})": not self.sort_pack,
+                f"dynamic keys: no kernel_bf16 / kernel_center ({_ROADMAP})":
+                    not (self.kernel_bf16 or self.kernel_center),
+            })
         missing = [k for k, ok in need.items() if not ok]
         if missing:
             raise NotImplementedError(
-                "the port runs the static-plan HEPT path only; unsupported: "
-                + ", ".join(missing)
+                "the port runs the static-plan and the dynamic-key HEPT paths only; "
+                "unsupported: " + ", ".join(missing)
             )
 
 
@@ -112,8 +146,9 @@ def prepare_event(x, coords, valid, regions, block_size: int):
 
 
 class AttnBlock(nn.Module):
-    """Pre-LN attention block; q/k/v kernels are applied after the plan's
-    gather inside the attention core."""
+    """Pre-LN attention block. On the static plan the q/k/v kernels are
+    applied after the plan's gather inside the attention core; with dynamic
+    keys they project before the sort."""
 
     def __init__(self, cfg: TransformerConfig, generator=None, device=None):
         super().__init__()
@@ -135,19 +170,28 @@ class AttnBlock(nn.Module):
         h, d = self.cfg.num_heads, self.cfg.h_dim
         return lin.weight.t().reshape(d, h, d).permute(1, 0, 2)
 
-    def forward(self, x, coords, invalid, plan, generator=None):
-        aggr = self.attn(self.norm1(x), coords, invalid, plan, self.w_rpe,
-                         self._heads(self.w_q), self._heads(self.w_k), self._heads(self.w_v))
+    def forward(self, x, coords, codes, invalid, plan, generator=None, perms=None,
+                record_perms=None):
+        xn = self.norm1(x)
+        if self.cfg.qkv_post_sort:
+            aggr = self.attn.forward_static(xn, coords, invalid, plan, self.w_rpe,
+                                            self._heads(self.w_q), self._heads(self.w_k),
+                                            self._heads(self.w_v))
+        else:
+            aggr = self.attn.forward_dynamic(self.w_q(xn), self.w_k(xn), self.w_v(xn), coords,
+                                             codes, invalid, self.w_rpe, perms, record_perms)
         x = x + dropout(aggr, self.cfg.dropout, generator)
         ff = self.ff(self.norm2(x))
         return x + dropout(ff, self.cfg.dropout, generator)
 
 
 class HeptTransformer(nn.Module):
-    """Single-event HEPT transformer on a static bucket plan.
+    """Single-event HEPT transformer, on a static bucket plan or with dynamic
+    per-layer keys (`cfg.static_keys`).
 
     `generator` seeds the initial weights and the frozen constants
-    (`regions`, `static_alpha`, each layer's `e2lsh_alpha`).
+    (`regions`, `static_alpha` on the static plan, each layer's
+    `e2lsh_alpha`).
     """
 
     def __init__(self, cfg: TransformerConfig, generator: torch.Generator | None = None,
@@ -161,8 +205,9 @@ class HeptTransformer(nn.Module):
             device=device))
         self.feat_enc_0 = TorchLinear(cfg.in_dim, cfg.h_dim, generator=generator, device=device)
         self.feat_enc_1 = TorchLinear(cfg.h_dim, cfg.h_dim, generator=generator, device=device)
-        self.register_buffer("static_alpha", e2lsh_init(
-            generator, 1, cfg.h_dim + cfg.coords_dim, self.total_rounds, device=device))
+        if cfg.static_keys:
+            self.register_buffer("static_alpha", e2lsh_init(
+                generator, 1, cfg.h_dim + cfg.coords_dim, self.total_rounds, device=device))
         self.blocks = nn.ModuleList(
             AttnBlock(cfg, generator, device) for _ in range(cfg.n_layers)
         )
@@ -189,21 +234,25 @@ class HeptTransformer(nn.Module):
         return tuple(a[idx] for a in plan)
 
     def forward(self, x, coords, valid, generator: torch.Generator | None = None,
-                plan=None):
+                plan=None, perms=None, record_perms: list | None = None):
         """`generator` draws the dropout masks (no generator: no dropout).
-        `plan` overrides the step's bucket plan (src, inv, scoords) of
-        `total_rounds` rounds, as built by `build_plan`."""
+        Static plan: `plan` overrides the step's bucket plan (src, inv,
+        scoords) of `total_rounds` rounds, as built by `build_plan`. Dynamic
+        keys: `perms` overrides each layer's (q_src, k_src) permutations, and
+        `record_perms` (a list) receives them, one pair per layer."""
         cfg = self.cfg
         if x.shape[0] % cfg.block_size:
             raise ValueError("N must be a multiple of block_size")
         x, coords, codes, invalid = prepare_event(x, coords, valid, self.regions,
                                                   cfg.block_size)
         h = self.feat_enc_1(torch.relu(self.feat_enc_0(x)))
-        if plan is None:
+        if cfg.static_keys and plan is None:
             plan = self.build_plan(h, coords, codes, invalid)
         layers = [h]
         for i, block in enumerate(self.blocks):
-            h = block(h, coords, invalid, self.layer_plan(plan, i), generator)
+            h = block(h, coords, codes, invalid,
+                      self.layer_plan(plan, i) if cfg.static_keys else None, generator,
+                      perms=None if perms is None else perms[i], record_perms=record_perms)
             layers.append(h)
         out = self.W(torch.cat(layers, dim=-1))
         return out + dropout(self.mlp_out(out), cfg.dropout, generator)

@@ -1,26 +1,32 @@
-"""HEPT bucket attention on the `hept_acc` path (port of the main-path parts
-of `hept_tpu/ops/bucket_attn.py`).
+"""HEPT bucket attention (port of the ported profiles' parts of
+`hept_tpu/ops/bucket_attn.py`).
 
 Per bucket of `block_size` sorted points the core computes the unnormalised
 RBF kernel exp(min(q.k - |q|^2/2 - |k|^2/2, 0)), its row sums (denominator)
 and the value sums (numerator), then OR-combines the rounds as
-sum num / sum denom. The port covers the static-plan path: keys are hashed
-once per step (`static_hash`), one sort builds every round's permutation
-(`static_bucket_plan`), and each layer gathers its x columns by the plan,
-projects them after the gather, runs the bucket kernel
-(`bucket_attn_cuda`, K1/K2) and unsorts [num|denom] with a row gather.
+sum num / sum denom. Two paths:
+- the static plan (hept_acc, hept_fast, hept_turbo): keys are hashed once
+  per step (`static_hash`), one sort builds every round's permutation
+  (`static_bucket_plan`), and each layer gathers its x columns by the plan,
+  projects them after the gather, runs the bucket kernel and unsorts
+  [num|denom] with a row gather (`hept_attention_core_xcols`);
+- dynamic keys (the reference-parity `hept` profile): each layer hashes its
+  own projected q and k per head, sorts them by their own keys and unsorts
+  by the q permutation (`hept_attention_core_cols`).
+The bucket kernel is chosen by `attn_impl` (`bucket_attn_cuda`).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..core.buckets import permute_gather, permute_gather_rows
+from ..core.buckets import permute_gather, permute_gather_rows, sort_carry, unsort_carry
+from ..core.hashing import lsh_mapping
 from .bucket_attn_cuda import DENOM_EPS, bucket_rbf_attention_cols
 
 __all__ = [
     "DENOM_EPS", "stable_ratio", "bucket_rbf_attention_cols", "static_hash",
-    "static_bucket_plan", "hept_attention_core_xcols",
+    "static_bucket_plan", "hept_attention_core_xcols", "hept_attention_core_cols",
 ]
 
 # sort key of rows forced into trailing buckets
@@ -133,6 +139,7 @@ def hept_attention_core_xcols(
     plan,
     *,
     block_size: int,
+    impl: str = "slab2",
     sort_pack: bool = False,
     unsort_pack: bool = False,
     kernel_bf16: bool = False,
@@ -149,6 +156,7 @@ def hept_attention_core_xcols(
       sqrt_w: (h, cd) RPE column scales.
       invalid: optional (n,) bool rows (zeroed).
       plan: (src, inv, scoords) from `static_bucket_plan`, c rounds.
+      impl: the bucket kernels' `attn_impl` mode (`bucket_rbf_attention_cols`).
       sort_pack: gather x through bf16 and project in bf16.
       unsort_pack: move the [num|denom] rows through bf16 in the unsort.
       kernel_bf16: feed the bucket kernels bf16 operands.
@@ -190,7 +198,7 @@ def hept_attention_core_xcols(
     sv = project(wv).reshape(c * h, dv, n)
 
     denom, so = bucket_rbf_attention_cols(sq.contiguous(), sk.contiguous(),
-                                          sv.contiguous(), block_size)
+                                          sv.contiguous(), block_size, impl)
 
     # row-major unsort: one transpose makes every head's [num|denom] a
     # contiguous (h*(dv+1))-feature row, then natural position j takes round
@@ -201,3 +209,75 @@ def hept_attention_core_xcols(
     combined = rows.sum(dim=0).reshape(n, h, dv + 1)
     out = stable_ratio(combined[..., :dv], combined[..., dv:])
     return out.reshape(n, h * dv)
+
+
+def hept_attention_core_cols(
+    q_hat: torch.Tensor,
+    k_hat: torch.Tensor,
+    v: torch.Tensor,
+    alpha: torch.Tensor,
+    codes: torch.Tensor,
+    invalid: torch.Tensor | None,
+    *,
+    block_size: int,
+    impl: str = "pallas",
+    unsort_pack: bool = False,
+    perms=None,
+    record_perms: list | None = None,
+) -> torch.Tensor:
+    """Dynamic-key HEPT attention, one event (the reference-parity path).
+
+    Per (round, head): hash q and k (`lsh_mapping`, span over both), key =
+    hash + code * span, invalid rows to +BIG; q sorted by its keys, k and v
+    by theirs (`sort_carry`); the bucket kernel; [num|denom] unsorted by the
+    q permutation (`unsort_carry`, a row gather), summed over rounds and
+    divided (`stable_ratio`).
+
+    Args:
+      q_hat, k_hat: (h, d_hash, n) RPE-folded queries / keys as columns.
+      v: (h, dv, n) values as columns.
+      alpha: (h, d_hash, c) frozen E2LSH directions.
+      codes: (c, h, n) integer AND codes.
+      invalid: optional (n,) bool rows sorted into trailing buckets.
+      impl: the bucket kernels' `attn_impl` mode (`bucket_rbf_attention_cols`).
+      unsort_pack: move the [num|denom] rows through bf16 in the unsort.
+      perms: optional (q_src, k_src), each (c, h, n) int64, applied instead
+        of sorting by the keys (to hold two runs on the same permutations).
+      record_perms: optional list; (q_src, k_src) is appended to it.
+    Returns: (n, h * dv) attention output rows.
+
+    The hash span is taken before invalid rows are pushed to +BIG. Stable
+    sorts: rows with equal keys (replication pads and their sources, keys
+    quantised to one float) keep their order; JAX's unstable sort may not.
+    """
+    h, d, n = q_hat.shape
+    dv = v.shape[1]
+    q_key = k_key = q_src = k_src = None
+    if perms is None:
+        q_hashed, k_hashed, hash_shift = lsh_mapping(alpha, q_hat.transpose(1, 2),
+                                                     k_hat.transpose(1, 2))
+        shift = codes.to(torch.float32) * hash_shift
+        q_key, k_key = q_hashed + shift, k_hashed + shift
+        if invalid is not None:
+            q_key = torch.where(invalid, _BIG_KEY, q_key)
+            k_key = torch.where(invalid, _BIG_KEY, k_key)
+    else:
+        q_src, k_src = perms
+    sq, q_src = sort_carry(q_key, q_hat, src=q_src)  # (c, h, d, n)
+    # k and v go through two gathers on one permutation, not one gather of
+    # [k_hat | v]: the kernels take contiguous sk and sv, and splitting a
+    # joint payload costs two copies forward and a zero-fill and two adds
+    # backward, more than the second gather saves (+4.3 ms of a 50 ms parity
+    # step on an H100, utils/profiling.py)
+    sk, k_src = sort_carry(k_key, k_hat, src=k_src)
+    sv, _ = sort_carry(None, v, src=k_src)
+    if record_perms is not None:
+        record_perms.append((q_src, k_src))
+    c = q_src.shape[0]
+    denom, so = bucket_rbf_attention_cols(sq.reshape(c * h, d, n), sk.reshape(c * h, d, n),
+                                          sv.reshape(c * h, dv, n), block_size, impl)
+    rows = torch.cat([so, denom], dim=1).reshape(c, h, dv + 1, n).transpose(2, 3)
+    rows = unsort_carry(q_src, rows.contiguous(), pack=unsort_pack)  # (c, h, n, dv + 1)
+    combined = rows.sum(dim=0)  # (h, n, dv + 1)
+    out = stable_ratio(combined[..., :dv], combined[..., dv:])
+    return out.permute(1, 0, 2).reshape(n, h * dv)

@@ -1,17 +1,22 @@
-"""Per-bucket RBF attention: CUDA kernels K1 (forward) and K2 (backward)
-with their plain PyTorch versions (`csrc/bucket_attn.cu`).
+"""Per-bucket RBF attention: CUDA kernels K1/K2 (flat-slab replacements) and
+K6/K7 (per-bucket column kernels for small buckets), their plain PyTorch
+versions, and the `attn_impl` dispatch (`csrc/bucket_attn.cu`).
 
 Replaces `hept_tpu/ops/bucket_attn_pallas.py`'s flat-slab kernels
-(`_fwd_slab128_kernel`, `_bwd_slab128_kernel`). Layout (r, d, n) columns with
-n = nb * block_size sorted points. bf16 inputs run the mixed-precision
-contract of the JAX kernels: products of bf16 values summed in f32, exact f32
-norms, pt rounded to bf16 for the value product, g_so rounded to bf16 in the
-backward, gradients cast to the input dtype.
+(`_fwd_slab128_kernel`, `_bwd_slab128_kernel`: K1/K2) and column kernels
+(`_fwd_cols_kernel` / `_fwd_cols_kernel_loop`: K6; `_bwd_cols_kernel`,
+`_bwd_cols_kernel_v2` / `_bwd_v2_bucket` / `_bwd_cols_kernel_v2_loop`: K7).
+Layout (r, d, n) columns with n = nb * block_size sorted points. bf16 inputs
+run the mixed-precision contract of the JAX kernels: products of bf16 values
+summed in f32, exact f32 norms, pt rounded to bf16 for the value product,
+g_so rounded to bf16 in the backward, gradients cast to the input dtype.
 
-The plain forward is `bucket_rbf_attention_cols_xla`'s einsum math; the plain
-backward is the explicit formula of `_bwd_slab128_kernel`, per bucket, with
+The plain forward is `bucket_rbf_attention_cols_xla`'s einsum math (K6 in
+`pallas` mode on bf16 adds the bias terms as hi/lo bf16 pairs instead); the
+plain backward is the explicit formula of `_bwd_v2_bucket` per bucket, with
 the same hi/lo bf16 split of the dl cotangent and the row/column sums taken
-from the same split operands.
+from the same split operands (bf16), or plain f32 (K7 v1, which upcasts bf16
+residuals as `_bwd_cols_impl` does).
 """
 
 from __future__ import annotations
@@ -26,16 +31,27 @@ from .dispatch import use_kernel
 DENOM_EPS = 1e-20
 # (d, dv) pairs compiled into csrc/bucket_attn.cu (HEPT_DIMS there)
 SUPPORTED_DIMS = ((30, 24), (7, 5))
+# attn_impl modes with ported kernels (`cols_routes`); the JAX package's
+# "xla", "slab" and "hybrid_slab" need K8/K9 (ROADMAP.md queue 2)
+ATTN_IMPLS = ("slab2", "hybrid", "hybrid2", "hybrid2l", "pallas", "loop2")
 # launches of each kernel since the last reset (plain integer counters)
-LAUNCHES = {"bucket_attn_fwd": 0, "bucket_attn_bwd": 0}
+LAUNCHES = {"bucket_attn_fwd": 0, "bucket_attn_bwd": 0, "cols_fwd": 0, "cols_bwd": 0}
 
 
 def _bf16_round(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
 
 
-def bucket_attn_fwd_plain(sq, sk, sv, block_size: int):
-    """Plain K1: returns (denom (r, 1, n), so (r, dv, n)) float32."""
+def _bias(x_sq: torch.Tensor, hilo: bool) -> torch.Tensor:
+    """A -|x|^2/2 bias as K6's `pallas` bf16 mode carries it: hi + lo, two
+    bf16 rows (`_split_rows`); exact f32 otherwise."""
+    if not hilo:
+        return x_sq
+    hi = _bf16_round(x_sq)
+    return hi + _bf16_round(x_sq - hi)
+
+
+def _fwd_plain(sq, sk, sv, block_size: int, hilo: bool = False):
     r, d, n = sq.shape
     dv = sv.shape[1]
     nb = n // block_size
@@ -44,8 +60,9 @@ def bucket_attn_fwd_plain(sq, sk, sv, block_size: int):
     k = sk.to(torch.float32).reshape(r, d, nb, block_size)
     v = sv.to(torch.float32).reshape(r, dv, nb, block_size)
     logits = torch.einsum("rdgi,rdgj->rgij", q, k)
-    q_sq = -0.5 * torch.sum(q * q, dim=1)  # (r, nb, B)
-    k_sq = -0.5 * torch.sum(k * k, dim=1)
+    hilo = hilo and bf16
+    q_sq = _bias(-0.5 * torch.sum(q * q, dim=1), hilo)  # (r, nb, B)
+    k_sq = _bias(-0.5 * torch.sum(k * k, dim=1), hilo)
     logits = logits + q_sq[..., :, None] + k_sq[..., None, :]
     p = torch.exp(torch.clamp(logits, max=0.0))
     denom = torch.sum(p, dim=-1) + DENOM_EPS
@@ -53,8 +70,20 @@ def bucket_attn_fwd_plain(sq, sk, sv, block_size: int):
     return denom.reshape(r, 1, n), so.reshape(r, dv, n)
 
 
+def bucket_attn_fwd_plain(sq, sk, sv, block_size: int):
+    """Plain K1: returns (denom (r, 1, n), so (r, dv, n)) float32."""
+    return _fwd_plain(sq, sk, sv, block_size)
+
+
+def cols_fwd_plain(sq, sk, sv, block_size: int, hilo: bool = False):
+    """Plain K6: K1's math, or with `hilo` (bf16 inputs, `pallas` mode)
+    logit = sum q.k + (q_hi + q_lo) + (k_hi + k_lo), the bias terms carried
+    as hi/lo bf16 pairs (`_fwd_cols_kernel`). Returns (denom, so) float32."""
+    return _fwd_plain(sq, sk, sv, block_size, hilo)
+
+
 def bucket_attn_bwd_plain(sq, sk, sv, g_denom, g_so, block_size: int):
-    """Plain K2: returns (dq, dk, dv) in the input dtypes."""
+    """Plain K2 (and K7 v2 on bf16): returns (dq, dk, dv) in the input dtypes."""
     r, d, n = sq.shape
     dv = sv.shape[1]
     nb = n // block_size
@@ -88,6 +117,17 @@ def bucket_attn_bwd_plain(sq, sk, sv, g_denom, g_so, block_size: int):
     dv_out = torch.einsum("rdgi,rgji->rdgj", g, _bf16_round(pt) if bf16 else pt)
     return (dq.reshape(r, d, n).to(sq.dtype), dk.reshape(r, d, n).to(sk.dtype),
             dv_out.reshape(r, dv, n).to(sv.dtype))
+
+
+def cols_bwd_plain(sq, sk, sv, g_denom, g_so, block_size: int, v2: bool):
+    """Plain K7: v2 on bf16 inputs is K2's bf16 math (`_bwd_v2_bucket`);
+    otherwise v1, the f32 math on residuals upcast to f32, with the
+    gradients cast back to the input dtypes (`_bwd_cols_impl`)."""
+    if v2 and sq.dtype == torch.bfloat16:
+        return bucket_attn_bwd_plain(sq, sk, sv, g_denom, g_so, block_size)
+    grads = bucket_attn_bwd_plain(sq.float(), sk.float(), sv.float(), g_denom, g_so.float(),
+                                  block_size)
+    return tuple(g.to(t.dtype) for g, t in zip(grads, (sq, sk, sv)))
 
 
 def _check_inputs(sq, sk, sv, block_size):
@@ -147,6 +187,47 @@ def bucket_attn_bwd_cuda(sq, sk, sv, g_denom, g_so, block_size: int):
     return dq, dk, dv_out
 
 
+def cols_fwd_cuda(sq, sk, sv, block_size: int, hilo: bool = False):
+    """K6 on the card: (denom (r, 1, n), so (r, dv, n)) float32."""
+    r, d, dv, n = _check_inputs(sq, sk, sv, block_size)
+    denom = torch.empty((r, 1, n), dtype=torch.float32, device=sq.device)
+    so = torch.empty((r, dv, n), dtype=torch.float32, device=sq.device)
+    lib = cuda_lib.load("bucket_attn")
+    fn = lib.hept_cols_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    bf16 = sq.dtype == torch.bfloat16
+    err = fn(sq.data_ptr(), sk.data_ptr(), sv.data_ptr(), denom.data_ptr(), so.data_ptr(),
+             r, d, dv, n, block_size, int(bf16), int(hilo and bf16),
+             cuda_lib.stream_ptr(sq.device))
+    cuda_lib.check(err, lib, "hept_bucket_attn_error_string", "cols_fwd")
+    LAUNCHES["cols_fwd"] += 1
+    return denom, so
+
+
+def cols_bwd_cuda(sq, sk, sv, g_denom, g_so, block_size: int, v2: bool):
+    """K7 on the card: (dq, dk, dv) in the input dtypes. v2 runs on bf16
+    inputs only; v1 runs the f32 kernel, on upcast copies of bf16 inputs."""
+    r, d, dv, n = _check_inputs(sq, sk, sv, block_size)
+    for t, shp in ((g_denom, (r, 1, n)), (g_so, (r, dv, n))):
+        if t.shape != shp or t.dtype != torch.float32 or t.device != sq.device \
+                or not t.is_contiguous():
+            raise ValueError(f"cotangent {tuple(t.shape)} {t.dtype}: need contiguous f32 {shp}")
+    v2 = v2 and sq.dtype == torch.bfloat16
+    ins = (sq, sk, sv) if v2 else tuple(t.float() for t in (sq, sk, sv))
+    outs = tuple(torch.empty_like(t) for t in ins)
+    lib = cuda_lib.load("bucket_attn")
+    fn = lib.hept_cols_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    err = fn(*(t.data_ptr() for t in ins), g_so.data_ptr(), g_denom.data_ptr(),
+             *(t.data_ptr() for t in outs), r, d, dv, n, block_size, int(v2),
+             cuda_lib.stream_ptr(sq.device))
+    cuda_lib.check(err, lib, "hept_bucket_attn_error_string", "cols_bwd")
+    LAUNCHES["cols_bwd"] += 1
+    return tuple(o.to(t.dtype) for o, t in zip(outs, (sq, sk, sv)))
+
+
 def bucket_attn_fwd(sq, sk, sv, block_size: int):
     if use_kernel(sq):
         return bucket_attn_fwd_cuda(sq, sk, sv, block_size)
@@ -160,26 +241,84 @@ def bucket_attn_bwd(sq, sk, sv, g_denom, g_so, block_size: int):
     return bucket_attn_bwd_plain(sq, sk, sv, g_denom, g_so, block_size)
 
 
+def cols_fwd(sq, sk, sv, block_size: int, hilo: bool = False):
+    if use_kernel(sq):
+        return cols_fwd_cuda(sq, sk, sv, block_size, hilo)
+    return cols_fwd_plain(sq, sk, sv, block_size, hilo)
+
+
+def cols_bwd(sq, sk, sv, g_denom, g_so, block_size: int, v2: bool):
+    if use_kernel(sq):
+        return cols_bwd_cuda(sq, sk, sv, g_denom.contiguous(), g_so.contiguous(), block_size,
+                             v2)
+    return cols_bwd_plain(sq, sk, sv, g_denom, g_so, block_size, v2)
+
+
+def _slab128_g(nb: int, bs: int, cap_bytes: int = 6 << 20) -> int:
+    """Buckets per flat slab of the JAX package's slab2 kernels
+    (`bucket_attn_pallas.py:_slab128_g`): the largest g with nb % g == 0,
+    (g * bs) % 128 == 0 and (g * bs)^2 f32 temporaries within the cap; 0 if
+    none. slab2 takes K1/K2 where g >= 2, as JAX takes its slab kernels."""
+    best = 0
+    for g in range(1, nb + 1):
+        if nb % g == 0 and (g * bs) % 128 == 0 and (g * bs) ** 2 * 4 <= cap_bytes:
+            best = g
+    return best
+
+
+def cols_routes(mode: str, n: int, block_size: int, dtype: torch.dtype) -> tuple[str, str]:
+    """The (forward, backward) kernels an `attn_impl` mode runs, decided per
+    call as `_make_cols_pallas` does:
+
+        slab2, g >= 2                        K1          K2
+        slab2 otherwise, hybrid2, hybrid2l   K6          K7 v2
+        hybrid                               K6          K7 v1
+        pallas                               K6 (hilo)   K7 v1
+        loop2                                K6          K7 v2
+
+    K6 adds exact f32 bias terms (the einsum / loop contract) except in
+    `pallas` mode on bf16 ("K6 hilo"); K7 v2 runs on bf16 only (v1 for f32).
+    """
+    if mode not in ATTN_IMPLS:
+        raise NotImplementedError(
+            f"attn_impl {mode!r} runs TPU kernels not ported yet (K8/K9 for slab / "
+            f"hybrid_slab; ROADMAP.md queue 2); ported modes: {ATTN_IMPLS}")
+    bf16 = dtype == torch.bfloat16
+    if mode == "slab2" and _slab128_g(n // block_size, block_size) >= 2:
+        return "K1", "K2"
+    fwd = "K6 hilo" if mode == "pallas" and bf16 else "K6"
+    v2 = bf16 and mode in ("slab2", "hybrid2", "hybrid2l", "loop2")
+    return fwd, "K7 v2" if v2 else "K7 v1"
+
+
 class _BucketRBFAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, sq, sk, sv, block_size):
+    def forward(ctx, sq, sk, sv, block_size, mode):
+        fwd, ctx.bwd = cols_routes(mode, sq.shape[-1], block_size, sq.dtype)
         ctx.save_for_backward(sq, sk, sv)
         ctx.block_size = block_size
-        return bucket_attn_fwd(sq, sk, sv, block_size)
+        if fwd == "K1":
+            return bucket_attn_fwd(sq, sk, sv, block_size)
+        return cols_fwd(sq, sk, sv, block_size, hilo=fwd == "K6 hilo")
 
     @staticmethod
     def backward(ctx, g_denom, g_so):
         sq, sk, sv = ctx.saved_tensors
-        dq, dk, dv = bucket_attn_bwd(sq, sk, sv, g_denom.to(torch.float32),
-                                     g_so.to(torch.float32), ctx.block_size)
-        return dq, dk, dv, None
+        g_denom, g_so = g_denom.to(torch.float32), g_so.to(torch.float32)
+        if ctx.bwd == "K2":
+            dq, dk, dv = bucket_attn_bwd(sq, sk, sv, g_denom, g_so, ctx.block_size)
+        else:
+            dq, dk, dv = cols_bwd(sq, sk, sv, g_denom, g_so, ctx.block_size,
+                                  v2=ctx.bwd == "K7 v2")
+        return dq, dk, dv, None, None
 
 
 def bucket_rbf_attention_cols(sq: torch.Tensor, sk: torch.Tensor, sv: torch.Tensor,
-                              block_size: int):
-    """Column-major per-bucket RBF attention with the K2 backward.
+                              block_size: int, mode: str = "slab2"):
+    """Column-major per-bucket RBF attention; `mode` (attn_impl) picks the
+    forward and backward kernels (`cols_routes`).
 
     Args: sq, sk (r, d, n); sv (r, dv, n), all bf16 or all f32.
     Returns: (denom (r, 1, n), so (r, dv, n)) float32.
     """
-    return _BucketRBFAttention.apply(sq, sk, sv, block_size)
+    return _BucketRBFAttention.apply(sq, sk, sv, block_size, mode)

@@ -12,14 +12,6 @@ from ..models.transformer import TransformerConfig
 
 CONFIG_DIR = Path(__file__).resolve().parent.parent / "configs" / "tracking"
 
-# the hept_acc profile's model block (configs/tracking/tracking_trans_hept_acc.yaml)
-HEPT_ACC_MODEL = dict(
-    block_size=512, n_hashes=2, num_regions=150, num_heads=8, h_dim=24, n_layers=4,
-    num_w_per_dist=10, sort_pack=True, sort_ops=8, qkv_post_sort=True, unsort_pack=True,
-    shared_sort=True, share_heads=True, kernel_bf16=True, kernel_center=True,
-    static_keys="x0", static_rounds=8, unsort_rows=True, scan_layers=True,
-)
-
 
 @dataclasses.dataclass
 class ExperimentConfig:
@@ -71,18 +63,6 @@ class ExperimentConfig:
                                  attn_impl=self.attn_impl, padding_mode=self.padding_mode, **kw)
 
 
-def hept_acc_config(**overrides) -> ExperimentConfig:
-    """The hept_acc profile as a dataclass (the YAML's values, no PyYAML)."""
-    cfg = ExperimentConfig(
-        seed=42, note="k60_rad256_hept_acc", model_kwargs=dict(HEPT_ACC_MODEL),
-        loss_kwargs=dict(dist_metric="l2_rbf", tau=0.05), num_epochs=2000,
-        optimizer_kwargs=dict(lr=1.0e-2), lr_scheduler_name="step",
-        lr_scheduler_kwargs=dict(gamma=0.5, step_size=500),
-        dataset_name="synthetic-tracking-6k",
-    )
-    return dataclasses.replace(cfg, **overrides)
-
-
 def load_config(path: str | Path, **overrides) -> ExperimentConfig:
     """Load a YAML config (reference key surface) into ExperimentConfig."""
     import yaml
@@ -94,3 +74,9 @@ def load_config(path: str | Path, **overrides) -> ExperimentConfig:
     if unknown:
         raise ValueError(f"unknown config keys: {sorted(unknown)}")
     return ExperimentConfig(**raw)
+
+
+def profile_config(profile: str, **overrides) -> ExperimentConfig:
+    """The shipped profile `configs/tracking/tracking_trans_<profile>.yaml`
+    (hept, hept_acc, hept_fast, hept_turbo) with `overrides`."""
+    return load_config(CONFIG_DIR / f"tracking_trans_{profile}.yaml", **overrides)

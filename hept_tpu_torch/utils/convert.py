@@ -1,12 +1,14 @@
 """Carry weights across from the JAX package.
 
 `from_jax_variables` turns the flax `{"params", "constants"}` tree of a
-`hept_tpu` HeptTransformer (static-plan path) into a state dict for
+`hept_tpu` HeptTransformer (static-plan or dynamic-key path; scan or loop
+layer layout) into a state dict for
 `hept_tpu_torch.models.transformer.HeptTransformer`. It takes any nested
 mapping of arrays (numpy, or anything `np.asarray` reads) and imports no
-JAX. The frozen constants (`regions`, `static_alpha`, each layer's
-`e2lsh_alpha`) are copied, not redrawn: `jax.random` cannot be reproduced in
-torch.
+JAX. The frozen constants (`regions`, `static_alpha` where the model has a
+static plan, each layer's `e2lsh_alpha`: (1, ...) on the static plan,
+(h, d + cd, n_hashes) with dynamic keys) are copied, not redrawn:
+`jax.random` cannot be reproduced in torch.
 """
 
 from __future__ import annotations
@@ -79,5 +81,6 @@ def from_jax_variables(variables) -> dict[str, torch.Tensor]:
         lin(f"{p}.ff.fc2", blk["ff"]["TorchLinear_1"])
         sd[f"{p}.attn.e2lsh_alpha"] = _t(const_layers[i]["attn"]["e2lsh_alpha"])
     sd["regions"] = _t(consts["regions"])
-    sd["static_alpha"] = _t(consts["static_alpha"])
+    if "static_alpha" in consts:
+        sd["static_alpha"] = _t(consts["static_alpha"])
     return sd

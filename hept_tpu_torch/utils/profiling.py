@@ -1,10 +1,10 @@
-"""Where a full-width `hept_acc` training step spends its time on the GPU.
+"""Where a full-width training step spends its time on the GPU.
 
-    python -m hept_tpu_torch.utils.profiling [--points 60000] [--steps 3]
-        [--out torch_step_profile]
+    python -m hept_tpu_torch.utils.profiling [--profile hept_acc] [--points 60000]
+        [--steps 3] [--out torch_step_profile]
 
 Builds the step chip_smoke.py drives (one synthetic event, 16 pairs per
-point, the hept_acc model at full width, dropout on), warms up two steps,
+point, the profile's model at full width, dropout on), warms up two steps,
 times `--steps` steps without the profiler, then records `--steps` steps
 with torch.profiler. Prints the step's wall time (both ways), the device's
 busy and idle shares (kernel time over the profiled wall time), the
@@ -26,20 +26,22 @@ import torch
 
 from ..data.batching import pack_events, slab_friendly_n
 from ..data.synthetic import synthetic_tracking_event
-from ..train.config import hept_acc_config
+from ..train.config import profile_config
 from ..train.trainer import batch_to_device, build_model, make_loss_fn, train_step
 from ..train.optim import make_optimizer
 from .device import resolve_device
 
 # kernels of csrc/*.cu (all in an anonymous namespace) as the profiler names them
 PORT_KERNELS = {"fwd_kernel": "K1", "bwd_kernel": "K2", "gather_kernel": "K3",
-                "segment_sum_kernel": "K4", "row_gather_kernel": "K5"}
-_PORT_KERNEL_RE = re.compile(r"anonymous namespace\)::(fwd_kernel|bwd_kernel|gather_kernel|"
-                             r"segment_sum_kernel|row_gather_kernel)\b")
+                "segment_sum_kernel": "K4", "row_gather_kernel": "K5", "cols_fwd_kernel": "K6",
+                "cols_bwd_kernel": "K7"}
+_PORT_KERNEL_RE = re.compile(r"anonymous namespace\)::(" + "|".join(PORT_KERNELS) + r")\b")
 
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--profile", default="hept_acc",
+                    choices=("hept", "hept_acc", "hept_fast", "hept_turbo"))
     ap.add_argument("--points", type=int, default=60000)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
@@ -47,7 +49,7 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     device = resolve_device("cuda")
 
-    cfg = hept_acc_config(device="cuda")
+    cfg = profile_config(args.profile, device="cuda")
     bs = cfg.model_kwargs["block_size"]
     ev = synthetic_tracking_event(np.random.default_rng(args.seed), n_points=args.points,
                                   pairs_per_point=16)
@@ -61,10 +63,12 @@ def main(argv=None) -> dict:
     for _ in range(2):
         train_step(model, opt, loss_fn, batch, gen)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for _ in range(args.steps):
         train_step(model, opt, loss_fn, batch, gen)
     torch.cuda.synchronize()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
     plain_wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -90,7 +94,9 @@ def main(argv=None) -> dict:
             ours[kid] = ours.get(kid, 0.0) + us / 1e3 / args.steps
     top = sorted(kernel_us.items(), key=lambda kv: -kv[1])[:25]
     summary = {
+        "profile": args.profile,
         "device": torch.cuda.get_device_name(0),
+        "peak_memory_gib": peak_gib,
         "step_wall_ms_unprofiled": plain_wall_ms,
         "step_wall_ms": wall_ms,
         "device_busy_ms": busy_ms,

@@ -1,4 +1,4 @@
-"""K1-K5 CUDA kernels against their plain versions, on the card.
+"""K1-K7 CUDA kernels against their plain versions, on the card.
 
 Marked `cuda`: each test skips (inside the fixture, never at import) when no
 CUDA device is present, which is the case on CPU-only hosts. On a GPU
@@ -55,6 +55,64 @@ def test_k1_k2_match_plain(dev, dtype):
         assert a.dtype == dtype
         torch.testing.assert_close(a.float(), b.float(), rtol=tol,
                                    atol=tol * b.float().abs().max().item())
+
+
+@pytest.mark.parametrize("dtype,hilo", [(torch.float32, False), (torch.bfloat16, False),
+                                        (torch.bfloat16, True)])
+@pytest.mark.parametrize("nb,bs", [(6, 100), (7, 100), (5, 64), (3, 300)])
+def test_k6_matches_plain(dev, dtype, hilo, nb, bs):
+    """K6 in its three modes, several buckets per CTA and a ragged last CTA
+    (7 buckets of 100: CTAs of 2), one bucket wider than a CTA (300):
+    f32 1e-5 x scale; bf16 5e-3 x scale (pt rounding flips)."""
+    sq, sk, sv, _, _, _ = _inputs(dev, dtype, d=30, dv=24, nb=nb, bs=bs)
+    before = ba.LAUNCHES["cols_fwd"]
+    den_k, so_k = ba.cols_fwd_cuda(sq, sk, sv, bs, hilo)
+    assert ba.LAUNCHES["cols_fwd"] == before + 1
+    den_p, so_p = ba.cols_fwd_plain(sq, sk, sv, bs, hilo)
+    torch.testing.assert_close(den_k, den_p, rtol=1e-5, atol=1e-5 * den_p.abs().max().item())
+    tol = 1e-5 if dtype == torch.float32 else 5e-3
+    torch.testing.assert_close(so_k, so_p, rtol=tol, atol=tol * so_p.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype,v2", [(torch.float32, False), (torch.bfloat16, False),
+                                      (torch.bfloat16, True)])
+@pytest.mark.parametrize("nb,bs", [(6, 100), (7, 100), (3, 300)])
+def test_k7_matches_plain(dev, dtype, v2, nb, bs):
+    """K7 v1 (f32, and bf16 upcast) and v2 (bf16): f32 1e-5 x scale, bf16
+    outputs 1e-2 x scale (one bf16 ulp)."""
+    sq, sk, sv, gden, gso, _ = _inputs(dev, dtype, d=30, dv=24, nb=nb, bs=bs)
+    before = ba.LAUNCHES["cols_bwd"]
+    got = ba.cols_bwd_cuda(sq, sk, sv, gden, gso, bs, v2)
+    assert ba.LAUNCHES["cols_bwd"] == before + 1
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for a, b in zip(got, ba.cols_bwd_plain(sq, sk, sv, gden, gso, bs, v2)):
+        assert a.dtype == dtype
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol,
+                                   atol=tol * b.float().abs().max().item())
+
+
+@pytest.mark.parametrize("mode,dtype,want", [
+    ("pallas", torch.float32, ("cols_fwd", "cols_bwd")),
+    ("pallas", torch.bfloat16, ("cols_fwd", "cols_bwd")),
+    ("hybrid2", torch.bfloat16, ("cols_fwd", "cols_bwd")),
+    ("slab2", torch.bfloat16, ("cols_fwd", "cols_bwd")),  # bs 100: no flat slab
+])
+def test_modes_route_through_k6_k7(dev, mode, dtype, want):
+    sq, sk, sv, _, _, bs = _inputs(dev, dtype, d=30, dv=24, nb=6, bs=100, seed=2)
+    ins = [t.clone().requires_grad_(True) for t in (sq, sk, sv)]
+    before = dict(ba.LAUNCHES)
+    den, so = bucket_rbf_attention_cols(*ins, bs, mode)
+    (so / den).sum().backward()
+    after = {k: v - before[k] for k, v in ba.LAUNCHES.items()}
+    assert after == {"bucket_attn_fwd": 0, "bucket_attn_bwd": 0, want[0]: 1, want[1]: 1}
+    with plain_reference():
+        refs = [t.clone().requires_grad_(True) for t in (sq, sk, sv)]
+        den2, so2 = bucket_rbf_attention_cols(*refs, bs, mode)
+        (so2 / den2).sum().backward()
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for a, b in zip(ins, refs):
+        torch.testing.assert_close(a.grad.float(), b.grad.float(), rtol=tol,
+                                   atol=tol * b.grad.float().abs().max().item())
 
 
 def test_autograd_routes_through_kernels(dev):

@@ -49,8 +49,8 @@ def _event():
     return batch["x"][0], batch["coords"][0], batch["valid"][0]
 
 
-def _jax_model(modes, scan_layers=True):
-    cfg = JaxConfig(in_dim=10, coords_dim=6, attn_impl="slab2", scan_layers=scan_layers,
+def _jax_model(modes, scan_layers=True, attn_impl="slab2"):
+    cfg = JaxConfig(in_dim=10, coords_dim=6, attn_impl=attn_impl, scan_layers=scan_layers,
                     sort_ops=8, **SMALL, **modes)
     return JaxHept(cfg), cfg
 
@@ -71,8 +71,8 @@ def _jax_plan(variables, cfg, x, coords, valid):
     return plan, dict(hashed=hashed, codes0=codes0, invalid=invalid, coords=cp, h=h)
 
 
-def _port(variables, modes):
-    cfg = TransformerConfig(in_dim=10, coords_dim=6, **SMALL, **modes)
+def _port(variables, modes, attn_impl="slab2"):
+    cfg = TransformerConfig(in_dim=10, coords_dim=6, attn_impl=attn_impl, **SMALL, **modes)
     model = HeptTransformer(cfg, torch.Generator().manual_seed(0))
     model.load_state_dict(from_jax_variables(variables))
     return model
@@ -82,26 +82,36 @@ def _t(a, dtype=None):
     return torch.as_tensor(np.array(a), dtype=dtype)
 
 
-def _tpu_kernels(monkeypatch):
-    """Route the JAX model's bucket attention through the TPU's own slab2
-    Pallas kernels (K1/K2, interpret mode), as on the TPU; on the CPU the
-    model otherwise takes the einsum path, whose autodiff rounds the bf16
-    gradient pieces separately (the broken contract K2 fixes)."""
+def _tpu_kernels(monkeypatch, mode="slab2"):
+    """Route the JAX model's bucket attention through the TPU's own Pallas
+    kernels of attn_impl `mode` (slab2: K1/K2; hybrid2: einsum forward and
+    K7 v2; interpret mode), as on the TPU; on the CPU the model otherwise
+    takes the einsum path, whose autodiff rounds the bf16 gradient pieces
+    separately (the broken contract K2 and K7 v2 fix)."""
     import hept_tpu.ops.bucket_attn as jba
     from hept_tpu.ops.bucket_attn_pallas import bucket_rbf_attention_cols_pallas
 
-    def slab2(sq, sk, sv, block_size, precision=None):
-        return bucket_rbf_attention_cols_pallas(sq, sk, sv, block_size=block_size,
-                                                hybrid="slab2")
+    einsum = jba.bucket_rbf_attention_cols_xla
+    inside = []
+
+    def kernels(sq, sk, sv, block_size, precision=None):
+        if inside:  # the hybrid modes' einsum forward calls back in here
+            return einsum(sq, sk, sv, block_size, precision=precision)
+        inside.append(True)
+        try:
+            return bucket_rbf_attention_cols_pallas(sq, sk, sv, block_size=block_size,
+                                                    hybrid=mode)
+        finally:
+            inside.pop()
 
     jba.hept_attention_core_xcols.clear_cache()
-    monkeypatch.setattr(jba, "bucket_rbf_attention_cols_xla", slab2)
+    monkeypatch.setattr(jba, "bucket_rbf_attention_cols_xla", kernels)
     return pltpu.force_tpu_interpret_mode()
 
 
-def _compare(modes, fwd_tol, grad_tol, ctx=None):
+def _compare(modes, fwd_tol, grad_tol, ctx=None, attn_impl="slab2"):
     x, coords, valid = _event()
-    jmodel, jcfg = _jax_model(modes)
+    jmodel, jcfg = _jax_model(modes, attn_impl=attn_impl)
     w_out = np.random.default_rng(2).normal(size=(x.shape[0], 4)).astype(np.float32)
     w_out *= valid[:, None]
     with ctx or contextlib.nullcontext():
@@ -115,7 +125,7 @@ def _compare(modes, fwd_tol, grad_tol, ctx=None):
 
         (_, jout), jgrads = jax.value_and_grad(jloss, has_aux=True)(variables["params"])
 
-    model = _port(variables, modes)
+    model = _port(variables, modes, attn_impl)
     tplan = tuple(_t(a, torch.int64) for a in plan[:2]) + (_t(plan[2]).float(),)
     out = model(_t(x), _t(coords), _t(valid), plan=tplan)
     loss = torch.sum(out * _t(w_out))
@@ -145,6 +155,22 @@ def test_model_hept_acc_modes_match_jax(monkeypatch):
 
     try:
         _compare(ACC_MODES, 2e-2, 2e-2, ctx=_tpu_kernels(monkeypatch))
+    finally:
+        jba.hept_attention_core_xcols.clear_cache()
+
+
+@pytest.mark.parametrize("n_hashes,static_rounds", [(2, 4), (1, 2)])
+def test_model_hept_fast_modes_match_jax(monkeypatch, n_hashes, static_rounds):
+    """The hept_fast / hept_turbo flags (attn_impl hybrid2: K6's exact-bias
+    bf16 forward and K7 v2), JAX running its einsum forward and K7 v2 in
+    interpret mode: 2e-2 x scale, as hept_acc."""
+    import hept_tpu.ops.bucket_attn as jba
+
+    monkeypatch.setitem(SMALL, "n_hashes", n_hashes)
+    monkeypatch.setitem(SMALL, "static_rounds", static_rounds)
+    try:
+        _compare(ACC_MODES, 2e-2, 2e-2, ctx=_tpu_kernels(monkeypatch, "hybrid2"),
+                 attn_impl="hybrid2")
     finally:
         jba.hept_attention_core_xcols.clear_cache()
 

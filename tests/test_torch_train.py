@@ -33,8 +33,8 @@ from hept_tpu_torch.train import trainer  # noqa: E402
 from hept_tpu_torch.train.config import (  # noqa: E402
     CONFIG_DIR,
     ExperimentConfig,
-    hept_acc_config,
     load_config,
+    profile_config,
 )
 from hept_tpu_torch.utils.convert import from_jax_variables  # noqa: E402
 from hept_tpu_torch.utils.device import resolve_device  # noqa: E402
@@ -92,12 +92,12 @@ def test_train_step_matches_jax_single_device_step():
 
 
 def test_hept_acc_yaml_equals_dataclass():
-    """chip_smoke.py builds the hept_acc config from the dataclass (the card's
-    machine may lack PyYAML): it must equal the YAML, which must equal the
-    JAX package's."""
+    """`profile_config("hept_acc")` is the port's YAML with the overrides
+    applied, and the YAML equals the JAX package's."""
     pytest.importorskip("yaml")
     cfg = load_config(CONFIG_DIR / "tracking_trans_hept_acc.yaml")
-    assert cfg == hept_acc_config()
+    assert cfg == profile_config("hept_acc")
+    assert profile_config("hept_acc", seed=3) == dataclasses.replace(cfg, seed=3)
     jaxyaml = REPO / "hept_tpu" / "configs" / "tracking" / "tracking_trans_hept_acc.yaml"
     from hept_tpu.train.config import load_config as jax_load_config
 
@@ -109,6 +109,63 @@ def test_hept_acc_yaml_equals_dataclass():
     mc.check_supported()
     assert (mc.block_size, mc.n_hashes, mc.n_layers, mc.num_heads, mc.h_dim,
             mc.static_rounds) == (512, 2, 4, 8, 24, 8)
+
+
+@pytest.mark.parametrize("profile,shape", [
+    ("hept", (100, 3, 4, 8, 24, 0)),
+    ("hept_fast", (100, 2, 4, 8, 24, 8)),
+    ("hept_turbo", (100, 1, 4, 8, 24, 4)),
+])
+def test_profile_yaml_equals_jax(profile, shape):
+    """The bs-100 profiles: the port's YAML equals the JAX package's, and the
+    port runs each (the parity profile on the dynamic-key path)."""
+    pytest.importorskip("yaml")
+    from hept_tpu.train.config import load_config as jax_load_config
+
+    cfg = profile_config(profile)
+    jcfg = jax_load_config(REPO / "hept_tpu" / "configs" / "tracking"
+                           / f"tracking_trans_{profile}.yaml")
+    for f in dataclasses.fields(ExperimentConfig):
+        if hasattr(jcfg, f.name) and f.name != "device":
+            assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
+    mc = cfg.model_config(10, 6)
+    mc.check_supported()
+    assert (mc.block_size, mc.n_hashes, mc.n_layers, mc.num_heads, mc.h_dim,
+            mc.static_rounds) == shape
+    assert bool(mc.static_keys) == (profile != "hept")
+
+
+def test_demo_config_takes_the_profile():
+    """The demo's config is the profile's YAML with the demo's lr, seed,
+    epochs and schedule."""
+    pytest.importorskip("yaml")
+    from hept_tpu_torch.scripts.train_60k_demo import VARIANTS, demo_config
+
+    assert {f"tracking_trans_{p}.yaml" for p in VARIANTS} <= {
+        f.name for f in CONFIG_DIR.glob("*.yaml")}
+    for profile in VARIANTS:
+        base = profile_config(profile)
+        cfg = demo_config(profile, 2e-3, 0, 25, "runs/train60k")
+        assert cfg.model_kwargs == base.model_kwargs and cfg.attn_impl == base.attn_impl
+        assert (cfg.num_epochs, cfg.optimizer_kwargs["lr"], cfg.seed) == (25, 2e-3, 0)
+        assert cfg.lr_scheduler_kwargs == {"step_size": 500, "gamma": 0.5}
+
+
+@pytest.mark.parametrize("profile", ["hept", "hept_fast"])
+def test_trainer_cli_runs_profile_on_cpu(monkeypatch, capsys, tmp_path, profile):
+    """`-m hept` (dynamic keys, f32) and `-m hept_fast` (static plan, bf16,
+    hybrid2) at full width on three small events: one epoch with eval and
+    checkpoint; the best test metrics are printed."""
+    pytest.importorskip("yaml")
+    from hept_tpu_torch import tracking_trainer
+
+    monkeypatch.setattr(trainer, "get_dataset",
+                        lambda name, seed: make_synthetic_tracking(3, 300, seed))
+    tracking_trainer.main(["-m", profile, "--epochs", "1", "--device", "cpu",
+                           "--dataset", "synthetic-tracking-300", "--log-dir", str(tmp_path)])
+    best = capsys.readouterr().out.split("best test:")[1]
+    assert "accuracy@0.9=" in best and "nan" not in best
+    assert list(tmp_path.glob("*/ckpt/step_*.pt"))
 
 
 def test_trainer_cli_runs_an_epoch_on_cpu(monkeypatch, capsys, tmp_path):
@@ -136,7 +193,7 @@ def test_entry_points_default_to_cuda():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             resolve_device()
         with pytest.raises(RuntimeError, match="no CUDA device"):
-            trainer.run_one_seed(dataclasses.replace(hept_acc_config(), num_epochs=0))
+            trainer.run_one_seed(profile_config("hept_acc", num_epochs=0))
         from hept_tpu_torch.scripts import train_60k_demo
 
         with pytest.raises(RuntimeError, match="no CUDA device"):
