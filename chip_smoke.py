@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--steps 5] [--points 60000] [--seed 0]
 
 Phases, one line each (plus per-kernel lines):
-  1. build the CUDA kernels from `hept_tpu_torch/csrc` (three sources, one
+  1. build the CUDA kernels from `hept_tpu_torch/csrc` (four sources, one
      nvcc each, in parallel) and print the card's name and power limit;
   2. hold every kernel of the ported paths (K1-K7) against its plain PyTorch
      version at the paths' shapes, with the tolerance printed beside
@@ -39,7 +39,16 @@ Phases, one line each (plus per-kernel lines):
      `evaluate` of the event, counters zeroed just before (K6 4, K5 4, K7
      and K1/K2 none); then its
      first step, dropout off, with kernels and under `plain_reference()`,
-     compared (the parity run on the kernel run's permutations).
+     compared (the parity run on the kernel run's permutations);
+  9. the row-major core `hept_attention_core` (kernel K10) forward and
+     backward at the parity width on the bs-100 event (layer 0's q/k/v of
+     the parity model), launches counted, against `plain_reference()` on the
+     same permutations; then K10 alone on its sorted operands, timed;
+ 10. `attn_impl: slab` and `hybrid_slab` (the TPU's slab kernels K8/K9, run
+     as K6 hi/lo + K7 v1 and K6 + K7 v1): one hept_fast step each, launches
+     counted, kernels against plain versions;
+ 11. K12 (`bitonic_sort_rows`) on 24 rows of 60000 keys with 16 payloads,
+     bit-equal to its plain version, timed against torch.sort.
 Before the last line: one JSON line of per-kernel numbers, and the
 `nvidia-smi` name/power-limit line. The last line is
 {"ok": true, "device": {...}}. Any failed check raises (exit code != 0).
@@ -92,7 +101,7 @@ def bound_ms(nbytes: float, flops: float, flop_rate: float) -> tuple[float, str]
 
 
 def max_err(a, b) -> float:
-    return float((a.float() - b.float()).abs().max())
+    return float((a.detach().float() - b.detach().float()).abs().max())
 
 
 def scale(a) -> float:
@@ -318,8 +327,7 @@ def phase_row_gather(torch, n: int, seed: int) -> dict:
     log(f"  f32 rows: kernel {ms32:.4f} ms, index_select {lib32:.4f} ms, bound {b32:.4f} ms")
     b_ms, b_by = bound_ms(c * n * (2.0 * w * 2 + 8), 0.0, F32_FLOP_PER_S)
     return dict(name="K5 row_gather", route="cuda", source="hept_tpu_torch/csrc/row_gather.cu",
-                replaces="hept_tpu/ops/gather_pallas.py:208 (K5 row_gather_dma) and "
-                         "hept_tpu/ops/gather_pallas.py:124 (K11 row_gather_vreg)",
+                replaces="hept_tpu/ops/gather_pallas.py:208",
                 max_abs_err=max(errs),
                 ms=time_ms(lambda: rg.row_gather_cuda(src16, plan_inv), 50),
                 plain_ms=time_ms(lambda: rg.row_gather_plain(src16, plan_inv), 50),
@@ -403,17 +411,17 @@ def phase_cols_kernels(torch, seed: int) -> dict:
     for hilo in (False, True):
         label = "K6 bf16 " + ("hi/lo bias" if hilo else "exact bias")
         # pt is rounded to bf16 before the value product: a rounding can flip
-        compare(label, ba.cols_fwd_cuda(sq, sk, sv, bs, hilo),
-                ba.cols_fwd_plain(sq, sk, sv, bs, hilo), (1e-4, 5e-3))
-        extra[label] = (time_ms(lambda: ba.cols_fwd_cuda(sq, sk, sv, bs, hilo)),
+        err = compare(label, ba.cols_fwd_cuda(sq, sk, sv, bs, hilo),
+                      ba.cols_fwd_plain(sq, sk, sv, bs, hilo), (1e-4, 5e-3))
+        extra[label] = (err, time_ms(lambda: ba.cols_fwd_cuda(sq, sk, sv, bs, hilo)),
                         time_ms(lambda: ba.cols_fwd_plain(sq, sk, sv, bs, hilo), 3, 1),
                         bounds(r, n, 2, True, BF16_FLOP_PER_S))
     for v2 in (True, False):
         label = "K7 bf16 " + ("v2" if v2 else "v1 (upcast)")
         # bf16 outputs: one rounding of slightly different f32 values
-        compare(label, ba.cols_bwd_cuda(sq, sk, sv, gden, gso, bs, v2),
-                ba.cols_bwd_plain(sq, sk, sv, gden, gso, bs, v2), (1e-2,) * 3)
-        extra[label] = (time_ms(lambda: ba.cols_bwd_cuda(sq, sk, sv, gden, gso, bs, v2)),
+        err = compare(label, ba.cols_bwd_cuda(sq, sk, sv, gden, gso, bs, v2),
+                      ba.cols_bwd_plain(sq, sk, sv, gden, gso, bs, v2), (1e-2,) * 3)
+        extra[label] = (err, time_ms(lambda: ba.cols_bwd_cuda(sq, sk, sv, gden, gso, bs, v2)),
                         time_ms(lambda: ba.cols_bwd_plain(sq, sk, sv, gden, gso, bs, v2), 3, 1),
                         bounds(r, n, 2, False, BF16_FLOP_PER_S if v2 else F32_FLOP_PER_S))
     # the contract: K7 v2 is the gradient of the bf16 forward, held against
@@ -446,9 +454,21 @@ def phase_cols_kernels(torch, seed: int) -> dict:
         log(f"  {row['name']} (parity, f32): kernel {row['ms']:.4f} ms, plain "
             f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
             f"operations at the FP32 peak {F32_FLOP_PER_S / 1e12:.0f} TFLOP/s)")
-    for label, (ms, plain_ms, (b_ms, b_by)) in extra.items():
+    for label, (_, ms, plain_ms, (b_ms, b_by)) in extra.items():
         log(f"  {label} (hept_fast): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
             f"{b_ms:.4f} ms ({b_by}; operations at the bf16 peak, K7 v1's at the FP32 peak)")
+    # the slab kernels K8 / K9 of `attn_impl: slab` run K6 hi/lo and K7 v1
+    # (the TPU's K9 upcasts its bf16 operands): their figures at hept_fast's
+    # shapes, where the slab phase runs them
+    for key, name, label, src_line in (
+            ("K8", "K8 slab_fwd", "K6 bf16 hi/lo bias", "973"),
+            ("K9", "K9 slab_bwd", "K7 bf16 v1 (upcast)", "1023")):
+        err, ms, plain_ms, (b_ms, b_by) = extra[label]
+        rows[key] = dict(name=name, route="cuda", source="hept_tpu_torch/csrc/bucket_attn.cu",
+                         replaces=f"hept_tpu/ops/bucket_attn_pallas.py:{src_line}",
+                         ported_by=("K6 hi/lo bias" if key == "K8" else "K7 v1"),
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=None)
     return rows
 
 
@@ -564,13 +584,49 @@ def phase_trainer(torch, trainer, points: int, seed: int) -> None:
           max(diffs.values()), 1e-6)
 
 
+def compare_first_step(torch, label: str, cfg, model, loss_fn, batch) -> None:
+    """The step's loss and gradients, dropout off, with kernels and under
+    `plain_reference()`, held at the profile's levels: f32 (parity) loss
+    1e-4 relative and every parameter gradient 1e-3 of its scale, on the
+    kernel run's permutations; bf16 loss 1e-3 relative and the whole gradient
+    1e-2 relative L2."""
+    from hept_tpu_torch.ops.dispatch import plain_reference
+
+    f32 = not cfg.model_kwargs.get("kernel_bf16", False)
+    perms = [] if cfg.model_kwargs.get("static_keys") is None else None
+    kw_k = {} if perms is None else {"record_perms": perms}
+    loss_k, grads_k = loss_and_grads(torch, model, loss_fn, batch, **kw_k)
+    with plain_reference():
+        # the parity run sorts by keys computed from the previous layer's
+        # output: the plain run takes the kernel run's permutations, so a
+        # near-tie flipped by f32 rounding cannot move a point's bucket
+        loss_p, grads_p = loss_and_grads(torch, model, loss_fn, batch,
+                                         **({} if perms is None else {"perms": perms}))
+    log(f"phase {label} compare: loss kernels {loss_k:.6f} plain {loss_p:.6f}")
+    if f32:
+        check(f"{label} loss |d| / |loss|", abs(loss_k - loss_p) / abs(loss_p), 1e-4)
+        floor = 1e-3 * max(scale(g) for g in grads_p.values())
+        ratios = {k: max_err(grads_k[k], grads_p[k]) / max(scale(grads_p[k]), floor)
+                  for k in grads_p}
+        worst = sorted(ratios, key=ratios.get, reverse=True)[:3]
+        log("  per tensor, max|d| / max(max|plain|, 1e-3 max over tensors), largest: "
+            + ", ".join(f"{k} {ratios[k]:.3e}" for k in worst))
+        check(f"{label}: all {len(ratios)} parameter gradients, worst {worst[0]}",
+              ratios[worst[0]], 1e-3)
+    else:
+        check(f"{label} loss |d| / |loss|", abs(loss_k - loss_p) / abs(loss_p), 1e-3)
+        diff2 = sum(float((grads_k[k] - grads_p[k]).double().pow(2).sum()) for k in grads_p)
+        norm2 = sum(float(grads_p[k].double().pow(2).sum()) for k in grads_p)
+        check(f"{label} gradient, |g_kernels - g_plain| / |g_plain| over all parameters",
+              math.sqrt(diff2 / norm2), 1e-2)
+
+
 def phase_profile(torch, trainer, profile: str, batch_np, ds, steps: int, seed: int,
                   zero_counts, read_counts) -> dict:
     """A bs-100 profile (`hept` or `hept_fast`) at full width: `steps` timed
     Adam steps with dropout, launches counted; one timed `evaluate` of the
     event (split "test" of `ds`), launches counted; then the first step,
     dropout off, with kernels and with plain versions, compared."""
-    from hept_tpu_torch.ops.dispatch import plain_reference
     from hept_tpu_torch.train.config import profile_config
 
     cfg = profile_config(profile, device=DEVICE, num_epochs=1)
@@ -600,7 +656,7 @@ def phase_profile(torch, trainer, profile: str, batch_np, ds, steps: int, seed: 
         raise AssertionError(f"{profile}: non-finite loss: {losses}")
     # per step and layer: one K6, one K7, the unsort's K5 forward and backward
     want = {"cols_fwd": 4 * steps, "cols_bwd": 4 * steps, "bucket_attn_fwd": 0,
-            "bucket_attn_bwd": 0, "row_gather": 8 * steps}
+            "bucket_attn_bwd": 0, "rows_fwd": 0, "rows_bwd": 0, "row_gather": 8 * steps}
     for k, v in want.items():
         if launches[k] != v:
             raise AssertionError(f"{profile}: {k} launched {launches[k]}x in {steps} steps, "
@@ -637,37 +693,226 @@ def phase_profile(torch, trainer, profile: str, batch_np, ds, steps: int, seed: 
         f"launches {eval_launches}; " + " ".join(f"{k}={v:.6f}" for k, v in res.items()))
 
     model.load_state_dict(init_state)
-    f32 = not cfg.model_kwargs.get("kernel_bf16", False)
-    perms = [] if cfg.model_kwargs.get("static_keys") is None else None
-    kw_k = {} if perms is None else {"record_perms": perms}
-    loss_k, grads_k = loss_and_grads(torch, model, loss_fn, batch, **kw_k)
-    with plain_reference():
-        # the parity run sorts by keys computed from the previous layer's
-        # output: the plain run takes the kernel run's permutations, so a
-        # near-tie flipped by f32 rounding cannot move a point's bucket
-        loss_p, grads_p = loss_and_grads(torch, model, loss_fn, batch,
-                                         **({} if perms is None else {"perms": perms}))
-    log(f"phase {profile} compare: loss kernels {loss_k:.6f} plain {loss_p:.6f}")
-    if f32:
-        check(f"{profile} loss |d| / |loss|", abs(loss_k - loss_p) / abs(loss_p), 1e-4)
-        floor = 1e-3 * max(scale(g) for g in grads_p.values())
-        ratios = {k: max_err(grads_k[k], grads_p[k]) / max(scale(grads_p[k]), floor)
-                  for k in grads_p}
-        worst = sorted(ratios, key=ratios.get, reverse=True)[:3]
-        log("  per tensor, max|d| / max(max|plain|, 1e-3 max over tensors), largest: "
-            + ", ".join(f"{k} {ratios[k]:.3e}" for k in worst))
-        check(f"{profile}: all {len(ratios)} parameter gradients, worst {worst[0]}",
-              ratios[worst[0]], 1e-3)
-    else:
-        check(f"{profile} loss |d| / |loss|", abs(loss_k - loss_p) / abs(loss_p), 1e-3)
-        diff2 = sum(float((grads_k[k] - grads_p[k]).double().pow(2).sum()) for k in grads_p)
-        norm2 = sum(float(grads_p[k].double().pow(2).sum()) for k in grads_p)
-        check(f"{profile} gradient, |g_kernels - g_plain| / |g_plain| over all parameters",
-              math.sqrt(diff2 / norm2), 1e-2)
-    del model, init_state, grads_k, grads_p, perms
+    compare_first_step(torch, profile, cfg, model, loss_fn, batch)
+    del model, init_state
     torch.cuda.empty_cache()
     return {"launches": launches, "eval_launches": eval_launches, "steady_ms": steady,
             "eval_ms": eval_ms, "peak_gib": peak}
+
+
+def phase_core(torch, trainer, batch_np, seed: int, zero_counts, read_counts) -> dict:
+    """The row-major core `hept_attention_core` forward and backward at the
+    parity profile's full width (h 8, c 3, d_hash 30, dv 24, bs 100) on the
+    bs-100 event: its own AND codes and inert rows, and q_hat / k_hat / v of
+    the parity model's layer 0 (random weights from the seed); launches
+    counted (K10 one each way, K5 eight); against the same run under
+    `plain_reference()` on its permutations. Then K10 alone against its plain
+    version on the sorted operands of that run, timed."""
+    from hept_tpu_torch.core.buckets import sort_carry_rows
+    from hept_tpu_torch.models.transformer import prepare_event
+    from hept_tpu_torch.ops import bucket_attn_cuda as ba
+    from hept_tpu_torch.ops.bucket_attn import hept_attention_core
+    from hept_tpu_torch.ops.dispatch import plain_reference
+    from hept_tpu_torch.train.config import profile_config
+
+    cfg = profile_config("hept", device=DEVICE)
+    bs = cfg.model_kwargs["block_size"]
+    batch = trainer.batch_to_device(batch_np, DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    model = trainer.build_model(cfg, batch_np["x"].shape[2], batch_np["coords"].shape[2], gen,
+                                DEVICE)
+    blk = model.blocks[0]
+    with torch.no_grad():
+        x, coords, codes, invalid = prepare_event(batch["x"][0], batch["coords"][0],
+                                                  batch["valid"][0], model.regions, bs)
+        xn = blk.norm1(model.feat_enc_1(torch.relu(model.feat_enc_0(x))))
+        cols = blk.attn.prep_qkv(blk.w_q(xn), blk.w_k(xn), blk.w_v(xn), coords, invalid,
+                                 blk.w_rpe)
+    ins = [c_.transpose(1, 2).contiguous().requires_grad_(True) for c_ in cols]  # (h, n, .)
+    alpha = blk.attn.e2lsh_alpha
+    h, n, d = ins[0].shape
+    dv, c = ins[2].shape[-1], alpha.shape[-1]
+    w = torch.randn((h, n, dv), generator=gen, device=DEVICE)
+    del model, x, xn, cols
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    perms = []
+    out = hept_attention_core(*ins, alpha, codes, invalid, block_size=bs, impl="pallas",
+                              record_perms=perms)
+    grads = torch.autograd.grad((out * w).sum(), ins)
+    torch.cuda.synchronize()
+    core_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counts()
+    want = {"rows_fwd": 1, "rows_bwd": 1, "row_gather": 8, "bucket_attn_fwd": 0,
+            "bucket_attn_bwd": 0, "cols_fwd": 0, "cols_bwd": 0}
+    for k, v in want.items():
+        if launches[k] != v:
+            raise AssertionError(f"hept_attention_core launched {k} {launches[k]}x, want {v}")
+    if tuple(out.shape) != (h, n, dv) or not torch.isfinite(out).all() \
+            or not all(torch.isfinite(g).all() for g in grads):
+        raise AssertionError(f"core output {tuple(out.shape)} not finite / wrong shape")
+    log(f"phase core: hept_attention_core forward + backward (h={h} c={c} d_hash={d} dv={dv} "
+        f"n={n} bs={bs}, parity layer 0) {core_ms:.1f} ms (first call); launches {launches}")
+    with plain_reference():
+        out_p = hept_attention_core(*ins, alpha, codes, invalid, block_size=bs, impl="pallas",
+                                    perms=perms[0])
+        grads_p = torch.autograd.grad((out_p * w).sum(), ins)
+    # f32 sums of 100 terms in other orders (K10, then the sum over rounds)
+    check("core output max|d| (kernels vs plain, same permutations)", max_err(out, out_p),
+          1e-5 * scale(out_p))
+    for nm, a, b in zip(("q_hat", "k_hat", "v"), grads, grads_p):
+        check(f"core d{nm} max|d|", max_err(a, b), 1e-4 * scale(b))
+    del out, out_p, grads, grads_p
+
+    # K10 alone on the sorted operands of that run: 14400 buckets of 100
+    q_src, k_src = perms[0]
+    with torch.no_grad():
+        g = c * h * (n // bs)
+        sq = sort_carry_rows(None, ins[0].detach(), src=q_src)[0].reshape(g, bs, d)
+        sk = sort_carry_rows(None, ins[1].detach(), src=k_src)[0].reshape(g, bs, d)
+        sv = sort_carry_rows(None, ins[2].detach(), src=k_src)[0].reshape(g, bs, dv)
+    g_den = torch.randn((g, bs, 1), generator=gen, device=DEVICE)
+    g_so = torch.randn((g, bs, dv), generator=gen, device=DEVICE)
+    log(f"kernel K10 rows_fwd / rows_bwd (f32, {g} buckets of {bs}, d={d} dv={dv}):")
+    errs = []
+    for nm, a, b in zip(("denom", "so"), ba.rows_fwd_cuda(sq, sk, sv),
+                        ba.rows_fwd_plain(sq, sk, sv)):
+        errs.append(max_err(a, b))
+        check(f"K10 fwd {nm} max|d|", errs[-1], 1e-4 * scale(b))
+    e_fwd = max(errs)
+    errs = []
+    for nm, a, b in zip(("dq", "dk", "dv"), ba.rows_bwd_cuda(sq, sk, sv, g_den, g_so),
+                        ba.rows_bwd_plain(sq, sk, sv, g_den, g_so)):
+        errs.append(max_err(a, b))
+        check(f"K10 bwd {nm} max|d|", errs[-1], 1e-4 * scale(b))
+    e_bwd = max(errs)
+    # both sides against a float64 run: the logit q.k - |q|^2/2 - |k|^2/2
+    # cancels large RPE norms, so f32 rounding in either order shows there
+    with torch.no_grad():
+        ref = ba.rows_fwd_plain(sq.double(), sk.double(), sv.double())
+        for nm, a, b, r_ in zip(("denom", "so"), ba.rows_fwd_cuda(sq, sk, sv),
+                                ba.rows_fwd_plain(sq, sk, sv), ref):
+            log(f"  K10 fwd {nm} max|d| against float64: kernel "
+                f"{float((a.double() - r_).abs().max()):.3e}, plain "
+                f"{float((b.double() - r_).abs().max()):.3e}")
+        del ref
+    rows = {}
+    pts = g * bs
+    for key, name, src_line, err, fl, by, kern, plain in (
+            ("K10f", "K10 rows_fwd", "146", e_fwd, 2.0 * pts * bs * (d + dv),
+             4.0 * pts * (2 * d + dv) + 4.0 * pts * (dv + 1),
+             lambda: ba.rows_fwd_cuda(sq, sk, sv), lambda: ba.rows_fwd_plain(sq, sk, sv)),
+            ("K10b", "K10 rows_bwd", "194", e_bwd, 2.0 * pts * bs * (3 * d + 2 * dv),
+             4.0 * pts * (2 * d + 2 * dv + 1) + 4.0 * pts * (2 * d + dv),
+             lambda: ba.rows_bwd_cuda(sq, sk, sv, g_den, g_so),
+             lambda: ba.rows_bwd_plain(sq, sk, sv, g_den, g_so))):
+        b_ms, b_by = bound_ms(by, fl, F32_FLOP_PER_S)
+        rows[key] = dict(name=name, route="cuda", source="hept_tpu_torch/csrc/bucket_attn.cu",
+                         replaces=f"hept_tpu/ops/bucket_attn_pallas.py:{src_line}",
+                         launches=launches["rows_fwd" if key == "K10f" else "rows_bwd"],
+                         max_abs_err=err, ms=time_ms(kern), plain_ms=time_ms(plain, 3, 1),
+                         bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        row = rows[key]
+        log(f"  {name}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}, at the FP32 peak {F32_FLOP_PER_S / 1e12:.0f} TFLOP/s)")
+    del sq, sk, sv, g_den, g_so, ins, w
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_slab(torch, trainer, batch_np, seed: int, zero_counts, read_counts) -> dict:
+    """`attn_impl: slab` and `hybrid_slab` (the JAX package's slab kernels
+    K8/K9, run as K6 hi/lo + K7 v1 and K6 + K7 v1) in the full-width
+    hept_fast profile on the bs-100 event: one Adam step each with dropout,
+    launches counted (K6 4, K7 4, K5 8, K1/K2/K10 none), then the first step
+    with kernels and plain versions compared at hept_fast's levels."""
+    from hept_tpu_torch.train.config import profile_config
+
+    batch = trainer.batch_to_device(batch_np, DEVICE)
+    out = {}
+    for mode in ("slab", "hybrid_slab"):
+        cfg = profile_config("hept_fast", device=DEVICE, num_epochs=1, attn_impl=mode)
+        model = trainer.build_model(cfg, batch_np["x"].shape[2], batch_np["coords"].shape[2],
+                                    torch.Generator(device=DEVICE).manual_seed(seed), DEVICE)
+        init_state = copy.deepcopy(model.state_dict())
+        opt = trainer.make_optimizer(model.parameters(), cfg.optimizer_name,
+                                     cfg.optimizer_kwargs["lr"])
+        loss_fn = trainer.make_loss_fn(cfg)
+        gen_drop = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        m = trainer.train_step(model, opt, loss_fn, batch, gen_drop)
+        loss = float(m["loss"])  # synchronises
+        step_ms = (time.perf_counter() - t0) * 1e3
+        launches = read_counts()
+        if not math.isfinite(loss):
+            raise AssertionError(f"hept_fast {mode}: non-finite loss {loss}")
+        want = {"cols_fwd": 4, "cols_bwd": 4, "bucket_attn_fwd": 0, "bucket_attn_bwd": 0,
+                "rows_fwd": 0, "rows_bwd": 0, "row_gather": 8}
+        for k, v in want.items():
+            if launches[k] != v:
+                raise AssertionError(f"hept_fast {mode}: {k} launched {launches[k]}x, want {v}")
+        log(f"phase slab: hept_fast with attn_impl {mode}, one step (first call), loss={loss:.6f} "
+            f"{step_ms:.1f} ms; launches {launches}")
+        out[mode] = launches
+        del opt
+        model.load_state_dict(init_state)
+        compare_first_step(torch, f"hept_fast {mode}", cfg, model, loss_fn, batch)
+        del model, init_state
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_sort(torch, seed: int, zero_counts, read_counts) -> dict:
+    """K12 through `bitonic_sort_rows` on 24 rows of 60000 keys (a +BIG tail
+    and interior ties, -0.0 and +0.0 among them) carrying 15 payloads and
+    the row-position iota, launches counted; bit-equal to its plain version;
+    timed against `torch.sort(stable=True)` plus the payload gathers."""
+    from hept_tpu_torch.ops import sort as srt
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rows, n, ops = 24, 60000, 16
+    keys = torch.randn((rows, n), generator=gen, device=dev)
+    keys[:, -600:] = 3.0e38
+    keys[:, :2000] = torch.round(keys[:, :2000] * 10) / 10
+    keys[:, :4] = torch.tensor([-0.0, 0.0, -0.0, 0.0], device=dev)
+    pays = [torch.randint(-2**31, 2**31 - 1, (rows, n), generator=gen, device=dev,
+                          dtype=torch.int32) for _ in range(ops - 1)]
+    pays.append(torch.arange(n, device=dev, dtype=torch.int32).expand(rows, n).contiguous())
+    torch.cuda.synchronize()
+    zero_counts()
+    got = srt.bitonic_sort_rows(keys, pays)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    if launches["bitonic_sort"] != 1:
+        raise AssertionError(f"bitonic_sort_rows launched K12 {launches['bitonic_sort']}x")
+    want = srt.bitonic_sort_rows_plain(keys, pays)
+    log(f"kernel K12 bitonic_sort_rows ({rows} rows x {n} keys, {ops} payloads; exact):")
+    for j, (a, b) in enumerate(zip(got, want)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"K12 payload {j}: kernel and plain version differ in "
+                                 f"{int((a != b).sum())} elements")
+    check("K12 all payloads max|d| (bit patterns)",
+          max(float((a.long() - b.long()).abs().max()) for a, b in zip(got, want)), 0.0)
+    del got, want
+
+    def library():
+        idx = torch.sort(keys, dim=-1, stable=True).indices
+        return [p.gather(-1, idx) for p in pays]
+
+    b_ms, b_by = bound_ms(4.0 * rows * n * (1 + 2 * ops), 0.0, F32_FLOP_PER_S)
+    row = dict(name="K12 bitonic_sort_rows", route="cuda", source="hept_tpu_torch/csrc/sort.cu",
+               replaces="hept_tpu/ops/sort_pallas.py:158", launches=launches["bitonic_sort"],
+               max_abs_err=0.0, ms=time_ms(lambda: srt.bitonic_sort_rows_cuda(keys, pays), 20),
+               plain_ms=time_ms(lambda: srt.bitonic_sort_rows_plain(keys, pays), 20),
+               bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(library, 20))
+    log(f"  K12: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
+        f"(torch.sort stable + {ops} gathers) {row['library_ms']:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by})")
+    return row
 
 
 def main(argv=None) -> int:
@@ -692,7 +937,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     from hept_tpu_torch.data.datasets import SplitDataset
-    from hept_tpu_torch.ops import bucket_attn_cuda, cuda_lib, pair_ops, row_gather
+    from hept_tpu_torch.ops import bucket_attn_cuda, cuda_lib, pair_ops, row_gather, sort
     from hept_tpu_torch.ops.dispatch import plain_reference
     from hept_tpu_torch.train import trainer
     from hept_tpu_torch.train.config import profile_config
@@ -724,7 +969,7 @@ def main(argv=None) -> int:
         f"{rows['K5']['bound_ms']:.4f} ms ({rows['K5']['bound_by']})")
     torch.cuda.empty_cache()
     rows.update(phase_cols_kernels(torch, args.seed))
-    log("phase kernels: K1-K7 match their plain versions")
+    log("phase kernels: K1-K9 match their plain versions")
 
     # 3. the main path
     gen_init = torch.Generator(device=DEVICE).manual_seed(args.seed)
@@ -736,7 +981,8 @@ def main(argv=None) -> int:
     loss_fn = trainer.make_loss_fn(cfg)
     gen_drop = torch.Generator(device=DEVICE).manual_seed(args.seed + 1)
     torch.cuda.synchronize()
-    counters = (bucket_attn_cuda.LAUNCHES, pair_ops.LAUNCHES, row_gather.LAUNCHES)
+    counters = (bucket_attn_cuda.LAUNCHES, pair_ops.LAUNCHES, row_gather.LAUNCHES,
+                sort.LAUNCHES)
 
     def zero_counts():
         for counts in counters:
@@ -762,7 +1008,8 @@ def main(argv=None) -> int:
         raise AssertionError(f"non-finite loss: {losses}")
     # per step and layer: one K1, one K2, and the unsort's K5 forward and backward
     want = {"bucket_attn_fwd": 4 * args.steps, "bucket_attn_bwd": 4 * args.steps,
-            "cols_fwd": 0, "cols_bwd": 0, "row_gather": 8 * args.steps}
+            "cols_fwd": 0, "cols_bwd": 0, "rows_fwd": 0, "rows_bwd": 0,
+            "row_gather": 8 * args.steps}
     for k, v in want.items():
         if launches[k] != v:
             raise AssertionError(f"{k} launched {launches[k]}x in {args.steps} steps, want {v}")
@@ -850,11 +1097,23 @@ def main(argv=None) -> int:
     phase_profile(torch, trainer, "hept_fast", batch100, ds100, args.profile_steps, args.seed,
                   zero_counts, read_counts)
 
+    # 9. the row-major core (K10), 10. the slab modes (K8/K9), 11. the sort (K12)
+    rows.update(phase_core(torch, trainer, batch100, args.seed, zero_counts, read_counts))
+    slab = phase_slab(torch, trainer, batch100, args.seed, zero_counts, read_counts)
+    rows["K8"]["launches"] = slab["slab"]["cols_fwd"]
+    rows["K9"]["launches"] = slab["slab"]["cols_bwd"] + slab["hybrid_slab"]["cols_bwd"]
+    rows["K12"] = phase_sort(torch, args.seed, zero_counts, read_counts)
+    # K11 (row_gather_vreg) has K5's contract and runs on K5's kernel
+    rows["K11"] = dict(rows["K5"], name="K11 row_gather_vreg", ported_by="K5",
+                       replaces="hept_tpu/ops/gather_pallas.py:124")
+
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [
-        {k: rows[key][k] for k in ("name", "route", "source", "replaces", "launches",
-                                   "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                   "library_ms")}
-        for key in ("K1", "K2", "K3", "K4", "K5", "K6", "K7")]}))
+        {**{k: rows[key][k] for k in keys},
+         **({"ported_by": rows[key]["ported_by"]} if "ported_by" in rows[key] else {})}
+        for key in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10f", "K10b",
+                    "K11", "K12")]}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -5,10 +5,12 @@ utils/) and holds the training steps of the `hept_acc`, `hept_fast` and
 `hept_turbo` profiles (static bucket plan) and of the reference-parity
 `hept` profile (dynamic per-layer keys), with synthetic tracking events, the
 windowed InfoNCE loss and Adam, and their evaluation path (kNN retrieval
-metrics, the best-by-valid run with checkpoints). The seven kernels of
-these paths are hand-written CUDA (`csrc/`), built with `nvcc` on first use
-and loaded with ctypes; on CPU tensors every kernel wrapper runs its plain
-PyTorch version instead.
+metrics, the best-by-valid run with checkpoints); the row-major
+reference-pipeline core `ops/bucket_attn.py:hept_attention_core` and the
+per-row sort `ops/sort.py:bitonic_sort_rows`. Every TPU kernel of the JAX
+package has a hand-written CUDA counterpart (`csrc/`), built with `nvcc` on
+first use and loaded with ctypes; on CPU tensors every kernel wrapper runs
+its plain PyTorch version instead.
 
 Importing the package touches no GPU and builds nothing. It turns TF32 off
 for float32 matmuls and convolutions: the reference asks for full-f32

@@ -5,7 +5,8 @@ ported profiles run).
 (from `ops.bucket_attn.static_bucket_plan`) with index gathers, and their
 backward gathers the cotangent by the inverse permutation. `sort_carry` and
 `unsort_carry` are the dynamic-key transport on top of them: a stable
-argsort of each key row, then the same gathers. The row gather,
+argsort of each key row, then the same gathers (`sort_carry_rows` moves row
+payloads, for the row-major `hept_attention_core`). The row gather,
 forward and backward, is kernel K5 (`ops/row_gather.py`,
 `csrc/row_gather.cu`) on CUDA tensors. `pack=True` keeps
 the JAX package's transport rounding: values (and, in the backward,
@@ -151,6 +152,32 @@ def sort_carry(keys: torch.Tensor | None, payload: torch.Tensor,
         out = permute_gather(payload[None], src.reshape(c * h, 1, n),
                              invert_permutation(src).reshape(c * h, 1, n))
     return out.reshape(c, h, -1, n), src
+
+
+def sort_carry_rows(keys: torch.Tensor | None, payload: torch.Tensor, pack: bool = False,
+                    src: torch.Tensor | None = None):
+    """Sort ROW payloads by per-(round, head) keys (JAX's `sort_carry`).
+
+    Args:
+      keys: (c, h, n) sort keys; each row is argsorted stably. Ignored when
+        `src` is given.
+      payload: (h, n, d) (broadcast over rounds) or (c, h, n, d) rows.
+      pack: round values (and, in the backward, cotangents) through bfloat16.
+      src: optional (c, h, n) int64 permutations to apply instead of sorting.
+    Returns: (sorted (c, h, n, d) float32, src (c, h, n)): sorted slot s
+      holds row src[..., s]. One row gather (kernel K5 on CUDA tensors):
+      output row r = round * h + head reads source r % S, S = h or c * h.
+      The backward gathers the cotangent by the inverse permutation and sums
+      the rounds' copies of a broadcast payload.
+    """
+    if src is None:
+        src = torch.argsort(keys, dim=-1, stable=True)
+    c, h, n = src.shape
+    d = payload.shape[-1]
+    src2 = src.reshape(c * h, n)
+    out = permute_gather_rows(payload.reshape(-1, n, d), src2, invert_permutation(src2),
+                              pack=pack)
+    return out.reshape(c, h, n, d), src
 
 
 def unsort_carry(src: torch.Tensor, rows: torch.Tensor, pack: bool = False) -> torch.Tensor:

@@ -1,6 +1,6 @@
 // Per-bucket RBF attention for Hopper: forward K1 / backward K2 (one CTA per
-// bucket), and forward K6 / backward K7 (several small buckets per CTA;
-// their own notes below).
+// bucket), forward K6 / backward K7 (several small buckets per CTA; their own
+// notes below), and K10, the same kernels on the row layout.
 //
 // Replaces the TPU's flat-slab Pallas kernels
 //   K1  hept_tpu/ops/bucket_attn_pallas.py:_fwd_slab128_kernel (pallas_call at :858)
@@ -348,6 +348,19 @@ int launch_bwd(const void* q, const void* k, const void* v, const float* gso, co
 // peak (~67 TFLOP/s) for f32; for bf16 inputs the bound is the bytes (the
 // bf16 tensor-core rate would allow ~16x the FP32 one). These are the simple
 // first version: scalar FMAs with shared-memory operands, not wgmma.
+//
+// K10 (template argument ROWS) is K6 in f32 and K7 v1 on the ROW layout:
+// (g * bs, d) rows, bucket b owning rows [b*bs, (b+1)*bs). It replaces
+//   K10 hept_tpu/ops/bucket_attn_pallas.py:_fwd_kernel (:40) / _bwd_kernel
+//       (:56), via _fwd_impl / _bwd_rule (pallas_call at :146 / :194),
+// the kernel of hept_tpu/ops/bucket_attn.py:hept_attention_core, f32 only.
+// Its math is K6's f32 forward and K7 v1's backward; the TPU pads the bucket
+// to a multiple of 8 rows (a sublane rule) and masks the padded keys, while
+// here any bs works unpadded. A CTA's g buckets are one contiguous run of
+// g * bs * d floats, copied flat into the same padded shared rows; a thread
+// reads its own query (or key) row with d-strided loads that the L1 serves,
+// and writes its output row likewise. Bound at the parity shapes (14400
+// buckets of 100, d 30, dv 24): operations at the FP32 peak, as K6 / K7.
 
 constexpr int kColsThreads = 256;  // most threads (and columns) of a column CTA
 constexpr size_t kMaxSmem = 227 * 1024;
@@ -388,6 +401,35 @@ __device__ __forceinline__ void axpy_row(float (&acc)[CP], const float* s, float
   }
 }
 
+// Offset of element e of point p in one row of a column block (ROWS false:
+// C rows of n points, e * n + p) or of a row block (ROWS true: n points of C
+// elements, p * C + e).
+template <bool ROWS, int C>
+__device__ __forceinline__ size_t at(size_t n, int e, size_t p) {
+  return ROWS ? p * C + e : e * n + p;
+}
+
+// load_rows for either layout: points [base, base + count) of one row into
+// shared rows dst[j*CP + e]. The row layout's points are one contiguous run
+// of count * C values, copied flat.
+template <int C, int CP, bool BF16, bool ROWS>
+__device__ __forceinline__ void load_tile(const typename Io<BF16>::T* src, size_t n, size_t base,
+                                          int count, float* dst) {
+  if constexpr (ROWS) {
+    const auto* s = src + base * C;
+    for (int f = threadIdx.x; f < count * C; f += blockDim.x)
+      dst[f / C * CP + f % C] = Io<BF16>::load(s + f);
+    if constexpr (CP > C) {
+      for (int j = threadIdx.x; j < count; j += blockDim.x) {
+#pragma unroll
+        for (int e = C; e < CP; ++e) dst[j * CP + e] = 0.f;
+      }
+    }
+  } else {
+    load_rows<C, CP, BF16>(src, n, base, count, dst);
+  }
+}
+
 // x as hi + lo, two bf16 values (~2^-16 relative)
 __device__ __forceinline__ float split_bf16(float x) {
   const float hi = round_bf16(x);
@@ -403,7 +445,7 @@ __device__ __forceinline__ float half_sq(const float* row) {
   return -0.5f * acc;
 }
 
-template <int D, int DV, bool BF16, bool HILO>
+template <int D, int DV, bool BF16, bool HILO, bool ROWS>
 __global__ void __launch_bounds__(kColsThreads)
 cols_fwd_kernel(const typename Io<BF16>::T* __restrict__ q,
                 const typename Io<BF16>::T* __restrict__ k,
@@ -420,8 +462,8 @@ cols_fwd_kernel(const typename Io<BF16>::T* __restrict__ q,
   const size_t nn = n;
   const size_t r = blockIdx.y;
   const size_t base = (size_t)b0 * bs;
-  load_rows<D, DP, BF16>(k + r * D * nn, nn, base, span, k_s);
-  load_rows<DV, DVP, BF16>(v + r * DV * nn, nn, base, span, v_s);
+  load_tile<D, DP, BF16, ROWS>(k + r * D * nn, nn, base, span, k_s);
+  load_tile<DV, DVP, BF16, ROWS>(v + r * DV * nn, nn, base, span, v_s);
   __syncthreads();
   for (int j = threadIdx.x; j < span; j += blockDim.x) {
     const float x_sq = half_sq<D>(k_s + j * DP);
@@ -435,7 +477,7 @@ cols_fwd_kernel(const typename Io<BF16>::T* __restrict__ q,
     float qsq = 0.f;
 #pragma unroll
     for (int e = 0; e < DP; ++e) {
-      qi[e] = e < D ? Io<BF16>::load(qr + e * nn + base + c) : 0.f;
+      qi[e] = e < D ? Io<BF16>::load(qr + at<ROWS, D>(nn, e, base + c)) : 0.f;
       qsq = fmaf(qi[e], qi[e], qsq);
     }
     qsq *= -0.5f;
@@ -451,12 +493,12 @@ cols_fwd_kernel(const typename Io<BF16>::T* __restrict__ q,
     }
     denom[r * nn + base + c] = den + kDenomEps;
 #pragma unroll
-    for (int e = 0; e < DV; ++e) so[(r * DV + e) * nn + base + c] = acc[e];
+    for (int e = 0; e < DV; ++e) so[r * DV * nn + at<ROWS, DV>(nn, e, base + c)] = acc[e];
   }
 }
 
 // V2: bf16 inputs and outputs, the v2 contract; otherwise f32 (v1).
-template <int D, int DV, bool V2>
+template <int D, int DV, bool V2, bool ROWS>
 __global__ void __launch_bounds__(kColsThreads)
 cols_bwd_kernel(const typename Io<V2>::T* __restrict__ q, const typename Io<V2>::T* __restrict__ k,
                 const typename Io<V2>::T* __restrict__ v, const float* __restrict__ gso,
@@ -484,8 +526,8 @@ cols_bwd_kernel(const typename Io<V2>::T* __restrict__ q, const typename Io<V2>:
     float* k_s = smem;               // [cap][DP]
     float* v_s = k_s + cap * DP;     // [cap][DVP]
     float* ksq_s = v_s + cap * DVP;  // [cap]
-    load_rows<D, DP, V2>(kr, nn, base, span, k_s);
-    load_rows<DV, DVP, V2>(vr, nn, base, span, v_s);
+    load_tile<D, DP, V2, ROWS>(kr, nn, base, span, k_s);
+    load_tile<DV, DVP, V2, ROWS>(vr, nn, base, span, v_s);
     __syncthreads();
     for (int j = threadIdx.x; j < span; j += blockDim.x) ksq_s[j] = half_sq<D>(k_s + j * DP);
     __syncthreads();
@@ -495,14 +537,14 @@ cols_bwd_kernel(const typename Io<V2>::T* __restrict__ q, const typename Io<V2>:
       float qsq = 0.f;
 #pragma unroll
       for (int e = 0; e < DP; ++e) {
-        qi[e] = e < D ? Io<V2>::load(qr + e * nn + base + c) : 0.f;
+        qi[e] = e < D ? Io<V2>::load(qr + at<ROWS, D>(nn, e, base + c)) : 0.f;
         qsq = fmaf(qi[e], qi[e], qsq);
         acc[e] = 0.f;
       }
       qsq *= -0.5f;
 #pragma unroll
       for (int e = 0; e < DVP; ++e) {
-        const float gv = e < DV ? gr[e * nn + base + c] : 0.f;
+        const float gv = e < DV ? gr[at<ROWS, DV>(nn, e, base + c)] : 0.f;
         gi[e] = V2 ? round_bf16(gv) : gv;
       }
       const float gd = gdr[base + c];
@@ -518,7 +560,7 @@ cols_bwd_kernel(const typename Io<V2>::T* __restrict__ q, const typename Io<V2>:
       }
 #pragma unroll
       for (int e = 0; e < D; ++e)
-        dq[(r * D + e) * nn + base + c] = Io<V2>::store(acc[e] - rowsum * qi[e]);
+        dq[r * D * nn + at<ROWS, D>(nn, e, base + c)] = Io<V2>::store(acc[e] - rowsum * qi[e]);
     }
   } else {
     // key side: thread per key j, loop over its bucket's queries -> dk, dv
@@ -526,11 +568,11 @@ cols_bwd_kernel(const typename Io<V2>::T* __restrict__ q, const typename Io<V2>:
     float* g_s = q_s + cap * DP;     // [cap][DVP]
     float* qsq_s = g_s + cap * DVP;  // [cap]
     float* gd_s = qsq_s + cap;       // [cap]
-    load_rows<D, DP, V2>(qr, nn, base, span, q_s);
+    load_tile<D, DP, V2, ROWS>(qr, nn, base, span, q_s);
     for (int i = threadIdx.x; i < span; i += blockDim.x) {
 #pragma unroll
       for (int e = 0; e < DVP; ++e) {
-        const float gv = e < DV ? gr[e * nn + base + i] : 0.f;
+        const float gv = e < DV ? gr[at<ROWS, DV>(nn, e, base + i)] : 0.f;
         g_s[i * DVP + e] = V2 ? round_bf16(gv) : gv;
       }
       gd_s[i] = gdr[base + i];
@@ -544,14 +586,14 @@ cols_bwd_kernel(const typename Io<V2>::T* __restrict__ q, const typename Io<V2>:
       float ksq = 0.f;
 #pragma unroll
       for (int e = 0; e < DP; ++e) {
-        kj[e] = e < D ? Io<V2>::load(kr + e * nn + base + c) : 0.f;
+        kj[e] = e < D ? Io<V2>::load(kr + at<ROWS, D>(nn, e, base + c)) : 0.f;
         ksq = fmaf(kj[e], kj[e], ksq);
         acck[e] = 0.f;
       }
       ksq *= -0.5f;
 #pragma unroll
       for (int e = 0; e < DVP; ++e) {
-        vj[e] = e < DV ? Io<V2>::load(vr + e * nn + base + c) : 0.f;
+        vj[e] = e < DV ? Io<V2>::load(vr + at<ROWS, DV>(nn, e, base + c)) : 0.f;
         accv[e] = 0.f;
       }
       float colsum = 0.f;
@@ -568,9 +610,10 @@ cols_bwd_kernel(const typename Io<V2>::T* __restrict__ q, const typename Io<V2>:
       }
 #pragma unroll
       for (int e = 0; e < D; ++e)
-        dk[(r * D + e) * nn + base + c] = Io<V2>::store(acck[e] - colsum * kj[e]);
+        dk[r * D * nn + at<ROWS, D>(nn, e, base + c)] = Io<V2>::store(acck[e] - colsum * kj[e]);
 #pragma unroll
-      for (int e = 0; e < DV; ++e) dv[(r * DV + e) * nn + base + c] = Io<V2>::store(accv[e]);
+      for (int e = 0; e < DV; ++e)
+        dv[r * DV * nn + at<ROWS, DV>(nn, e, base + c)] = Io<V2>::store(accv[e]);
     }
   }
 }
@@ -587,7 +630,7 @@ inline bool cols_launch_shape(int r, int n, int bs, int shared_cols, dim3* grid,
   return *smem <= kMaxSmem;
 }
 
-template <int D, int DV, bool BF16, bool HILO>
+template <int D, int DV, bool BF16, bool HILO, bool ROWS = false>
 int launch_cols_fwd(const void* q, const void* k, const void* v, float* denom, float* so, int r,
                     int n, int bs, cudaStream_t stream) {
   using T = typename Io<BF16>::T;
@@ -596,15 +639,15 @@ int launch_cols_fwd(const void* q, const void* k, const void* v, float* denom, f
   size_t smem;
   if (!cols_launch_shape(r, n, bs, pad4(D) + pad4(DV) + 1, &grid, &threads, &smem))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(cols_fwd_kernel<D, DV, BF16, HILO>,
+  cudaError_t err = cudaFuncSetAttribute(cols_fwd_kernel<D, DV, BF16, HILO, ROWS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  cols_fwd_kernel<D, DV, BF16, HILO><<<grid, threads, smem, stream>>>(
+  cols_fwd_kernel<D, DV, BF16, HILO, ROWS><<<grid, threads, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, denom, so, n, bs);
   return (int)cudaGetLastError();
 }
 
-template <int D, int DV, bool V2>
+template <int D, int DV, bool V2, bool ROWS = false>
 int launch_cols_bwd(const void* q, const void* k, const void* v, const float* gso,
                     const float* gden, void* dq, void* dk, void* dv, int r, int n, int bs,
                     cudaStream_t stream) {
@@ -614,11 +657,11 @@ int launch_cols_bwd(const void* q, const void* k, const void* v, const float* gs
   size_t smem;
   if (!cols_launch_shape(r, n, bs, pad4(D) + pad4(DV) + 2, &grid, &threads, &smem))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(cols_bwd_kernel<D, DV, V2>,
+  cudaError_t err = cudaFuncSetAttribute(cols_bwd_kernel<D, DV, V2, ROWS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   grid.z = 2;
-  cols_bwd_kernel<D, DV, V2><<<grid, threads, smem, stream>>>(
+  cols_bwd_kernel<D, DV, V2, ROWS><<<grid, threads, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, gso, gden, (T*)dq, (T*)dk, (T*)dv, n, bs);
   return (int)cudaGetLastError();
 }
@@ -685,6 +728,32 @@ extern "C" int hept_cols_bwd(const void* q, const void* k, const void* v, const 
               : launch_cols_bwd<D_, DV_, false>(q, k, v, gso, gden, dq, dk, dv_out, r, n, bs, s);
   HEPT_DIMS(HEPT_COLS_BWD_CASE)
 #undef HEPT_COLS_BWD_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// K10: the row layout, f32. q, k (n, d), v (n, dv) rows, n = g * bs.
+extern "C" int hept_rows_fwd(const void* q, const void* k, const void* v, float* denom, float* so,
+                             int d, int dv, int n, int bs, void* stream) {
+  if (bs <= 0 || n % bs != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+#define HEPT_ROWS_FWD_CASE(D_, DV_) \
+  if (d == D_ && dv == DV_)         \
+    return launch_cols_fwd<D_, DV_, false, false, true>(q, k, v, denom, so, 1, n, bs, s);
+  HEPT_DIMS(HEPT_ROWS_FWD_CASE)
+#undef HEPT_ROWS_FWD_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int hept_rows_bwd(const void* q, const void* k, const void* v, const float* gso,
+                             const float* gden, void* dq, void* dk, void* dv_out, int d, int dv,
+                             int n, int bs, void* stream) {
+  if (bs <= 0 || n % bs != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+#define HEPT_ROWS_BWD_CASE(D_, DV_) \
+  if (d == D_ && dv == DV_)         \
+    return launch_cols_bwd<D_, DV_, false, true>(q, k, v, gso, gden, dq, dk, dv_out, 1, n, bs, s);
+  HEPT_DIMS(HEPT_ROWS_BWD_CASE)
+#undef HEPT_ROWS_BWD_CASE
   return (int)cudaErrorInvalidValue;
 }
 

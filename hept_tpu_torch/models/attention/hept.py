@@ -61,15 +61,12 @@ class HeptAttention(nn.Module):
         )  # (n, h * d) rows
         return self.out_linear(out)
 
-    def forward_dynamic(self, query, key, value, coords, codes, invalid, w_rpe, perms=None,
-                        record_perms=None):
-        """Pre-sort path. query/key/value: (n, h * d) projections; codes:
-        (c, h, n) AND codes. `perms` / `record_perms`: see
-        `hept_attention_core_cols`. Returns (n, d)."""
-        cfg = self.cfg
-        h, d = cfg.num_heads, cfg.h_dim
+    def prep_qkv(self, query, key, value, coords, invalid, w_rpe):
+        """The pre-sort path's q_hat, k_hat (h, d + cd, n) and v (h, d, n)
+        columns (`prep_qk`): per head, the projection rows and the RPE rows
+        sqrt(2 w) * coords; invalid rows zeroed."""
+        h, d = self.cfg.num_heads, self.cfg.h_dim
         n = query.shape[0]
-        # prep_qk in column layout: RPE columns sqrt(2 w) * coords per head
         w_cols = self._sqrt_w(w_rpe)[:, :, None] * coords.t()[None]  # (h, cd, n)
         q_hat = torch.cat([query.t().reshape(h, d, n), w_cols], dim=1)
         k_hat = torch.cat([key.t().reshape(h, d, n), w_cols], dim=1)
@@ -79,6 +76,15 @@ class HeptAttention(nn.Module):
             q_hat = torch.where(keep, q_hat, 0.0)
             k_hat = torch.where(keep, k_hat, 0.0)
             v_cols = torch.where(keep, v_cols, 0.0)
+        return q_hat, k_hat, v_cols
+
+    def forward_dynamic(self, query, key, value, coords, codes, invalid, w_rpe, perms=None,
+                        record_perms=None):
+        """Pre-sort path. query/key/value: (n, h * d) projections; codes:
+        (c, h, n) AND codes. `perms` / `record_perms`: see
+        `hept_attention_core_cols`. Returns (n, d)."""
+        cfg = self.cfg
+        q_hat, k_hat, v_cols = self.prep_qkv(query, key, value, coords, invalid, w_rpe)
         out = hept_attention_core_cols(
             q_hat, k_hat, v_cols, self.e2lsh_alpha, codes, invalid,
             block_size=cfg.block_size, impl=cfg.attn_impl, unsort_pack=cfg.unsort_pack,

@@ -47,9 +47,11 @@ class TransformerConfig:
     padding (`check_supported`): the static plan (qkv_post_sort +
     share_heads + static_keys + unsort_rows) and dynamic per-layer keys
     (all four off). `attn_impl` selects the bucket kernels
-    (`ops/bucket_attn_cuda.py`); `sort_ops` and `scan_layers` select TPU
-    implementations of the same math and are ignored, and `shared_sort` is
-    implied by `share_heads`.
+    (`ops/bucket_attn_cuda.py:cols_routes`): every mode of the JAX package
+    but "xla", its kernel-free einsum path; "slab" and "hybrid_slab" run the
+    contracts of its slab kernels (K8/K9) on K6/K7. `sort_ops` and
+    `scan_layers` select TPU implementations of the same math and are
+    ignored, and `shared_sort` is implied by `share_heads`.
     """
 
     in_dim: int
@@ -90,8 +92,10 @@ class TransformerConfig:
             f"padding_mode == 'replicate' (zero padding: {_ROADMAP})":
                 self.padding_mode == "replicate",
             "num_and_hashes == 2": self.num_and_hashes == 2,
-            f"attn_impl in {ATTN_IMPLS} (xla / slab / hybrid_slab run kernels K8/K9: "
-            "ROADMAP.md queue 2)": self.attn_impl in ATTN_IMPLS,
+            f"attn_impl in {ATTN_IMPLS} ('xla' is the JAX package's kernel-free einsum + "
+            "autodiff path, not run by the port: on the card every bucket call launches a "
+            "kernel, and its autodiff backward of a bf16 forward breaks the gradient contract "
+            "of ROADMAP.md's North star)": self.attn_impl in ATTN_IMPLS,
             f"no gather_sort ({_ROADMAP})": not self.gather_sort,
             f"no canon_residual ({_ROADMAP})": not self.canon_residual,
             f"transport_groups == 1 ({_ROADMAP})": self.transport_groups == 1,

@@ -12,21 +12,35 @@ sum num / sum denom. Two paths:
   [num|denom] with a row gather (`hept_attention_core_xcols`);
 - dynamic keys (the reference-parity `hept` profile): each layer hashes its
   own projected q and k per head, sorts them by their own keys and unsorts
-  by the q permutation (`hept_attention_core_cols`).
-The bucket kernel is chosen by `attn_impl` (`bucket_attn_cuda`).
+  by the q permutation (`hept_attention_core_cols`);
+- the same pipeline on row-major (h, n, d) operands, the one the JAX package
+  exports and shards over heads (`hept_attention_core`, kernel K10).
+The column kernel is chosen by `attn_impl` (`bucket_attn_cuda`).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..core.buckets import permute_gather, permute_gather_rows, sort_carry, unsort_carry
+from ..core.buckets import (
+    permute_gather,
+    permute_gather_rows,
+    sort_carry,
+    sort_carry_rows,
+    unsort_carry,
+)
 from ..core.hashing import lsh_mapping
-from .bucket_attn_cuda import DENOM_EPS, bucket_rbf_attention_cols
+from .bucket_attn_cuda import (
+    DENOM_EPS,
+    bucket_rbf_attention_cols,
+    bucket_rbf_attention_rows,
+    rows_fwd_plain,
+)
 
 __all__ = [
-    "DENOM_EPS", "stable_ratio", "bucket_rbf_attention_cols", "static_hash",
-    "static_bucket_plan", "hept_attention_core_xcols", "hept_attention_core_cols",
+    "DENOM_EPS", "stable_ratio", "bucket_rbf_attention_cols", "bucket_rbf_attention_rows",
+    "dense_rbf_attention", "static_hash", "static_bucket_plan", "hept_attention_core",
+    "hept_attention_core_xcols", "hept_attention_core_cols",
 ]
 
 # sort key of rows forced into trailing buckets
@@ -281,3 +295,86 @@ def hept_attention_core_cols(
     combined = rows.sum(dim=0)  # (h, n, dv + 1)
     out = stable_ratio(combined[..., :dv], combined[..., dv:])
     return out.permute(1, 0, 2).reshape(n, h * dv)
+
+
+def dense_rbf_attention(q_hat: torch.Tensor, k_hat: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Exact O(n^2) RBF attention, the golden reference of the bucketed core:
+    normalised kernel attention with exp(min(q.k - |q|^2/2 - |k|^2/2, 0)).
+
+    Args: q_hat, k_hat (h, n, d); v (h, n, dv). Returns (h, n, dv).
+    It is plain K10 with one bucket of all n points per head.
+    """
+    denom, so = rows_fwd_plain(q_hat, k_hat, v)
+    return so / denom
+
+
+def hept_attention_core(
+    q_hat: torch.Tensor,
+    k_hat: torch.Tensor,
+    v: torch.Tensor,
+    alpha: torch.Tensor,
+    codes: torch.Tensor,
+    invalid: torch.Tensor | None = None,
+    *,
+    block_size: int,
+    impl: str = "pallas",
+    sort_pack: bool = False,
+    perms=None,
+    record_perms: list | None = None,
+) -> torch.Tensor:
+    """The HEPT attention pipeline on row-major operands, one event (JAX's
+    `hept_attention_core`; reference `src/models/attention/hept.py:93-115`).
+
+    Per (round, head): hash q and k (`lsh_mapping`, span over both), key =
+    hash + code * span, invalid rows to +BIG; q sorted by its keys, k and v
+    by theirs (`sort_carry_rows`); kernel K10 on the (c * h * nb, B, .)
+    buckets; [num|denom] unsorted by the q permutation in f32 (K5), summed
+    over rounds and divided (`stable_ratio`).
+
+    Args:
+      q_hat, k_hat: (h, n, d_hash) RPE-folded queries / keys.
+      v: (h, n, dv) values.
+      alpha: (h, d_hash, c) frozen E2LSH directions.
+      codes: (c, h, n) integer-valued AND codes.
+      invalid: optional (n,) bool rows sorted into trailing buckets.
+      block_size: bucket size B; n must be a multiple of B.
+      impl: JAX's bucket kernel selection ("xla" | "pallas"), kept for its
+        signature: both compute K10's contract, and the port runs K10 for
+        every value (its plain version on CPU tensors).
+      sort_pack: move the sorted q / k / v through bfloat16.
+      perms: optional (q_src, k_src), each (c, h, n) int64, applied instead
+        of sorting by the keys (to hold two runs on the same permutations).
+      record_perms: optional list; (q_src, k_src) is appended to it.
+    Returns: (h, n, dv) attention output.
+
+    Stable sorts: rows with equal keys keep their order; JAX's unstable sort
+    may not.
+    """
+    h, n, d = q_hat.shape
+    dv = v.shape[-1]
+    if n % block_size:
+        raise ValueError(f"n={n} is not a multiple of block_size={block_size}")
+    q_key = k_key = q_src = k_src = None
+    if perms is None:
+        q_hashed, k_hashed, hash_shift = lsh_mapping(alpha, q_hat, k_hat)
+        shift = codes.to(torch.float32) * hash_shift
+        q_key, k_key = q_hashed + shift, k_hashed + shift
+        if invalid is not None:
+            q_key = torch.where(invalid, _BIG_KEY, q_key)
+            k_key = torch.where(invalid, _BIG_KEY, k_key)
+    else:
+        q_src, k_src = perms
+    sq, q_src = sort_carry_rows(q_key, q_hat, pack=sort_pack, src=q_src)  # (c, h, n, d)
+    sk, k_src = sort_carry_rows(k_key, k_hat, pack=sort_pack, src=k_src)
+    sv, _ = sort_carry_rows(None, v, pack=sort_pack, src=k_src)
+    if record_perms is not None:
+        record_perms.append((q_src, k_src))
+    c = q_src.shape[0]
+    g = c * h * (n // block_size)
+    denom, so = bucket_rbf_attention_rows(sq.reshape(g, block_size, d),
+                                          sk.reshape(g, block_size, d),
+                                          sv.reshape(g, block_size, dv))
+    rows = torch.cat([so, denom], dim=-1).reshape(c, h, n, dv + 1)
+    rows = unsort_carry(q_src, rows)  # (c, h, n, dv + 1), f32 as in JAX
+    combined = rows.sum(dim=0)
+    return stable_ratio(combined[..., :dv], combined[..., dv:])

@@ -1,12 +1,16 @@
-"""Per-bucket RBF attention: CUDA kernels K1/K2 (flat-slab replacements) and
-K6/K7 (per-bucket column kernels for small buckets), their plain PyTorch
-versions, and the `attn_impl` dispatch (`csrc/bucket_attn.cu`).
+"""Per-bucket RBF attention: CUDA kernels K1/K2 (flat-slab replacements),
+K6/K7 (per-bucket column kernels for small buckets) and K10 (the row-major
+kernel of `hept_attention_core`), their plain PyTorch versions, and the
+`attn_impl` dispatch (`csrc/bucket_attn.cu`).
 
 Replaces `hept_tpu/ops/bucket_attn_pallas.py`'s flat-slab kernels
 (`_fwd_slab128_kernel`, `_bwd_slab128_kernel`: K1/K2) and column kernels
 (`_fwd_cols_kernel` / `_fwd_cols_kernel_loop`: K6; `_bwd_cols_kernel`,
-`_bwd_cols_kernel_v2` / `_bwd_v2_bucket` / `_bwd_cols_kernel_v2_loop`: K7).
-Layout (r, d, n) columns with n = nb * block_size sorted points. bf16 inputs
+`_bwd_cols_kernel_v2` / `_bwd_v2_bucket` / `_bwd_cols_kernel_v2_loop`: K7),
+its row-major kernel (`_fwd_kernel` / `_bwd_kernel`: K10), and runs the
+contracts of its slab kernels (`_fwd_slab_kernel`: K8, `_bwd_slab_kernel`:
+K9) on K6/K7 (`cols_routes`). Layout of K1/K2/K6/K7: (r, d, n) columns with
+n = nb * block_size sorted points; K10: (..., B, d) rows. bf16 inputs
 run the mixed-precision contract of the JAX kernels: products of bf16 values
 summed in f32, exact f32 norms, pt rounded to bf16 for the value product,
 g_so rounded to bf16 in the backward, gradients cast to the input dtype.
@@ -31,11 +35,13 @@ from .dispatch import use_kernel
 DENOM_EPS = 1e-20
 # (d, dv) pairs compiled into csrc/bucket_attn.cu (HEPT_DIMS there)
 SUPPORTED_DIMS = ((30, 24), (7, 5))
-# attn_impl modes with ported kernels (`cols_routes`); the JAX package's
-# "xla", "slab" and "hybrid_slab" need K8/K9 (ROADMAP.md queue 2)
-ATTN_IMPLS = ("slab2", "hybrid", "hybrid2", "hybrid2l", "pallas", "loop2")
+# attn_impl modes the port runs (`cols_routes`); the JAX package's "xla" is
+# its kernel-free einsum + autodiff path, which the port does not run
+ATTN_IMPLS = ("slab2", "hybrid", "hybrid2", "hybrid2l", "pallas", "loop2", "slab",
+              "hybrid_slab")
 # launches of each kernel since the last reset (plain integer counters)
-LAUNCHES = {"bucket_attn_fwd": 0, "bucket_attn_bwd": 0, "cols_fwd": 0, "cols_bwd": 0}
+LAUNCHES = {"bucket_attn_fwd": 0, "bucket_attn_bwd": 0, "cols_fwd": 0, "cols_bwd": 0,
+            "rows_fwd": 0, "rows_bwd": 0}
 
 
 def _bf16_round(x: torch.Tensor) -> torch.Tensor:
@@ -272,21 +278,29 @@ def cols_routes(mode: str, n: int, block_size: int, dtype: torch.dtype) -> tuple
 
         slab2, g >= 2                        K1          K2
         slab2 otherwise, hybrid2, hybrid2l   K6          K7 v2
-        hybrid                               K6          K7 v1
-        pallas                               K6 (hilo)   K7 v1
+        hybrid, hybrid_slab                  K6          K7 v1
+        pallas, slab                         K6 (hilo)   K7 v1
         loop2                                K6          K7 v2
 
     K6 adds exact f32 bias terms (the einsum / loop contract) except in
-    `pallas` mode on bf16 ("K6 hilo"); K7 v2 runs on bf16 only (v1 for f32).
+    `pallas` and `slab` mode on bf16 ("K6 hilo"); K7 v2 runs on bf16 only
+    (v1 for f32). The JAX package's slab kernels K8/K9 compute K6 hilo's and
+    K7 v1's contracts on a block-diagonal (S, S) slab of g buckets, where the
+    mask zeroes every cross-bucket term (`_fwd_slab_kernel`,
+    `_bwd_slab_kernel`, which upcasts its operands to f32); the slab is a
+    TPU device against a serial per-bucket MXU chain, so `slab` and
+    `hybrid_slab` run K6/K7 for every block size.
     """
     if mode not in ATTN_IMPLS:
         raise NotImplementedError(
-            f"attn_impl {mode!r} runs TPU kernels not ported yet (K8/K9 for slab / "
-            f"hybrid_slab; ROADMAP.md queue 2); ported modes: {ATTN_IMPLS}")
+            f"attn_impl {mode!r} is not run by the port (ROADMAP.md North star): 'xla' is "
+            "the JAX package's kernel-free einsum + autodiff path, while on the card every "
+            "bucket call launches a kernel, and its autodiff backward of a bf16 forward is "
+            f"not the gradient of that forward; modes: {ATTN_IMPLS}")
     bf16 = dtype == torch.bfloat16
     if mode == "slab2" and _slab128_g(n // block_size, block_size) >= 2:
         return "K1", "K2"
-    fwd = "K6 hilo" if mode == "pallas" and bf16 else "K6"
+    fwd = "K6 hilo" if mode in ("pallas", "slab") and bf16 else "K6"
     v2 = bf16 and mode in ("slab2", "hybrid2", "hybrid2l", "loop2")
     return fwd, "K7 v2" if v2 else "K7 v1"
 
@@ -322,3 +336,122 @@ def bucket_rbf_attention_cols(sq: torch.Tensor, sk: torch.Tensor, sv: torch.Tens
     Returns: (denom (r, 1, n), so (r, dv, n)) float32.
     """
     return _BucketRBFAttention.apply(sq, sk, sv, block_size, mode)
+
+
+# ---------------------------------------------------------------------------
+# K10: row-major per-bucket RBF attention, f32 (the contract of
+# `hept_tpu/ops/bucket_attn_pallas.py:bucket_rbf_attention_pallas`).
+
+
+def _rows_logits(sq, sk):
+    """(..., B, B) logits q.k - |q|^2/2 - |k|^2/2 and p = exp(min(logit, 0))."""
+    q_sq = -0.5 * torch.sum(sq * sq, dim=-1, keepdim=True)
+    k_sq = -0.5 * torch.sum(sk * sk, dim=-1, keepdim=True)
+    logits = torch.einsum("...id,...jd->...ij", sq, sk) + q_sq + k_sq.transpose(-1, -2)
+    return logits, torch.exp(torch.clamp(logits, max=0.0))
+
+
+def rows_fwd_plain(sq, sk, sv):
+    """Plain K10 forward, `bucket_rbf_attention_xla`'s einsums: sq, sk
+    (..., B, D), sv (..., B, Dv) -> (denom (..., B, 1), so (..., B, Dv))."""
+    _, p = _rows_logits(sq, sk)
+    denom = torch.sum(p, dim=-1, keepdim=True) + DENOM_EPS
+    return denom, torch.einsum("...ij,...jd->...id", p, sv)
+
+
+def rows_bwd_plain(sq, sk, sv, g_denom, g_so):
+    """Plain K10 backward, `_bwd_kernel`'s formula: dl = p (g_so.v + g_den)
+    where the logit is < 0; dq = dl k - rowsum(dl) q, dk = dl^T q -
+    colsum(dl) k, dv = p^T g_so."""
+    logits, p = _rows_logits(sq, sk)
+    gp = torch.einsum("...id,...jd->...ij", g_so, sv) + g_denom
+    dl = torch.where(logits < 0.0, p * gp, torch.zeros_like(p))
+    dq = torch.einsum("...ij,...jd->...id", dl, sk) - dl.sum(dim=-1, keepdim=True) * sq
+    dk = torch.einsum("...ij,...id->...jd", dl, sq) - dl.sum(dim=-2)[..., None] * sk
+    dv = torch.einsum("...ij,...id->...jd", p, g_so)
+    return dq, dk, dv
+
+
+def _check_rows(sq, sk, sv, *cotangents):
+    b, d = sq.shape[-2:]
+    dv = sv.shape[-1]
+    if sk.shape != sq.shape or sv.shape != (*sq.shape[:-1], dv):
+        raise ValueError(f"shapes sq {tuple(sq.shape)} sk {tuple(sk.shape)} sv {tuple(sv.shape)}")
+    if (d, dv) not in SUPPORTED_DIMS:
+        raise ValueError(f"(d, dv) = {(d, dv)} not compiled; have {SUPPORTED_DIMS}")
+    if b * (d + dv + 2) * 4 > 227 * 1024:
+        raise ValueError(f"bucket size {b} unsupported")
+    for t in (sq, sk, sv, *cotangents):
+        if t.dtype != torch.float32 or not t.is_cuda or t.device != sq.device \
+                or not t.is_contiguous():
+            raise ValueError("K10 takes contiguous float32 CUDA tensors on one device")
+    g = sq.numel() // (b * d)
+    return g, b, d, dv
+
+
+def rows_fwd_cuda(sq, sk, sv):
+    """K10 forward on the card: (denom (..., B, 1), so (..., B, Dv)) f32."""
+    g, b, d, dv = _check_rows(sq, sk, sv)
+    denom = torch.empty((*sq.shape[:-1], 1), dtype=torch.float32, device=sq.device)
+    so = torch.empty(sv.shape, dtype=torch.float32, device=sq.device)
+    lib = cuda_lib.load("bucket_attn")
+    fn = lib.hept_rows_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    err = fn(sq.data_ptr(), sk.data_ptr(), sv.data_ptr(), denom.data_ptr(), so.data_ptr(),
+             d, dv, g * b, b, cuda_lib.stream_ptr(sq.device))
+    cuda_lib.check(err, lib, "hept_bucket_attn_error_string", "rows_fwd")
+    LAUNCHES["rows_fwd"] += 1
+    return denom, so
+
+
+def rows_bwd_cuda(sq, sk, sv, g_denom, g_so):
+    """K10 backward on the card: (dq, dk, dv) f32."""
+    g, b, d, dv = _check_rows(sq, sk, sv, g_denom, g_so)
+    if g_denom.shape != (*sq.shape[:-1], 1) or g_so.shape != sv.shape:
+        raise ValueError(f"cotangents {tuple(g_denom.shape)} {tuple(g_so.shape)}")
+    outs = tuple(torch.empty_like(t) for t in (sq, sk, sv))
+    lib = cuda_lib.load("bucket_attn")
+    fn = lib.hept_rows_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    err = fn(sq.data_ptr(), sk.data_ptr(), sv.data_ptr(), g_so.data_ptr(), g_denom.data_ptr(),
+             *(t.data_ptr() for t in outs), d, dv, g * b, b, cuda_lib.stream_ptr(sq.device))
+    cuda_lib.check(err, lib, "hept_bucket_attn_error_string", "rows_bwd")
+    LAUNCHES["rows_bwd"] += 1
+    return outs
+
+
+def rows_fwd(sq, sk, sv):
+    if use_kernel(sq):
+        return rows_fwd_cuda(sq, sk, sv)
+    return rows_fwd_plain(sq, sk, sv)
+
+
+def rows_bwd(sq, sk, sv, g_denom, g_so):
+    if use_kernel(sq):
+        return rows_bwd_cuda(sq, sk, sv, g_denom.contiguous(), g_so.contiguous())
+    return rows_bwd_plain(sq, sk, sv, g_denom, g_so)
+
+
+class _BucketRBFAttentionRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, sq, sk, sv):
+        ctx.save_for_backward(sq, sk, sv)
+        return rows_fwd(sq, sk, sv)
+
+    @staticmethod
+    def backward(ctx, g_denom, g_so):
+        return rows_bwd(*ctx.saved_tensors, g_denom, g_so)
+
+
+def bucket_rbf_attention_rows(sq: torch.Tensor, sk: torch.Tensor, sv: torch.Tensor):
+    """Row-major per-bucket RBF attention (K10), float32 only as the JAX
+    kernel (`bucket_rbf_attention_pallas`); any bucket size B (no padding).
+
+    Args: sq, sk (..., B, D); sv (..., B, Dv), float32.
+    Returns: (denom (..., B, 1), so (..., B, Dv)) float32.
+    """
+    if any(t.dtype != torch.float32 for t in (sq, sk, sv)):
+        raise ValueError(f"K10 is float32 only, got {sq.dtype} {sk.dtype} {sv.dtype}")
+    return _BucketRBFAttentionRows.apply(sq, sk, sv)

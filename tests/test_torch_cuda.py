@@ -1,4 +1,4 @@
-"""K1-K7 CUDA kernels against their plain versions, on the card.
+"""The CUDA kernels (K1-K7, K10, K12) against their plain versions, on the card.
 
 Marked `cuda`: each test skips (inside the fixture, never at import) when no
 CUDA device is present, which is the case on CPU-only hosts. On a GPU
@@ -14,7 +14,11 @@ torch = pytest.importorskip("torch")
 from hept_tpu_torch.ops import bucket_attn_cuda as ba  # noqa: E402
 from hept_tpu_torch.ops import pair_ops as po  # noqa: E402
 from hept_tpu_torch.ops import row_gather as rg  # noqa: E402
-from hept_tpu_torch.ops.bucket_attn import bucket_rbf_attention_cols  # noqa: E402
+from hept_tpu_torch.ops import sort as srt  # noqa: E402
+from hept_tpu_torch.ops.bucket_attn import (  # noqa: E402
+    bucket_rbf_attention_cols,
+    hept_attention_core,
+)
 from hept_tpu_torch.ops.dispatch import plain_reference  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -96,6 +100,8 @@ def test_k7_matches_plain(dev, dtype, v2, nb, bs):
     ("pallas", torch.bfloat16, ("cols_fwd", "cols_bwd")),
     ("hybrid2", torch.bfloat16, ("cols_fwd", "cols_bwd")),
     ("slab2", torch.bfloat16, ("cols_fwd", "cols_bwd")),  # bs 100: no flat slab
+    ("slab", torch.bfloat16, ("cols_fwd", "cols_bwd")),  # K8 / K9 as K6 hilo / K7 v1
+    ("hybrid_slab", torch.float32, ("cols_fwd", "cols_bwd")),
 ])
 def test_modes_route_through_k6_k7(dev, mode, dtype, want):
     sq, sk, sv, _, _, bs = _inputs(dev, dtype, d=30, dv=24, nb=6, bs=100, seed=2)
@@ -104,7 +110,8 @@ def test_modes_route_through_k6_k7(dev, mode, dtype, want):
     den, so = bucket_rbf_attention_cols(*ins, bs, mode)
     (so / den).sum().backward()
     after = {k: v - before[k] for k, v in ba.LAUNCHES.items()}
-    assert after == {"bucket_attn_fwd": 0, "bucket_attn_bwd": 0, want[0]: 1, want[1]: 1}
+    assert after == {"bucket_attn_fwd": 0, "bucket_attn_bwd": 0, "rows_fwd": 0, "rows_bwd": 0,
+                     want[0]: 1, want[1]: 1}
     with plain_reference():
         refs = [t.clone().requires_grad_(True) for t in (sq, sk, sv)]
         den2, so2 = bucket_rbf_attention_cols(*refs, bs, mode)
@@ -217,3 +224,99 @@ def test_k5_rejects_what_it_does_not_take(dev):
     for s_, i_ in bad:
         with pytest.raises(ValueError):
             rg.row_gather_cuda(s_, i_)
+
+
+@pytest.mark.parametrize("d,dv,g,bs", [(30, 24, 12, 100), (30, 24, 7, 100), (30, 24, 5, 12),
+                                       (7, 5, 9, 8), (30, 24, 3, 300)])
+def test_k10_matches_plain(dev, d, dv, g, bs):
+    """K10 forward and backward, f32: two buckets of 100 per CTA and a ragged
+    last CTA (7 buckets), 21 buckets of 12 per CTA, buckets of 8 (JAX's
+    unpadded case), a bucket wider than a CTA (300); 1e-5 x scale forward,
+    1e-4 x scale backward (f32 sums in other orders)."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def rn(*s):
+        return torch.randn(s, generator=gen, device=dev)
+
+    sq, sk = rn(g, bs, d) * 0.5, rn(g, bs, d) * 0.5
+    sv, gden, gso = rn(g, bs, dv), rn(g, bs, 1), rn(g, bs, dv)
+    before = dict(ba.LAUNCHES)
+    got = ba.rows_fwd_cuda(sq, sk, sv)
+    for a, b in zip(got, ba.rows_fwd_plain(sq, sk, sv)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * b.abs().max().item())
+    for a, b in zip(ba.rows_bwd_cuda(sq, sk, sv, gden, gso),
+                    ba.rows_bwd_plain(sq, sk, sv, gden, gso)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * b.abs().max().item())
+    assert ba.LAUNCHES["rows_fwd"] == before["rows_fwd"] + 1
+    assert ba.LAUNCHES["rows_bwd"] == before["rows_bwd"] + 1
+    with pytest.raises(ValueError):
+        ba.rows_fwd_cuda(sq.to(torch.bfloat16), sk.to(torch.bfloat16), sv.to(torch.bfloat16))
+
+
+def test_core_runs_k10_and_k5(dev):
+    """`hept_attention_core` forward and backward: one K10 forward, one K10
+    backward and eight K5 gathers (q, k, v sorts and the unsort, each way);
+    against the same run under `plain_reference()` on its permutations."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    h, n, d, dv, c, bs = 8, 2000, 30, 24, 3, 100
+
+    def rn(*s):
+        return torch.randn(s, generator=gen, device=dev)
+
+    ins = [rn(h, n, d).requires_grad_(True), rn(h, n, d).requires_grad_(True),
+           rn(h, n, dv).requires_grad_(True)]
+    alpha, codes = rn(h, d, c), torch.randint(0, 4, (c, h, n), generator=gen, device=dev)
+    w = rn(h, n, dv)
+    before = {**ba.LAUNCHES, **rg.LAUNCHES}
+    perms = []
+    out = hept_attention_core(*ins, alpha, codes, block_size=bs, record_perms=perms)
+    grads = torch.autograd.grad((out * w).sum(), ins)
+    after = {k: v - before[k] for k, v in {**ba.LAUNCHES, **rg.LAUNCHES}.items()}
+    assert after == {"bucket_attn_fwd": 0, "bucket_attn_bwd": 0, "cols_fwd": 0, "cols_bwd": 0,
+                     "rows_fwd": 1, "rows_bwd": 1, "row_gather": 8}
+    with plain_reference():
+        out_p = hept_attention_core(*ins, alpha, codes, block_size=bs, perms=perms[0])
+        grads_p = torch.autograd.grad((out_p * w).sum(), ins)
+    torch.testing.assert_close(out, out_p, rtol=1e-5, atol=1e-5 * out_p.abs().max().item())
+    for a, b in zip(grads, grads_p):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * b.abs().max().item())
+
+
+@pytest.mark.parametrize("rows,n,ops", [(2, 384, 4), (3, 512, 2), (24, 60000, 16), (1, 1, 1),
+                                        (5, 4097, 3)])
+def test_k12_matches_plain_bit_for_bit(dev, rows, n, ops):
+    """Tiles only (384, 512), the global strides and merges (60000 -> 65536,
+    4097 -> 8192), one key; a +BIG tail and interior ties (-0.0 and +0.0
+    among them), uint32 payloads as int32 bit patterns."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    keys = torch.randn((rows, n), generator=gen, device=dev)
+    keys[:, -min(n, 30):] = 3.0e38
+    keys[:, :40] = torch.round(keys[:, :40] * 10) / 10
+    keys[:, :4] = torch.tensor([-0.0, 0.0, -0.0, 0.0], device=dev)[:min(n, 4)]
+    pays = [torch.randint(-2**31, 2**31 - 1, (rows, n), generator=gen, device=dev,
+                          dtype=torch.int32) for _ in range(ops - 1)]
+    pays.append(torch.arange(n, device=dev, dtype=torch.int32).expand(rows, n).contiguous())
+    before = srt.LAUNCHES["bitonic_sort"]
+    got = srt.bitonic_sort_rows_cuda(keys, pays)
+    assert srt.LAUNCHES["bitonic_sort"] == before + 1
+    want = srt.bitonic_sort_rows_plain(keys, pays)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_k12_rejects_what_it_does_not_take(dev):
+    keys = torch.zeros((2, 10), device=dev)
+    tie = torch.zeros((2, 10), dtype=torch.int32, device=dev)
+    bad = [
+        (keys.double(), [tie]),  # f64 keys
+        (keys, [tie.float()]),  # tie-break not int32
+        (keys, [tie.long(), tie]),  # 8-byte payload
+        (keys, [tie[:, :9].contiguous()]),  # shape mismatch
+        (keys, [tie.t().contiguous().t()]),  # not contiguous
+        (keys.cpu(), [tie.cpu()]),  # not on the card
+        (keys, []),  # no tie-break
+        (keys, [tie] * 33),  # too many payloads
+    ]
+    for k_, p_ in bad:
+        with pytest.raises(ValueError):
+            srt.bitonic_sort_rows_cuda(k_, p_)

@@ -9,7 +9,9 @@ buckets. Comparisons on such inputs therefore run the port on JAX's own
 permutations (recorded from its sort with `jax.debug.callback`); the keys
 and the permutations they imply are compared on tie-free inputs (no pads).
 JAX's bucket attention runs its TPU kernels K6/K7 in Pallas interpret mode
-where the test says so (on the CPU it would otherwise take the einsum path).
+where the test says so (on the CPU it would otherwise take the einsum path),
+inside one `jax.jit`: eager dispatch from the test thread can deadlock with
+the interpreter's callback thread, which dispatches work of its own.
 """
 
 import contextlib
@@ -192,7 +194,7 @@ def _jax_core(monkeypatch, q, k, v, alpha, codes, invalid, w):
                                                block_size=BS, impl="pallas")
             return jnp.sum(out * w), out
 
-        (_, out), grads = jax.value_and_grad(loss, argnums=(0, 1, 2), has_aux=True)(
+        (_, out), grads = jax.jit(jax.value_and_grad(loss, argnums=(0, 1, 2), has_aux=True))(
             jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     return out, grads, rec
 
@@ -239,26 +241,23 @@ def _port(variables, attn_impl="pallas"):
     return model
 
 
-def test_parity_model_matches_jax_kernels(monkeypatch):
-    """The whole parity model (2 layers, replication pads) with JAX's weights
-    and constants, JAX running K6 / K7 v1 in interpret mode, the port on
-    JAX's recorded per-layer permutations: outputs to 1e-4 x scale and every
-    parameter gradient to 1e-3 x its scale, f32."""
+def _check_parity_model(monkeypatch, attn_impl):
     batch = _event(378)
     x, coords, valid = batch["x"][0], batch["coords"][0], batch["valid"][0]
     assert not valid.all()
-    jmodel = _jax_parity()
+    jmodel = _jax_parity(attn_impl=attn_impl)
     variables = jmodel.init(jax.random.PRNGKey(1), x, coords, valid)
     w_out = np.random.default_rng(2).normal(size=(x.shape[0], 4)).astype(np.float32)
-    with _jax_cols_kernels(monkeypatch) as rec:
-        def jloss(params):
+    with _jax_cols_kernels(monkeypatch, attn_impl) as rec:
+        def jloss(params, x_, coords_, valid_):
             out = jmodel.apply({"params": params, "constants": variables["constants"]},
-                               x, coords, valid)
+                               x_, coords_, valid_)
             return jnp.sum(out * w_out), out
 
-        (_, jout), jgrads = jax.value_and_grad(jloss, has_aux=True)(variables["params"])
+        (_, jout), jgrads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(
+            variables["params"], x, coords, valid)
     assert len(rec) == SMALL["n_layers"]
-    model = _port(variables)
+    model = _port(variables, attn_impl)
     perms = [tuple(_t(p, torch.int64) for p in layer) for layer in rec]
     out = model(_t(x), _t(coords), _t(valid), perms=perms)
     _close(out, jout, 1e-4, "output")
@@ -269,6 +268,21 @@ def test_parity_model_matches_jax_kernels(monkeypatch):
             "blocks.0.w_rpe"} <= set(names)
     for name, p in model.named_parameters():
         _close(p.grad, ref[name], 1e-3, name)
+
+
+def test_parity_model_matches_jax_kernels(monkeypatch):
+    """The whole parity model (2 layers, replication pads) with JAX's weights
+    and constants, JAX running K6 / K7 v1 in interpret mode, the port on
+    JAX's recorded per-layer permutations: outputs to 1e-4 x scale and every
+    parameter gradient to 1e-3 x its scale, f32."""
+    _check_parity_model(monkeypatch, "pallas")
+
+
+def test_parity_model_slab_matches_jax_kernels(monkeypatch):
+    """The same with `attn_impl: slab`: JAX runs its block-diagonal slab
+    kernels K8/K9 (slabs of 64 buckets of 16, in interpret mode), the port
+    K6 / K7 v1, whose contracts they are."""
+    _check_parity_model(monkeypatch, "slab")
 
 
 @pytest.mark.parametrize("scan_layers", [False, True])
