@@ -11,15 +11,23 @@ Phases, one line each (plus per-kernel lines):
      the error, and time kernel, plain version and, where one exists, the
      single PyTorch call computing the same function; K2 and K7 v2 also
      against the f32 autograd gradient of the bf16 forward (the
-     bf16-gradient contract); K5 (the unsort row gather) exactly, on bf16
-     and f32 rows, the forward's and the backward's index, a broadcast
-     source and a ragged n; K6 / K7 (the small-bucket column kernels) at the
-     parity profile's shapes in f32 and hept_fast's in bf16, in K6's three
-     modes and both K7 variants, and on a ragged bucket count;
+     bf16-gradient contract); K4 with its CSR given and building its own,
+     on the batch's index and an unsorted one, the same bits on repeated
+     calls, then timed (`k4_yardsticks`: the kernel at d = 12 and 1, the
+     CSR build, the loss's three calls against three `index_add_`); K5 (the
+     unsort row gather) exactly, on bf16 and f32 rows, the forward's and the
+     backward's index, a broadcast source and a ragged n, then at the five
+     row shapes the paths move (K5_SHAPES), exactly and timed against
+     `index_select`; kernel times both by CUDA events around calls in a row
+     and by CUDA graph replay (device time); K6 / K7 (the small-bucket
+     column kernels) at the parity profile's shapes in f32 and hept_fast's
+     in bf16, in K6's three modes and both K7 variants, and on a ragged
+     bucket count;
   3. the main path: the full-width `hept_acc` model (random weights from the
      seed) takes `--steps` Adam steps at lr 1e-2 with dropout on, through the
      trainer's `train_step`, on one synthetic 60k-point event; launch
-     counters are zeroed just before and read just after (K5: 8 per step);
+     counters are zeroed just before and read just after (per step K5 8, K3
+     3, K4 3, one CSR build);
   4. the first step's loss and gradients again, dropout off, once with the
      kernels and once with the plain versions, compared: in the hept_acc
      configuration, and with its bf16 modes off (f32 kernels);
@@ -49,8 +57,11 @@ Phases, one line each (plus per-kernel lines):
      counted, kernels against plain versions;
  11. K12 (`bitonic_sort_rows`) on 24 rows of 60000 keys with 16 payloads,
      bit-equal to its plain version, timed against torch.sort.
-Before the last line: one JSON line of per-kernel numbers, and the
-`nvidia-smi` name/power-limit line. The last line is
+Before the last line: one JSON line of per-kernel numbers (K5 once per row
+shape, K4 with its yardsticks as extra keys), and the `nvidia-smi`
+name/power-limit line. `--yardsticks-only [--package-root DIR]` builds K4
+and K5 of the package in DIR (a parent tree, for an A/B in one call), prints
+their yardsticks as one JSON line and stops, without a result line. The last line is
 {"ok": true, "device": {...}}. Any failed check raises (exit code != 0).
 Exits with code 2 and prints no result without a CUDA device or without the
 `hept_tpu_torch` package beside this script.
@@ -73,6 +84,13 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 BF16_FLOP_PER_S = 989e12  # dense bf16 tensor-core peak
 F32_FLOP_PER_S = 67e12  # f32 outside the tensor cores
 DEVICE = "cuda"
+# the keys every kernel's entry of the JSON line has
+KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+               "bound_ms", "bound_by", "library_ms")
+# K3 / K4 launches and CSR builds of one InfoNCE loss: per training step
+# (forward and backward) and per evaluated event (forward)
+PAIR_LAUNCHES_STEP = {"pair_gather": 3, "pair_segment_sum": 3, "anchor_csr": 1}
+PAIR_LAUNCHES_EVAL = {"pair_gather": 2, "pair_segment_sum": 1, "anchor_csr": 1}
 
 
 def log(msg: str) -> None:
@@ -89,6 +107,31 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20) -> float:
+    """Device time of one call of `fn`: `iters` calls captured in one CUDA
+    graph and replayed between two events, so the host's launch overhead
+    (Python, ctypes, allocation) does not count."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -240,15 +283,21 @@ def phase_kernels(torch, batch, seed: int) -> dict:
     e = idx.shape[0]
     errs3, errs4 = [], []
     log(f"kernel K3 pair_gather / K4 pair_segment_sum (E={e}, n={n}):")
+    csr = po.anchor_csr(idx, n)
     for width in (12, 1):
         emb = randn(n, width)
         vals = (randn(e, width) * mask[:, None]).contiguous()
         errs3.append(max_err(po.gather_rows_cuda(emb, idx), po.gather_rows_plain(emb, idx)))
         check(f"K3 d={width} max|d| (exact copy)", errs3[-1], 0.0)
         ref4 = po.segment_sum_plain(vals, idx, n)
-        errs4.append(max_err(po.segment_sum_cuda(vals, idx, n), ref4))
+        got4 = po.segment_sum_cuda(vals, idx, n, csr)
         # index_add_ sums with atomics in another order
-        check(f"K4 d={width} max|d|", errs4[-1], 1e-5 * scale(ref4) + 1e-6)
+        for label, got in (("CSR given", got4), ("own CSR", po.segment_sum_cuda(vals, idx, n))):
+            errs4.append(max_err(got, ref4))
+            check(f"K4 d={width} max|d| ({label})", errs4[-1], 1e-5 * scale(ref4) + 1e-6)
+        if not all(torch.equal(got4, po.segment_sum_cuda(vals, idx, n, csr)) for _ in range(3)):
+            raise AssertionError(f"K4 d={width}: repeated calls differ in their bits")
+        log(f"  K4 d={width}: the same bits on 4 calls")
     # the training loader's cached layout is sorted per block only: K4 must
     # not depend on a globally sorted index
     perm = torch.randperm(e, generator=gen, device=dev)
@@ -257,7 +306,6 @@ def phase_kernels(torch, batch, seed: int) -> dict:
                          ref4))
     check("K4 d=1 max|d| (unsorted index)", errs4[-1], 1e-5 * scale(ref4) + 1e-6)
     emb = randn(n, 12)
-    vals = (randn(e, 12) * mask[:, None]).contiguous()
     idx64 = idx.long()
     b_ms, b_by = bound_ms(4.0 * (n * 12 + e + e * 12), 0.0, F32_FLOP_PER_S)
     rows.append(dict(name="K3 pair_gather", route="cuda", source="hept_tpu_torch/csrc/pair_ops.cu",
@@ -266,15 +314,17 @@ def phase_kernels(torch, batch, seed: int) -> dict:
                      plain_ms=time_ms(lambda: po.gather_rows_plain(emb, idx), 20),
                      bound_ms=b_ms, bound_by=b_by,
                      library_ms=time_ms(lambda: emb.index_select(0, idx64), 20)))
-    zeros = torch.zeros((n, 12), device=dev)
-    b_ms, b_by = bound_ms(4.0 * (e * 12 + e + n * 12), 1.0 * e * 12, F32_FLOP_PER_S)
+    k4 = k4_yardsticks(torch, po, idx, mask, n, gen)
+    vals = (randn(e, 12) * mask[:, None]).contiguous()
     rows.append(dict(name="K4 pair_segment_sum", route="cuda",
                      source="hept_tpu_torch/csrc/pair_ops.cu",
                      replaces="hept_tpu/ops/pair_ops.py:93", max_abs_err=max(errs4),
-                     ms=time_ms(lambda: po.segment_sum_cuda(vals, idx, n), 20),
+                     ms=k4["kernel_d12_ms"],
                      plain_ms=time_ms(lambda: po.segment_sum_plain(vals, idx, n), 20),
-                     bound_ms=b_ms, bound_by=b_by,
-                     library_ms=time_ms(lambda: zeros.clone().index_add_(0, idx64, vals), 20)))
+                     bound_ms=k4["kernel_d12_bound_ms"], bound_by="bytes",
+                     library_ms=k4["index_add_d12_ms"],
+                     **{k: v for k, v in k4.items()
+                        if k not in ("kernel_d12_ms", "kernel_d12_bound_ms", "index_add_d12_ms")}))
     for row in rows:
         lib = "-" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
         log(f"  {row['name']}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
@@ -282,8 +332,120 @@ def phase_kernels(torch, batch, seed: int) -> dict:
     return {row["name"].split()[0]: row for row in rows}
 
 
+def k4_yardsticks(torch, po, idx, mask, n: int, gen) -> dict:
+    """K4's times on the batch's anchor index, each beside its bound: the
+    kernel with the CSR given at d = 12 and d = 1 and `index_add_` at each
+    width; the CSR build alone; a whole call that builds its own CSR; the
+    step's K4 cost (one build, one d = 12 and two d = 1 calls) against three
+    `index_add_` calls. Each as `<name>_ms` (CUDA events around 50 calls in a
+    row: the larger of device and host time) and `<name>_device_ms` (CUDA
+    graph replay). On a tree without `anchor_csr` (an A/B parent) every call
+    sorts, and the step is three whole calls."""
+    dev, e = idx.device, idx.shape[0]
+    idx64 = idx.long()
+    vals = {d: (torch.randn((e, d), generator=gen, device=dev) * mask[:, None]).contiguous()
+            for d in (12, 1)}
+    zeros = {d: torch.zeros((n, d), device=dev) for d in (12, 1)}
+    make_csr = getattr(po, "anchor_csr", None)
+    csr = None if make_csr is None else make_csr(idx, n)
+
+    def step():
+        c = None if make_csr is None else make_csr(idx, n)
+        for d in (12, 1, 1):
+            po.segment_sum_cuda(vals[d], idx, n, *(() if c is None else (c,)))
+
+    def library_step():
+        for d in (12, 1, 1):
+            zeros[d].clone().index_add_(0, idx64, vals[d])
+
+    fns = {"step": step, "library_step": library_step,
+           "csr_build": None if csr is None else (lambda: make_csr(idx, n))}
+    out = {}
+    for d in (12, 1):
+        fns[f"kernel_d{d}"] = None if csr is None else (
+            lambda d=d: po.segment_sum_cuda(vals[d], idx, n, csr))
+        fns[f"call_d{d}"] = lambda d=d: po.segment_sum_cuda(vals[d], idx, n)
+        fns[f"index_add_d{d}"] = lambda d=d: zeros[d].clone().index_add_(0, idx64, vals[d])
+        # each value row and order entry read once, each output row and row
+        # pointer written once
+        out[f"kernel_d{d}_bound_ms"] = bound_ms(4.0 * (e + n) * (d + 1), 0.0, F32_FLOP_PER_S)[0]
+    # the build reads the index and writes order and rowptr once
+    out["csr_build_bound_ms"] = bound_ms(4.0 * (2 * e + n + 1), 0.0, F32_FLOP_PER_S)[0]
+    out["step_bound_ms"] = (out["csr_build_bound_ms"] + out["kernel_d12_bound_ms"]
+                            + 2 * out["kernel_d1_bound_ms"])
+    for name, fn in fns.items():
+        out[f"{name}_ms"] = None if fn is None else time_ms(fn, 50)
+        out[f"{name}_device_ms"] = None if fn is None else graph_ms(fn)
+
+    def both(name):
+        if out[f"{name}_ms"] is None:
+            return "-"
+        return f"{out[f'{name}_ms']:.4f} ({out[f'{name}_device_ms']:.4f})"
+
+    log(f"  K4 (E={e}, n={n}; ms in a row of calls (device ms)): kernel with CSR d=12 "
+        f"{both('kernel_d12')} (bound {out['kernel_d12_bound_ms']:.4f}, index_add_ "
+        f"{both('index_add_d12')}), d=1 {both('kernel_d1')} (bound "
+        f"{out['kernel_d1_bound_ms']:.4f}, index_add_ {both('index_add_d1')}); whole call "
+        f"d=12 {both('call_d12')}, d=1 {both('call_d1')}; CSR build {both('csr_build')} (bound "
+        f"{out['csr_build_bound_ms']:.4f}); step's K4 {both('step')} (bound "
+        f"{out['step_bound_ms']:.4f}) vs 3 index_add_ {both('library_step')}")
+    return out
+
+
+# K5 at the rows the paths move: (label, dtype, R, S, n, W, who runs it)
+K5_SHAPES = (
+    ("bf16 400 B", "bfloat16", 2, 2, 60416, 200, "hept_acc, hept_fast, eval"),
+    ("f32 800 B", "float32", 2, 2, 60416, 200, "hept_acc with its bf16 modes off"),
+    ("f32 100 B", "float32", 24, 24, 60000, 25, "parity step's unsort"),
+    ("f32 120 B", "float32", 24, 8, 60000, 30, "hept_attention_core's q/k transport"),
+    ("f32 96 B", "float32", 24, 8, 60000, 24, "hept_attention_core's v transport"),
+)
+
+
+def k5_yardsticks(torch, rg, gen) -> list[dict]:
+    """K5 at each of K5_SHAPES: bit-equal to its plain version, then the
+    kernel, the plain version and `index_select` on the flat view timed (and
+    kernel and index_select by CUDA graph replay, `*device_ms`), beside the
+    bound (each source row read once, each index read once, each output row
+    written once)."""
+    dev = gen.device
+    out = []
+    for label, dtype, r, s, n, w, who in K5_SHAPES:
+        el = 2 if dtype == "bfloat16" else 4
+        bits = torch.int16 if el == 2 else torch.int32
+        src = torch.randint(-2**15, 2**15, (s, n, w), generator=gen, device=dev,
+                            dtype=torch.int32).to(bits).view(getattr(torch, dtype))
+        idx = torch.stack([torch.randperm(n, generator=gen, device=dev) for _ in range(r)])
+        got, want = rg.row_gather_cuda(src, idx), rg.row_gather_plain(src, idx)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(bits), want.view(bits)):
+            raise AssertionError(f"K5 {label}: kernel and plain version differ in "
+                                 f"{int((got.view(bits) != want.view(bits)).sum())} elements")
+        flat = src.reshape(s * n, w)
+        flat_idx = (idx + (torch.arange(r, device=dev)[:, None] % s) * n).reshape(-1)
+        rb = w * el
+        row = dict(label=label, R=r, S=s, n=n, row_bytes=rb, runs_in=who, max_abs_err=0.0,
+                   ms=time_ms(lambda: rg.row_gather_cuda(src, idx), 50),
+                   plain_ms=time_ms(lambda: rg.row_gather_plain(src, idx), 20),
+                   library_ms=time_ms(lambda: flat.index_select(0, flat_idx), 50),
+                   device_ms=graph_ms(lambda: rg.row_gather_cuda(src, idx)),
+                   library_device_ms=graph_ms(lambda: flat.index_select(0, flat_idx)),
+                   bound_ms=bound_ms(1.0 * s * n * rb + r * n * (rb + 8.0), 0.0,
+                                     F32_FLOP_PER_S)[0], bound_by="bytes")
+        log(f"  K5 {label} (R={r} S={s} n={n}; {who}): bit-equal; kernel {row['ms']:.4f} ms "
+            f"(device {row['device_ms']:.4f}), index_select {row['library_ms']:.4f} ms (device "
+            f"{row['library_device_ms']:.4f}), plain {row['plain_ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms")
+        out.append(row)
+        del src, idx, got, want, flat, flat_idx
+    return out
+
+
 def phase_row_gather(torch, n: int, seed: int) -> dict:
-    """K5 against its plain version at the main path's shapes, exactly."""
+    """K5 against its plain version exactly: on the main path's rows (bf16 and
+    f32, the forward's and the backward's index, a broadcast source, a
+    ragged n), then at every shape of K5_SHAPES, timed. One kernel row per
+    shape, keyed K5 (the main path's bf16 rows), K5f32, K5p, K5q, K5v."""
     from hept_tpu_torch.ops import row_gather as rg
 
     dev = torch.device(DEVICE)
@@ -307,7 +469,6 @@ def phase_row_gather(torch, n: int, seed: int) -> dict:
              ("bf16 broadcast source S=1, R=2", src16[:1], plan_inv),
              (f"bf16 ragged n={n_rag}", rag16, perms(c, n_rag))]
     log(f"kernel K5 row_gather (R=S={c}, n={n}, W={w}; exact copies):")
-    errs = []
     for name, s, i in cases:
         k, p = rg.row_gather_cuda(s, i), rg.row_gather_plain(s, i)
         torch.cuda.synchronize()
@@ -315,24 +476,15 @@ def phase_row_gather(torch, n: int, seed: int) -> dict:
         if not torch.equal(k.view(bits), p.view(bits)):
             raise AssertionError(f"K5 {name}: kernel and plain version differ in "
                                  f"{int((k.view(bits) != p.view(bits)).sum())} elements")
-        errs.append(max_err(k, p))
-        check(f"{name} max|d|", errs[-1], 0.0)
-    del rag16
-    offs = torch.arange(c, device=dev)[:, None] * n  # S = R: source row r
-    flat16, flat_idx = src16.reshape(c * n, w), (plan_inv + offs).reshape(-1)
-    flat32 = src32.reshape(c * n, w)
-    ms32 = time_ms(lambda: rg.row_gather_cuda(src32, plan_inv), 50)
-    lib32 = time_ms(lambda: flat32.index_select(0, flat_idx), 50)
-    b32, _ = bound_ms(c * n * (2.0 * w * 4 + 8), 0.0, F32_FLOP_PER_S)
-    log(f"  f32 rows: kernel {ms32:.4f} ms, index_select {lib32:.4f} ms, bound {b32:.4f} ms")
-    b_ms, b_by = bound_ms(c * n * (2.0 * w * 2 + 8), 0.0, F32_FLOP_PER_S)
-    return dict(name="K5 row_gather", route="cuda", source="hept_tpu_torch/csrc/row_gather.cu",
-                replaces="hept_tpu/ops/gather_pallas.py:208",
-                max_abs_err=max(errs),
-                ms=time_ms(lambda: rg.row_gather_cuda(src16, plan_inv), 50),
-                plain_ms=time_ms(lambda: rg.row_gather_plain(src16, plan_inv), 50),
-                bound_ms=b_ms, bound_by=b_by,
-                library_ms=time_ms(lambda: flat16.index_select(0, flat_idx), 50))
+        check(f"{name} max|d|", max_err(k, p), 0.0)
+    del src32, src16, plan_src, plan_inv, rag16, cases
+    torch.cuda.empty_cache()
+    rows = {}
+    for key, row in zip(("K5", "K5f32", "K5p", "K5q", "K5v"), k5_yardsticks(torch, rg, gen)):
+        rows[key] = dict(row, name=f"K5 row_gather ({row.pop('label')} rows)", route="cuda",
+                         source="hept_tpu_torch/csrc/row_gather.cu",
+                         replaces="hept_tpu/ops/gather_pallas.py:208")
+    return rows
 
 
 def phase_cols_kernels(torch, seed: int) -> dict:
@@ -507,13 +659,10 @@ def phase_eval(torch, trainer, model, cfg, event, batch, zero_counts, read_count
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     want = {"bucket_attn_fwd": 4, "bucket_attn_bwd": 0, "cols_fwd": 0, "cols_bwd": 0,
-            "row_gather": 4}
+            "row_gather": 4, **PAIR_LAUNCHES_EVAL}
     for k, v in want.items():
         if launches[k] != v:
             raise AssertionError(f"eval of one event launched {k} {launches[k]}x, want {v}")
-    for k in ("pair_gather", "pair_segment_sum"):
-        if launches[k] < 1:
-            raise AssertionError(f"eval of one event did not launch {k}")
     bad = {k: v for k, v in res.items()
            if not math.isfinite(v) or (k != "loss" and not 0.0 <= v <= 1.0)}
     if bad:
@@ -656,14 +805,12 @@ def phase_profile(torch, trainer, profile: str, batch_np, ds, steps: int, seed: 
         raise AssertionError(f"{profile}: non-finite loss: {losses}")
     # per step and layer: one K6, one K7, the unsort's K5 forward and backward
     want = {"cols_fwd": 4 * steps, "cols_bwd": 4 * steps, "bucket_attn_fwd": 0,
-            "bucket_attn_bwd": 0, "rows_fwd": 0, "rows_bwd": 0, "row_gather": 8 * steps}
+            "bucket_attn_bwd": 0, "rows_fwd": 0, "rows_bwd": 0, "row_gather": 8 * steps,
+            **{k: v * steps for k, v in PAIR_LAUNCHES_STEP.items()}}
     for k, v in want.items():
         if launches[k] != v:
             raise AssertionError(f"{profile}: {k} launched {launches[k]}x in {steps} steps, "
                                  f"want {v}")
-    for k in ("pair_gather", "pair_segment_sum"):
-        if launches[k] < steps:
-            raise AssertionError(f"{profile}: {k} launched {launches[k]}x in {steps} steps")
     steady = statistics.median(step_ms[1:])
     log(f"phase {profile}: {steps} steps (bs {cfg.model_kwargs['block_size']}, "
         f"{cfg.model_kwargs['n_hashes']} hashes, attn_impl {cfg.attn_impl}, dropout on), "
@@ -681,7 +828,7 @@ def phase_profile(torch, trainer, profile: str, batch_np, ds, steps: int, seed: 
     eval_launches = read_counts()
     # per layer: one K6 and the unsort's K5; no backward
     want = {"cols_fwd": 4, "cols_bwd": 0, "bucket_attn_fwd": 0, "bucket_attn_bwd": 0,
-            "row_gather": 4}
+            "row_gather": 4, **PAIR_LAUNCHES_EVAL}
     for k, v in want.items():
         if eval_launches[k] != v:
             raise AssertionError(f"{profile}: eval launched {k} {eval_launches[k]}x, want {v}")
@@ -707,7 +854,8 @@ def phase_core(torch, trainer, batch_np, seed: int, zero_counts, read_counts) ->
     the parity model's layer 0 (random weights from the seed); launches
     counted (K10 one each way, K5 eight); against the same run under
     `plain_reference()` on its permutations. Then K10 alone against its plain
-    version on the sorted operands of that run, timed."""
+    version on the sorted operands of that run, timed. Returns the K10 rows
+    and the core run's launch counts."""
     from hept_tpu_torch.core.buckets import sort_carry_rows
     from hept_tpu_torch.models.transformer import prepare_event
     from hept_tpu_torch.ops import bucket_attn_cuda as ba
@@ -818,7 +966,7 @@ def phase_core(torch, trainer, batch_np, seed: int, zero_counts, read_counts) ->
             f"{b_ms:.4f} ms ({b_by}, at the FP32 peak {F32_FLOP_PER_S / 1e12:.0f} TFLOP/s)")
     del sq, sk, sv, g_den, g_so, ins, w
     torch.cuda.empty_cache()
-    return rows
+    return rows, launches
 
 
 def phase_slab(torch, trainer, batch_np, seed: int, zero_counts, read_counts) -> dict:
@@ -850,7 +998,7 @@ def phase_slab(torch, trainer, batch_np, seed: int, zero_counts, read_counts) ->
         if not math.isfinite(loss):
             raise AssertionError(f"hept_fast {mode}: non-finite loss {loss}")
         want = {"cols_fwd": 4, "cols_bwd": 4, "bucket_attn_fwd": 0, "bucket_attn_bwd": 0,
-                "rows_fwd": 0, "rows_bwd": 0, "row_gather": 8}
+                "rows_fwd": 0, "rows_bwd": 0, "row_gather": 8, **PAIR_LAUNCHES_STEP}
         for k, v in want.items():
             if launches[k] != v:
                 raise AssertionError(f"hept_fast {mode}: {k} launched {launches[k]}x, want {v}")
@@ -915,12 +1063,42 @@ def phase_sort(torch, seed: int, zero_counts, read_counts) -> dict:
     return row
 
 
+def yardsticks_only(torch, args) -> int:
+    """K4 and K5 of the imported package at the paths' shapes, one JSON line."""
+    from hept_tpu_torch.ops import cuda_lib, pair_ops, row_gather
+
+    secs = cuda_lib.build(("pair_ops", "row_gather"), force=True)
+    smi = nvidia_smi_line()
+    root = Path(hept_tpu_torch_root()).resolve()
+    log(f"yardsticks of {root}: build {secs:.1f} s; card: {smi}")
+    _, batch = make_batch(args.points, args.seed, 512)
+    gen = torch.Generator(device=DEVICE).manual_seed(args.seed)
+    idx = torch.as_tensor(batch["pairs"][0, 0]).to(DEVICE).contiguous()
+    mask = torch.as_tensor(batch["pair_mask"][0]).to(DEVICE)
+    k4 = k4_yardsticks(torch, pair_ops, idx, mask, batch["x"].shape[1], gen)
+    k5 = k5_yardsticks(torch, row_gather, gen)
+    log(json.dumps({"package": str(root), "card": smi, "K4": k4, "K5": k5}))
+    return 0
+
+
+def hept_tpu_torch_root() -> str:
+    import hept_tpu_torch
+
+    return str(Path(hept_tpu_torch.__file__).parent.parent)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--points", type=int, default=60000)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile-steps", type=int, default=3)
+    ap.add_argument("--yardsticks-only", action="store_true",
+                    help="build K4 and K5, print their times at the paths' shapes as one JSON "
+                         "line, and stop (no result line)")
+    ap.add_argument("--package-root", default=None,
+                    help="import hept_tpu_torch from this directory instead (a parent tree "
+                         "for an A/B of the yardsticks)")
     args = ap.parse_args(argv)
     if args.steps < 3 or args.profile_steps < 2:
         ap.error("--steps must be at least 3 and --profile-steps at least 2")
@@ -930,12 +1108,16 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    if args.package_root is not None:
+        sys.path.insert(0, str(Path(args.package_root).resolve()))
     try:
         import hept_tpu_torch  # noqa: F401
     except ImportError as exc:
         print(f"chip_smoke: the hept_tpu_torch package is not beside this script ({exc})",
               file=sys.stderr)
         return 2
+    if args.yardsticks_only:
+        return yardsticks_only(torch, args)
     from hept_tpu_torch.data.datasets import SplitDataset
     from hept_tpu_torch.ops import bucket_attn_cuda, cuda_lib, pair_ops, row_gather, sort
     from hept_tpu_torch.ops.dispatch import plain_reference
@@ -963,10 +1145,7 @@ def main(argv=None) -> int:
 
     # 2. kernels vs plain versions
     rows = phase_kernels(torch, batch_np, args.seed)
-    rows["K5"] = phase_row_gather(torch, batch_np["x"].shape[1], args.seed)
-    log(f"  {rows['K5']['name']}: kernel {rows['K5']['ms']:.4f} ms, plain "
-        f"{rows['K5']['plain_ms']:.4f} ms, library {rows['K5']['library_ms']:.4f} ms, bound "
-        f"{rows['K5']['bound_ms']:.4f} ms ({rows['K5']['bound_by']})")
+    rows.update(phase_row_gather(torch, batch_np["x"].shape[1], args.seed))
     torch.cuda.empty_cache()
     rows.update(phase_cols_kernels(torch, args.seed))
     log("phase kernels: K1-K9 match their plain versions")
@@ -981,8 +1160,8 @@ def main(argv=None) -> int:
     loss_fn = trainer.make_loss_fn(cfg)
     gen_drop = torch.Generator(device=DEVICE).manual_seed(args.seed + 1)
     torch.cuda.synchronize()
-    counters = (bucket_attn_cuda.LAUNCHES, pair_ops.LAUNCHES, row_gather.LAUNCHES,
-                sort.LAUNCHES)
+    counters = (bucket_attn_cuda.LAUNCHES, pair_ops.LAUNCHES, pair_ops.CSR_BUILDS,
+                row_gather.LAUNCHES, sort.LAUNCHES)
 
     def zero_counts():
         for counts in counters:
@@ -1009,13 +1188,11 @@ def main(argv=None) -> int:
     # per step and layer: one K1, one K2, and the unsort's K5 forward and backward
     want = {"bucket_attn_fwd": 4 * args.steps, "bucket_attn_bwd": 4 * args.steps,
             "cols_fwd": 0, "cols_bwd": 0, "rows_fwd": 0, "rows_bwd": 0,
-            "row_gather": 8 * args.steps}
+            "row_gather": 8 * args.steps,
+            **{k: v * args.steps for k, v in PAIR_LAUNCHES_STEP.items()}}
     for k, v in want.items():
         if launches[k] != v:
             raise AssertionError(f"{k} launched {launches[k]}x in {args.steps} steps, want {v}")
-    for k in ("pair_gather", "pair_segment_sum"):
-        if launches[k] < args.steps:
-            raise AssertionError(f"{k} launched {launches[k]}x in {args.steps} steps")
     steady = statistics.median(step_ms[1:])
     log(f"phase main: {args.steps} hept_acc steps (4 layers, 8 heads, h_dim 24, bs 512, "
         f"8 static rounds, dropout on), losses {losses}; step ms {step_ms}; "
@@ -1024,6 +1201,8 @@ def main(argv=None) -> int:
     for key, name in (("K1", "bucket_attn_fwd"), ("K2", "bucket_attn_bwd"),
                       ("K3", "pair_gather"), ("K4", "pair_segment_sum"), ("K5", "row_gather")):
         rows[key]["launches"] = launches[name]
+    rows["K4"]["csr_builds"] = launches["anchor_csr"]
+    rows["K5"]["launches_in"] = f"phase 3, {args.steps} hept_acc steps"
     trained_state = copy.deepcopy(model.state_dict())
 
     # 4. the first step with kernels vs with plain versions, dropout off
@@ -1054,7 +1233,10 @@ def main(argv=None) -> int:
     model32 = trainer.build_model(cfg32, batch_np["x"].shape[2], batch_np["coords"].shape[2],
                                   gen_init, DEVICE)
     model32.load_state_dict(init_state)
+    zero_counts()
     loss_k, grads_k = loss_and_grads(torch, model32, loss_fn, batch)
+    rows["K5f32"]["launches"] = read_counts()["row_gather"]
+    rows["K5f32"]["launches_in"] = "phase 4, one hept_acc step with its bf16 modes off"
     with plain_reference():
         loss_p, grads_p = loss_and_grads(torch, model32, loss_fn, batch)
     log(f"phase compare (f32 kernels): loss kernels {loss_k:.6f} plain {loss_p:.6f}")
@@ -1093,12 +1275,20 @@ def main(argv=None) -> int:
     parity = phase_profile(torch, trainer, "hept", batch100, ds100, args.profile_steps,
                            args.seed, zero_counts, read_counts)
     rows["K6"]["launches"] = parity["launches"]["cols_fwd"]
+    rows["K5p"]["launches"] = parity["launches"]["row_gather"]
+    rows["K5p"]["launches_in"] = f"phase 7, {args.profile_steps} parity steps"
     rows["K7"]["launches"] = parity["launches"]["cols_bwd"]
     phase_profile(torch, trainer, "hept_fast", batch100, ds100, args.profile_steps, args.seed,
                   zero_counts, read_counts)
 
     # 9. the row-major core (K10), 10. the slab modes (K8/K9), 11. the sort (K12)
-    rows.update(phase_core(torch, trainer, batch100, args.seed, zero_counts, read_counts))
+    core_rows, core_launches = phase_core(torch, trainer, batch100, args.seed, zero_counts,
+                                          read_counts)
+    rows.update(core_rows)
+    for key in ("K5q", "K5v"):
+        rows[key]["launches"] = core_launches["row_gather"]
+        rows[key]["launches_in"] = ("phase 9, one hept_attention_core forward + backward "
+                                    "(120, 96 and 100 B rows together)")
     slab = phase_slab(torch, trainer, batch100, args.seed, zero_counts, read_counts)
     rows["K8"]["launches"] = slab["slab"]["cols_fwd"]
     rows["K9"]["launches"] = slab["slab"]["cols_bwd"] + slab["hybrid_slab"]["cols_bwd"]
@@ -1107,13 +1297,11 @@ def main(argv=None) -> int:
     rows["K11"] = dict(rows["K5"], name="K11 row_gather_vreg", ported_by="K5",
                        replaces="hept_tpu/ops/gather_pallas.py:124")
 
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [
-        {**{k: rows[key][k] for k in keys},
-         **({"ported_by": rows[key]["ported_by"]} if "ported_by" in rows[key] else {})}
-        for key in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10f", "K10b",
-                    "K11", "K12")]}))
+        {**{k: rows[key][k] for k in KERNEL_KEYS},
+         **{k: v for k, v in rows[key].items() if k not in KERNEL_KEYS}}
+        for key in ("K1", "K2", "K3", "K4", "K5", "K5f32", "K5p", "K5q", "K5v", "K6", "K7", "K8",
+                    "K9", "K10f", "K10b", "K11", "K12")]}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -11,6 +11,11 @@ needs the windows or a globally sorted index.
 
   gather_rows (K3):  out[e] = emb[idx[e]]     plain version: index_select
   segment_sum (K4):  out[i] = sum_{idx[e]=i} vals[e]   plain: index_add_
+
+K4 takes the CSR of its index (`anchor_csr`: the pairs in stable anchor
+order and the row pointers). The loss builds it once for its anchor index
+and hands it to the ops below, whose forward or backward runs K4; without
+one, `segment_sum_cuda` builds its own. K4's plain version ignores it.
 """
 
 from __future__ import annotations
@@ -24,6 +29,9 @@ from .dispatch import use_kernel
 
 # launches of each kernel since the last reset (plain integer counters)
 LAUNCHES = {"pair_gather": 0, "pair_segment_sum": 0}
+# CSRs built by `anchor_csr` since the last reset (PyTorch's sort, no kernel
+# of csrc/)
+CSR_BUILDS = {"anchor_csr": 0}
 
 
 def gather_rows_plain(emb: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -35,6 +43,28 @@ def segment_sum_plain(vals: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Te
     """Plain K4: vals (E, d) f32, idx (E,) -> (n, d) sums by index."""
     out = torch.zeros((n, vals.shape[1]), dtype=vals.dtype, device=vals.device)
     return out.index_add_(0, idx.to(torch.int64), vals)
+
+
+def anchor_csr(idx: torch.Tensor, n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The CSR of the anchor index idx (E,): (order, rowptr), both int32,
+    with the pairs of anchor i at order[rowptr[i]:rowptr[i + 1]] in stable
+    order (a stable sort and searchsorted, on idx's device). An index outside
+    [0, n) falls in no row."""
+    if idx.shape[0] >= 2**31 or n >= 2**31:
+        raise ValueError(f"anchor_csr: {idx.shape[0]} pairs, n={n}: int32 row pointers")
+    if n < 2**16 - 1:
+        # -1..n fit 16 bits: a radix sort of 16-bit keys takes half the passes
+        # of 32-bit ones (indices outside [0, n) clamped, so they stay out of
+        # every row)
+        key = (idx.clamp(-1, n) - (2**15 - 1)).to(torch.int16)
+        bounds = torch.arange(1 - 2**15, n + 2 - 2**15, dtype=torch.int16, device=idx.device)
+    else:
+        key = idx
+        bounds = torch.arange(n + 1, dtype=idx.dtype, device=idx.device)
+    sorted_key, order = torch.sort(key, stable=True)
+    rowptr = torch.searchsorted(sorted_key, bounds, out_int32=True)
+    CSR_BUILDS["anchor_csr"] += 1
+    return order.to(torch.int32), rowptr
 
 
 def _check(t: torch.Tensor, idx: torch.Tensor, what: str):
@@ -64,16 +94,20 @@ def gather_rows_cuda(emb: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def segment_sum_cuda(vals: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
-    """K4 on the card: sums of vals (E, d) by the index idx (E,) in [0, n)."""
+def segment_sum_cuda(vals: torch.Tensor, idx: torch.Tensor, n: int,
+                     csr: tuple[torch.Tensor, torch.Tensor] | None = None) -> torch.Tensor:
+    """K4 on the card: sums of vals (E, d) by the index idx (E,) in [0, n),
+    over `csr` = anchor_csr(idx, n) (built here when not given)."""
     _check(vals, idx, "segment_sum")
-    if vals.shape[0] != idx.shape[0]:
-        raise ValueError(f"segment_sum: {vals.shape[0]} values for {idx.shape[0]} indices")
-    d = vals.shape[1]
-    # CSR over the pairs in stable anchor order (deterministic)
-    sorted_idx, order = torch.sort(idx, stable=True)
-    bounds = torch.arange(n + 1, dtype=torch.int32, device=idx.device)
-    rowptr = torch.searchsorted(sorted_idx, bounds)  # int64 row pointers
+    e, d = vals.shape
+    if e != idx.shape[0]:
+        raise ValueError(f"segment_sum: {e} values for {idx.shape[0]} indices")
+    order, rowptr = anchor_csr(idx, n) if csr is None else csr
+    for t, size, what in ((order, e, "order"), (rowptr, n + 1, "rowptr")):
+        if t.shape != (size,) or t.dtype != torch.int32 or not t.is_contiguous() \
+                or t.device != vals.device:
+            raise ValueError(f"segment_sum: CSR {what} must be a contiguous ({size},) int32 "
+                             f"vector on {vals.device}, got {tuple(t.shape)} {t.dtype}")
     out = torch.empty((n, d), dtype=torch.float32, device=vals.device)
     lib = cuda_lib.load("pair_ops")
     fn = lib.hept_pair_segment_sum
@@ -92,59 +126,59 @@ def gather_rows(emb: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return gather_rows_plain(emb, idx)
 
 
-def segment_sum(vals: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+def segment_sum(vals: torch.Tensor, idx: torch.Tensor, n: int, csr=None) -> torch.Tensor:
     if use_kernel(vals):
-        return segment_sum_cuda(vals.contiguous(), idx, n)
+        return segment_sum_cuda(vals.contiguous(), idx, n, csr)
     return segment_sum_plain(vals, idx, n)
 
 
 class _PairGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, emb, idx):
+    def forward(ctx, emb, idx, csr):
         ctx.save_for_backward(idx)
-        ctx.n = emb.shape[0]
+        ctx.n, ctx.csr = emb.shape[0], csr
         return gather_rows(emb, idx)
 
     @staticmethod
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
-        return segment_sum(g, idx, ctx.n), None
+        return segment_sum(g, idx, ctx.n, ctx.csr), None, None
 
 
-def pair_gather(emb: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def pair_gather(emb: torch.Tensor, idx: torch.Tensor, csr=None) -> torch.Tensor:
     """emb (n, d) gathered at the anchor idx (E,) -> (E, d); the backward is
-    the K4 segment sum."""
-    return _PairGather.apply(emb, idx)
+    the K4 segment sum (over `csr`, the index's `anchor_csr`, when given)."""
+    return _PairGather.apply(emb, idx, csr)
 
 
 class _AnchorSegmentSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, vals, idx, n):
+    def forward(ctx, vals, idx, n, csr):
         ctx.save_for_backward(idx)
-        return segment_sum(vals[:, None], idx, n)[:, 0]
+        return segment_sum(vals[:, None], idx, n, csr)[:, 0]
 
     @staticmethod
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
-        return gather_rows(g[:, None], idx)[:, 0], None, None
+        return gather_rows(g[:, None], idx)[:, 0], None, None, None
 
 
-def anchor_segment_sum(vals: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
-    """Sum vals (E,) into (n,) segments keyed by the anchor idx; the backward
-    is the K3 gather."""
-    return _AnchorSegmentSum.apply(vals, idx, n)
+def anchor_segment_sum(vals: torch.Tensor, idx: torch.Tensor, n: int, csr=None) -> torch.Tensor:
+    """Sum vals (E,) into (n,) segments keyed by the anchor idx (over `csr`
+    when given); the backward is the K3 gather."""
+    return _AnchorSegmentSum.apply(vals, idx, n, csr)
 
 
 class _PairL2RBFSim(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, emb, p0, p1, rev, mask, sigma):
+    def forward(ctx, emb, p0, p1, rev, mask, sigma, csr):
         e0 = gather_rows(emb, p0)
         e1 = emb[p1]
         diff = e0 - e1
         d = torch.sqrt(torch.sum(diff * diff, dim=-1) + 1e-12)
         sim = torch.exp(-d / (2 * sigma**2))
         ctx.save_for_backward(diff, d, sim, p0, rev, mask)
-        ctx.sigma = sigma
+        ctx.sigma, ctx.csr = sigma, csr
         ctx.n = emb.shape[0]
         return sim
 
@@ -158,11 +192,12 @@ class _PairL2RBFSim(torch.autograd.Function):
         # (c_e + c_rev[e]) * v_e (pads masked: rev[pad] aliases a real pair).
         g = (-sim / (2 * sigma**2 * d))[:, None] * diff
         c2 = torch.where(mask, c + c[rev], torch.zeros_like(c))
-        return segment_sum(c2[:, None] * g, p0, ctx.n), None, None, None, None, None
+        return (segment_sum(c2[:, None] * g, p0, ctx.n, ctx.csr),) + (None,) * 6
 
 
-def pair_l2rbf_sim(emb, p0, p1, rev, mask, sigma: float = 0.75) -> torch.Tensor:
+def pair_l2rbf_sim(emb, p0, p1, rev, mask, sigma: float = 0.75, csr=None) -> torch.Tensor:
     """Per-pair RBF similarity exp(-|e0 - e1| / (2 sigma^2)) with the
-    symmetry-folded backward. Requires the pack-time reversal-closed windowed
-    layout; the folded backward equals the unfolded gradient there."""
-    return _PairL2RBFSim.apply(emb, p0, p1, rev, mask, sigma)
+    symmetry-folded backward (over `csr`, p0's `anchor_csr`, when given).
+    Requires the pack-time reversal-closed windowed layout; the folded
+    backward equals the unfolded gradient there."""
+    return _PairL2RBFSim.apply(emb, p0, p1, rev, mask, sigma, csr)

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.pair_ops import anchor_segment_sum, pair_gather, pair_l2rbf_sim
+from ..ops.pair_ops import anchor_csr, anchor_segment_sum, pair_gather, pair_l2rbf_sim
 
 
 def infonce_loss(embeddings: torch.Tensor, pairs: torch.Tensor, pair_mask: torch.Tensor,
@@ -28,14 +28,17 @@ def infonce_loss(embeddings: torch.Tensor, pairs: torch.Tensor, pair_mask: torch
         raise NotImplementedError(f"dist_metric {dist_metric}: the port has l2_rbf")
     n = embeddings.shape[0]
     p0, p1 = pairs[0], pairs[1]
+    # one CSR of the anchor index for the step's three K4 segment sums
+    csr = anchor_csr(p0, n)
     # similarity exp(-|e0 - e1| / (2 sigma^2)); the distance is
     # sqrt(|.|^2 + 1e-12), finite-gradient at zero distance (pad self-pairs)
-    sim = pair_l2rbf_sim(embeddings, p0, p1, pair_rev, pair_mask, 0.75)
+    sim = pair_l2rbf_sim(embeddings, p0, p1, pair_rev, pair_mask, 0.75, csr)
     logit = sim / tau
     max_sim = torch.max(torch.where(pair_mask, logit, torch.full_like(logit, -torch.inf)))
     exp_sim = torch.exp(logit - max_sim.detach())
     # per-anchor negative mass, looked up per pair
-    neg_sum = anchor_segment_sum(torch.where(pair_neg, exp_sim, torch.zeros_like(exp_sim)), p0, n)
-    denominator = pair_gather(neg_sum[:, None], p0)[:, 0]
+    neg_sum = anchor_segment_sum(torch.where(pair_neg, exp_sim, torch.zeros_like(exp_sim)), p0, n,
+                                 csr)
+    denominator = pair_gather(neg_sum[:, None], p0, csr)[:, 0]
     loss_per_pair = -torch.log(exp_sim / (exp_sim + denominator + 1e-30) + 1e-30)
     return torch.sum(loss_per_pair * pair_weight)

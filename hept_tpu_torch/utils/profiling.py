@@ -8,7 +8,8 @@ point, the profile's model at full width, dropout on), warms up two steps,
 times `--steps` steps without the profiler, then records `--steps` steps
 with torch.profiler. Prints the step's wall time (both ways), the device's
 busy and idle shares (kernel time over the profiled wall time), the
-device time of the port's own kernels and of everything else, and writes
+device time of the port's own kernels, of PyTorch's sort kernels (kernels
+named "sort", among the rest) and of everything else, and writes
 the top operators by device time to `<out>.txt` and the summary to
 `<out>.json`.
 """
@@ -33,7 +34,8 @@ from .device import resolve_device
 
 # kernels of csrc/*.cu (all in an anonymous namespace) as the profiler names them
 PORT_KERNELS = {"fwd_kernel": "K1", "bwd_kernel": "K2", "gather_kernel": "K3",
-                "segment_sum_kernel": "K4", "row_gather_kernel": "K5", "cols_fwd_kernel": "K6",
+                "segment_sum_kernel": "K4", "row_gather_kernel": "K5",
+                "row_gather_staged_kernel": "K5", "cols_fwd_kernel": "K6",
                 "cols_bwd_kernel": "K7"}
 _PORT_KERNEL_RE = re.compile(r"anonymous namespace\)::(" + "|".join(PORT_KERNELS) + r")\b")
 
@@ -86,12 +88,14 @@ def main(argv=None) -> dict:
         if evt.device_type == torch.autograd.DeviceType.CUDA and not evt.is_user_annotation:
             kernel_us[evt.name] = kernel_us.get(evt.name, 0.0) + evt.time_range.elapsed_us()
     busy_ms = sum(kernel_us.values()) / 1e3 / args.steps
-    ours = {}
+    ours, sort_ms = {}, 0.0
     for name, us in kernel_us.items():
         m = _PORT_KERNEL_RE.search(name)
         if m:
             kid = PORT_KERNELS[m.group(1)]
             ours[kid] = ours.get(kid, 0.0) + us / 1e3 / args.steps
+        elif "sort" in name.lower():  # torch.sort / argsort's radix-sort passes
+            sort_ms += us / 1e3 / args.steps
     top = sorted(kernel_us.items(), key=lambda kv: -kv[1])[:25]
     summary = {
         "profile": args.profile,
@@ -103,6 +107,7 @@ def main(argv=None) -> dict:
         "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
         "port_kernels_ms": ours,
         "other_kernels_ms": busy_ms - sum(ours.values()),
+        "sort_kernels_ms": sort_ms,
         "top_kernels_ms": [(name[:120], us / 1e3 / args.steps) for name, us in top],
     }
     out = Path(args.out)

@@ -140,22 +140,79 @@ def test_autograd_routes_through_kernels(dev):
                                    atol=2e-2 * b.grad.float().abs().max().item())
 
 
-@pytest.mark.parametrize("sort", [True, False])
-def test_k3_k4_match_plain(dev, sort):
-    """Sorted anchors, and an unsorted index (the cached layout's base and
-    augmentation blocks are each sorted, not their concatenation)."""
-    rng = np.random.default_rng(0)
-    n, e, d = 1000, 20000, 12
+def _anchor_index(layout, n, e, rng):
+    """Sorted anchors; two sorted blocks concatenated (the training loader's
+    cached layout: base, then augmentation); a random index. Every 7th anchor
+    from 3 on has no pairs."""
     raw = rng.integers(0, n, e)
-    idx = torch.tensor((np.sort(raw) if sort else raw).astype(np.int32), device=dev)
+    raw[(raw % 7) == 3] += 1
+    if layout == "sorted":
+        raw = np.sort(raw)
+    elif layout == "two_block":
+        cut = e * 4 // 5
+        raw = np.concatenate([np.sort(raw[:cut]), np.sort(raw[cut:])])
+    return raw.astype(np.int32)
+
+
+@pytest.mark.parametrize("d", [1, 7, 12])
+@pytest.mark.parametrize("layout", ["sorted", "two_block", "random"])
+def test_k3_k4_match_plain(dev, layout, d):
+    """K3 exactly and K4 with and without a given CSR (index_add_ sums in
+    another order), anchors without pairs summing to zero; K4 gives the same
+    bits on every call."""
+    rng = np.random.default_rng(0)
+    n, e = 1000, 20000
+    idx = torch.tensor(_anchor_index(layout, n, e, rng), device=dev)
     emb = torch.tensor(rng.normal(size=(n, d)), dtype=torch.float32, device=dev)
     vals = torch.tensor(rng.normal(size=(e, d)), dtype=torch.float32, device=dev)
     torch.testing.assert_close(po.gather_rows_cuda(emb, idx), po.gather_rows_plain(emb, idx),
                                rtol=0, atol=0)
     ref = po.segment_sum_plain(vals, idx, n)
-    torch.testing.assert_close(po.segment_sum_cuda(vals, idx, n), ref, rtol=1e-5, atol=1e-5)
-    # deterministic: the same bits on every call
-    assert torch.equal(po.segment_sum_cuda(vals, idx, n), po.segment_sum_cuda(vals, idx, n))
+    csr = po.anchor_csr(idx, n)
+    before = po.CSR_BUILDS["anchor_csr"]
+    got = po.segment_sum_cuda(vals, idx, n, csr)
+    assert po.CSR_BUILDS["anchor_csr"] == before
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+    # the CSR on the card is numpy's stable argsort and searchsorted
+    cpu = idx.cpu().numpy()
+    np.testing.assert_array_equal(csr[0].cpu().numpy(), np.argsort(cpu, kind="stable"))
+    np.testing.assert_array_equal(csr[1].cpu().numpy(),
+                                  np.searchsorted(np.sort(cpu), np.arange(n + 1)))
+    assert (got[3::7] == 0).all()
+    own = po.segment_sum_cuda(vals, idx, n)
+    assert po.CSR_BUILDS["anchor_csr"] == before + 1
+    # deterministic: the same bits on every call, with or without a given CSR
+    assert torch.equal(own, got) and torch.equal(po.segment_sum_cuda(vals, idx, n, csr), got)
+
+
+def test_k4_csr_built_once_per_loss(dev):
+    """infonce_loss builds one CSR of its anchor index and its three K4 calls
+    (forward negative sums, the gather's and the similarity's backward) use
+    it; the loss and gradient match plain_reference()."""
+    from hept_tpu_torch.data.batching import pack_events
+    from hept_tpu_torch.data.synthetic import synthetic_tracking_event
+    from hept_tpu_torch.train.losses import infonce_loss
+
+    ev = synthetic_tracking_event(np.random.default_rng(7), n_points=2000, pairs_per_point=6)
+    b = pack_events([ev], block_size=64, window_pairs=128, aug_pair_p=0.3,
+                    aug_rng=np.random.default_rng(8), cache=True)
+    keys = ("pairs", "pair_mask", "pair_rev", "pair_weight", "pair_neg")
+    tb = [torch.tensor(b[k][0], device=dev) for k in keys]
+    emb0 = torch.tensor(np.random.default_rng(9).normal(size=(b["x"].shape[1], 12)) * 0.5,
+                        dtype=torch.float32, device=dev)
+    emb = emb0.clone().requires_grad_(True)
+    csr0, k40 = po.CSR_BUILDS["anchor_csr"], po.LAUNCHES["pair_segment_sum"]
+    loss = infonce_loss(emb, *tb, tau=0.05)
+    loss.backward()
+    assert po.CSR_BUILDS["anchor_csr"] == csr0 + 1
+    assert po.LAUNCHES["pair_segment_sum"] == k40 + 3
+    ref = emb0.clone().requires_grad_(True)
+    with plain_reference():
+        loss_p = infonce_loss(ref, *tb, tau=0.05)
+        loss_p.backward()
+    torch.testing.assert_close(loss, loss_p, rtol=1e-5, atol=0)
+    torch.testing.assert_close(emb.grad, ref.grad, rtol=1e-5,
+                               atol=1e-5 * ref.grad.abs().max().item())
 
 
 def test_wrappers_reject_bad_inputs(dev):
@@ -170,10 +227,15 @@ def test_wrappers_reject_bad_inputs(dev):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.int32])
 @pytest.mark.parametrize("S,R,n,w", [(2, 2, 1000, 200), (1, 2, 999, 200), (3, 6, 257, 7),
-                                     (2, 2, 64, 300)])
+                                     (2, 2, 64, 300), (3, 3, 1000, 25), (8, 24, 1001, 30),
+                                     (8, 24, 1001, 24), (2, 4, 999, 13), (1, 2, 64, 3075)])
 def test_k5_matches_plain_bit_for_bit(dev, dtype, S, R, n, w):
-    """16-byte rows (200 bf16 / f32), 4- and 2-byte rows (7 elements), a
-    broadcast source, a ragged n and a row wider than the TPU's 128 words."""
+    """Rows of 16-byte multiples (200, 24 f32 / bf16: direct 16-byte copies)
+    and the staged widths: 100 and 120 B f32 (the parity unsort's W = 25, the
+    core's d = 30), 50 and 26 B bf16 (W = 25, 13), 4- and 2-byte rows (7
+    elements); broadcast sources (S = 8, R = 24), ragged n and row counts
+    that are no multiple of a tile, a row wider than the TPU's 128 words,
+    and one wider than the stage (3075 f32)."""
     g = torch.Generator(device=dev).manual_seed(0)
     src = torch.randint(-2**15, 2**15, (S, n, w), generator=g, device=dev,
                         dtype=torch.int32)
@@ -185,6 +247,30 @@ def test_k5_matches_plain_bit_for_bit(dev, dtype, S, R, n, w):
     assert rg.LAUNCHES["row_gather"] == before + 1
     want = rg.row_gather_plain(src, idx)
     bits = torch.int16 if src.element_size() == 2 else torch.int32
+    assert torch.equal(got.view(bits), want.view(bits))
+
+
+@pytest.mark.parametrize("dtype,w", [(torch.float32, 24), (torch.float32, 25),
+                                     (torch.bfloat16, 200), (torch.bfloat16, 25)])
+def test_k5_offset_source_and_out_of_range_index(dev, dtype, w):
+    """A source whose base is only 4-byte (f32) or 2-byte (bf16) aligned, so
+    even 16-byte multiples go through the stage; indices outside [0, n)
+    write zero rows."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    s_, r_, n = 2, 4, 777
+    flat = torch.randint(-2**15, 2**15, (s_ * n * w + 1,), generator=g, device=dev,
+                         dtype=torch.int32)
+    flat = flat.to(torch.int16).view(torch.bfloat16) if dtype == torch.bfloat16 \
+        else flat.view(dtype)
+    src = flat[1:].view(s_, n, w)
+    assert src.data_ptr() % 16 != 0
+    idx = torch.stack([torch.randperm(n, generator=g, device=dev) for _ in range(r_)])
+    idx[1, 5], idx[2, 0], idx[3, -1] = -1, n, 2**40
+    got = rg.row_gather_cuda(src, idx)
+    bits = torch.int16 if src.element_size() == 2 else torch.int32
+    ok = (idx >= 0) & (idx < n)
+    want = rg.row_gather_plain(src, torch.where(ok, idx, torch.zeros_like(idx)))
+    want[~ok] = 0
     assert torch.equal(got.view(bits), want.view(bits))
 
 

@@ -16,6 +16,8 @@ from hept_tpu.train.losses import infonce_loss as jax_infonce  # noqa: E402
 from hept_tpu_torch.data.batching import pack_events  # noqa: E402
 from hept_tpu_torch.data.synthetic import synthetic_tracking_event  # noqa: E402
 from hept_tpu_torch.ops.pair_ops import (  # noqa: E402
+    CSR_BUILDS,
+    anchor_csr,
     anchor_segment_sum,
     gather_rows_plain,
     pair_gather,
@@ -29,6 +31,46 @@ def _batch(n_points=600, seed=7):
     ev = synthetic_tracking_event(np.random.default_rng(seed), n_points=n_points,
                                   pairs_per_point=6)
     return pack_events([ev], block_size=64, window_pairs=128)
+
+
+def _two_block_batch(n_points=600, seed=7):
+    """The training loader's cached layout: the base block's windows, then
+    the augmentation draw's, each anchor-sorted, their concatenation not."""
+    ev = synthetic_tracking_event(np.random.default_rng(seed), n_points=n_points,
+                                  pairs_per_point=6)
+    return pack_events([ev], block_size=64, window_pairs=128, aug_pair_p=0.3,
+                       aug_rng=np.random.default_rng(seed + 1), cache=True)
+
+
+def _anchor_index(layout):
+    """(idx, n) for a layout, with anchors that have no pairs."""
+    if layout in ("random", "random_wide"):
+        rng = np.random.default_rng(4)
+        n = 500 if layout == "random" else 70000  # 16- and 32-bit sort keys
+        idx = rng.integers(0, n, 3000 if layout == "random" else 200000)
+        idx[(idx % 7) == 3] = 0  # every 7th anchor from 3 on gets no pairs
+        return idx.astype(np.int32), n
+    b = _batch() if layout == "sorted" else _two_block_batch()
+    return b["pairs"][0, 0], b["x"].shape[1]
+
+
+@pytest.mark.parametrize("layout", ["sorted", "two_block", "random", "random_wide"])
+def test_anchor_csr_matches_numpy(layout):
+    """order is numpy's stable argsort as int32; rowptr numpy's searchsorted
+    of 0..n (an anchor without pairs has an empty row)."""
+    idx, n = _anchor_index(layout)
+    if layout == "two_block":
+        assert (np.diff(idx) < 0).any()  # the concatenation is not sorted
+    counts = np.bincount(idx, minlength=n)
+    assert (counts == 0).any()
+    before = CSR_BUILDS["anchor_csr"]
+    order, rowptr = anchor_csr(torch.tensor(idx), n)
+    assert CSR_BUILDS["anchor_csr"] == before + 1
+    assert order.dtype == torch.int32 and rowptr.dtype == torch.int32
+    np.testing.assert_array_equal(order.numpy(), np.argsort(idx, kind="stable"))
+    np.testing.assert_array_equal(rowptr.numpy(),
+                                  np.searchsorted(np.sort(idx), np.arange(n + 1)))
+    np.testing.assert_array_equal(np.diff(rowptr.numpy()), counts)
 
 
 def test_plain_k3_k4_match_tpu_windowed_kernels():
@@ -91,6 +133,36 @@ def test_infonce_matches_jax():
     tl = infonce_loss(te, tb["pairs"], tb["pair_mask"], tb["pair_rev"], tb["pair_weight"],
                       tb["pair_neg"], tau=0.05)
     tl.backward()
+    np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=1e-5)
+    np.testing.assert_allclose(te.grad.numpy(), np.asarray(jg), rtol=1e-5,
+                               atol=1e-5 * np.abs(np.asarray(jg)).max())
+
+
+def test_infonce_two_block_layout_matches_jax():
+    """The training loader's two-block layout, loss and gradient against
+    JAX's windowed InfoNCE (1e-5), with one CSR of the anchor index built
+    per loss call and handed to its three segment sums."""
+    b = _two_block_batch()
+    n = b["x"].shape[1]
+    assert (np.diff(b["pairs"][0, 0]) < 0).any()
+    emb = np.random.default_rng(5).normal(size=(n, 12)).astype(np.float32) * 0.5
+    keys = ("pairs", "pair_mask", "pair_rev", "pair_weight", "pair_neg")
+    jb = {k: jnp.asarray(b[k][0]) for k in keys + ("cluster_ids", "recons", "pts")}
+
+    def jloss(e):
+        return jax_infonce(e, jb["pairs"], jb["pair_mask"], jb["cluster_ids"], jb["recons"],
+                           jb["pts"], tau=0.05, dist_metric="l2_rbf", windowed_pairs=True,
+                           pair_rev=jb["pair_rev"], pair_weight=jb["pair_weight"],
+                           pair_neg=jb["pair_neg"])
+
+    jl, jg = jax.value_and_grad(jloss)(jnp.asarray(emb))
+    te = torch.tensor(emb, requires_grad=True)
+    tb = {k: torch.tensor(b[k][0]) for k in keys}
+    before = CSR_BUILDS["anchor_csr"]
+    tl = infonce_loss(te, tb["pairs"], tb["pair_mask"], tb["pair_rev"], tb["pair_weight"],
+                      tb["pair_neg"], tau=0.05)
+    tl.backward()
+    assert CSR_BUILDS["anchor_csr"] == before + 1
     np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=1e-5)
     np.testing.assert_allclose(te.grad.numpy(), np.asarray(jg), rtol=1e-5,
                                atol=1e-5 * np.abs(np.asarray(jg)).max())

@@ -30,9 +30,11 @@ def _port(src, idx):
     return out.numpy().view(np.uint32)
 
 
-# the cases of tests/test_gather_pallas.py
+# the cases of tests/test_gather_pallas.py, and 100- and 120-byte f32 rows
+# (the parity unsort's W = 25; the row-major core's d = 30 from 8 sources)
 @pytest.mark.parametrize("tile", [64, 128])
-@pytest.mark.parametrize("S,R,n,w", [(3, 3, 256, 100), (1, 4, 192, 128)])
+@pytest.mark.parametrize("S,R,n,w", [(3, 3, 256, 100), (1, 4, 192, 128), (3, 3, 256, 25),
+                                     (2, 6, 192, 30)])
 def test_plain_k5_equals_vreg(S, R, n, w, tile):
     src, idx = _case(S, R, n, w)
     want = np.asarray(row_gather_vreg(jnp.asarray(src), jnp.asarray(idx), tile=tile,
@@ -48,7 +50,8 @@ def test_plain_k5_equals_vreg_ragged_tail():
     np.testing.assert_array_equal(_port(src, idx), want[..., :100])
 
 
-@pytest.mark.parametrize("S,R,n,w", [(3, 3, 256, 100), (1, 2, 96, 128)])
+@pytest.mark.parametrize("S,R,n,w", [(3, 3, 256, 100), (1, 2, 96, 128), (3, 3, 256, 25),
+                                     (2, 6, 192, 30)])
 def test_plain_k5_equals_dma(S, R, n, w):
     src, idx = _case(S, R, n, w, seed=7)
     want = np.asarray(row_gather_dma(jnp.asarray(src), jnp.asarray(idx), t_tile=64,
