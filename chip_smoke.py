@@ -11,7 +11,12 @@ Phases, one line each (plus per-kernel lines):
      the error, and time kernel, plain version and, where one exists, the
      single PyTorch call computing the same function; K2 and K7 v2 also
      against the f32 autograd gradient of the bf16 forward (the
-     bf16-gradient contract); K4 with its CSR given and building its own,
+     bf16-gradient contract); K1 / K2 on the tensor-core route (bf16) with
+     the same bits on repeated calls, timed by CUDA events and by CUDA graph
+     replay beside their bound and their per-logit ex2 / FP32 floors, then on
+     the scalar route (f32) at the same shape, checked and timed once, and a
+     flash-attention sanity line (not the same function); K4 with its CSR
+     given and building its own,
      on the batch's index and an unsorted one, the same bits on repeated
      calls, then timed (`k4_yardsticks`: the kernel at d = 12 and 1, the
      CSR build, the loss's three calls against three `index_add_`); K5 (the
@@ -26,14 +31,17 @@ Phases, one line each (plus per-kernel lines):
   3. the main path: the full-width `hept_acc` model (random weights from the
      seed) takes `--steps` Adam steps at lr 1e-2 with dropout on, through the
      trainer's `train_step`, on one synthetic 60k-point event; launch
-     counters are zeroed just before and read just after (per step K5 8, K3
+     counters are zeroed just before and read just after (per step K1 and
+     K2 4 each on the tensor-core route and none on the scalar one, K5 8, K3
      3, K4 3, one CSR build);
   4. the first step's loss and gradients again, dropout off, once with the
      kernels and once with the plain versions, compared: in the hept_acc
-     configuration, and with its bf16 modes off (f32 kernels);
+     configuration, and with its bf16 modes off (f32 kernels: K1 / K2 4 each
+     on the scalar route);
   5. the eval path: the trainer's `evaluate` (forward, loss, retrieval
      metrics) on the same event with the phase-3 weights, timed, with the
-     metrics' share; launch counters zeroed just before (K5: 4 per event);
+     metrics' share; launch counters zeroed just before (K1 on the
+     tensor-core route and K5: 4 per event);
      then the same under `plain_reference()`, compared;
   6. the trainer: `run_one_seed` for one epoch on a 3-event synthetic
      dataset in a temporary log dir: it writes a checkpoint, restores it
@@ -91,6 +99,9 @@ KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
 # (forward and backward) and per evaluated event (forward)
 PAIR_LAUNCHES_STEP = {"pair_gather": 3, "pair_segment_sum": 3, "anchor_csr": 1}
 PAIR_LAUNCHES_EVAL = {"pair_gather": 2, "pair_segment_sum": 1, "anchor_csr": 1}
+# K1 / K2 on neither route: the paths that run K6 / K7 or K10
+NO_K1_K2 = {"bucket_attn_fwd_tc": 0, "bucket_attn_bwd_tc": 0, "bucket_attn_fwd": 0,
+            "bucket_attn_bwd": 0}
 
 
 def log(msg: str) -> None:
@@ -135,6 +146,20 @@ def graph_ms(fn, iters: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+# K1 / K2's per-logit work outside the tensor cores: one ex2 on the SFU (16
+# a clock per SM) and FP32 instructions on the 128 lanes of an SM (K1: two
+# bias adds, clamp, scale, denominator, half a bf16 pack; K2 per pass: those
+# and the dl product, select, hi/lo split and packs), per pass over the logits
+SM_COUNT, SM_CLOCK_HZ = 132, 1.98e9  # H100 SXM, maximum SM clock
+K1_FP32_PER_LOGIT, K2_FP32_PER_LOGIT = 7, 12
+
+
+def logit_floors(logits: float, fp32_per_logit: int, passes: int) -> dict:
+    """Least times of the per-logit ex2 and FP32 work of `passes` passes."""
+    work = passes * logits / (SM_COUNT * SM_CLOCK_HZ) * 1e3
+    return {"sfu_floor_ms": work / 16, "alu_floor_ms": work * fp32_per_logit / 128}
 
 
 def bound_ms(nbytes: float, flops: float, flop_rate: float) -> tuple[float, str]:
@@ -214,17 +239,22 @@ def phase_kernels(torch, batch, seed: int) -> dict:
     g_so = randn(r, dv, n)
     rows = []
 
-    # K1
+    # K1 / K2 on the tensor-core route (bf16, bs % 16 == 0), as the main path
+    assert ba.bucket_attn_route(sq.dtype, bs) == "tc"
     den_k, so_k = ba.bucket_attn_fwd_cuda(sq, sk, sv, bs)
     den_p, so_p = ba.bucket_attn_fwd_plain(sq, sk, sv, bs)
     torch.cuda.synchronize()
-    log("kernel K1 bucket_attn_fwd (bf16, r=16 d=30 dv=24 n=%d bs=512):" % n)
+    log("kernel K1 bucket_attn_fwd (tensor cores; bf16, r=16 d=30 dv=24 n=%d bs=512):" % n)
     # pt is rounded to bf16 before the value product; kernel and plain sum the
     # logits in different orders, so a rounding can flip (2^-8 relative on
     # one term of a 512-term sum)
     e_den, e_so = max_err(den_k, den_p), max_err(so_k, so_p)
     check("denom max|d|", e_den, 1e-4 * scale(den_p))
     check("so max|d|", e_so, 5e-3 * scale(so_p))
+    if not all(torch.equal(a, b) for _ in range(3)
+               for a, b in zip((den_k, so_k), ba.bucket_attn_fwd_cuda(sq, sk, sv, bs))):
+        raise AssertionError("K1: repeated calls differ in their bits")
+    log("  K1: the same bits on 4 calls")
     by = 2 * (2 * r * d * n + r * dv * n) + 4 * (r * n + r * dv * n)
     fl = 2.0 * r * n * bs * (d + dv)
     b_ms, b_by = bound_ms(by, fl, BF16_FLOP_PER_S)
@@ -233,20 +263,24 @@ def phase_kernels(torch, batch, seed: int) -> dict:
                      replaces="hept_tpu/ops/bucket_attn_pallas.py:858",
                      max_abs_err=max(e_den, e_so),
                      ms=time_ms(lambda: ba.bucket_attn_fwd_cuda(sq, sk, sv, bs)),
+                     device_ms=graph_ms(lambda: ba.bucket_attn_fwd_cuda(sq, sk, sv, bs)),
                      plain_ms=time_ms(lambda: ba.bucket_attn_fwd_plain(sq, sk, sv, bs), 3, 1),
                      bound_ms=b_ms, bound_by=b_by, library_ms=None))
 
-    # K2
     dq_k, dk_k, dv_k = ba.bucket_attn_bwd_cuda(sq, sk, sv, g_den, g_so, bs)
     dq_p, dk_p, dv_p = ba.bucket_attn_bwd_plain(sq, sk, sv, g_den, g_so, bs)
     torch.cuda.synchronize()
-    log("kernel K2 bucket_attn_bwd (bf16 in/out, f32 cotangents):")
+    log("kernel K2 bucket_attn_bwd (tensor cores; bf16 in/out, f32 cotangents):")
     # outputs are bf16: one rounding of slightly different f32 values can
-    # differ by 1 bf16 ulp (2^-8 relative); the plain dl is a hi/lo pair
+    # differ by 1 bf16 ulp (2^-8 relative); both split dl into hi/lo bf16
     errs = []
     for nm, a, b in (("dq", dq_k, dq_p), ("dk", dk_k, dk_p), ("dv", dv_k, dv_p)):
         errs.append(max_err(a, b))
         check(f"{nm} max|d|", errs[-1], 1e-2 * scale(b))
+    if not all(torch.equal(a, b) for _ in range(3) for a, b in
+               zip((dq_k, dk_k, dv_k), ba.bucket_attn_bwd_cuda(sq, sk, sv, g_den, g_so, bs))):
+        raise AssertionError("K2: repeated calls differ in their bits")
+    log("  K2: the same bits on 4 calls")
     # the contract: K2 is the gradient of the bf16 forward -- f32 autograd of
     # the K1 math at the same bf16 values, 2e-2 x scale (as the JAX test), in
     # the regime that broke the old TPU backward: uncentred RPE rows with a
@@ -270,10 +304,52 @@ def phase_kernels(torch, batch, seed: int) -> dict:
                      replaces="hept_tpu/ops/bucket_attn_pallas.py:893",
                      max_abs_err=max(errs),
                      ms=time_ms(lambda: ba.bucket_attn_bwd_cuda(sq, sk, sv, g_den, g_so, bs)),
+                     device_ms=graph_ms(
+                         lambda: ba.bucket_attn_bwd_cuda(sq, sk, sv, g_den, g_so, bs)),
                      plain_ms=time_ms(
                          lambda: ba.bucket_attn_bwd_plain(sq, sk, sv, g_den, g_so, bs), 3, 1),
                      bound_ms=b_ms, bound_by=b_by, library_ms=None))
-    del sq, sk, sv, g_den, g_so, den_k, so_k, den_p, so_p, dq_k, dk_k, dv_k, dq_p, dk_p, dv_p
+    del den_k, so_k, den_p, so_p, dq_k, dk_k, dv_k, dq_p, dk_p, dv_p
+
+    # the scalar route at the same shape in f32 (hept_acc with its bf16 modes
+    # off): no TF32, f32 sums of 512 terms in other orders
+    s32 = [t.float() for t in (sq, sk, sv)]
+    assert ba.bucket_attn_route(torch.float32, bs) == "scalar"
+    log("kernel K1 / K2 scalar route (f32, the same shape):")
+    e32 = []
+    for nm, a, b in zip(("denom", "so"), ba.bucket_attn_fwd_cuda(*s32, bs),
+                        ba.bucket_attn_fwd_plain(*s32, bs)):
+        e32.append(max_err(a, b))
+        check(f"K1 f32 {nm} max|d|", e32[-1], 1e-4 * scale(b))
+    for nm, a, b in zip(("dq", "dk", "dv"), ba.bucket_attn_bwd_cuda(*s32, g_den, g_so, bs),
+                        ba.bucket_attn_bwd_plain(*s32, g_den, g_so, bs)):
+        e32.append(max_err(a, b))
+        check(f"K2 f32 {nm} max|d|", e32[-1], 1e-4 * scale(b))
+    rows[0].update(scalar_f32_device_ms=graph_ms(lambda: ba.bucket_attn_fwd_cuda(*s32, bs), 5),
+                   scalar_f32_max_abs_err=max(e32[:2]))
+    rows[1].update(
+        scalar_f32_device_ms=graph_ms(lambda: ba.bucket_attn_bwd_cuda(*s32, g_den, g_so, bs), 3),
+        scalar_f32_max_abs_err=max(e32[2:]))
+    del s32
+    # a sanity line only, not the same function (softmax attention, one
+    # output): flash attention over the same buckets as (r * nb) batches of
+    # 512 tokens at head dim 32, bf16; the port never calls it
+    qh = torch.randn((r * nb, 1, bs, 32), generator=gen, device=dev).to(torch.bfloat16)
+    sdpa_ms = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qh, qh, qh))
+    del qh
+    # the floors are estimates for this log line only: the kernels line
+    # carries measured numbers and bound_ms
+    for row, floors in zip(rows, (logit_floors(r * n * bs, K1_FP32_PER_LOGIT, 1),
+                                  logit_floors(r * n * bs, K2_FP32_PER_LOGIT, 2))):
+        log(f"  {row['name']}: tensor cores {row['device_ms']:.4f} ms device "
+            f"({row['ms']:.4f} ms by events), scalar f32 route {row['scalar_f32_device_ms']:.4f} "
+            f"ms device, plain {row['plain_ms']:.4f} ms; bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}); per-logit floors outside the tensor cores (not in bound_ms, "
+            f"at {SM_CLOCK_HZ / 1e9:.2f} GHz): ex2 {floors['sfu_floor_ms']:.4f} ms, FP32 "
+            f"{floors['alu_floor_ms']:.4f} ms")
+    log(f"  sanity, not the same function: scaled_dot_product_attention (bf16, batch {r * nb}, "
+        f"{bs} tokens, head dim 32, forward) {sdpa_ms:.4f} ms device")
+    del sq, sk, sv, g_den, g_so
     torch.cuda.empty_cache()
 
     # K3 / K4 on the batch's anchor index, 12-wide embeddings (the loss's
@@ -323,8 +399,11 @@ def phase_kernels(torch, batch, seed: int) -> dict:
                      plain_ms=time_ms(lambda: po.segment_sum_plain(vals, idx, n), 20),
                      bound_ms=k4["kernel_d12_bound_ms"], bound_by="bytes",
                      library_ms=k4["index_add_d12_ms"],
+                     # the yardsticks' own bounds stay on their log line: the
+                     # kernels line carries measured numbers and bound_ms
                      **{k: v for k, v in k4.items()
-                        if k not in ("kernel_d12_ms", "kernel_d12_bound_ms", "index_add_d12_ms")}))
+                        if k not in ("kernel_d12_ms", "index_add_d12_ms")
+                        and not k.endswith("_bound_ms")}))
     for row in rows:
         lib = "-" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
         log(f"  {row['name']}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
@@ -658,8 +737,9 @@ def phase_eval(torch, trainer, model, cfg, event, batch, zero_counts, read_count
     eval_ms = (time.perf_counter() - t0) * 1e3
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    want = {"bucket_attn_fwd": 4, "bucket_attn_bwd": 0, "cols_fwd": 0, "cols_bwd": 0,
-            "row_gather": 4, **PAIR_LAUNCHES_EVAL}
+    want = {"bucket_attn_fwd_tc": 4, "bucket_attn_bwd_tc": 0, "bucket_attn_fwd": 0,
+            "bucket_attn_bwd": 0, "cols_fwd": 0, "cols_bwd": 0, "row_gather": 4,
+            **PAIR_LAUNCHES_EVAL}
     for k, v in want.items():
         if launches[k] != v:
             raise AssertionError(f"eval of one event launched {k} {launches[k]}x, want {v}")
@@ -804,8 +884,8 @@ def phase_profile(torch, trainer, profile: str, batch_np, ds, steps: int, seed: 
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{profile}: non-finite loss: {losses}")
     # per step and layer: one K6, one K7, the unsort's K5 forward and backward
-    want = {"cols_fwd": 4 * steps, "cols_bwd": 4 * steps, "bucket_attn_fwd": 0,
-            "bucket_attn_bwd": 0, "rows_fwd": 0, "rows_bwd": 0, "row_gather": 8 * steps,
+    want = {"cols_fwd": 4 * steps, "cols_bwd": 4 * steps, **NO_K1_K2,
+            "rows_fwd": 0, "rows_bwd": 0, "row_gather": 8 * steps,
             **{k: v * steps for k, v in PAIR_LAUNCHES_STEP.items()}}
     for k, v in want.items():
         if launches[k] != v:
@@ -827,7 +907,7 @@ def phase_profile(torch, trainer, profile: str, batch_np, ds, steps: int, seed: 
     eval_ms = (time.perf_counter() - t0) * 1e3
     eval_launches = read_counts()
     # per layer: one K6 and the unsort's K5; no backward
-    want = {"cols_fwd": 4, "cols_bwd": 0, "bucket_attn_fwd": 0, "bucket_attn_bwd": 0,
+    want = {"cols_fwd": 4, "cols_bwd": 0, **NO_K1_K2,
             "row_gather": 4, **PAIR_LAUNCHES_EVAL}
     for k, v in want.items():
         if eval_launches[k] != v:
@@ -892,8 +972,8 @@ def phase_core(torch, trainer, batch_np, seed: int, zero_counts, read_counts) ->
     torch.cuda.synchronize()
     core_ms = (time.perf_counter() - t0) * 1e3
     launches = read_counts()
-    want = {"rows_fwd": 1, "rows_bwd": 1, "row_gather": 8, "bucket_attn_fwd": 0,
-            "bucket_attn_bwd": 0, "cols_fwd": 0, "cols_bwd": 0}
+    want = {"rows_fwd": 1, "rows_bwd": 1, "row_gather": 8, **NO_K1_K2,
+            "cols_fwd": 0, "cols_bwd": 0}
     for k, v in want.items():
         if launches[k] != v:
             raise AssertionError(f"hept_attention_core launched {k} {launches[k]}x, want {v}")
@@ -997,7 +1077,7 @@ def phase_slab(torch, trainer, batch_np, seed: int, zero_counts, read_counts) ->
         launches = read_counts()
         if not math.isfinite(loss):
             raise AssertionError(f"hept_fast {mode}: non-finite loss {loss}")
-        want = {"cols_fwd": 4, "cols_bwd": 4, "bucket_attn_fwd": 0, "bucket_attn_bwd": 0,
+        want = {"cols_fwd": 4, "cols_bwd": 4, **NO_K1_K2,
                 "rows_fwd": 0, "rows_bwd": 0, "row_gather": 8, **PAIR_LAUNCHES_STEP}
         for k, v in want.items():
             if launches[k] != v:
@@ -1185,8 +1265,10 @@ def main(argv=None) -> int:
     launches = read_counts()
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite loss: {losses}")
-    # per step and layer: one K1, one K2, and the unsort's K5 forward and backward
-    want = {"bucket_attn_fwd": 4 * args.steps, "bucket_attn_bwd": 4 * args.steps,
+    # per step and layer: one K1, one K2 (tensor cores; the scalar route none),
+    # and the unsort's K5 forward and backward
+    want = {"bucket_attn_fwd_tc": 4 * args.steps, "bucket_attn_bwd_tc": 4 * args.steps,
+            "bucket_attn_fwd": 0, "bucket_attn_bwd": 0,
             "cols_fwd": 0, "cols_bwd": 0, "rows_fwd": 0, "rows_bwd": 0,
             "row_gather": 8 * args.steps,
             **{k: v * args.steps for k, v in PAIR_LAUNCHES_STEP.items()}}
@@ -1198,7 +1280,7 @@ def main(argv=None) -> int:
         f"8 static rounds, dropout on), losses {losses}; step ms {step_ms}; "
         f"median after the first {steady:.1f} ms; launches {launches}; "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    for key, name in (("K1", "bucket_attn_fwd"), ("K2", "bucket_attn_bwd"),
+    for key, name in (("K1", "bucket_attn_fwd_tc"), ("K2", "bucket_attn_bwd_tc"),
                       ("K3", "pair_gather"), ("K4", "pair_segment_sum"), ("K5", "row_gather")):
         rows[key]["launches"] = launches[name]
     rows["K4"]["csr_builds"] = launches["anchor_csr"]
@@ -1235,7 +1317,15 @@ def main(argv=None) -> int:
     model32.load_state_dict(init_state)
     zero_counts()
     loss_k, grads_k = loss_and_grads(torch, model32, loss_fn, batch)
-    rows["K5f32"]["launches"] = read_counts()["row_gather"]
+    launches32 = read_counts()
+    want = {"bucket_attn_fwd": 4, "bucket_attn_bwd": 4, "bucket_attn_fwd_tc": 0,
+            "bucket_attn_bwd_tc": 0}
+    for k, v in want.items():
+        if launches32[k] != v:
+            raise AssertionError(f"the f32 step launched {k} {launches32[k]}x, want {v}")
+    rows["K1"]["scalar_f32_launches"] = launches32["bucket_attn_fwd"]
+    rows["K2"]["scalar_f32_launches"] = launches32["bucket_attn_bwd"]
+    rows["K5f32"]["launches"] = launches32["row_gather"]
     rows["K5f32"]["launches_in"] = "phase 4, one hept_acc step with its bf16 modes off"
     with plain_reference():
         loss_p, grads_p = loss_and_grads(torch, model32, loss_fn, batch)

@@ -1,8 +1,9 @@
-// Per-bucket RBF attention for Hopper: forward K1 / backward K2 (one CTA per
-// bucket), forward K6 / backward K7 (several small buckets per CTA; their own
-// notes below), and K10, the same kernels on the row layout.
+// Per-bucket RBF attention for Hopper: forward K1 / backward K2 (the
+// hept_acc step's bucket kernels, bs 512), forward K6 / backward K7 (several
+// small buckets per CTA; their own notes below), and K10, the same kernels
+// on the row layout.
 //
-// Replaces the TPU's flat-slab Pallas kernels
+// K1 / K2 replace the TPU's flat-slab Pallas kernels
 //   K1  hept_tpu/ops/bucket_attn_pallas.py:_fwd_slab128_kernel (pallas_call at :858)
 //   K2  hept_tpu/ops/bucket_attn_pallas.py:_bwd_slab128_kernel (pallas_call at :893)
 //
@@ -19,29 +20,51 @@
 //   dv_j = sum_i g_so_i * pt[i,j]              (pt rounded to bf16 for bf16)
 // outputs cast to the input dtype.
 //
-// Numerics. Products of (bf16-valued) operands are summed in f32 FMAs, as the
-// TPU's bf16 MXU dots with f32 accumulation do; f32 inputs use f32 FMAs, not
-// TF32. The TPU splits dlt into a hi/lo bf16 pair only because its dq/dk
-// dots take bf16 operands; here dlt is accumulated in f32 directly, and the
-// row and column sums that cancel the common mode (sum_j dlt (k_j - q_i))
-// are taken from the very same dlt values as the products, which is the
-// property the bf16-gradient contract needs.
+// Two routes, chosen by the wrapper from dtype and bucket size before launch:
+//  * tensor cores (tc_fwd_kernel / tc_bwd_kernel): bf16 inputs, bs % 16 == 0,
+//    every shape of the hept_acc step and its eval. The TPU's contract
+//    literally: logits and products from bf16 mma.sync m16n8k16 with f32
+//    accumulation, both norm biases added in f32 (never folded into the mma
+//    as bf16 columns: a per-bucket common mode of ~40 would be off by O(10)),
+//    pt rounded to bf16 for the value product and summed in f32 for denom;
+//    K2 rounds g_so to bf16, splits dlt into hi + lo bf16 and forms dq / dk
+//    with the ones-augmented K~ = [k, 1, 0] / Q~ = [q, 1, 0], so column d of
+//    the product is the row (column) sum that cancels the common mode, taken
+//    from the same hi / lo values as the products.
+//  * scalar (fwd_kernel / bwd_kernel): f32 inputs, which must not use TF32
+//    (the reference asks for HIGHEST), and bf16 at a bs that is no multiple
+//    of 16. One CTA per (row, bucket), operands staged in shared memory as
+//    f32, one thread per query (or key) looping over the bucket with scalar
+//    FMAs; bf16 dlt accumulated in f32 directly.
 //
-// What bounds it on the H100. Per launch at the main path's shapes
-// (r=16, d=30, dv=24, n=60416, bs=512) the bucket math is 2*r*n*bs*(d+dv)
-// ~ 5.3e10 flop (K2 ~ 2.5x that) plus r*n*bs ~ 4.9e8 exponentials, over
-// ~0.26 GB of inputs and outputs. The least time is the memory term
-// (~77 us); the bf16 tensor-core term is ~54 us. These kernels are the
-// simple first version: one CTA per (row, bucket) keeps the bucket's keys
-// and values (K1, K2 query side) or queries and cotangents (K2 key side) in
-// shared memory as f32, and each thread owns one query (or key) and loops
-// over the other side with scalar FMAs. They are bound by the FMA and
-// shared-memory issue rate of the CUDA cores, far above the bound; moving
-// the two contractions onto wgmma is later work. K2 runs its two
-// contractions as two halves of one grid (blockIdx.z): thread-per-query for
-// dq, thread-per-key for dk and dv, each recomputing pt, so no value is
-// reduced across threads or CTAs: no atomics, and the result is
-// deterministic.
+// What bounds K1 / K2 on the H100, per launch at the main path's shapes
+// (r=16, d=30, dv=24, n=60416, bs=512: r*n*bs ~ 4.95e8 logits): the bytes,
+// ~0.26 GB in and out (K1 ~77 us, K2 ~140 us of HBM), and the tensor-core
+// term (~54 us K1, ~0.2-0.3 ms K2 with its hi / lo and augmented products)
+// are below what every logit costs outside the tensor cores: one ex2 on the
+// SFU (16 a clock per SM: ~0.12 ms a pass over the logits) and 5-11 more
+// instructions (bias, clamp, scale, the denominator or dl, the bf16 packs);
+// K2 makes two passes. So the design keeps the per-logit work short and in
+// registers: a CTA per (row, bucket) (K2: and half) stages the bucket's
+// other side once in shared memory as bf16 point-major rows (a 16-byte load
+// per column pair and 8 points, 32-bit stores of column pairs, row strides
+// of 4 words modulo 8 so the 8 rows a warp reads at once hit distinct
+// banks); 8 warps take 16-point tiles of their own side (K1 two at a time,
+// sharing every B fragment) with the A fragments in registers, and walk the
+// bucket in chunks of 16 points: S (and K2's GP) on the tensor cores from
+// accumulators that start at the f32 bias sum (and g_den), the per-logit
+// work on the accumulator registers, and the results repacked as the A
+// operand of the next product (ldmatrix.trans reads the point-major tile as
+// the B operand where the contraction runs over points). exp is ex2.approx
+// of a log2(e)-scaled argument; no running max is needed, the clamp keeps
+// every pt <= 1. dl's hi half comes from one packed conversion per pair,
+// unpacked by shifts. K2 keeps the two recomputing halves of the scalar
+// design (blockIdx.z: dk, dv by keys; dq by queries): no atomics,
+// deterministic. Outputs are stored from the accumulators: a warp's store
+// fills whole 32-byte sectors (8 points of one column). Measured on the
+// H100 (PERF.md): one CTA per bucket beats 2 or 4 (each restages the
+// bucket), and K2 is bound by none of the SFU, the conversions or the
+// tensor cores alone: removing any one of them saves little.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -666,6 +689,560 @@ int launch_cols_bwd(const void* q, const void* k, const void* v, const float* gs
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// K1 / K2 on the tensor cores: the route for bf16 inputs with bs % 16 == 0
+// (every shape the hept_acc step and its eval launch). Notes in the header.
+
+constexpr int kTcWarps = 8;
+constexpr int kTcThreads = kTcWarps * 32;
+constexpr float kLog2e = 1.4426950408889634f;
+
+using bf16 = __nv_bfloat16;
+
+__host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+// Widths of the shared tiles. DK: the depth of S = Q.K^T, with room for the
+// ones column D of K2's augmented operands; DVK: the depth of GP = G.V^T;
+// DVN: the so / dv output columns (n8 tiles), also the width of K2's value
+// and cotangent tiles (GP's B fragments past it are zero). Point-major tiles
+// are rows of RS (RSV) bf16, a stride of 4 words modulo 8 (8 more than the
+// width where needed), so the 8 rows a warp reads at once fall in distinct
+// banks.
+template <int D, int DV>
+struct TcDims {
+  static constexpr int DK = round_up(D + 1, 16);
+  static constexpr int DVK = round_up(DV, 16);
+  static constexpr int DVN = round_up(DV, 8);
+  static constexpr int RS = DK + 8;
+  static constexpr int RSV = DVN % 16 == 8 ? DVN : DVN + 8;
+  // K1: keys [bs][RS], values [DVN][bs + 8], key norms [bs]
+  static size_t fwd_smem(int bs) {
+    return (size_t)bs * RS * 2 + (size_t)DVN * (bs + 8) * 2 + (size_t)bs * 4;
+  }
+  // K2: keys [bs][RS] + values [bs][RSV] + norms (query half), or queries +
+  // cotangents + norms + g_den (key half), whichever is larger
+  static size_t bwd_smem(int bs) { return (size_t)bs * (RS + RSV) * 2 + (size_t)bs * 8; }
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// exp(x) on the SFU: ex2 of x log2(e)
+__device__ __forceinline__ float exp_sfu(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * kLog2e));
+  return y;
+}
+
+// exp(min(x, 0))
+__device__ __forceinline__ float exp_clamped(float x) { return exp_sfu(fminf(x, 0.f)); }
+
+// c += a.b, one m16n8k16 bf16 product with f32 accumulation
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a.b over a depth of 8: a (16 x 8) in two registers, b (8 x 8) in one
+__device__ __forceinline__ void mma_bf16_k8(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t b0) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5}, {%6}, "
+      "{%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(b0));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2], const bf16* p) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(a));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+__device__ __forceinline__ void load8f(const bf16* p, float (&v)[8]) {
+  uint4 w = __ldg(reinterpret_cast<const uint4*>(p));
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&w);
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const float2 f = __bfloat1622float2(h[u]);
+    v[2 * u] = f.x;
+    v[2 * u + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void load8f(const float* p, float (&v)[8]) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+__device__ __forceinline__ float load1f(const bf16* p) { return __bfloat162float(__ldg(p)); }
+__device__ __forceinline__ float load1f(const float* p) { return __ldg(p); }
+
+// Points [base, base + count) of a (C, n) column block into point-major
+// shared rows dst[p * RS + e], bf16 (f32 sources rounded), e < W: columns C
+// and up zero, or column C one when ONES. A lane takes a column pair of 8
+// points (two 16-byte loads), so each 32-bit shared store holds (e, e + 1)
+// of one point.
+template <int C, int W, int RS, bool ONES, typename T>
+__device__ __forceinline__ void stage_rows(const T* src, size_t n, size_t base, int count,
+                                           bf16* dst) {
+  constexpr int kPairs = W / 2;
+  const int chunks = count / 8;
+  // unrolled so that several iterations' loads are in flight at once
+#pragma unroll 4
+  for (int w = threadIdx.x; w < kPairs * chunks; w += blockDim.x) {
+    const int e = 2 * (w % kPairs), c = w / kPairs;
+    float v[2][8];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (e + h < C) {
+        load8f(src + (size_t)(e + h) * n + base + c * 8, v[h]);
+      } else {
+        const float f = ONES && e + h == C ? 1.f : 0.f;
+#pragma unroll
+        for (int u = 0; u < 8; ++u) v[h][u] = f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      *reinterpret_cast<uint32_t*>(dst + (c * 8 + u) * RS + e) = pack_bf16(v[0][u], v[1][u]);
+  }
+}
+
+// -|x|^2/2 of the first C columns of a shared bf16 row, summed in order
+template <int C>
+__device__ __forceinline__ float half_sq_bf16(const bf16* row) {
+  float acc = 0.f;
+#pragma unroll
+  for (int e = 0; e < C; ++e) {
+    const float x = __bfloat162float(row[e]);
+    acc = fmaf(x, x, acc);
+  }
+  return -0.5f * acc;
+}
+
+// The A fragments (16 points x 16 columns per k-step, KS k-steps) of points
+// p0..p0+15 of a (C, n) column block, read from global memory: lane (g, t)
+// holds rows g and g + 8, columns 2t, 2t + 1, 2t + 8, 2t + 9 of each
+// k-step, columns C and up zero. f keeps the values as floats (bf16-valued)
+// in the order of the registers: per k-step (g, 2t), (g, 2t+1), (g+8, 2t),
+// (g+8, 2t+1), then the same at columns + 8. So f[nt / 2][(nt % 2) * 4 + j]
+// is the value at accumulator position j of the n8 tile nt.
+template <int C, int KS, typename T>
+__device__ __forceinline__ void load_a(const T* src, size_t n, size_t p0, int lane,
+                                       uint32_t (&a)[KS][4], float (&f)[KS][8]) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int e = ks * 16 + (i >= 4 ? 8 : 0) + 2 * t + (i & 1);
+      const size_t p = p0 + g + ((i >> 1) & 1) * 8;
+      f[ks][i] = e < C ? __bfloat162float(__float2bfloat16_rn(load1f(src + (size_t)e * n + p)))
+                       : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) a[ks][j] = pack_bf16(f[ks][2 * j], f[ks][2 * j + 1]);
+  }
+}
+
+// -|x|^2/2 of rows g (first) and g + 8 (second) of an A fragment set
+template <int KS>
+__device__ __forceinline__ float2 half_sq_rows(const float (&f)[KS][8]) {
+  float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if ((i >> 1) & 1) s1 = fmaf(f[ks][i], f[ks][i], s1);
+      else s0 = fmaf(f[ks][i], f[ks][i], s0);
+    }
+  }
+  return make_float2(-0.5f * quad_sum(s0), -0.5f * quad_sum(s1));
+}
+
+// acc[nt] += a[h] . B for every h, where B (16 points x NT*8 columns) is
+// points p0..p0+15 of a point-major shared tile with row stride RS, read
+// transposed by ldmatrix: the contraction runs over the points.
+template <int NT, int RS, int NA>
+__device__ __forceinline__ void mma_points(float (&acc)[NT][4], const uint32_t (&a)[NA][4],
+                                           const bf16* tile, int p0, int lane) {
+  const bf16* row = tile + (p0 + (lane & 15)) * RS;
+#pragma unroll
+  for (int nt = 0; nt + 1 < NT; nt += 2) {
+    uint32_t b[4];
+    ldsm_x4_trans(b, row + nt * 8 + (lane >> 4) * 8);
+#pragma unroll
+    for (int h = 0; h < NA; ++h) {
+      mma_bf16(acc[nt], a[h], b[0], b[1]);
+      mma_bf16(acc[nt + 1], a[h], b[2], b[3]);
+    }
+  }
+  if constexpr (NT % 2 == 1) {
+    uint32_t b[2];
+    ldsm_x2_trans(b, row + (NT - 1) * 8);
+#pragma unroll
+    for (int h = 0; h < NA; ++h) mma_bf16(acc[NT - 1], a[h], b[0], b[1]);
+  }
+}
+
+// s[m][nt] += a[m] . B^T for the two n8 tiles of points p0..p0+15 of a
+// point-major shared tile (row stride RS, W columns), for M row tiles a[m]
+// at once: the contraction runs over the columns. One ldmatrix brings an n8
+// tile's B fragments for both k-steps (8-column blocks past W repeat the
+// last one and go unused); a last k-step with only 8 columns below W is one
+// m16n8k8.
+template <int KS, int RS, int M, int W = KS * 16>
+__device__ __forceinline__ void mma_cols(float (&s)[M][2][4], const uint32_t (&a)[M][KS][4],
+                                         const bf16* tile, int p0, int lane) {
+  static_assert(KS <= 2 && W <= KS * 16 && W % 8 == 0, "one ldmatrix.x4 per n8 tile");
+  const bf16* src = tile + (p0 + (lane & 7)) * RS + min(lane >> 3, W / 8 - 1) * 8;
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt) {
+    uint32_t b[4];
+    ldsm_x4(b, src + nt * 8 * RS);
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        if (ks * 16 + 8 < W) mma_bf16(s[m][nt], a[m][ks], b[2 * ks], b[2 * ks + 1]);
+        else mma_bf16_k8(s[m][nt], a[m][ks][0], a[m][ks][1], b[2 * ks]);
+      }
+    }
+  }
+}
+
+// x as the one row tile of mma_cols's M-tile arguments
+template <typename T>
+__device__ __forceinline__ auto tile1(T& x) -> T (&)[1] {
+  return *reinterpret_cast<T(*)[1]>(&x);
+}
+
+// K1. A CTA per (row, bucket) stages the bucket's keys and values once;
+// each warp then takes TPW 16-query tiles at a time and walks the keys in
+// chunks of 16.
+template <int D, int DV, int TPW>
+__global__ void __launch_bounds__(kTcThreads, 2)
+tc_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+              const bf16* __restrict__ v, float* __restrict__ denom, float* __restrict__ so,
+              int n, int bs) {
+  using Dm = TcDims<D, DV>;
+  constexpr int KS = Dm::DK / 16, VT = Dm::DVN / 8;
+  extern __shared__ uint4 smem_tc[];
+  const int vstr = bs + 8;
+  bf16* k_s = reinterpret_cast<bf16*>(smem_tc);                  // [bs][RS]
+  bf16* v_s = k_s + bs * Dm::RS;                                  // [DVN][bs + 8]
+  float* ksq_s = reinterpret_cast<float*>(v_s + Dm::DVN * vstr);  // [bs]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const size_t nn = n, r = blockIdx.y, base = (size_t)blockIdx.x * bs;
+  stage_rows<D, Dm::DK, Dm::RS, false>(k + r * D * nn, nn, base, bs, k_s);
+  // values as they lie: DVN rows of bs contiguous points, 16-byte copies
+  const bf16* vr = v + r * DV * nn + base;
+  for (int i = threadIdx.x; i < Dm::DVN * (bs / 8); i += blockDim.x) {
+    const int e = i / (bs / 8), c = i % (bs / 8);
+    const uint4 z = make_uint4(0, 0, 0, 0);
+    *reinterpret_cast<uint4*>(v_s + e * vstr + c * 8) =
+        e < DV ? __ldg(reinterpret_cast<const uint4*>(vr + (size_t)e * nn + c * 8)) : z;
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < bs; j += blockDim.x) ksq_s[j] = half_sq_bf16<D>(k_s + j * Dm::RS);
+  __syncthreads();
+
+  for (int grp = warp; grp < bs / (16 * TPW); grp += kTcWarps) {
+    const size_t p0 = base + grp * 16 * TPW;  // this warp's TPW x 16 queries
+    uint32_t qa[TPW][KS][4];
+    float2 qsq[TPW];
+#pragma unroll
+    for (int m = 0; m < TPW; ++m) {
+      float qf[KS][8];
+      load_a<D, KS>(q + r * D * nn, nn, p0 + 16 * m, lane, qa[m], qf);
+      qsq[m] = half_sq_rows<KS>(qf);
+    }
+    float acc[TPW][VT][4] = {};
+    float den[TPW][2] = {};
+#pragma unroll 2
+    for (int kc = 0; kc < bs; kc += 16) {
+      // the logits start from their f32 bias sum; the mma adds q.k
+      float s[TPW][2][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const float2 kb = *reinterpret_cast<const float2*>(ksq_s + kc + nt * 8 + 2 * t);
+#pragma unroll
+        for (int m = 0; m < TPW; ++m) {
+          s[m][nt][0] = qsq[m].x + kb.x;
+          s[m][nt][1] = qsq[m].x + kb.y;
+          s[m][nt][2] = qsq[m].y + kb.x;
+          s[m][nt][3] = qsq[m].y + kb.y;
+        }
+      }
+      mma_cols<KS, Dm::RS, TPW>(s, qa, k_s, kc, lane);
+      uint32_t pa[TPW][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+        for (int m = 0; m < TPW; ++m) {
+          const float p00 = exp_clamped(s[m][nt][0]);
+          const float p01 = exp_clamped(s[m][nt][1]);
+          const float p10 = exp_clamped(s[m][nt][2]);
+          const float p11 = exp_clamped(s[m][nt][3]);
+          den[m][0] += p00 + p01;
+          den[m][1] += p10 + p11;
+          pa[m][2 * nt] = pack_bf16(p00, p01);
+          pa[m][2 * nt + 1] = pack_bf16(p10, p11);
+        }
+      }
+#pragma unroll
+      for (int vt = 0; vt < VT; ++vt) {
+        const bf16* row = v_s + (vt * 8 + g) * vstr + kc + 2 * t;
+        const uint32_t b0 = ld32(row), b1 = ld32(row + 8);
+#pragma unroll
+        for (int m = 0; m < TPW; ++m) mma_bf16(acc[m][vt], pa[m], b0, b1);
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < TPW; ++m) {
+      const size_t pm = p0 + 16 * m;
+      const float d0 = quad_sum(den[m][0]), d1 = quad_sum(den[m][1]);
+      if (t == 0) {
+        denom[r * nn + pm + g] = d0 + kDenomEps;
+        denom[r * nn + pm + g + 8] = d1 + kDenomEps;
+      }
+      // a 32-byte sector holds 8 queries of one column: each store fills whole ones
+#pragma unroll
+      for (int vt = 0; vt < VT; ++vt) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int e = vt * 8 + 2 * t + j;
+          if (e < DV) {
+            so[(r * DV + e) * nn + pm + g] = acc[m][vt][j];
+            so[(r * DV + e) * nn + pm + g + 8] = acc[m][vt][2 + j];
+          }
+        }
+      }
+    }
+  }
+}
+
+// One half of K2. KEYS false: dq, warps by queries over the bucket's keys
+// K~ = [k, 1, 0] and values; KEYS true: dk and dv, warps by keys over its
+// queries Q~ = [q, 1, 0], bf16(g_so) and g_den. Column D is 1 in the staged
+// augmented tile and 0 in the register operands, so S is untouched and
+// column D of the dq / dk product is the row (column) sum of the very same
+// bf16 hi / lo values. A warp takes one 16-point tile at a time.
+template <int D, int DV, bool KEYS>
+__device__ __forceinline__ void tc_bwd_half(const bf16* __restrict__ q,
+                                            const bf16* __restrict__ k,
+                                            const bf16* __restrict__ v,
+                                            const float* __restrict__ gso,
+                                            const float* __restrict__ gden, bf16* __restrict__ dx,
+                                            bf16* __restrict__ dv, int n, int bs, bf16* a_s) {
+  using Dm = TcDims<D, DV>;
+  constexpr int KS = Dm::DK / 16, VKS = Dm::DVK / 16;
+  constexpr int NTD = Dm::DK / 8, NTV = Dm::DVN / 8;
+  // where column D sits in an accumulator set
+  constexpr int kSumTile = D / 8, kSumLane = (D % 8) / 2, kSumReg = D % 2;
+  bf16* b_s = a_s + bs * Dm::RS;                                // [bs][RSV]
+  float* sq_s = reinterpret_cast<float*>(b_s + bs * Dm::RSV);  // [bs] norms
+  float* gd_s = sq_s + bs;                                     // [bs] g_den (KEYS)
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const size_t nn = n, r = blockIdx.y, base = (size_t)blockIdx.x * bs;
+  const bf16* qr = q + r * D * nn;
+  const bf16* kr = k + r * D * nn;
+  const bf16* vr = v + r * DV * nn;
+  const float* gr = gso + r * DV * nn;
+  const float* gdr = gden + r * nn;
+  const bf16* xr = KEYS ? kr : qr;  // this half's own points
+  if constexpr (KEYS) {
+    stage_rows<D, Dm::DK, Dm::RS, true>(qr, nn, base, bs, a_s);
+    stage_rows<DV, Dm::DVN, Dm::RSV, false>(gr, nn, base, bs, b_s);
+    for (int i = threadIdx.x; i < bs; i += blockDim.x) gd_s[i] = gdr[base + i];
+  } else {
+    stage_rows<D, Dm::DK, Dm::RS, true>(kr, nn, base, bs, a_s);
+    stage_rows<DV, Dm::DVN, Dm::RSV, false>(vr, nn, base, bs, b_s);
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < bs; j += blockDim.x) sq_s[j] = half_sq_bf16<D>(a_s + j * Dm::RS);
+  __syncthreads();
+
+  for (int grp = warp; grp < bs / 16; grp += kTcWarps) {
+    // this warp's 16 points as A operands: x (q, or k) for S, y (bf16
+    // g_so, or v) for GP
+    const size_t p0 = base + grp * 16;
+    uint32_t xa[KS][4], ya[VKS][4];
+    float xf[KS][8], yf[VKS][8];
+    load_a<D, KS>(xr, nn, p0, lane, xa, xf);
+    if constexpr (KEYS) load_a<DV, VKS>(vr, nn, p0, lane, ya, yf);
+    else load_a<DV, VKS>(gr, nn, p0, lane, ya, yf);
+    const float2 xsq = half_sq_rows<KS>(xf);
+    const float2 gd_own = KEYS ? make_float2(0.f, 0.f) : make_float2(gdr[p0 + g], gdr[p0 + g + 8]);
+    float acc[NTD][4] = {};              // dq~ or dk~
+    float accv[KEYS ? NTV : 1][4] = {};  // dv (KEYS)
+
+    // S and GP of a 16-point chunk: the logits start from their f32 bias sum
+    // and gp from g_den; the mma adds q.k and v.g_so
+    auto products = [&](int c, float (&s)[2][4], float (&gp)[2][4]) {
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const float2 ob = *reinterpret_cast<const float2*>(sq_s + c + nt * 8 + 2 * t);
+        float2 og = make_float2(0.f, 0.f);
+        if constexpr (KEYS) og = *reinterpret_cast<const float2*>(gd_s + c + nt * 8 + 2 * t);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[nt][j] = (j < 2 ? xsq.x : xsq.y) + (j & 1 ? ob.y : ob.x);  // row + column
+          gp[nt][j] = KEYS ? (j & 1 ? og.y : og.x) : (j < 2 ? gd_own.x : gd_own.y);
+        }
+      }
+      mma_cols<KS, Dm::RS, 1>(tile1(s), tile1(xa), a_s, c, lane);
+      mma_cols<VKS, Dm::RSV, 1, Dm::DVN>(tile1(gp), tile1(ya), b_s, c, lane);
+    };
+    // dl of the chunk, then dq~ += (hi + lo) . K~ over its keys, or dk~ +=
+    // (hi + lo)^T . Q~ and dv += bf16(pt)^T . G over its queries
+    auto gradients = [&](int c, const float (&s)[2][4], const float (&gp)[2][4]) {
+      uint32_t hl[2][4], pa[1][4];  // dl as bf16 hi and lo; bf16(pt) (KEYS)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        float dl[4], pt[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          // dq needs pt only where the logit is < 0: no clamp there
+          pt[j] = KEYS ? exp_clamped(s[nt][j]) : exp_sfu(s[nt][j]);
+          dl[j] = s[nt][j] < 0.f ? pt[j] * gp[nt][j] : 0.f;
+        }
+        // hi = bf16(dl) by one packed conversion per pair, unpacked by
+        // shifts; lo = bf16(dl - hi) likewise packed
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const uint32_t hp = pack_bf16(dl[2 * h], dl[2 * h + 1]);
+          const float hi0 = __uint_as_float(hp << 16), hi1 = __uint_as_float(hp & 0xffff0000u);
+          hl[0][2 * nt + h] = hp;
+          hl[1][2 * nt + h] = pack_bf16(dl[2 * h] - hi0, dl[2 * h + 1] - hi1);
+          if constexpr (KEYS) pa[0][2 * nt + h] = pack_bf16(pt[2 * h], pt[2 * h + 1]);
+        }
+      }
+      mma_points<NTD, Dm::RS, 2>(acc, hl, a_s, c, lane);
+      if constexpr (KEYS) mma_points<NTV, Dm::RSV, 1>(accv, pa, b_s, c, lane);
+    };
+    for (int c = 0; c < bs; c += 16) {
+      float s[2][4], gp[2][4];
+      products(c, s, gp);
+      gradients(c, s, gp);
+    }
+
+    const int src = (lane & ~3) | kSumLane;
+    const float sum0 = __shfl_sync(0xffffffffu, acc[kSumTile][kSumReg], src);
+    const float sum1 = __shfl_sync(0xffffffffu, acc[kSumTile][2 + kSumReg], src);
+#pragma unroll
+    for (int nt = 0; nt < NTD; ++nt) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int e = nt * 8 + 2 * t + (j & 1);
+        if (e < D) {
+          const size_t at = (size_t)e * nn + p0 + g + (j >> 1) * 8;
+          const float val = acc[nt][j] - (j < 2 ? sum0 : sum1) * __bfloat162float(xr[at]);
+          dx[r * D * nn + at] = __float2bfloat16_rn(val);
+        }
+      }
+    }
+    if constexpr (KEYS) {
+#pragma unroll
+      for (int nt = 0; nt < NTV; ++nt) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int e = nt * 8 + 2 * t + (j & 1);
+          if (e < DV)
+            dv[(r * DV + e) * nn + p0 + g + (j >> 1) * 8] = __float2bfloat16_rn(accv[nt][j]);
+        }
+      }
+    }
+  }
+}
+
+// K2: the key half (blockIdx.z 0, the heavier, so it is scheduled first) and
+// the query half (1) in one grid, a CTA per (row, bucket, half); three CTAs
+// an SM (80 registers, no spills)
+template <int D, int DV>
+__global__ void __launch_bounds__(kTcThreads, 3)
+tc_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+              const bf16* __restrict__ v, const float* __restrict__ gso,
+              const float* __restrict__ gden, bf16* __restrict__ dq, bf16* __restrict__ dk,
+              bf16* __restrict__ dv, int n, int bs) {
+  extern __shared__ uint4 smem_tc[];
+  bf16* s = reinterpret_cast<bf16*>(smem_tc);
+  if (blockIdx.z == 0)
+    tc_bwd_half<D, DV, true>(q, k, v, gso, gden, dk, dv, n, bs, s);
+  else
+    tc_bwd_half<D, DV, false>(q, k, v, gso, gden, dq, nullptr, n, bs, s);
+}
+
+template <int D, int DV, int TPW>
+int launch_tc_fwd_with(const void* q, const void* k, const void* v, float* denom, float* so,
+                       int r, int n, int bs, cudaStream_t stream) {
+  const size_t smem = TcDims<D, DV>::fwd_smem(bs);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(tc_fwd_kernel<D, DV, TPW>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(n / bs, r);
+  tc_fwd_kernel<D, DV, TPW><<<grid, kTcThreads, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, denom, so, n, bs);
+  return (int)cudaGetLastError();
+}
+
+// Tiles per warp, as measured on the H100 (PERF.md): K1 takes two 16-query
+// tiles per warp where the bucket size allows (sharing every B fragment),
+// K2 one (two measured slower, with fewer CTAs an SM).
+template <int D, int DV>
+int launch_tc_fwd(const void* q, const void* k, const void* v, float* denom, float* so, int r,
+                  int n, int bs, cudaStream_t stream) {
+  if (bs % 32 == 0) return launch_tc_fwd_with<D, DV, 2>(q, k, v, denom, so, r, n, bs, stream);
+  return launch_tc_fwd_with<D, DV, 1>(q, k, v, denom, so, r, n, bs, stream);
+}
+
+template <int D, int DV>
+int launch_tc_bwd(const void* q, const void* k, const void* v, const float* gso, const float* gden,
+                  void* dq, void* dk, void* dv, int r, int n, int bs, cudaStream_t stream) {
+  const size_t smem = TcDims<D, DV>::bwd_smem(bs);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(tc_bwd_kernel<D, DV>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(n / bs, r, 2);
+  tc_bwd_kernel<D, DV><<<grid, kTcThreads, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, gso, gden, (bf16*)dq, (bf16*)dk, (bf16*)dv,
+      n, bs);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // (d, dv) pairs compiled; ops/bucket_attn_cuda.py SUPPORTED_DIMS lists the same.
@@ -697,6 +1274,34 @@ extern "C" int hept_bucket_attn_bwd(const void* q, const void* k, const void* v,
                 : launch_bwd<D_, DV_, false>(q, k, v, gso, gden, dq, dk, dv_out, r, n, bs, s);
   HEPT_DIMS(HEPT_BWD_CASE)
 #undef HEPT_BWD_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// K1 / K2 on the tensor cores: bf16 inputs, bs % 16 == 0, every pointer
+// 16-byte aligned (the wrapper checks).
+extern "C" int hept_bucket_attn_fwd_tc(const void* q, const void* k, const void* v, float* denom,
+                                       float* so, int r, int d, int dv, int n, int bs,
+                                       void* stream) {
+  if (bs <= 0 || bs % 16 != 0 || n % bs != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+#define HEPT_TC_FWD_CASE(D_, DV_) \
+  if (d == D_ && dv == DV_) return launch_tc_fwd<D_, DV_>(q, k, v, denom, so, r, n, bs, s);
+  HEPT_DIMS(HEPT_TC_FWD_CASE)
+#undef HEPT_TC_FWD_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int hept_bucket_attn_bwd_tc(const void* q, const void* k, const void* v,
+                                       const float* gso, const float* gden, void* dq, void* dk,
+                                       void* dv_out, int r, int d, int dv, int n, int bs,
+                                       void* stream) {
+  if (bs <= 0 || bs % 16 != 0 || n % bs != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+#define HEPT_TC_BWD_CASE(D_, DV_) \
+  if (d == D_ && dv == DV_)       \
+    return launch_tc_bwd<D_, DV_>(q, k, v, gso, gden, dq, dk, dv_out, r, n, bs, s);
+  HEPT_DIMS(HEPT_TC_BWD_CASE)
+#undef HEPT_TC_BWD_CASE
   return (int)cudaErrorInvalidValue;
 }
 

@@ -14,6 +14,9 @@ n = nb * block_size sorted points; K10: (..., B, d) rows. bf16 inputs
 run the mixed-precision contract of the JAX kernels: products of bf16 values
 summed in f32, exact f32 norms, pt rounded to bf16 for the value product,
 g_so rounded to bf16 in the backward, gradients cast to the input dtype.
+K1/K2 run bf16 inputs at block sizes that are multiples of 16 on the tensor
+cores and everything else on scalar FMAs (`bucket_attn_route`), each route
+with its own launch counters.
 
 The plain forward is `bucket_rbf_attention_cols_xla`'s einsum math (K6 in
 `pallas` mode on bf16 adds the bias terms as hi/lo bf16 pairs instead); the
@@ -39,9 +42,11 @@ SUPPORTED_DIMS = ((30, 24), (7, 5))
 # its kernel-free einsum + autodiff path, which the port does not run
 ATTN_IMPLS = ("slab2", "hybrid", "hybrid2", "hybrid2l", "pallas", "loop2", "slab",
               "hybrid_slab")
-# launches of each kernel since the last reset (plain integer counters)
-LAUNCHES = {"bucket_attn_fwd": 0, "bucket_attn_bwd": 0, "cols_fwd": 0, "cols_bwd": 0,
-            "rows_fwd": 0, "rows_bwd": 0}
+# launches of each kernel since the last reset (plain integer counters);
+# K1 / K2 count per route: "_tc" the tensor-core kernels, the bare names the
+# scalar ones (`bucket_attn_route`)
+LAUNCHES = {"bucket_attn_fwd_tc": 0, "bucket_attn_bwd_tc": 0, "bucket_attn_fwd": 0,
+            "bucket_attn_bwd": 0, "cols_fwd": 0, "cols_bwd": 0, "rows_fwd": 0, "rows_bwd": 0}
 
 
 def _bf16_round(x: torch.Tensor) -> torch.Tensor:
@@ -136,7 +141,15 @@ def cols_bwd_plain(sq, sk, sv, g_denom, g_so, block_size: int, v2: bool):
     return tuple(g.to(t.dtype) for g, t in zip(grads, (sq, sk, sv)))
 
 
-def _check_inputs(sq, sk, sv, block_size):
+def bucket_attn_route(dtype: torch.dtype, block_size: int) -> str:
+    """K1 / K2's route, fixed by dtype and bucket size before launch: "tc"
+    (bf16 tensor cores) for bf16 inputs with block_size % 16 == 0, every
+    shape the hept_acc step and its eval launch; "scalar" (f32 FMAs)
+    otherwise: f32 inputs must not use TF32, the reference asks for HIGHEST."""
+    return "tc" if dtype == torch.bfloat16 and block_size % 16 == 0 else "scalar"
+
+
+def _check_inputs(sq, sk, sv, block_size, route="scalar", cotangents=()):
     r, d, n = sq.shape
     dv = sv.shape[1]
     if sk.shape != sq.shape or sv.shape != (r, dv, n):
@@ -146,50 +159,67 @@ def _check_inputs(sq, sk, sv, block_size):
         raise ValueError(f"dtypes {sq.dtype} {sk.dtype} {sv.dtype}: need one of bf16/f32")
     if (d, dv) not in SUPPORTED_DIMS:
         raise ValueError(f"(d, dv) = {(d, dv)} not compiled; have {SUPPORTED_DIMS}")
-    if n % block_size or block_size * (d + dv + 2) * 4 > 227 * 1024:
+    # the scalar route (and K6 / K7) stages f32 rows; the tensor-core
+    # launchers refuse a bucket whose bf16 tiles overflow shared memory
+    if n % block_size or (route == "scalar" and block_size * (d + dv + 2) * 4 > 227 * 1024):
         raise ValueError(f"n={n} / block_size={block_size} unsupported")
     for t in (sq, sk, sv):
         if not t.is_cuda or t.device != sq.device or not t.is_contiguous():
             raise ValueError("inputs must be contiguous CUDA tensors on one device")
+    for t, shp in zip(cotangents, ((r, 1, n), (r, dv, n))):
+        if t.shape != shp or t.dtype != torch.float32 or t.device != sq.device \
+                or not t.is_contiguous():
+            raise ValueError(f"cotangent {tuple(t.shape)} {t.dtype}: need contiguous f32 {shp}")
+    # the tensor-core kernels stage with 16-byte loads
+    if route == "tc" and any(t.data_ptr() % 16 for t in (sq, sk, sv, *cotangents)):
+        raise ValueError("the tensor-core route needs 16-byte aligned tensors")
     return r, d, dv, n
 
 
 def bucket_attn_fwd_cuda(sq, sk, sv, block_size: int):
-    """K1 on the card: (denom (r, 1, n), so (r, dv, n)) float32."""
-    r, d, dv, n = _check_inputs(sq, sk, sv, block_size)
+    """K1 on the card, on the route `bucket_attn_route` picks:
+    (denom (r, 1, n), so (r, dv, n)) float32."""
+    route = bucket_attn_route(sq.dtype, block_size)
+    r, d, dv, n = _check_inputs(sq, sk, sv, block_size, route)
     denom = torch.empty((r, 1, n), dtype=torch.float32, device=sq.device)
     so = torch.empty((r, dv, n), dtype=torch.float32, device=sq.device)
     lib = cuda_lib.load("bucket_attn")
-    fn = lib.hept_bucket_attn_fwd
+    args = [sq.data_ptr(), sk.data_ptr(), sv.data_ptr(), denom.data_ptr(), so.data_ptr(),
+            r, d, dv, n, block_size]
+    if route == "tc":
+        fn, name = lib.hept_bucket_attn_fwd_tc, "bucket_attn_fwd_tc"
+    else:
+        fn, name = lib.hept_bucket_attn_fwd, "bucket_attn_fwd"
+        args.append(int(sq.dtype == torch.bfloat16))
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    err = fn(sq.data_ptr(), sk.data_ptr(), sv.data_ptr(), denom.data_ptr(), so.data_ptr(),
-             r, d, dv, n, block_size, int(sq.dtype == torch.bfloat16),
-             cuda_lib.stream_ptr(sq.device))
-    cuda_lib.check(err, lib, "hept_bucket_attn_error_string", "bucket_attn_fwd")
-    LAUNCHES["bucket_attn_fwd"] += 1
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * (len(args) - 5) + [ctypes.c_void_p]
+    err = fn(*args, cuda_lib.stream_ptr(sq.device))
+    cuda_lib.check(err, lib, "hept_bucket_attn_error_string", name)
+    LAUNCHES[name] += 1
     return denom, so
 
 
 def bucket_attn_bwd_cuda(sq, sk, sv, g_denom, g_so, block_size: int):
-    """K2 on the card: (dq, dk, dv) in the input dtypes."""
-    r, d, dv, n = _check_inputs(sq, sk, sv, block_size)
-    for t, shp in ((g_denom, (r, 1, n)), (g_so, (r, dv, n))):
-        if t.shape != shp or t.dtype != torch.float32 or t.device != sq.device \
-                or not t.is_contiguous():
-            raise ValueError(f"cotangent {tuple(t.shape)} {t.dtype}: need contiguous f32 {shp}")
+    """K2 on the card, on the route `bucket_attn_route` picks: (dq, dk, dv)
+    in the input dtypes."""
+    route = bucket_attn_route(sq.dtype, block_size)
+    r, d, dv, n = _check_inputs(sq, sk, sv, block_size, route, (g_denom, g_so))
     dq = torch.empty_like(sq)
     dk = torch.empty_like(sk)
     dv_out = torch.empty_like(sv)
     lib = cuda_lib.load("bucket_attn")
-    fn = lib.hept_bucket_attn_bwd
+    args = [sq.data_ptr(), sk.data_ptr(), sv.data_ptr(), g_so.data_ptr(), g_denom.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv_out.data_ptr(), r, d, dv, n, block_size]
+    if route == "tc":
+        fn, name = lib.hept_bucket_attn_bwd_tc, "bucket_attn_bwd_tc"
+    else:
+        fn, name = lib.hept_bucket_attn_bwd, "bucket_attn_bwd"
+        args.append(int(sq.dtype == torch.bfloat16))
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    err = fn(sq.data_ptr(), sk.data_ptr(), sv.data_ptr(), g_so.data_ptr(), g_denom.data_ptr(),
-             dq.data_ptr(), dk.data_ptr(), dv_out.data_ptr(), r, d, dv, n, block_size,
-             int(sq.dtype == torch.bfloat16), cuda_lib.stream_ptr(sq.device))
-    cuda_lib.check(err, lib, "hept_bucket_attn_error_string", "bucket_attn_bwd")
-    LAUNCHES["bucket_attn_bwd"] += 1
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * (len(args) - 8) + [ctypes.c_void_p]
+    err = fn(*args, cuda_lib.stream_ptr(sq.device))
+    cuda_lib.check(err, lib, "hept_bucket_attn_error_string", name)
+    LAUNCHES[name] += 1
     return dq, dk, dv_out
 
 
@@ -214,11 +244,7 @@ def cols_fwd_cuda(sq, sk, sv, block_size: int, hilo: bool = False):
 def cols_bwd_cuda(sq, sk, sv, g_denom, g_so, block_size: int, v2: bool):
     """K7 on the card: (dq, dk, dv) in the input dtypes. v2 runs on bf16
     inputs only; v1 runs the f32 kernel, on upcast copies of bf16 inputs."""
-    r, d, dv, n = _check_inputs(sq, sk, sv, block_size)
-    for t, shp in ((g_denom, (r, 1, n)), (g_so, (r, dv, n))):
-        if t.shape != shp or t.dtype != torch.float32 or t.device != sq.device \
-                or not t.is_contiguous():
-            raise ValueError(f"cotangent {tuple(t.shape)} {t.dtype}: need contiguous f32 {shp}")
+    r, d, dv, n = _check_inputs(sq, sk, sv, block_size, cotangents=(g_denom, g_so))
     v2 = v2 and sq.dtype == torch.bfloat16
     ins = (sq, sk, sv) if v2 else tuple(t.float() for t in (sq, sk, sv))
     outs = tuple(torch.empty_like(t) for t in ins)

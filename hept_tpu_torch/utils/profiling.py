@@ -33,7 +33,8 @@ from ..train.optim import make_optimizer
 from .device import resolve_device
 
 # kernels of csrc/*.cu (all in an anonymous namespace) as the profiler names them
-PORT_KERNELS = {"fwd_kernel": "K1", "bwd_kernel": "K2", "gather_kernel": "K3",
+PORT_KERNELS = {"tc_fwd_kernel": "K1", "tc_bwd_kernel": "K2", "fwd_kernel": "K1",
+                "bwd_kernel": "K2", "gather_kernel": "K3",
                 "segment_sum_kernel": "K4", "row_gather_kernel": "K5",
                 "row_gather_staged_kernel": "K5", "cols_fwd_kernel": "K6",
                 "cols_bwd_kernel": "K7"}

@@ -34,25 +34,24 @@ def _loss_t(sq, sk, sv, bs):
     return torch.sum(so / den) + torch.sum(torch.log(den))
 
 
-@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
-def test_plain_k1_k2_match_tpu_slab2_kernels(dt):
+def _check_against_slab2(arrs, bs, dt):
     """Value and gradients of sum(so/den) + sum(log den) through the TPU's
     slab2 kernels (interpret mode) and through plain K1/K2: f32 to 1e-4,
-    bf16 to 2e-2 x scale (the tolerances of test_slab2_matches_hybrid)."""
-    r, d, dv, nb, bs = 2, 5, 4, 32, 8
-    assert _slab128_g(nb, bs) >= 2
-    n = nb * bs
-    rng = np.random.default_rng(9)
-    arrs = [rng.normal(size=s).astype(np.float32) for s in ((r, d, n), (r, d, n), (r, dv, n))]
+    bf16 to 2e-2 x scale (the tolerances of test_slab2_matches_hybrid). The
+    JAX side, its casts included, runs inside one `jax.jit`: eager dispatch
+    from the test thread can deadlock with interpret mode's callbacks."""
     jdt = jnp.dtype(dt)
 
     def jloss(sq, sk, sv):
         den, so = bucket_rbf_attention_cols_pallas(sq, sk, sv, block_size=bs, hybrid="slab2")
         return jnp.sum(so / den) + jnp.sum(jnp.log(den))
 
+    @jax.jit
+    def jvg(*ins):
+        return jax.value_and_grad(jloss, argnums=(0, 1, 2))(*(a.astype(jdt) for a in ins))
+
     with pltpu.force_tpu_interpret_mode():
-        jl, jg = jax.value_and_grad(jloss, argnums=(0, 1, 2))(
-            *(jnp.asarray(a).astype(jdt) for a in arrs))
+        jl, jg = jax.block_until_ready(jvg(*arrs))
     tdt = getattr(torch, dt)
     ins = [torch.tensor(a).to(tdt).requires_grad_(True) for a in arrs]
     tl = _loss_t(*ins, bs)
@@ -65,6 +64,33 @@ def test_plain_k1_k2_match_tpu_slab2_kernels(dt):
         scale = max(np.abs(a).max(), 1e-6)
         np.testing.assert_allclose(t.grad.float().numpy(), a, rtol=tol, atol=tol * scale,
                                    err_msg=nm)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_plain_k1_k2_match_tpu_slab2_kernels(dt):
+    """Plain K1/K2 against the TPU's slab2 kernels at small widths."""
+    r, d, dv, nb, bs = 2, 5, 4, 32, 8
+    assert _slab128_g(nb, bs) >= 2
+    n = nb * bs
+    rng = np.random.default_rng(9)
+    arrs = [rng.normal(size=s).astype(np.float32) for s in ((r, d, n), (r, d, n), (r, dv, n))]
+    _check_against_slab2(arrs, bs, dt)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_plain_k1_k2_match_tpu_slab2_kernels_at_main_path_widths(dt):
+    """The same at the hept_acc step's column widths (d = 30: 24 projection
+    rows and 6 RPE rows, dv = 24), bucket size 128, 4 buckets (one slab of
+    g = 4): the card's K1/K2 are held against this plain version, so it is
+    pinned to JAX where the card runs it. Inputs O(0.3) keep the logits
+    -|q - k|^2 / 2 of order -3, not all pt ~ 0."""
+    r, d, dv, nb, bs = 2, 30, 24, 4, 128
+    assert _slab128_g(nb, bs) == 4
+    n = nb * bs
+    rng = np.random.default_rng(12)
+    arrs = [(rng.normal(size=s) * sc).astype(np.float32)
+            for s, sc in (((r, d, n), 0.3), ((r, d, n), 0.3), ((r, dv, n), 1.0))]
+    _check_against_slab2(arrs, bs, dt)
 
 
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])

@@ -44,8 +44,11 @@ def _arrays(r, d, dv, nb, bs, seed, common=0.0):
             rng.normal(size=(r, dv, n)).astype(np.float32))
 
 
-def _jax(a, dt):
-    return jnp.asarray(a).astype(jnp.dtype(dt))
+def _jit(fn, dt, **static):
+    """fn(q, k, v, **static) on the inputs cast to dt, casts included, as
+    one `jax.jit`: eager dispatch from the test thread can deadlock with
+    interpret mode's callbacks."""
+    return jax.jit(lambda *ins: fn(*(a.astype(jnp.dtype(dt)) for a in ins), **static))
 
 
 def _torch(a, dt):
@@ -73,7 +76,7 @@ def test_plain_k6_matches_fwd_cols_impl(case, dt, nb, loop):
         assert _pick_group_loop(nb, bs * (2 * d + dv) * 2 + bs * 4 * (1 + dv)) > _pick_group(nb)
     sq, sk, sv, _, _ = _arrays(r, d, dv, nb, bs, seed=3, common=3.0)
     with pltpu.force_tpu_interpret_mode():
-        jden, jso = _fwd_cols_impl(_jax(sq, dt), _jax(sk, dt), _jax(sv, dt), bs, loop=loop)
+        jden, jso = _jit(_fwd_cols_impl, dt, bs=bs, loop=loop)(sq, sk, sv)
     den, so = ba.cols_fwd_plain(_torch(sq, dt), _torch(sk, dt), _torch(sv, dt), bs,
                                 hilo=dt == "bfloat16" and not loop)
     tol = 1e-5 if dt == "float32" else 5e-3
@@ -92,7 +95,7 @@ def test_k6_hilo_differs_from_exact_bias():
     exact = ba.cols_fwd_plain(*ins, bs, hilo=False)[0]
     assert float((hilo - exact).abs().max()) > 1e-3 * float(exact.abs().max())
     with pltpu.force_tpu_interpret_mode():
-        jden, _ = _fwd_cols_impl(*(_jax(a, "bfloat16") for a in (sq, sk, sv)), bs)
+        jden, _ = _jit(_fwd_cols_impl, "bfloat16", bs=bs)(sq, sk, sv)
     _close(hilo, jden, 1e-5, "hilo denom")
 
 
@@ -107,9 +110,13 @@ def test_plain_k7_matches_bwd_cols_impl(case, dt, v2, loop):
     1e-5 x scale; bf16 outputs to 1e-2 x scale (one bf16 ulp)."""
     r, d, dv, nb, bs = 2, 7, 5, 16, 8
     sq, sk, sv, gden, gso = _arrays(r, d, dv, nb, bs, seed=5, common=3.0)
+
+    def bwd(q, k, v, gd, gs):  # one jax.jit, as _jit
+        qkv = tuple(a.astype(jnp.dtype(dt)) for a in (q, k, v))
+        return _bwd_cols_impl(qkv, (gd, gs), bs, v2=v2, loop=loop)
+
     with pltpu.force_tpu_interpret_mode():
-        want = _bwd_cols_impl((_jax(sq, dt), _jax(sk, dt), _jax(sv, dt)),
-                              (jnp.asarray(gden), jnp.asarray(gso)), bs, v2=v2, loop=loop)
+        want = jax.jit(bwd)(sq, sk, sv, gden, gso)
     got = ba.cols_bwd_plain(_torch(sq, dt), _torch(sk, dt), _torch(sv, dt),
                             torch.tensor(gden), torch.tensor(gso), bs, v2)
     tol = 1e-5 if dt == "float32" else 1e-2
@@ -197,11 +204,8 @@ def test_modes_match_jax_cols_pallas(mode, dt):
         den, so = bucket_rbf_attention_cols_pallas(q, k, v, block_size=bs, hybrid=mode)
         return jnp.sum(so / den) + jnp.sum(jnp.log(den))
 
-    # one jit: eager dispatch from the test thread can deadlock with the
-    # interpreter's callback thread
     with pltpu.force_tpu_interpret_mode():
-        jl, jg = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1, 2)))(
-            *(_jax(a, dt) for a in (sq, sk, sv)))
+        jl, jg = _jit(jax.value_and_grad(jloss, argnums=(0, 1, 2)), dt)(sq, sk, sv)
     ins = [_torch(a, dt).requires_grad_(True) for a in (sq, sk, sv)]
     den, so = bucket_rbf_attention_cols(*ins, bs, mode)
     loss = torch.sum(so / den) + torch.sum(torch.log(den))

@@ -1,4 +1,5 @@
-"""The CUDA kernels (K1-K7, K10, K12) against their plain versions, on the card.
+"""The CUDA kernels (K1-K7, K10, K12) against their plain versions, on the card
+(K1/K2 on both routes, tensor cores and scalar).
 
 Marked `cuda`: each test skips (inside the fixture, never at import) when no
 CUDA device is present, which is the case on CPU-only hosts. On a GPU
@@ -42,11 +43,17 @@ def _inputs(dev, dtype, r=3, d=7, dv=5, nb=6, bs=64, seed=0):
     return sq, sk, rn(r, dv, n).to(dtype), rn(r, 1, n), rn(r, dv, n), bs
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_k1_k2_match_plain(dev, dtype):
-    """f32: 1e-5 x scale; bf16: 5e-3 x scale forward (pt rounding flips),
-    1e-2 x scale backward (bf16 outputs)."""
-    sq, sk, sv, gden, gso, bs = _inputs(dev, dtype)
+@pytest.mark.parametrize("dtype,d,dv,nb,bs", [
+    (torch.float32, 7, 5, 6, 64), (torch.bfloat16, 7, 5, 6, 64),  # scalar / tensor cores
+    (torch.bfloat16, 30, 24, 6, 64), (torch.bfloat16, 30, 24, 3, 512),  # tensor cores
+    (torch.bfloat16, 30, 24, 5, 48),  # tensor cores, one 16-query tile per warp in K1
+    (torch.bfloat16, 30, 24, 4, 40), (torch.float32, 30, 24, 3, 512),  # scalar
+])
+def test_k1_k2_match_plain(dev, dtype, d, dv, nb, bs):
+    """Both routes at the toy widths and the main path's (30, 24): denom
+    1e-5 x scale; f32 1e-5 x scale; bf16 5e-3 x scale forward (pt rounding
+    flips), 1e-2 x scale backward (bf16 outputs)."""
+    sq, sk, sv, gden, gso, bs = _inputs(dev, dtype, d=d, dv=dv, nb=nb, bs=bs)
     f32 = dtype == torch.float32
     den_k, so_k = ba.bucket_attn_fwd_cuda(sq, sk, sv, bs)
     den_p, so_p = ba.bucket_attn_fwd_plain(sq, sk, sv, bs)
@@ -59,6 +66,74 @@ def test_k1_k2_match_plain(dev, dtype):
         assert a.dtype == dtype
         torch.testing.assert_close(a.float(), b.float(), rtol=tol,
                                    atol=tol * b.float().abs().max().item())
+
+
+def _rpe_inputs(dev, common, r=4, nb=3, bs=512, seed=5):
+    """The main path's regime at (d, dv) = (30, 24), bf16: 24 projection rows
+    O(0.3) and 6 RPE rows with O(0.5) local spread around a per-bucket common
+    mode shared by q and k; values and cotangents."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = nb * bs
+
+    def rn(*s):
+        return torch.randn(s, generator=g, device=dev)
+
+    shared = rn(r, 6, nb, 1) * common
+
+    def qk():
+        rpe = (shared + rn(r, 6, nb, bs) * 0.5).reshape(r, 6, n)
+        return torch.cat([rn(r, 24, n) * 0.3, rpe], 1).to(torch.bfloat16).contiguous()
+
+    return qk(), qk(), rn(r, 24, n).to(torch.bfloat16), rn(r, 1, n), rn(r, 24, n)
+
+
+@pytest.mark.parametrize("bs", [64, 512])
+def test_k2_is_gradient_of_bf16_forward_at_common_mode_40(dev, bs):
+    """The bf16-gradient contract on the card: K2 (tensor cores) against f32
+    autograd of plain K1 at the same bf16 values, with a per-bucket common
+    mode of 40 in the RPE rows, 2e-2 x scale (as chip_smoke.py phase 2)."""
+    sq, sk, sv, gden, gso = _rpe_inputs(dev, 40.0, nb=1536 // bs, bs=bs)
+    ins = [t.float().requires_grad_(True) for t in (sq, sk, sv)]
+    den, so = ba.bucket_attn_fwd_plain(*ins, bs)
+    ref = torch.autograd.grad((den * gden).sum() + (so * gso).sum(), ins)
+    before = ba.LAUNCHES["bucket_attn_bwd_tc"]
+    got = ba.bucket_attn_bwd_cuda(sq, sk, sv, gden, gso, bs)
+    assert ba.LAUNCHES["bucket_attn_bwd_tc"] == before + 1
+    for a, b, nm in zip(got, ref, ("dq", "dk", "dv")):
+        torch.testing.assert_close(a.float(), b, rtol=2e-2, atol=2e-2 * b.abs().max().item(),
+                                   msg=nm)
+
+
+@pytest.mark.parametrize("dtype,bs", [(torch.bfloat16, 512), (torch.bfloat16, 64),
+                                      (torch.float32, 512)])
+def test_k1_k2_same_bits_on_repeated_calls(dev, dtype, bs):
+    """No atomics on either route: every call gives the same bits."""
+    sq, sk, sv, gden, gso, bs = _inputs(dev, dtype, d=30, dv=24, nb=1536 // bs, bs=bs)
+    fwd = ba.bucket_attn_fwd_cuda(sq, sk, sv, bs)
+    bwd = ba.bucket_attn_bwd_cuda(sq, sk, sv, gden, gso, bs)
+    for _ in range(3):
+        assert all(torch.equal(a, b) for a, b in zip(fwd, ba.bucket_attn_fwd_cuda(sq, sk, sv, bs)))
+        assert all(torch.equal(a, b)
+                   for a, b in zip(bwd, ba.bucket_attn_bwd_cuda(sq, sk, sv, gden, gso, bs)))
+
+
+@pytest.mark.parametrize("dtype,bs,route", [
+    (torch.bfloat16, 64, "tc"), (torch.bfloat16, 512, "tc"), (torch.bfloat16, 48, "tc"),
+    (torch.float32, 64, "scalar"), (torch.float32, 512, "scalar"),
+    (torch.bfloat16, 40, "scalar"), (torch.bfloat16, 100, "scalar"),
+])
+def test_k1_k2_routes(dev, dtype, bs, route):
+    """bf16 at a block size that is a multiple of 16 launches the
+    tensor-core kernels; f32, and bf16 at any other block size, the scalar
+    ones. Each launch counts once, on its own route's counters only."""
+    assert ba.bucket_attn_route(dtype, bs) == route
+    sq, sk, sv, gden, gso, bs = _inputs(dev, dtype, d=30, dv=24, nb=2, bs=bs)
+    before = dict(ba.LAUNCHES)
+    ba.bucket_attn_fwd_cuda(sq, sk, sv, bs)
+    ba.bucket_attn_bwd_cuda(sq, sk, sv, gden, gso, bs)
+    suffix = "_tc" if route == "tc" else ""
+    after = {k: v - before[k] for k, v in ba.LAUNCHES.items() if v != before[k]}
+    assert after == {f"bucket_attn_fwd{suffix}": 1, f"bucket_attn_bwd{suffix}": 1}
 
 
 @pytest.mark.parametrize("dtype,hilo", [(torch.float32, False), (torch.bfloat16, False),
@@ -110,8 +185,8 @@ def test_modes_route_through_k6_k7(dev, mode, dtype, want):
     den, so = bucket_rbf_attention_cols(*ins, bs, mode)
     (so / den).sum().backward()
     after = {k: v - before[k] for k, v in ba.LAUNCHES.items()}
-    assert after == {"bucket_attn_fwd": 0, "bucket_attn_bwd": 0, "rows_fwd": 0, "rows_bwd": 0,
-                     want[0]: 1, want[1]: 1}
+    assert after == {"bucket_attn_fwd_tc": 0, "bucket_attn_bwd_tc": 0, "bucket_attn_fwd": 0,
+                     "bucket_attn_bwd": 0, "rows_fwd": 0, "rows_bwd": 0, want[0]: 1, want[1]: 1}
     with plain_reference():
         refs = [t.clone().requires_grad_(True) for t in (sq, sk, sv)]
         den2, so2 = bucket_rbf_attention_cols(*refs, bs, mode)
@@ -128,13 +203,14 @@ def test_autograd_routes_through_kernels(dev):
     before = dict(ba.LAUNCHES)
     den, so = bucket_rbf_attention_cols(*ins, bs)
     (so / den).sum().backward()
-    assert ba.LAUNCHES["bucket_attn_fwd"] == before["bucket_attn_fwd"] + 1
-    assert ba.LAUNCHES["bucket_attn_bwd"] == before["bucket_attn_bwd"] + 1
+    # bf16 at bs 64: the tensor-core route
+    assert ba.LAUNCHES["bucket_attn_fwd_tc"] == before["bucket_attn_fwd_tc"] + 1
+    assert ba.LAUNCHES["bucket_attn_bwd_tc"] == before["bucket_attn_bwd_tc"] + 1
     with plain_reference():
         refs = [t.clone().requires_grad_(True) for t in (sq, sk, sv)]
         den2, so2 = bucket_rbf_attention_cols(*refs, bs)
         (so2 / den2).sum().backward()
-    assert ba.LAUNCHES["bucket_attn_fwd"] == before["bucket_attn_fwd"] + 1
+    assert ba.LAUNCHES["bucket_attn_fwd_tc"] == before["bucket_attn_fwd_tc"] + 1
     for a, b in zip(ins, refs):
         torch.testing.assert_close(a.grad.float(), b.grad.float(), rtol=2e-2,
                                    atol=2e-2 * b.grad.float().abs().max().item())
@@ -216,11 +292,19 @@ def test_k4_csr_built_once_per_loss(dev):
 
 
 def test_wrappers_reject_bad_inputs(dev):
-    sq, sk, sv, _, _, bs = _inputs(dev, torch.bfloat16)
+    sq, sk, sv, gden, gso, bs = _inputs(dev, torch.bfloat16)
     with pytest.raises(ValueError):
         ba.bucket_attn_fwd_cuda(sq, sk, sv.float(), bs)
     with pytest.raises(ValueError):
         ba.bucket_attn_fwd_cuda(sq[:, :6].contiguous(), sk[:, :6].contiguous(), sv, bs)
+    # the tensor-core route stages with 16-byte loads: a contiguous view that
+    # starts 2 bytes into its storage is refused, not read misaligned
+    off = torch.empty(sq.numel() + 1, dtype=sq.dtype, device=dev)[1:].view(sq.shape)
+    off.copy_(sq)
+    with pytest.raises(ValueError):
+        ba.bucket_attn_fwd_cuda(off, sk, sv, bs)
+    with pytest.raises(ValueError):
+        ba.bucket_attn_bwd_cuda(sq, sk, sv, gso, gden, bs)  # cotangents swapped
     with pytest.raises(ValueError):
         po.gather_rows_cuda(torch.zeros(4, 2, device=dev), torch.zeros(3, device=dev).long())
 
@@ -358,8 +442,9 @@ def test_core_runs_k10_and_k5(dev):
     out = hept_attention_core(*ins, alpha, codes, block_size=bs, record_perms=perms)
     grads = torch.autograd.grad((out * w).sum(), ins)
     after = {k: v - before[k] for k, v in {**ba.LAUNCHES, **rg.LAUNCHES}.items()}
-    assert after == {"bucket_attn_fwd": 0, "bucket_attn_bwd": 0, "cols_fwd": 0, "cols_bwd": 0,
-                     "rows_fwd": 1, "rows_bwd": 1, "row_gather": 8}
+    assert after == {"bucket_attn_fwd_tc": 0, "bucket_attn_bwd_tc": 0, "bucket_attn_fwd": 0,
+                     "bucket_attn_bwd": 0, "cols_fwd": 0, "cols_bwd": 0, "rows_fwd": 1,
+                     "rows_bwd": 1, "row_gather": 8}
     with plain_reference():
         out_p = hept_attention_core(*ins, alpha, codes, block_size=bs, perms=perms[0])
         grads_p = torch.autograd.grad((out_p * w).sum(), ins)

@@ -82,9 +82,12 @@ def test_plain_k3_k4_match_tpu_windowed_kernels():
     rng = np.random.default_rng(0)
     emb = rng.normal(size=(n, 12)).astype(np.float32)
     vals = rng.normal(size=(idx.shape[0], 12)).astype(np.float32) * b["pair_mask"][0][:, None]
+    # one jax.jit: eager dispatch from the test thread can deadlock with
+    # interpret mode's callbacks
     with pltpu.force_tpu_interpret_mode():
-        jg = np.asarray(_gather_tpu(jnp.asarray(emb.T), jnp.asarray(idx))).T
-        js = np.asarray(_scatter_add_tpu(jnp.asarray(vals.T), jnp.asarray(idx), n)).T
+        jg, js = jax.jit(lambda e, v, i: (_gather_tpu(e.T, i), _scatter_add_tpu(v.T, i, n)))(
+            emb, vals, idx)
+    jg, js = np.asarray(jg).T, np.asarray(js).T
     tidx = torch.tensor(idx)
     np.testing.assert_array_equal(gather_rows_plain(torch.tensor(emb), tidx).numpy(), jg)
     np.testing.assert_allclose(segment_sum_plain(torch.tensor(vals), tidx, n).numpy(), js,
