@@ -27,7 +27,8 @@ Phases, one line each (plus per-kernel lines):
      and by CUDA graph replay (device time); K6 / K7 (the small-bucket
      column kernels) at the parity profile's shapes in f32 and hept_fast's
      in bf16, in K6's three modes and both K7 variants, and on a ragged
-     bucket count;
+     bucket count; K7 on each route (v2 on the tensor cores, v1 on FP32
+     FMAs) with the same bits on 4 calls, timed by CUDA graph replay;
   3. the main path: the full-width `hept_acc` model (random weights from the
      seed) takes `--steps` Adam steps at lr 1e-2 with dropout on, through the
      trainer's `train_step`, on one synthetic 60k-point event; launch
@@ -51,7 +52,9 @@ Phases, one line each (plus per-kernel lines):
      K7 v1) and 8. the `hept_fast` profile (bf16, K6 / K7 v2): each takes
      `--profile-steps` Adam steps at full width on one synthetic 60k event
      (block_size 100), timed, with launch counters zeroed just before and
-     read just after (K6 4, K7 4, K5 8 per step, K1/K2 none); one timed
+     read just after (K6 4, K7 4 on its route's counter, `cols_bwd` for the
+     parity profile and `cols_bwd_tc` for hept_fast, none on the other, K5
+     8 per step, K1/K2 none); one timed
      `evaluate` of the event, counters zeroed just before (K6 4, K5 4, K7
      and K1/K2 none); then its
      first step, dropout off, with kernels and under `plain_reference()`,
@@ -67,9 +70,10 @@ Phases, one line each (plus per-kernel lines):
      bit-equal to its plain version, timed against torch.sort.
 Before the last line: one JSON line of per-kernel numbers (K5 once per row
 shape, K4 with its yardsticks as extra keys), and the `nvidia-smi`
-name/power-limit line. `--yardsticks-only [--package-root DIR]` builds K4
-and K5 of the package in DIR (a parent tree, for an A/B in one call), prints
-their yardsticks as one JSON line and stops, without a result line. The last line is
+name/power-limit line. `--yardsticks-only [--package-root DIR]` builds the
+kernels of the package in DIR (a parent tree, for an A/B in one call),
+prints K4's and K5's yardsticks, K2's and K7's device times with a digest
+of their output bits as one JSON line and stops, without a result line. The last line is
 {"ok": true, "device": {...}}. Any failed check raises (exit code != 0).
 Exits with code 2 and prints no result without a CUDA device or without the
 `hept_tpu_torch` package beside this script.
@@ -617,8 +621,16 @@ def phase_cols_kernels(torch, seed: int) -> dict:
     # max over 1.4M outputs is held at 1e-4 x scale
     e6 = compare("K6 f32", ba.cols_fwd_cuda(sq, sk, sv, bs), ba.cols_fwd_plain(sq, sk, sv, bs),
                  (1e-4, 1e-4))
+    # K7 v1 runs on FP32 FMAs (cols_bwd_tiled_kernel, one pass per bucket)
+    assert ba.cols_bwd_route(torch.float32, bs, False) == "scalar"
     e7 = compare("K7 v1 f32", ba.cols_bwd_cuda(sq, sk, sv, gden, gso, bs, False),
                  ba.cols_bwd_plain(sq, sk, sv, gden, gso, bs, False), (1e-4,) * 3)
+    first = ba.cols_bwd_cuda(sq, sk, sv, gden, gso, bs, False)
+    if not all(torch.equal(a, b) for _ in range(3) for a, b in
+               zip(first, ba.cols_bwd_cuda(sq, sk, sv, gden, gso, bs, False))):
+        raise AssertionError("K7 v1: repeated calls differ in their bits")
+    log("  K7 v1: the same bits on 4 calls")
+    del first
     for key, name, fwd, err, kern, plain in (
             ("K6", "K6 cols_fwd", True, e6, lambda: ba.cols_fwd_cuda(sq, sk, sv, bs),
              lambda: ba.cols_fwd_plain(sq, sk, sv, bs)),
@@ -629,8 +641,12 @@ def phase_cols_kernels(torch, seed: int) -> dict:
         rows[key] = dict(name=name, route="cuda", source="hept_tpu_torch/csrc/bucket_attn.cu",
                          replaces=("hept_tpu/ops/bucket_attn_pallas.py:1196" if fwd else
                                    "hept_tpu/ops/bucket_attn_pallas.py:1273"),
-                         max_abs_err=err, ms=time_ms(kern), plain_ms=time_ms(plain, 3, 1),
-                         bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                         max_abs_err=err, ms=time_ms(kern), device_ms=graph_ms(kern, 5),
+                         plain_ms=time_ms(plain, 3, 1), bound_ms=b_ms, bound_by=b_by,
+                         library_ms=None)
+    rows["K7"]["routes"] = ("v1 (f32, parity; and v1 on bf16 = K9): FP32 FMAs, "
+                            "cols_bwd_tiled_kernel, counter cols_bwd; v2 (bf16, hept_fast / "
+                            "hept_turbo): tensor cores, tc_cols_bwd_kernel, counter cols_bwd_tc")
     del sq, sk, sv, gden, gso
     torch.cuda.empty_cache()
 
@@ -644,62 +660,83 @@ def phase_cols_kernels(torch, seed: int) -> dict:
         # pt is rounded to bf16 before the value product: a rounding can flip
         err = compare(label, ba.cols_fwd_cuda(sq, sk, sv, bs, hilo),
                       ba.cols_fwd_plain(sq, sk, sv, bs, hilo), (1e-4, 5e-3))
-        extra[label] = (err, time_ms(lambda: ba.cols_fwd_cuda(sq, sk, sv, bs, hilo)),
+        extra[label] = (err, time_ms(lambda: ba.cols_fwd_cuda(sq, sk, sv, bs, hilo)), None,
                         time_ms(lambda: ba.cols_fwd_plain(sq, sk, sv, bs, hilo), 3, 1),
                         bounds(r, n, 2, True, BF16_FLOP_PER_S))
+    # K7 v2 on the tensor cores (buckets padded to 112), v1 upcast on FP32 FMAs
+    assert ba.cols_bwd_route(torch.bfloat16, bs, True) == "tc"
     for v2 in (True, False):
         label = "K7 bf16 " + ("v2" if v2 else "v1 (upcast)")
         # bf16 outputs: one rounding of slightly different f32 values
         err = compare(label, ba.cols_bwd_cuda(sq, sk, sv, gden, gso, bs, v2),
                       ba.cols_bwd_plain(sq, sk, sv, gden, gso, bs, v2), (1e-2,) * 3)
-        extra[label] = (err, time_ms(lambda: ba.cols_bwd_cuda(sq, sk, sv, gden, gso, bs, v2)),
+        first = ba.cols_bwd_cuda(sq, sk, sv, gden, gso, bs, v2)
+        if not all(torch.equal(a, b) for _ in range(3) for a, b in
+                   zip(first, ba.cols_bwd_cuda(sq, sk, sv, gden, gso, bs, v2))):
+            raise AssertionError(f"{label}: repeated calls differ in their bits")
+        log(f"  {label}: the same bits on 4 calls")
+        kern = (lambda v2=v2: ba.cols_bwd_cuda(sq, sk, sv, gden, gso, bs, v2))
+        extra[label] = (err, time_ms(kern), graph_ms(kern, 5),
                         time_ms(lambda: ba.cols_bwd_plain(sq, sk, sv, gden, gso, bs, v2), 3, 1),
                         bounds(r, n, 2, False, BF16_FLOP_PER_S if v2 else F32_FLOP_PER_S))
     # the contract: K7 v2 is the gradient of the bf16 forward, held against
     # f32 autograd of the K6 math at the same bf16 values (2e-2 x scale), with
-    # uncentred RPE rows (per-bucket common mode ~40)
+    # uncentred RPE rows (per-bucket common mode ~40), on the tensor cores
     cq, ck, _, _, _ = inputs(r, n, torch.bfloat16, common=40.0)
     ins = [t.float().requires_grad_(True) for t in (cq, ck, sv)]
     den_f, so_f = ba.cols_fwd_plain(*ins, bs)
     ref = torch.autograd.grad((den_f * gden).sum() + (so_f * gso).sum(), ins)
     del den_f, so_f, ins
+    before = ba.LAUNCHES["cols_bwd_tc"]
     got = ba.cols_bwd_cuda(cq, ck, sv, gden, gso, bs, True)
+    assert ba.LAUNCHES["cols_bwd_tc"] == before + 1
     for nm, a, b in zip(("dq", "dk", "dv"), got, ref):
         check(f"K7 v2 {nm} max|d| vs f32 autograd of the bf16 forward (common mode 40)",
               max_err(a, b), 2e-2 * scale(b))
     del ref, got, cq, ck, sq, sk, sv, gden, gso
     torch.cuda.empty_cache()
 
-    # a ragged bucket count: 601 buckets, CTAs of two, the last one alone
+    # a ragged bucket count: 601 buckets (K6: CTAs of two, the last one
+    # alone); the last bucket ends at n, where K7 v2's padded tiles stop
     n_rag = 60100
     sq, sk, sv, gden, gso = inputs(4, n_rag, torch.float32, common=2.0)
-    log(f"kernel K6 / K7 (ragged: f32, r=4, n={n_rag}, 601 buckets):")
+    log(f"kernel K6 / K7 (ragged: f32 and bf16, r=4, n={n_rag}, 601 buckets):")
     compare("K6 ragged", ba.cols_fwd_cuda(sq, sk, sv, bs), ba.cols_fwd_plain(sq, sk, sv, bs),
             (1e-4, 1e-4))
     compare("K7 v1 ragged", ba.cols_bwd_cuda(sq, sk, sv, gden, gso, bs, False),
             ba.cols_bwd_plain(sq, sk, sv, gden, gso, bs, False), (1e-4,) * 3)
+    sq, sk, sv = (t.to(torch.bfloat16) for t in (sq, sk, sv))
+    compare("K7 v2 ragged", ba.cols_bwd_cuda(sq, sk, sv, gden, gso, bs, True),
+            ba.cols_bwd_plain(sq, sk, sv, gden, gso, bs, True), (1e-2,) * 3)
     del sq, sk, sv, gden, gso
     torch.cuda.empty_cache()
     for key in ("K6", "K7"):
         row = rows[key]
-        log(f"  {row['name']} (parity, f32): kernel {row['ms']:.4f} ms, plain "
-            f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
-            f"operations at the FP32 peak {F32_FLOP_PER_S / 1e12:.0f} TFLOP/s)")
-    for label, (_, ms, plain_ms, (b_ms, b_by)) in extra.items():
-        log(f"  {label} (hept_fast): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        log(f"  {row['name']} (parity, f32): kernel {row['ms']:.4f} ms ({row['device_ms']:.4f} "
+            f"ms device), plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}, operations at the FP32 peak {F32_FLOP_PER_S / 1e12:.0f} "
+            "TFLOP/s)")
+    for label, (_, ms, dev_ms, plain_ms, (b_ms, b_by)) in extra.items():
+        dev = "" if dev_ms is None else f" ({dev_ms:.4f} ms device)"
+        log(f"  {label} (hept_fast): kernel {ms:.4f} ms{dev}, plain {plain_ms:.4f} ms, bound "
             f"{b_ms:.4f} ms ({b_by}; operations at the bf16 peak, K7 v1's at the FP32 peak)")
+    # K7 v2's own figures beside the f32 route's in the K7 row
+    err, ms, dev_ms, plain_ms, (b_ms, b_by) = extra["K7 bf16 v2"]
+    rows["K7"].update(v2_tc_max_abs_err=err, v2_tc_ms=ms, v2_tc_device_ms=dev_ms,
+                      v2_tc_plain_ms=plain_ms, v2_tc_bound_ms=b_ms, v2_tc_bound_by=b_by)
     # the slab kernels K8 / K9 of `attn_impl: slab` run K6 hi/lo and K7 v1
     # (the TPU's K9 upcasts its bf16 operands): their figures at hept_fast's
     # shapes, where the slab phase runs them
     for key, name, label, src_line in (
             ("K8", "K8 slab_fwd", "K6 bf16 hi/lo bias", "973"),
             ("K9", "K9 slab_bwd", "K7 bf16 v1 (upcast)", "1023")):
-        err, ms, plain_ms, (b_ms, b_by) = extra[label]
+        err, ms, dev_ms, plain_ms, (b_ms, b_by) = extra[label]
         rows[key] = dict(name=name, route="cuda", source="hept_tpu_torch/csrc/bucket_attn.cu",
                          replaces=f"hept_tpu/ops/bucket_attn_pallas.py:{src_line}",
                          ported_by=("K6 hi/lo bias" if key == "K8" else "K7 v1"),
                          max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                         bound_by=b_by, library_ms=None)
+                         bound_by=b_by, library_ms=None,
+                         **({} if dev_ms is None else {"device_ms": dev_ms}))
     return rows
 
 
@@ -738,8 +775,8 @@ def phase_eval(torch, trainer, model, cfg, event, batch, zero_counts, read_count
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     want = {"bucket_attn_fwd_tc": 4, "bucket_attn_bwd_tc": 0, "bucket_attn_fwd": 0,
-            "bucket_attn_bwd": 0, "cols_fwd": 0, "cols_bwd": 0, "row_gather": 4,
-            **PAIR_LAUNCHES_EVAL}
+            "bucket_attn_bwd": 0, "cols_fwd": 0, "cols_bwd_tc": 0, "cols_bwd": 0,
+            "row_gather": 4, **PAIR_LAUNCHES_EVAL}
     for k, v in want.items():
         if launches[k] != v:
             raise AssertionError(f"eval of one event launched {k} {launches[k]}x, want {v}")
@@ -851,11 +888,12 @@ def compare_first_step(torch, label: str, cfg, model, loss_fn, batch) -> None:
 
 
 def phase_profile(torch, trainer, profile: str, batch_np, ds, steps: int, seed: int,
-                  zero_counts, read_counts) -> dict:
+                  zero_counts, read_counts, k7: str) -> dict:
     """A bs-100 profile (`hept` or `hept_fast`) at full width: `steps` timed
-    Adam steps with dropout, launches counted; one timed `evaluate` of the
-    event (split "test" of `ds`), launches counted; then the first step,
-    dropout off, with kernels and with plain versions, compared."""
+    Adam steps with dropout, launches counted (K7 on the route whose counter
+    is `k7`, none on the other); one timed `evaluate` of the event (split
+    "test" of `ds`), launches counted; then the first step, dropout off,
+    with kernels and with plain versions, compared."""
     from hept_tpu_torch.train.config import profile_config
 
     cfg = profile_config(profile, device=DEVICE, num_epochs=1)
@@ -884,7 +922,7 @@ def phase_profile(torch, trainer, profile: str, batch_np, ds, steps: int, seed: 
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{profile}: non-finite loss: {losses}")
     # per step and layer: one K6, one K7, the unsort's K5 forward and backward
-    want = {"cols_fwd": 4 * steps, "cols_bwd": 4 * steps, **NO_K1_K2,
+    want = {"cols_fwd": 4 * steps, "cols_bwd_tc": 0, "cols_bwd": 0, k7: 4 * steps, **NO_K1_K2,
             "rows_fwd": 0, "rows_bwd": 0, "row_gather": 8 * steps,
             **{k: v * steps for k, v in PAIR_LAUNCHES_STEP.items()}}
     for k, v in want.items():
@@ -907,7 +945,7 @@ def phase_profile(torch, trainer, profile: str, batch_np, ds, steps: int, seed: 
     eval_ms = (time.perf_counter() - t0) * 1e3
     eval_launches = read_counts()
     # per layer: one K6 and the unsort's K5; no backward
-    want = {"cols_fwd": 4, "cols_bwd": 0, **NO_K1_K2,
+    want = {"cols_fwd": 4, "cols_bwd_tc": 0, "cols_bwd": 0, **NO_K1_K2,
             "row_gather": 4, **PAIR_LAUNCHES_EVAL}
     for k, v in want.items():
         if eval_launches[k] != v:
@@ -973,7 +1011,7 @@ def phase_core(torch, trainer, batch_np, seed: int, zero_counts, read_counts) ->
     core_ms = (time.perf_counter() - t0) * 1e3
     launches = read_counts()
     want = {"rows_fwd": 1, "rows_bwd": 1, "row_gather": 8, **NO_K1_K2,
-            "cols_fwd": 0, "cols_bwd": 0}
+            "cols_fwd": 0, "cols_bwd_tc": 0, "cols_bwd": 0}
     for k, v in want.items():
         if launches[k] != v:
             raise AssertionError(f"hept_attention_core launched {k} {launches[k]}x, want {v}")
@@ -1077,7 +1115,7 @@ def phase_slab(torch, trainer, batch_np, seed: int, zero_counts, read_counts) ->
         launches = read_counts()
         if not math.isfinite(loss):
             raise AssertionError(f"hept_fast {mode}: non-finite loss {loss}")
-        want = {"cols_fwd": 4, "cols_bwd": 4, **NO_K1_K2,
+        want = {"cols_fwd": 4, "cols_bwd": 4, "cols_bwd_tc": 0, **NO_K1_K2,
                 "rows_fwd": 0, "rows_bwd": 0, "row_gather": 8, **PAIR_LAUNCHES_STEP}
         for k, v in want.items():
             if launches[k] != v:
@@ -1143,11 +1181,66 @@ def phase_sort(torch, seed: int, zero_counts, read_counts) -> dict:
     return row
 
 
-def yardsticks_only(torch, args) -> int:
-    """K4 and K5 of the imported package at the paths' shapes, one JSON line."""
-    from hept_tpu_torch.ops import cuda_lib, pair_ops, row_gather
+def bits_digest(tensors) -> str:
+    """A short digest of the tensors' bytes: equal digests, equal bits."""
+    import hashlib
 
-    secs = cuda_lib.build(("pair_ops", "row_gather"), force=True)
+    import torch
+
+    h = hashlib.sha256()
+    for t in tensors:
+        t = t.detach().contiguous()
+        h.update((t.view(torch.int16) if t.dtype == torch.bfloat16 else t).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def k2_k7_yardsticks(torch, ba, n: int, seed: int) -> dict:
+    """K2 at the main path's shape (bf16, r 16, bs 512, tensor cores) and K7
+    on each of its paths' inputs (v1 f32 at the parity shape, v2 bf16 at
+    hept_fast's, v1 on bf16 = K9), through the wrappers every tree has:
+    device time by CUDA graph replay and a digest of the outputs' bits, on
+    inputs made here from the seed (the same in every tree)."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rn(*shape, s=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * s
+
+    out = {}
+    r, bs = 16, 512
+    qk2 = [torch.cat([rn(r, 24, n, s=0.3), rn(r, 6, n, s=0.5)], 1).to(torch.bfloat16)
+           .contiguous() for _ in range(2)]
+    sv, g_den, g_so = rn(r, 24, n).to(torch.bfloat16), rn(r, 1, n), rn(r, 24, n)
+    fn = lambda: ba.bucket_attn_bwd_cuda(*qk2, sv, g_den, g_so, bs)  # noqa: E731
+    out["K2_bits"] = bits_digest(fn())
+    out["K2_device_ms"] = graph_ms(fn)
+    del qk2, sv, g_den, g_so
+    n, bs = 60000, 100
+    for key, r, dtype, v2, common in (("K7_v1_f32", 24, torch.float32, False, 2.0),
+                                      ("K7_v2_bf16", 16, torch.bfloat16, True, 0.0),
+                                      ("K9_v1_bf16", 16, torch.bfloat16, False, 0.0)):
+        shared = rn(r, 6, n // bs, 1, s=common)
+
+        def qk():
+            x = rn(r, 30, n // bs, bs, s=0.5)
+            x[:, 24:] += shared
+            return x.reshape(r, 30, n).to(dtype).contiguous()
+
+        ins = (qk(), qk(), rn(r, 24, n).to(dtype), rn(r, 1, n), rn(r, 24, n))
+        fn = lambda: ba.cols_bwd_cuda(*ins, bs, v2)  # noqa: E731
+        out[f"{key}_bits"] = bits_digest(fn())
+        out[f"{key}_device_ms"] = graph_ms(fn, 10)
+        del ins
+    torch.cuda.empty_cache()
+    return out
+
+
+def yardsticks_only(torch, args) -> int:
+    """K4 and K5, K2 and K7 of the imported package at the paths' shapes,
+    one JSON line."""
+    from hept_tpu_torch.ops import bucket_attn_cuda, cuda_lib, pair_ops, row_gather
+
+    secs = cuda_lib.build(("pair_ops", "row_gather", "bucket_attn"), force=True)
     smi = nvidia_smi_line()
     root = Path(hept_tpu_torch_root()).resolve()
     log(f"yardsticks of {root}: build {secs:.1f} s; card: {smi}")
@@ -1157,7 +1250,10 @@ def yardsticks_only(torch, args) -> int:
     mask = torch.as_tensor(batch["pair_mask"][0]).to(DEVICE)
     k4 = k4_yardsticks(torch, pair_ops, idx, mask, batch["x"].shape[1], gen)
     k5 = k5_yardsticks(torch, row_gather, gen)
-    log(json.dumps({"package": str(root), "card": smi, "K4": k4, "K5": k5}))
+    del idx, mask, batch
+    torch.cuda.empty_cache()
+    k27 = k2_k7_yardsticks(torch, bucket_attn_cuda, 60416, args.seed)
+    log(json.dumps({"package": str(root), "card": smi, "K4": k4, "K5": k5, "K2_K7": k27}))
     return 0
 
 
@@ -1174,8 +1270,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile-steps", type=int, default=3)
     ap.add_argument("--yardsticks-only", action="store_true",
-                    help="build K4 and K5, print their times at the paths' shapes as one JSON "
-                         "line, and stop (no result line)")
+                    help="build the kernels, print K2's, K4's, K5's and K7's times at the paths' "
+                         "shapes as one JSON line, and stop (no result line)")
     ap.add_argument("--package-root", default=None,
                     help="import hept_tpu_torch from this directory instead (a parent tree "
                          "for an A/B of the yardsticks)")
@@ -1269,7 +1365,7 @@ def main(argv=None) -> int:
     # and the unsort's K5 forward and backward
     want = {"bucket_attn_fwd_tc": 4 * args.steps, "bucket_attn_bwd_tc": 4 * args.steps,
             "bucket_attn_fwd": 0, "bucket_attn_bwd": 0,
-            "cols_fwd": 0, "cols_bwd": 0, "rows_fwd": 0, "rows_bwd": 0,
+            "cols_fwd": 0, "cols_bwd_tc": 0, "cols_bwd": 0, "rows_fwd": 0, "rows_bwd": 0,
             "row_gather": 8 * args.steps,
             **{k: v * args.steps for k, v in PAIR_LAUNCHES_STEP.items()}}
     for k, v in want.items():
@@ -1362,14 +1458,18 @@ def main(argv=None) -> int:
                          coords_dim=event100.coords.shape[1])
     log(f"phase data: the event packed for block_size 100 -> n={batch100['x'].shape[1]} "
         f"({time.perf_counter() - t0:.1f} s)")
+    # 7. parity: K7 v1 on FP32 FMAs; 8. hept_fast: K7 v2 on the tensor cores
     parity = phase_profile(torch, trainer, "hept", batch100, ds100, args.profile_steps,
-                           args.seed, zero_counts, read_counts)
+                           args.seed, zero_counts, read_counts, k7="cols_bwd")
     rows["K6"]["launches"] = parity["launches"]["cols_fwd"]
     rows["K5p"]["launches"] = parity["launches"]["row_gather"]
     rows["K5p"]["launches_in"] = f"phase 7, {args.profile_steps} parity steps"
     rows["K7"]["launches"] = parity["launches"]["cols_bwd"]
-    phase_profile(torch, trainer, "hept_fast", batch100, ds100, args.profile_steps, args.seed,
-                  zero_counts, read_counts)
+    rows["K7"]["launches_in"] = f"phase 7, {args.profile_steps} parity steps (v1)"
+    fast = phase_profile(torch, trainer, "hept_fast", batch100, ds100, args.profile_steps,
+                         args.seed, zero_counts, read_counts, k7="cols_bwd_tc")
+    rows["K7"]["v2_tc_launches"] = fast["launches"]["cols_bwd_tc"]
+    rows["K7"]["v2_tc_launches_in"] = f"phase 8, {args.profile_steps} hept_fast steps"
 
     # 9. the row-major core (K10), 10. the slab modes (K8/K9), 11. the sort (K12)
     core_rows, core_launches = phase_core(torch, trainer, batch100, args.seed, zero_counts,

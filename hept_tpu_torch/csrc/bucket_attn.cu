@@ -369,8 +369,14 @@ int launch_bwd(const void* q, const void* k, const void* v, const float* gso, co
 // 2dv) flop for K6 (K7 ~2.5x), on scalar FP32 FMAs (f32 inputs must not use
 // TF32 or bf16 tensor cores), so the least time is operations at the FP32
 // peak (~67 TFLOP/s) for f32; for bf16 inputs the bound is the bytes (the
-// bf16 tensor-core rate would allow ~16x the FP32 one). These are the simple
-// first version: scalar FMAs with shared-memory operands, not wgmma.
+// bf16 tensor-core rate would allow ~16x the FP32 one). K6 is the simple
+// first version: scalar FMAs with shared-memory operands, not wgmma. K7 has
+// two faster routes below, chosen by the wrapper before launch
+// (cols_bwd_route): v2 on bf16 at bs % 4 == 0 runs K2's tensor-core halves
+// on buckets padded to 16 points (tc_cols_bwd_kernel), and f32 (v1) at bs
+// <= 100 runs one pass per bucket on FP32 FMAs (cols_bwd_tiled_kernel).
+// cols_bwd_kernel here stays for v2 at other bucket sizes, f32 at larger
+// ones, and K10.
 //
 // K10 (template argument ROWS) is K6 in f32 and K7 v1 on the ROW layout:
 // (g * bs, d) rows, bucket b owning rows [b*bs, (b+1)*bs). It replaces
@@ -805,6 +811,22 @@ __device__ __forceinline__ void load8f(const float* p, float (&v)[8]) {
   v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
 
+__device__ __forceinline__ void load4f(const bf16* p, float (&v)[4]) {
+  uint2 w = __ldg(reinterpret_cast<const uint2*>(p));
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&w);
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const float2 f = __bfloat1622float2(h[u]);
+    v[2 * u] = f.x;
+    v[2 * u + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void load4f(const float* p, float (&v)[4]) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+}
+
 __device__ __forceinline__ float load1f(const bf16* p) { return __bfloat162float(__ldg(p)); }
 __device__ __forceinline__ float load1f(const float* p) { return __ldg(p); }
 
@@ -839,6 +861,36 @@ __device__ __forceinline__ void stage_rows(const T* src, size_t n, size_t base, 
   }
 }
 
+// stage_rows for nbk consecutive buckets of bs points (bs % 4 == 0), each
+// into its own bsp = round_up(bs, 16) shared rows, rows bs..bsp-1 zero. A
+// lane takes a column pair of 4 points: 8-byte loads of bf16 (a bucket
+// starts at 2 * bs * b bytes, 8-byte aligned) and 16-byte loads of f32.
+template <int C, int W, int RS, bool ONES, typename T>
+__device__ __forceinline__ void stage_rows_padded(const T* src, size_t n, size_t base, int bs,
+                                                  int bsp, int nbk, bf16* dst) {
+  constexpr int kPairs = W / 2;
+  const int chunks = bsp / 4;  // of one padded bucket
+#pragma unroll 4
+  for (int w = threadIdx.x; w < kPairs * chunks * nbk; w += blockDim.x) {
+    const int e = 2 * (w % kPairs), cc = w / kPairs;
+    const int kb = cc / chunks, p = (cc % chunks) * 4;  // bucket, point in it
+    float v[2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (e + h < C && p < bs) {
+        load4f(src + (size_t)(e + h) * n + base + (size_t)kb * bs + p, v[h]);
+      } else {
+        const float f = ONES && e + h == C && p < bs ? 1.f : 0.f;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) v[h][u] = f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      *reinterpret_cast<uint32_t*>(dst + (kb * bsp + p + u) * RS + e) = pack_bf16(v[0][u], v[1][u]);
+  }
+}
+
 // -|x|^2/2 of the first C columns of a shared bf16 row, summed in order
 template <int C>
 __device__ __forceinline__ float half_sq_bf16(const bf16* row) {
@@ -858,18 +910,22 @@ __device__ __forceinline__ float half_sq_bf16(const bf16* row) {
 // in the order of the registers: per k-step (g, 2t), (g, 2t+1), (g+8, 2t),
 // (g+8, 2t+1), then the same at columns + 8. So f[nt / 2][(nt % 2) * 4 + j]
 // is the value at accumulator position j of the n8 tile nt.
-template <int C, int KS, typename T>
+// GUARD: rows rows..15 of the tile are padding (past the bucket's end) and
+// read as zero.
+template <int C, int KS, bool GUARD = false, typename T>
 __device__ __forceinline__ void load_a(const T* src, size_t n, size_t p0, int lane,
-                                       uint32_t (&a)[KS][4], float (&f)[KS][8]) {
+                                       uint32_t (&a)[KS][4], float (&f)[KS][8], int rows = 16) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int ks = 0; ks < KS; ++ks) {
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int e = ks * 16 + (i >= 4 ? 8 : 0) + 2 * t + (i & 1);
+      const int row = g + ((i >> 1) & 1) * 8;
       const size_t p = p0 + g + ((i >> 1) & 1) * 8;
-      f[ks][i] = e < C ? __bfloat162float(__float2bfloat16_rn(load1f(src + (size_t)e * n + p)))
-                       : 0.f;
+      f[ks][i] = e < C && (!GUARD || row < rows)
+                     ? __bfloat162float(__float2bfloat16_rn(load1f(src + (size_t)e * n + p)))
+                     : 0.f;
     }
 #pragma unroll
     for (int j = 0; j < 4; ++j) a[ks][j] = pack_bf16(f[ks][2 * j], f[ks][2 * j + 1]);
@@ -1059,30 +1115,57 @@ tc_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // augmented tile and 0 in the register operands, so S is untouched and
 // column D of the dq / dk product is the row (column) sum of the very same
 // bf16 hi / lo values. A warp takes one 16-point tile at a time.
-template <int D, int DV, bool KEYS>
+//
+// MASKED (K7 v2): the CTA takes nbk = min(g, buckets left) buckets of any bs
+// with bs % 4 == 0, each padded to bsp = round_up(bs, 16) points in shared
+// memory and in its tiles. A padded point of the other side has zero rows
+// and the norm kPadBias, so its logit is ~kPadBias whatever the mma adds:
+// pt = 0 and dl = 0 (its hi / lo parts and its share of the augmented sums
+// too), and it adds nothing to dq, dk or dv. The bias is finite: -inf plus a
+// finite sum would be safe, but an inf - inf would not. A padded point of a
+// warp's own tile reads as zero, is never read past the bucket (or past n),
+// and is not stored.
+constexpr float kPadBias = -1e30f;
+
+template <int D, int DV, bool KEYS, bool MASKED = false>
 __device__ __forceinline__ void tc_bwd_half(const bf16* __restrict__ q,
                                             const bf16* __restrict__ k,
                                             const bf16* __restrict__ v,
                                             const float* __restrict__ gso,
                                             const float* __restrict__ gden, bf16* __restrict__ dx,
-                                            bf16* __restrict__ dv, int n, int bs, bf16* a_s) {
+                                            bf16* __restrict__ dv, int n, int bs, bf16* a_s,
+                                            int g_buckets = 1) {
   using Dm = TcDims<D, DV>;
   constexpr int KS = Dm::DK / 16, VKS = Dm::DVK / 16;
   constexpr int NTD = Dm::DK / 8, NTV = Dm::DVN / 8;
   // where column D sits in an accumulator set
   constexpr int kSumTile = D / 8, kSumLane = (D % 8) / 2, kSumReg = D % 2;
-  bf16* b_s = a_s + bs * Dm::RS;                                // [bs][RSV]
-  float* sq_s = reinterpret_cast<float*>(b_s + bs * Dm::RSV);  // [bs] norms
-  float* gd_s = sq_s + bs;                                     // [bs] g_den (KEYS)
+  const int bsp = MASKED ? round_up(bs, 16) : bs;                  // a bucket's shared rows
+  const int nbk = MASKED ? min(g_buckets, n / bs - (int)blockIdx.x * g_buckets) : 1;
+  const int rows = nbk * bsp;
+  bf16* b_s = a_s + rows * Dm::RS;                                // [rows][RSV]
+  float* sq_s = reinterpret_cast<float*>(b_s + rows * Dm::RSV);  // [rows] norms
+  float* gd_s = sq_s + rows;                                     // [rows] g_den (KEYS)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const size_t nn = n, r = blockIdx.y, base = (size_t)blockIdx.x * bs;
+  const size_t nn = n, r = blockIdx.y;
+  const size_t base = (size_t)blockIdx.x * (MASKED ? g_buckets : 1) * bs;
   const bf16* qr = q + r * D * nn;
   const bf16* kr = k + r * D * nn;
   const bf16* vr = v + r * DV * nn;
   const float* gr = gso + r * DV * nn;
   const float* gdr = gden + r * nn;
   const bf16* xr = KEYS ? kr : qr;  // this half's own points
-  if constexpr (KEYS) {
+  if constexpr (MASKED) {
+    stage_rows_padded<D, Dm::DK, Dm::RS, true>(KEYS ? qr : kr, nn, base, bs, bsp, nbk, a_s);
+    if constexpr (KEYS) stage_rows_padded<DV, Dm::DVN, Dm::RSV, false>(gr, nn, base, bs, bsp, nbk, b_s);
+    else stage_rows_padded<DV, Dm::DVN, Dm::RSV, false>(vr, nn, base, bs, bsp, nbk, b_s);
+    if constexpr (KEYS) {
+      for (int i = threadIdx.x; i < rows; i += blockDim.x) {
+        const int kb = i / bsp, p = i % bsp;
+        gd_s[i] = p < bs ? gdr[base + (size_t)kb * bs + p] : 0.f;
+      }
+    }
+  } else if constexpr (KEYS) {
     stage_rows<D, Dm::DK, Dm::RS, true>(qr, nn, base, bs, a_s);
     stage_rows<DV, Dm::DVN, Dm::RSV, false>(gr, nn, base, bs, b_s);
     for (int i = threadIdx.x; i < bs; i += blockDim.x) gd_s[i] = gdr[base + i];
@@ -1091,20 +1174,28 @@ __device__ __forceinline__ void tc_bwd_half(const bf16* __restrict__ q,
     stage_rows<DV, Dm::DVN, Dm::RSV, false>(vr, nn, base, bs, b_s);
   }
   __syncthreads();
-  for (int j = threadIdx.x; j < bs; j += blockDim.x) sq_s[j] = half_sq_bf16<D>(a_s + j * Dm::RS);
+  for (int j = threadIdx.x; j < rows; j += blockDim.x)
+    sq_s[j] = !MASKED || j % bsp < bs ? half_sq_bf16<D>(a_s + j * Dm::RS) : kPadBias;
   __syncthreads();
 
-  for (int grp = warp; grp < bs / 16; grp += kTcWarps) {
+  const int tpb = bsp / 16;  // tiles of one bucket
+  const int nwarps = MASKED ? (int)(blockDim.x >> 5) : kTcWarps;
+  for (int grp = warp; grp < nbk * tpb; grp += nwarps) {
     // this warp's 16 points as A operands: x (q, or k) for S, y (bf16
-    // g_so, or v) for GP
-    const size_t p0 = base + grp * 16;
+    // g_so, or v) for GP; c0 is its bucket's first shared row
+    const int kb = MASKED ? grp / tpb : 0, tile = MASKED ? grp % tpb : grp;
+    const int c0 = kb * bsp;
+    const int own = bs - tile * 16;  // points of the tile inside the bucket (MASKED)
+    const size_t p0 = base + (size_t)kb * bs + tile * 16;
     uint32_t xa[KS][4], ya[VKS][4];
     float xf[KS][8], yf[VKS][8];
-    load_a<D, KS>(xr, nn, p0, lane, xa, xf);
-    if constexpr (KEYS) load_a<DV, VKS>(vr, nn, p0, lane, ya, yf);
-    else load_a<DV, VKS>(gr, nn, p0, lane, ya, yf);
+    load_a<D, KS, MASKED>(xr, nn, p0, lane, xa, xf, own);
+    if constexpr (KEYS) load_a<DV, VKS, MASKED>(vr, nn, p0, lane, ya, yf, own);
+    else load_a<DV, VKS, MASKED>(gr, nn, p0, lane, ya, yf, own);
     const float2 xsq = half_sq_rows<KS>(xf);
-    const float2 gd_own = KEYS ? make_float2(0.f, 0.f) : make_float2(gdr[p0 + g], gdr[p0 + g + 8]);
+    const float2 gd_own = KEYS ? make_float2(0.f, 0.f)
+                               : make_float2(!MASKED || g < own ? gdr[p0 + g] : 0.f,
+                                             !MASKED || g + 8 < own ? gdr[p0 + g + 8] : 0.f);
     float acc[NTD][4] = {};              // dq~ or dk~
     float accv[KEYS ? NTV : 1][4] = {};  // dv (KEYS)
 
@@ -1152,7 +1243,7 @@ __device__ __forceinline__ void tc_bwd_half(const bf16* __restrict__ q,
       mma_points<NTD, Dm::RS, 2>(acc, hl, a_s, c, lane);
       if constexpr (KEYS) mma_points<NTV, Dm::RSV, 1>(accv, pa, b_s, c, lane);
     };
-    for (int c = 0; c < bs; c += 16) {
+    for (int c = c0; c < c0 + bsp; c += 16) {
       float s[2][4], gp[2][4];
       products(c, s, gp);
       gradients(c, s, gp);
@@ -1166,7 +1257,7 @@ __device__ __forceinline__ void tc_bwd_half(const bf16* __restrict__ q,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int e = nt * 8 + 2 * t + (j & 1);
-        if (e < D) {
+        if (e < D && (!MASKED || g + (j >> 1) * 8 < own)) {
           const size_t at = (size_t)e * nn + p0 + g + (j >> 1) * 8;
           const float val = acc[nt][j] - (j < 2 ? sum0 : sum1) * __bfloat162float(xr[at]);
           dx[r * D * nn + at] = __float2bfloat16_rn(val);
@@ -1179,7 +1270,7 @@ __device__ __forceinline__ void tc_bwd_half(const bf16* __restrict__ q,
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int e = nt * 8 + 2 * t + (j & 1);
-          if (e < DV)
+          if (e < DV && (!MASKED || g + (j >> 1) * 8 < own))
             dv[(r * DV + e) * nn + p0 + g + (j >> 1) * 8] = __float2bfloat16_rn(accv[nt][j]);
         }
       }
@@ -1202,6 +1293,49 @@ tc_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     tc_bwd_half<D, DV, true>(q, k, v, gso, gden, dk, dv, n, bs, s);
   else
     tc_bwd_half<D, DV, false>(q, k, v, gso, gden, dq, nullptr, n, bs, s);
+}
+
+// K7 v2 on the tensor cores: K2's halves over g padded buckets a CTA (the
+// key half blockIdx.z 0, the query half 1), as many warps as a balanced
+// share of the CTA's 16-point tiles needs (7 for two buckets of 100: 14
+// tiles in two rounds, no warp idle).
+template <int D, int DV>
+__global__ void __launch_bounds__(kTcThreads, 3)
+tc_cols_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, const float* __restrict__ gso,
+                   const float* __restrict__ gden, bf16* __restrict__ dq, bf16* __restrict__ dk,
+                   bf16* __restrict__ dv, int n, int bs, int g) {
+  extern __shared__ uint4 smem_tc[];
+  bf16* s = reinterpret_cast<bf16*>(smem_tc);
+  if (blockIdx.z == 0)
+    tc_bwd_half<D, DV, true, true>(q, k, v, gso, gden, dk, dv, n, bs, s, g);
+  else
+    tc_bwd_half<D, DV, false, true>(q, k, v, gso, gden, dq, nullptr, n, bs, s, g);
+}
+
+// Buckets a CTA of tc_cols_bwd_kernel takes: two up to 128 points (bs 100 on
+// the H100: 0.585 ms a launch at hept_fast's shape against 0.607-0.613 for
+// one, 0.595 for three and 0.610 for four; PERF.md).
+__host__ __device__ constexpr int tc_cols_group(int bs) { return bs <= 128 ? 2 : 1; }
+
+template <int D, int DV>
+int launch_tc_cols_bwd(const void* q, const void* k, const void* v, const float* gso,
+                       const float* gden, void* dq, void* dk, void* dv, int r, int n, int bs,
+                       int g, cudaStream_t stream) {
+  const int bsp = round_up(bs, 16), nb = n / bs;
+  const size_t smem = TcDims<D, DV>::bwd_smem(g * bsp);
+  if (bs % 4 != 0 || smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(tc_cols_bwd_kernel<D, DV>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  // warps: the fewest that take the tiles in the same number of rounds as 8
+  const int tiles = g * bsp / 16, rounds = (tiles + kTcWarps - 1) / kTcWarps;
+  const int warps = (tiles + rounds - 1) / rounds;
+  dim3 grid((nb + g - 1) / g, r, 2);
+  tc_cols_bwd_kernel<D, DV><<<grid, warps * 32, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, gso, gden, (bf16*)dq, (bf16*)dk, (bf16*)dv,
+      n, bs, g);
+  return (int)cudaGetLastError();
 }
 
 template <int D, int DV, int TPW>
@@ -1241,6 +1375,325 @@ int launch_tc_bwd(const void* q, const void* k, const void* v, const float* gso,
       (const bf16*)q, (const bf16*)k, (const bf16*)v, gso, gden, (bf16*)dq, (bf16*)dk, (bf16*)dv,
       n, bs);
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// K7 v1 (f32) on FP32 FMAs, one pass per bucket: the route of every f32 K7
+// (and of v1 on bf16, K9's contract) whose bucket fits (bs <= 100 at d 30,
+// dv 24); larger buckets, K7 v2 off the tensor-core route and K10's row
+// layout keep cols_bwd_kernel above.
+//
+// What held cols_bwd_kernel back (3.1 ms at the parity shape against a
+// 0.593 ms FP32 bound): its two halves recompute the logit and gp, ~200
+// FMAs a logit against the 138 the gradient needs; a thread walks the other
+// side with one 32-long dependent FMA chain per product; every 4 FMAs wait
+// on one shared load; expf is the full-precision path; 7 warps an SM. Here
+// one persistent CTA of 512 threads an SM walks the (row, bucket) items, a
+// bucket at a time (no warp straddles two), the next bucket's q, k, v, g_so
+// and g_den in flight as cp.async copies into the other of two staging
+// buffers (point-major f32 rows) while it runs three phases on this one:
+//  A. the logits and gp once per pair, a 4 x 5 tile of pairs a thread (20
+//     independent accumulators each), pt = ex2.approx of a log2(e)-scaled
+//     argument, dl = pt * gp where the logit is < 0, stored as dl[i][j],
+//     dl[j][i] and pt[i][j];
+//  B. the row and column sums of dl, each in a fixed order;
+//  C. dq = dl . k - rowsum q, dk = dl^T . q - colsum k and dv = pt^T . g, a
+//     4 x 6 output tile a thread (350 of them at bs 100: one round, each
+//     output from a warp boundary), one loop for all three, only the
+//     pointers and the epilogue differ.
+// What bounds these phases is the shared memory's wavefronts, not its
+// bytes: the lanes of a warp span few rows of each operand (A: 8 queries x
+// 4 keys; C: the column block fastest), so each load is one wavefront, ~9
+// for 80 FMAs in A and 4 for 24 in C.
+// Padded points (bs up to the next multiple of 20) have zero rows and the
+// norm kPadBias: pt = 0 and dl = 0. Every sum runs in a fixed order: no
+// atomics, the same bits on every call. The shared rows are strided 4 words
+// modulo 32 where a quarter-warp reads 8 rows at once.
+
+constexpr int kTiledThreads = 512;
+constexpr int kTiledMaxBs = 100;
+
+template <int D, int DV>
+struct TiledDims {
+  static constexpr int DP = pad4(D), DVP = pad4(DV);
+  static constexpr int SQ = DP + 4, SV = DVP + 4;  // q / k and g / v row strides
+  static constexpr int kCols = 2 * D + 2 * DV + 1;  // staged: q, k, g_so, v, g_den
+  static __host__ __device__ int bp(int bs) { return round_up(bs, 20); }
+  // dl / pt row stride: >= bp and 4 words modulo 32
+  static __host__ __device__ int sl(int bs) { return bp(bs) + ((36 - bp(bs) % 32) % 32); }
+  // one staging buffer: q, k [bp][SQ]; g, v [bp][SV]; g_den [bp]
+  static __host__ __device__ int ops(int bs) { return bp(bs) * (2 * SQ + 2 * SV + 1); }
+  // dl, its transpose and pt [bp][sl]; two staging buffers; two norms and
+  // two sums [bp]
+  static size_t smem(int bs) {
+    return ((size_t)3 * bp(bs) * sl(bs) + (size_t)2 * ops(bs) + (size_t)4 * bp(bs)) * 4;
+  }
+};
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+__device__ __forceinline__ void cp_async_wait_prev() { asm volatile("cp.async.wait_group 1;\n" ::); }
+
+// acc[m][c] += a[x * sa + m] * b[x * sb + c] for x < len: an M x C tile of
+// a product whose contraction runs down the rows of two shared tiles (a at
+// 16-byte, b at 8-byte aligned columns)
+template <int M, int C>
+__device__ __forceinline__ void outer_tile(float (&acc)[M][C], const float* a, int sa,
+                                           const float* b, int sb, int len) {
+#pragma unroll 4
+  for (int x = 0; x < len; ++x) {
+    float am[M], bc[C];
+#pragma unroll
+    for (int m = 0; m < M; m += 4) {
+      const float4 t = *reinterpret_cast<const float4*>(a + x * sa + m);
+      am[m] = t.x, am[m + 1] = t.y, am[m + 2] = t.z, am[m + 3] = t.w;
+    }
+#pragma unroll
+    for (int c = 0; c < C; c += 2) {
+      const float2 t = *reinterpret_cast<const float2*>(b + x * sb + c);
+      bc[c] = t.x, bc[c + 1] = t.y;
+    }
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) acc[m][c] = fmaf(am[m], bc[c], acc[m][c]);
+    }
+  }
+}
+
+// s[u][w] += sum_e x[iu][e] * y[jw][e] over e < C: four columns per float4
+// load (each used 5 or 4 times), then the rest one at a time
+template <int C, int S>
+__device__ __forceinline__ void pair_dots(float (&s)[4][5], const float* x, const float* y,
+                                          const int (&iu)[4], const int (&jw)[5]) {
+#pragma unroll
+  for (int e = 0; e + 4 <= C; e += 4) {
+    float4 a[4], b[5];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) a[u] = *reinterpret_cast<const float4*>(x + iu[u] * S + e);
+#pragma unroll
+    for (int w = 0; w < 5; ++w) b[w] = *reinterpret_cast<const float4*>(y + jw[w] * S + e);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+#pragma unroll
+      for (int w = 0; w < 5; ++w) {
+        s[u][w] = fmaf(a[u].x, b[w].x, s[u][w]);
+        s[u][w] = fmaf(a[u].y, b[w].y, s[u][w]);
+        s[u][w] = fmaf(a[u].z, b[w].z, s[u][w]);
+        s[u][w] = fmaf(a[u].w, b[w].w, s[u][w]);
+      }
+    }
+  }
+#pragma unroll
+  for (int e = C / 4 * 4; e < C; ++e) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float a = x[iu[u] * S + e];
+#pragma unroll
+      for (int w = 0; w < 5; ++w) s[u][w] = fmaf(a, y[jw[w] * S + e], s[u][w]);
+    }
+  }
+}
+
+template <int D, int DV>
+__global__ void __launch_bounds__(kTiledThreads, 1)
+cols_bwd_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const float* __restrict__ gso,
+                      const float* __restrict__ gden, float* __restrict__ dq,
+                      float* __restrict__ dk, float* __restrict__ dv, int n, int bs, int items) {
+  using Tm = TiledDims<D, DV>;
+  constexpr int SQ = Tm::SQ, SV = Tm::SV;
+  // phase C's unit: kCM points x kCC columns; DB, VB column blocks of dq /
+  // dk and of dv
+  constexpr int kCM = 4, kCC = 6, DB = (D + kCC - 1) / kCC, VB = (DV + kCC - 1) / kCC;
+  static_assert(kCM == 4, "a unit's points are one float4 of a column");
+  const int bp = Tm::bp(bs), sl = Tm::sl(bs), ob = Tm::ops(bs), nb = n / bs;
+  extern __shared__ float4 smem_tiled[];
+  float* dl_s = reinterpret_cast<float*>(smem_tiled);  // [bp][sl] dl[i][j]
+  float* dlt_s = dl_s + bp * sl;                        // [bp][sl] dl[j][i]
+  float* p_s = dlt_s + bp * sl;                         // [bp][sl] pt[i][j]
+  float* ops_s = p_s + bp * sl;                         // two staging buffers
+  float* qb_s = ops_s + 2 * ob;                         // [bp] -|q|^2/2
+  float* kb_s = qb_s + bp;                              // [bp] -|k|^2/2
+  float* rs_s = kb_s + bp;                              // [bp] row sums of dl
+  float* cs_s = rs_s + bp;                              // [bp] column sums
+  const size_t nn = n;
+  // the padding of the staging buffers (columns past D / DV, points past
+  // bs) stays zero: staging writes only the rest
+  for (int w = threadIdx.x; w < 2 * ob; w += blockDim.x) ops_s[w] = 0.f;
+  __syncthreads();
+
+  // async copies of an item's columns into a staging buffer, one group: a
+  // warp takes a column at a time, a lane a point
+  auto stage = [&](int item, float* buf) {
+    if (item < items) {
+      const size_t r = item / nb, base = (size_t)(item % nb) * bs;
+      for (int c = threadIdx.x / 32; c < Tm::kCols; c += kTiledThreads / 32) {
+        const float* src;
+        float* dst;
+        int stride = SQ;
+        if (c < D) {
+          src = q + (r * D + c) * nn, dst = buf + c;
+        } else if (c < 2 * D) {
+          src = k + (r * D + c - D) * nn, dst = buf + bp * SQ + c - D;
+        } else if (c < 2 * D + 2 * DV) {
+          const int e = c - 2 * D;  // g_so, then v
+          src = e < DV ? gso + (r * DV + e) * nn : v + (r * DV + e - DV) * nn;
+          dst = buf + 2 * bp * SQ + (e < DV ? e : bp * SV + e - DV);
+          stride = SV;
+        } else {
+          src = gden + r * nn, dst = buf + 2 * bp * (SQ + SV), stride = 1;
+        }
+        for (int p = threadIdx.x % 32; p < bs; p += 32) cp_async4(dst + p * stride, src + base + p);
+      }
+    }
+    cp_async_commit();
+  };
+
+  // A persistent CTA walks the (row, bucket) items; the next item's copies
+  // are in flight while this one computes.
+  stage(blockIdx.x, ops_s);
+  for (int item = blockIdx.x, it = 0; item < items; item += gridDim.x, ++it) {
+    float* q_s = ops_s + (it & 1) * ob;  // [bp][SQ]
+    float* k_s = q_s + bp * SQ;          // [bp][SQ]
+    float* g_s = k_s + bp * SQ;          // [bp][SV]
+    float* v_s = g_s + bp * SV;          // [bp][SV]
+    float* gd_s = v_s + bp * SV;         // [bp] g_den
+    stage(item + gridDim.x, ops_s + ((it + 1) & 1) * ob);
+    cp_async_wait_prev();
+    __syncthreads();
+    const size_t r = item / nb, base = (size_t)(item % nb) * bs;
+    for (int p = threadIdx.x; p < bp; p += blockDim.x) {
+      qb_s[p] = p < bs ? half_sq<D>(q_s + p * SQ) : kPadBias;
+      kb_s[p] = p < bs ? half_sq<D>(k_s + p * SQ) : kPadBias;
+    }
+    __syncthreads();
+
+    // A. queries ti + ti_n u (u < 4) against keys tj + tj_n w (w < 5); a
+    // warp's lanes span 8 values of ti and 4 of tj, so each shared load
+    // reads at most 8 distinct rows
+    const int ti_n = bp / 4, tj_n = bp / 5;
+    for (int tile = threadIdx.x; tile < ti_n * tj_n; tile += blockDim.x) {
+      const int ti = (tile / 4) % ti_n, tj = tile / (4 * ti_n) * 4 + tile % 4;
+      int iu[4], jw[5];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) iu[u] = ti + ti_n * u;
+#pragma unroll
+      for (int w = 0; w < 5; ++w) jw[w] = tj + tj_n * w;
+      float s[4][5], gp[4][5];  // from the f32 bias sum and g_den
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+#pragma unroll
+        for (int w = 0; w < 5; ++w) {
+          s[u][w] = qb_s[iu[u]] + kb_s[jw[w]];
+          gp[u][w] = gd_s[iu[u]];
+        }
+      }
+      pair_dots<D, SQ>(s, q_s, k_s, iu, jw);
+      pair_dots<DV, SV>(gp, g_s, v_s, iu, jw);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+#pragma unroll
+        for (int w = 0; w < 5; ++w) {
+          const float pt = exp_clamped(s[u][w]);
+          const float dl = s[u][w] < 0.f ? pt * gp[u][w] : 0.f;
+          dl_s[iu[u] * sl + jw[w]] = dl;
+          dlt_s[jw[w] * sl + iu[u]] = dl;
+          p_s[iu[u] * sl + jw[w]] = pt;
+        }
+      }
+    }
+    __syncthreads();
+
+    // B. row sums (down dl[j][i]) and column sums (down dl[i][j]), in order
+    for (int x = threadIdx.x; x < 2 * bp; x += blockDim.x) {
+      const float* col = (x < bp ? dlt_s : dl_s) + x % bp;
+      float acc = 0.f;
+      for (int y = 0; y < bp; ++y) acc += col[y * sl];
+      (x < bp ? rs_s : cs_s)[x % bp] = acc;
+    }
+    __syncthreads();
+
+    // C. kCM points x kCC columns a unit, the column block fastest across
+    // lanes: dq (points i, over keys), dk (points j, over queries), dv
+    // (points j, over queries), each output's units from a warp boundary on
+    // (a warp that held two would run the loop twice)
+    const int pg_n = (bp + kCM - 1) / kCM, nq = pg_n * DB, nqw = round_up(nq, 32);
+    for (int unit = threadIdx.x; unit < 2 * nqw + pg_n * VB; unit += blockDim.x) {
+      const int kind = unit < nqw ? 0 : unit < 2 * nqw ? 1 : 2;  // dq, dk, dv
+      const int u = unit - kind * nqw;
+      if (kind < 2 && u >= nq) continue;
+      const int blocks = kind == 2 ? VB : DB;
+      const int p0 = kCM * (u / blocks), e0 = kCC * (u % blocks);
+      const float* a = (kind == 0 ? dlt_s : kind == 1 ? dl_s : p_s) + p0;
+      const float* b = (kind == 0 ? k_s : kind == 1 ? q_s : g_s) + e0;
+      float acc[kCM][kCC] = {};
+      outer_tile(acc, a, sl, b, kind == 2 ? SV : SQ, bp);
+      // dq / dk: the correction -sum[p] own[p][e]; then each column's 4
+      // points as one 16-byte store where bs % 4 == 0
+      const int width = kind == 2 ? DV : D;
+      if (kind < 2) {
+        const float* own = kind == 0 ? q_s : k_s;
+        const float* sum = kind == 0 ? rs_s : cs_s;
+#pragma unroll
+        for (int m = 0; m < kCM; ++m) {
+#pragma unroll
+          for (int c = 0; c < kCC; ++c) acc[m][c] -= sum[p0 + m] * own[(p0 + m) * SQ + e0 + c];
+        }
+      }
+      float* out = (kind == 0 ? dq : kind == 1 ? dk : dv) + (r * width + e0) * nn + base + p0;
+#pragma unroll
+      for (int c = 0; c < kCC; ++c) {
+        if (e0 + c >= width) continue;
+        if (bs % 4 == 0) {
+          if (p0 < bs)
+            *reinterpret_cast<float4*>(out + c * nn) =
+                make_float4(acc[0][c], acc[1][c], acc[2][c], acc[3][c]);
+        } else {
+#pragma unroll
+          for (int m = 0; m < kCM; ++m) {
+            if (p0 + m < bs) out[c * nn + m] = acc[m][c];
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// one CTA an SM, each walking its share of the r * nb items
+template <int D, int DV>
+int launch_cols_bwd_tiled(const void* q, const void* k, const void* v, const float* gso,
+                          const float* gden, void* dq, void* dk, void* dv, int r, int n, int bs,
+                          cudaStream_t stream) {
+  const size_t smem = TiledDims<D, DV>::smem(bs);
+  cudaError_t err = cudaFuncSetAttribute(cols_bwd_tiled_kernel<D, DV>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int device, sms;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return (int)err;
+  const int items = r * (n / bs);
+  cols_bwd_tiled_kernel<D, DV><<<std::min(items, sms), kTiledThreads, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, gso, gden, (float*)dq, (float*)dk,
+      (float*)dv, n, bs, items);
+  return (int)cudaGetLastError();
+}
+
+// K7's f32 (v1) kernel for this bucket size: the tiled one where it fits
+template <int D, int DV>
+int launch_cols_bwd_f32(const void* q, const void* k, const void* v, const float* gso,
+                        const float* gden, void* dq, void* dk, void* dv, int r, int n, int bs,
+                        cudaStream_t stream) {
+  if (bs <= kTiledMaxBs && TiledDims<D, DV>::smem(bs) <= kMaxSmem)
+    return launch_cols_bwd_tiled<D, DV>(q, k, v, gso, gden, dq, dk, dv, r, n, bs, stream);
+  return launch_cols_bwd<D, DV, false>(q, k, v, gso, gden, dq, dk, dv, r, n, bs, stream);
 }
 
 }  // namespace
@@ -1305,6 +1758,22 @@ extern "C" int hept_bucket_attn_bwd_tc(const void* q, const void* k, const void*
   return (int)cudaErrorInvalidValue;
 }
 
+// K7 v2 on the tensor cores: bf16 inputs, bs % 4 == 0, every pointer
+// 16-byte aligned (the wrapper checks).
+extern "C" int hept_cols_bwd_tc(const void* q, const void* k, const void* v, const float* gso,
+                                const float* gden, void* dq, void* dk, void* dv_out, int r,
+                                int d, int dv, int n, int bs, void* stream) {
+  if (bs <= 0 || n % bs != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+#define HEPT_TC_COLS_BWD_CASE(D_, DV_)                                                     \
+  if (d == D_ && dv == DV_)                                                                \
+    return launch_tc_cols_bwd<D_, DV_>(q, k, v, gso, gden, dq, dk, dv_out, r, n, bs,       \
+                                       tc_cols_group(bs), s);
+  HEPT_DIMS(HEPT_TC_COLS_BWD_CASE)
+#undef HEPT_TC_COLS_BWD_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
 extern "C" int hept_cols_fwd(const void* q, const void* k, const void* v, float* denom, float* so,
                              int r, int d, int dv, int n, int bs, int bf16, int hilo,
                              void* stream) {
@@ -1330,7 +1799,7 @@ extern "C" int hept_cols_bwd(const void* q, const void* k, const void* v, const 
 #define HEPT_COLS_BWD_CASE(D_, DV_)                                                          \
   if (d == D_ && dv == DV_)                                                                  \
     return v2 ? launch_cols_bwd<D_, DV_, true>(q, k, v, gso, gden, dq, dk, dv_out, r, n, bs, s) \
-              : launch_cols_bwd<D_, DV_, false>(q, k, v, gso, gden, dq, dk, dv_out, r, n, bs, s);
+              : launch_cols_bwd_f32<D_, DV_>(q, k, v, gso, gden, dq, dk, dv_out, r, n, bs, s);
   HEPT_DIMS(HEPT_COLS_BWD_CASE)
 #undef HEPT_COLS_BWD_CASE
   return (int)cudaErrorInvalidValue;

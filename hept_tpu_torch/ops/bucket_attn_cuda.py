@@ -15,8 +15,10 @@ run the mixed-precision contract of the JAX kernels: products of bf16 values
 summed in f32, exact f32 norms, pt rounded to bf16 for the value product,
 g_so rounded to bf16 in the backward, gradients cast to the input dtype.
 K1/K2 run bf16 inputs at block sizes that are multiples of 16 on the tensor
-cores and everything else on scalar FMAs (`bucket_attn_route`), each route
-with its own launch counters.
+cores and everything else on scalar FMAs (`bucket_attn_route`); K7 runs v2 on
+bf16 at block sizes that are multiples of 4 on the same tensor-core scheme,
+with buckets padded to 16 points, and v1 on FP32 FMAs (`cols_bwd_route`);
+each route with its own launch counters.
 
 The plain forward is `bucket_rbf_attention_cols_xla`'s einsum math (K6 in
 `pallas` mode on bf16 adds the bias terms as hi/lo bf16 pairs instead); the
@@ -43,10 +45,15 @@ SUPPORTED_DIMS = ((30, 24), (7, 5))
 ATTN_IMPLS = ("slab2", "hybrid", "hybrid2", "hybrid2l", "pallas", "loop2", "slab",
               "hybrid_slab")
 # launches of each kernel since the last reset (plain integer counters);
-# K1 / K2 count per route: "_tc" the tensor-core kernels, the bare names the
-# scalar ones (`bucket_attn_route`)
+# K1 / K2 and K7 count per route: "_tc" the tensor-core kernels, the bare
+# names the FP32 ones (`bucket_attn_route`, `cols_bwd_route`)
 LAUNCHES = {"bucket_attn_fwd_tc": 0, "bucket_attn_bwd_tc": 0, "bucket_attn_fwd": 0,
-            "bucket_attn_bwd": 0, "cols_fwd": 0, "cols_bwd": 0, "rows_fwd": 0, "rows_bwd": 0}
+            "bucket_attn_bwd": 0, "cols_fwd": 0, "cols_bwd_tc": 0, "cols_bwd": 0,
+            "rows_fwd": 0, "rows_bwd": 0}
+# shared bytes per padded point of K7's tensor-core tiles at the widest
+# compiled (d, dv) = (30, 24): bf16 rows of 40 (q / k, ones column) and 24
+# (v / g_so) values, and two f32 norms (TcDims in csrc/bucket_attn.cu)
+_TC_COLS_BYTES_PER_POINT = (40 + 24) * 2 + 8
 
 
 def _bf16_round(x: torch.Tensor) -> torch.Tensor:
@@ -149,6 +156,20 @@ def bucket_attn_route(dtype: torch.dtype, block_size: int) -> str:
     return "tc" if dtype == torch.bfloat16 and block_size % 16 == 0 else "scalar"
 
 
+def cols_bwd_route(dtype: torch.dtype, block_size: int, v2: bool) -> str:
+    """K7's route, fixed by dtype, bucket size and variant before launch:
+    "tc" (K2's bf16 tensor-core halves on buckets padded to a multiple of 16
+    points) for v2 on bf16 inputs where block_size % 4 == 0 (the staging's
+    8-byte loads) and the padded tiles fit in shared memory; "scalar" (FP32
+    FMAs) otherwise: v1, whose f32 math must not use TF32 or bf16, and v2 at
+    any other block size."""
+    padded = -(-block_size // 16) * 16
+    if dtype == torch.bfloat16 and v2 and block_size % 4 == 0 \
+            and padded * _TC_COLS_BYTES_PER_POINT <= 227 * 1024:
+        return "tc"
+    return "scalar"
+
+
 def _check_inputs(sq, sk, sv, block_size, route="scalar", cotangents=()):
     r, d, n = sq.shape
     dv = sv.shape[1]
@@ -242,21 +263,27 @@ def cols_fwd_cuda(sq, sk, sv, block_size: int, hilo: bool = False):
 
 
 def cols_bwd_cuda(sq, sk, sv, g_denom, g_so, block_size: int, v2: bool):
-    """K7 on the card: (dq, dk, dv) in the input dtypes. v2 runs on bf16
-    inputs only; v1 runs the f32 kernel, on upcast copies of bf16 inputs."""
-    r, d, dv, n = _check_inputs(sq, sk, sv, block_size, cotangents=(g_denom, g_so))
+    """K7 on the card, on the route `cols_bwd_route` picks: (dq, dk, dv) in
+    the input dtypes. v2 runs on bf16 inputs only; v1 runs the f32 kernel,
+    on upcast copies of bf16 inputs."""
+    route = cols_bwd_route(sq.dtype, block_size, v2)
+    r, d, dv, n = _check_inputs(sq, sk, sv, block_size, route, (g_denom, g_so))
     v2 = v2 and sq.dtype == torch.bfloat16
     ins = (sq, sk, sv) if v2 else tuple(t.float() for t in (sq, sk, sv))
     outs = tuple(torch.empty_like(t) for t in ins)
     lib = cuda_lib.load("bucket_attn")
-    fn = lib.hept_cols_bwd
+    args = [*(t.data_ptr() for t in ins), g_so.data_ptr(), g_denom.data_ptr(),
+            *(t.data_ptr() for t in outs), r, d, dv, n, block_size]
+    if route == "tc":
+        fn, name = lib.hept_cols_bwd_tc, "cols_bwd_tc"
+    else:
+        fn, name = lib.hept_cols_bwd, "cols_bwd"
+        args.append(int(v2))
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    err = fn(*(t.data_ptr() for t in ins), g_so.data_ptr(), g_denom.data_ptr(),
-             *(t.data_ptr() for t in outs), r, d, dv, n, block_size, int(v2),
-             cuda_lib.stream_ptr(sq.device))
-    cuda_lib.check(err, lib, "hept_bucket_attn_error_string", "cols_bwd")
-    LAUNCHES["cols_bwd"] += 1
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * (len(args) - 8) + [ctypes.c_void_p]
+    err = fn(*args, cuda_lib.stream_ptr(sq.device))
+    cuda_lib.check(err, lib, "hept_bucket_attn_error_string", name)
+    LAUNCHES[name] += 1
     return tuple(o.to(t.dtype) for o, t in zip(outs, (sq, sk, sv)))
 
 

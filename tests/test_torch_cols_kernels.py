@@ -176,6 +176,44 @@ def test_cols_routes_follow_make_cols_pallas(mode, n, bs, dt, want):
     assert ba.cols_routes(mode, n, bs, getattr(torch, dt)) == want
 
 
+@pytest.mark.parametrize("dt,bs,v2,want", [
+    ("bfloat16", 100, True, "tc"),  # hept_fast / hept_turbo: padded to 112
+    ("bfloat16", 36, True, "tc"),
+    ("bfloat16", 64, True, "tc"),
+    ("bfloat16", 300, True, "tc"),
+    ("bfloat16", 1696, True, "tc"),  # the widest padded bucket that fits
+    ("bfloat16", 1712, True, "scalar"),  # its tiles overflow shared memory
+    ("bfloat16", 50, True, "scalar"),  # no multiple of 4: 8-byte staging
+    ("bfloat16", 10, True, "scalar"),
+    ("bfloat16", 100, False, "scalar"),  # v1 (K9's contract): f32 math
+    ("float32", 100, True, "scalar"),  # the parity profile: no TF32, no bf16
+    ("float32", 100, False, "scalar"),
+])
+def test_cols_bwd_route_table(dt, bs, v2, want):
+    """K7's route is fixed before launch by dtype, bucket size and variant:
+    the tensor cores only for v2 on bf16 at bs % 4 == 0 that fits."""
+    assert ba.cols_bwd_route(getattr(torch, dt), bs, v2) == want
+
+
+@pytest.mark.parametrize("name,want", [
+    ("void (anonymous namespace)::tc_bwd_kernel<30, 24>(__nv_bfloat16 const*, int, int)", "K2"),
+    ("void (anonymous namespace)::tc_cols_bwd_kernel<30, 24>(__nv_bfloat16 const*, int)", "K7"),
+    ("void (anonymous namespace)::cols_bwd_tiled_kernel<30, 24>(float const*, int, int)", "K7"),
+    ("void (anonymous namespace)::cols_bwd_kernel<30, 24, false, false>(float const*)", "K7"),
+    ("void (anonymous namespace)::bwd_kernel<30, 24, false>(float const*, int, int)", "K2"),
+    ("void (anonymous namespace)::tc_fwd_kernel<30, 24, 2>(__nv_bfloat16 const*)", "K1"),
+    ("void at::native::elementwise_kernel<128, 4>(int, float)", None),
+])
+def test_profiler_maps_kernel_names(name, want):
+    """utils/profiling.py books each kernel's device time to its TPU kernel
+    by the profiler's name: K7's tensor-core and tiled kernels count as K7,
+    and tc_bwd_kernel as K2 only."""
+    from hept_tpu_torch.utils.profiling import _PORT_KERNEL_RE, PORT_KERNELS
+
+    m = _PORT_KERNEL_RE.search(name)
+    assert (PORT_KERNELS[m.group(1)] if m else None) == want
+
+
 @pytest.mark.parametrize("mode", ["xla"])
 def test_unported_modes_raise(mode):
     """`xla` is the JAX package's kernel-free einsum + autodiff path: the

@@ -1,5 +1,5 @@
 """The CUDA kernels (K1-K7, K10, K12) against their plain versions, on the card
-(K1/K2 on both routes, tensor cores and scalar).
+(K1/K2 and K7 on both routes, tensor cores and scalar).
 
 Marked `cuda`: each test skips (inside the fixture, never at import) when no
 CUDA device is present, which is the case on CPU-only hosts. On a GPU
@@ -87,18 +87,23 @@ def _rpe_inputs(dev, common, r=4, nb=3, bs=512, seed=5):
     return qk(), qk(), rn(r, 24, n).to(torch.bfloat16), rn(r, 1, n), rn(r, 24, n)
 
 
-@pytest.mark.parametrize("bs", [64, 512])
-def test_k2_is_gradient_of_bf16_forward_at_common_mode_40(dev, bs):
-    """The bf16-gradient contract on the card: K2 (tensor cores) against f32
-    autograd of plain K1 at the same bf16 values, with a per-bucket common
-    mode of 40 in the RPE rows, 2e-2 x scale (as chip_smoke.py phase 2)."""
+@pytest.mark.parametrize("bs,kernel", [(64, "K2"), (512, "K2"), (100, "K7 v2")])
+def test_k2_is_gradient_of_bf16_forward_at_common_mode_40(dev, bs, kernel):
+    """The bf16-gradient contract on the card: K2 and K7 v2 (tensor cores;
+    K7 on buckets of 100 padded to 112) against f32 autograd of plain K1 at
+    the same bf16 values, with a per-bucket common mode of 40 in the RPE
+    rows, 2e-2 x scale (as chip_smoke.py phase 2)."""
     sq, sk, sv, gden, gso = _rpe_inputs(dev, 40.0, nb=1536 // bs, bs=bs)
     ins = [t.float().requires_grad_(True) for t in (sq, sk, sv)]
     den, so = ba.bucket_attn_fwd_plain(*ins, bs)
     ref = torch.autograd.grad((den * gden).sum() + (so * gso).sum(), ins)
-    before = ba.LAUNCHES["bucket_attn_bwd_tc"]
-    got = ba.bucket_attn_bwd_cuda(sq, sk, sv, gden, gso, bs)
-    assert ba.LAUNCHES["bucket_attn_bwd_tc"] == before + 1
+    counter = "bucket_attn_bwd_tc" if kernel == "K2" else "cols_bwd_tc"
+    before = ba.LAUNCHES[counter]
+    if kernel == "K2":
+        got = ba.bucket_attn_bwd_cuda(sq, sk, sv, gden, gso, bs)
+    else:
+        got = ba.cols_bwd_cuda(sq, sk, sv, gden, gso, bs, True)
+    assert ba.LAUNCHES[counter] == before + 1
     for a, b, nm in zip(got, ref, ("dq", "dk", "dv")):
         torch.testing.assert_close(a.float(), b, rtol=2e-2, atol=2e-2 * b.abs().max().item(),
                                    msg=nm)
@@ -155,14 +160,20 @@ def test_k6_matches_plain(dev, dtype, hilo, nb, bs):
 
 @pytest.mark.parametrize("dtype,v2", [(torch.float32, False), (torch.bfloat16, False),
                                       (torch.bfloat16, True)])
-@pytest.mark.parametrize("nb,bs", [(6, 100), (7, 100), (3, 300)])
+@pytest.mark.parametrize("nb,bs", [(6, 100), (7, 100), (3, 300), (5, 36), (5, 50)])
 def test_k7_matches_plain(dev, dtype, v2, nb, bs):
-    """K7 v1 (f32, and bf16 upcast) and v2 (bf16): f32 1e-5 x scale, bf16
-    outputs 1e-2 x scale (one bf16 ulp)."""
+    """K7 v1 (f32, and bf16 upcast) and v2 (bf16), each on the route
+    `cols_bwd_route` gives it: v2 on the tensor cores at bs 100 (odd buckets
+    start 8 bytes off a 16-byte boundary; 7 buckets end at n), 36 and 300,
+    on FP32 FMAs at bs 50 (no multiple of 4); v1 one pass per bucket up to
+    100 points and two halves at 300. f32 1e-5 x scale, bf16 outputs 1e-2 x
+    scale (one bf16 ulp)."""
     sq, sk, sv, gden, gso, _ = _inputs(dev, dtype, d=30, dv=24, nb=nb, bs=bs)
-    before = ba.LAUNCHES["cols_bwd"]
+    counter = "cols_bwd_tc" if ba.cols_bwd_route(dtype, bs, v2) == "tc" else "cols_bwd"
+    before = dict(ba.LAUNCHES)
     got = ba.cols_bwd_cuda(sq, sk, sv, gden, gso, bs, v2)
-    assert ba.LAUNCHES["cols_bwd"] == before + 1
+    after = {k: v - before[k] for k, v in ba.LAUNCHES.items() if v != before[k]}
+    assert after == {counter: 1}
     tol = 1e-5 if dtype == torch.float32 else 1e-2
     for a, b in zip(got, ba.cols_bwd_plain(sq, sk, sv, gden, gso, bs, v2)):
         assert a.dtype == dtype
@@ -170,11 +181,23 @@ def test_k7_matches_plain(dev, dtype, v2, nb, bs):
                                    atol=tol * b.float().abs().max().item())
 
 
+@pytest.mark.parametrize("dtype,v2", [(torch.float32, False), (torch.bfloat16, True),
+                                      (torch.bfloat16, False)])
+def test_k7_same_bits_on_repeated_calls(dev, dtype, v2):
+    """No atomics on either K7 route (tensor cores for bf16 v2, FP32 FMAs
+    for v1): every call gives the same bits, a ragged 7-bucket count too."""
+    sq, sk, sv, gden, gso, bs = _inputs(dev, dtype, d=30, dv=24, nb=7, bs=100, seed=6)
+    first = ba.cols_bwd_cuda(sq, sk, sv, gden, gso, bs, v2)
+    for _ in range(3):
+        assert all(torch.equal(a, b)
+                   for a, b in zip(first, ba.cols_bwd_cuda(sq, sk, sv, gden, gso, bs, v2)))
+
+
 @pytest.mark.parametrize("mode,dtype,want", [
     ("pallas", torch.float32, ("cols_fwd", "cols_bwd")),
     ("pallas", torch.bfloat16, ("cols_fwd", "cols_bwd")),
-    ("hybrid2", torch.bfloat16, ("cols_fwd", "cols_bwd")),
-    ("slab2", torch.bfloat16, ("cols_fwd", "cols_bwd")),  # bs 100: no flat slab
+    ("hybrid2", torch.bfloat16, ("cols_fwd", "cols_bwd_tc")),  # K7 v2 on the tensor cores
+    ("slab2", torch.bfloat16, ("cols_fwd", "cols_bwd_tc")),  # bs 100: no flat slab
     ("slab", torch.bfloat16, ("cols_fwd", "cols_bwd")),  # K8 / K9 as K6 hilo / K7 v1
     ("hybrid_slab", torch.float32, ("cols_fwd", "cols_bwd")),
 ])
@@ -186,7 +209,8 @@ def test_modes_route_through_k6_k7(dev, mode, dtype, want):
     (so / den).sum().backward()
     after = {k: v - before[k] for k, v in ba.LAUNCHES.items()}
     assert after == {"bucket_attn_fwd_tc": 0, "bucket_attn_bwd_tc": 0, "bucket_attn_fwd": 0,
-                     "bucket_attn_bwd": 0, "rows_fwd": 0, "rows_bwd": 0, want[0]: 1, want[1]: 1}
+                     "bucket_attn_bwd": 0, "cols_bwd_tc": 0, "cols_bwd": 0, "rows_fwd": 0,
+                     "rows_bwd": 0, want[0]: 1, want[1]: 1}
     with plain_reference():
         refs = [t.clone().requires_grad_(True) for t in (sq, sk, sv)]
         den2, so2 = bucket_rbf_attention_cols(*refs, bs, mode)
@@ -443,8 +467,8 @@ def test_core_runs_k10_and_k5(dev):
     grads = torch.autograd.grad((out * w).sum(), ins)
     after = {k: v - before[k] for k, v in {**ba.LAUNCHES, **rg.LAUNCHES}.items()}
     assert after == {"bucket_attn_fwd_tc": 0, "bucket_attn_bwd_tc": 0, "bucket_attn_fwd": 0,
-                     "bucket_attn_bwd": 0, "cols_fwd": 0, "cols_bwd": 0, "rows_fwd": 1,
-                     "rows_bwd": 1, "row_gather": 8}
+                     "bucket_attn_bwd": 0, "cols_fwd": 0, "cols_bwd_tc": 0, "cols_bwd": 0,
+                     "rows_fwd": 1, "rows_bwd": 1, "row_gather": 8}
     with plain_reference():
         out_p = hept_attention_core(*ins, alpha, codes, block_size=bs, perms=perms[0])
         grads_p = torch.autograd.grad((out_p * w).sum(), ins)
