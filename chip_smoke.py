@@ -14,9 +14,10 @@ Phases, one line each (plus per-kernel lines):
      bf16-gradient contract); K1 / K2 on the tensor-core route (bf16) with
      the same bits on repeated calls, timed by CUDA events and by CUDA graph
      replay beside their bound and their per-logit ex2 / FP32 floors, then on
-     the scalar route (f32) at the same shape, checked and timed once, and a
-     flash-attention sanity line (not the same function); K4 with its CSR
-     given and building its own,
+     the scalar route (f32) at the same shape, checked and timed once; K1's
+     library yardstick (`library_yardstick`: efficient attention over the
+     buckets' augmented columns, the same function up to one rescale); K4
+     with its CSR given and building its own,
      on the batch's index and an unsorted one, the same bits on repeated
      calls, then timed (`k4_yardsticks`: the kernel at d = 12 and 1, the
      CSR build, the loss's three calls against three `index_add_`); K5 (the
@@ -27,8 +28,11 @@ Phases, one line each (plus per-kernel lines):
      and by CUDA graph replay (device time); K6 / K7 (the small-bucket
      column kernels) at the parity profile's shapes in f32 and hept_fast's
      in bf16, in K6's three modes and both K7 variants, and on a ragged
-     bucket count; K7 on each route (v2 on the tensor cores, v1 on FP32
-     FMAs) with the same bits on 4 calls, timed by CUDA graph replay;
+     bucket count; K6 and K7 each on its routes (bf16 K6 and K7 v2 on the
+     tensor cores, f32 K6 and K7 v1 on FP32 FMAs) with the same bits on 4
+     calls, timed by CUDA graph replay; K6 and K7 v2 on the tensor cores
+     against the f32 forward / autograd of the same bf16 values at a
+     per-bucket common mode of 40; K6's library yardstick at both shapes;
   3. the main path: the full-width `hept_acc` model (random weights from the
      seed) takes `--steps` Adam steps at lr 1e-2 with dropout on, through the
      trainer's `train_step`, on one synthetic 60k-point event; launch
@@ -52,11 +56,11 @@ Phases, one line each (plus per-kernel lines):
      K7 v1) and 8. the `hept_fast` profile (bf16, K6 / K7 v2): each takes
      `--profile-steps` Adam steps at full width on one synthetic 60k event
      (block_size 100), timed, with launch counters zeroed just before and
-     read just after (K6 4, K7 4 on its route's counter, `cols_bwd` for the
-     parity profile and `cols_bwd_tc` for hept_fast, none on the other, K5
-     8 per step, K1/K2 none); one timed
-     `evaluate` of the event, counters zeroed just before (K6 4, K5 4, K7
-     and K1/K2 none); then its
+     read just after (K6 4 and K7 4 on their routes' counters, `cols_fwd` /
+     `cols_bwd` for the parity profile and `cols_fwd_tc` / `cols_bwd_tc`
+     for hept_fast, none on the others, K5 8 per step, K1/K2 none); one
+     timed `evaluate` of the event, counters zeroed just before (K6 4 on its
+     route, K5 4, K7 and K1/K2 none); then its
      first step, dropout off, with kernels and under `plain_reference()`,
      compared (the parity run on the kernel run's permutations);
   9. the row-major core `hept_attention_core` (kernel K10) forward and
@@ -65,15 +69,16 @@ Phases, one line each (plus per-kernel lines):
      same permutations; then K10 alone on its sorted operands, timed;
  10. `attn_impl: slab` and `hybrid_slab` (the TPU's slab kernels K8/K9, run
      as K6 hi/lo + K7 v1 and K6 + K7 v1): one hept_fast step each, launches
-     counted, kernels against plain versions;
+     counted (K6 on the tensor cores), kernels against plain versions;
  11. K12 (`bitonic_sort_rows`) on 24 rows of 60000 keys with 16 payloads,
      bit-equal to its plain version, timed against torch.sort.
 Before the last line: one JSON line of per-kernel numbers (K5 once per row
 shape, K4 with its yardsticks as extra keys), and the `nvidia-smi`
 name/power-limit line. `--yardsticks-only [--package-root DIR]` builds the
 kernels of the package in DIR (a parent tree, for an A/B in one call),
-prints K4's and K5's yardsticks, K2's and K7's device times with a digest
-of their output bits as one JSON line and stops, without a result line. The last line is
+prints K4's and K5's yardsticks, K2's, K6's and K7's device times with a
+digest of their output bits as one JSON line and stops, without a result
+line. The last line is
 {"ok": true, "device": {...}}. Any failed check raises (exit code != 0).
 Exits with code 2 and prints no result without a CUDA device or without the
 `hept_tpu_torch` package beside this script.
@@ -106,6 +111,8 @@ PAIR_LAUNCHES_EVAL = {"pair_gather": 2, "pair_segment_sum": 1, "anchor_csr": 1}
 # K1 / K2 on neither route: the paths that run K6 / K7 or K10
 NO_K1_K2 = {"bucket_attn_fwd_tc": 0, "bucket_attn_bwd_tc": 0, "bucket_attn_fwd": 0,
             "bucket_attn_bwd": 0}
+# K6 / K7 on neither route: the paths that run K1 / K2 or K10
+NO_K6_K7 = {"cols_fwd_tc": 0, "cols_fwd": 0, "cols_bwd_tc": 0, "cols_bwd": 0}
 
 
 def log(msg: str) -> None:
@@ -185,6 +192,66 @@ def check(name: str, err: float, tol: float) -> None:
     log(f"  {name}: {err:.3e} (tol {tol:.3e}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name}: {err:.3e} above tolerance {tol:.3e}")
+
+
+def library_yardstick(torch, sq, sk, sv, bs: int, want) -> dict:
+    """The one PyTorch call that computes a bucket forward's function up to
+    one elementwise rescale, timed by CUDA graph replay on inputs prepared
+    beforehand; the port never calls it. Softmax attention with scale 1 and
+    its log-sum-exp (`_scaled_dot_product_efficient_attention`) over the
+    buckets as (r * nb, 1, bs, E) batches of the augmented columns [q, q_hi,
+    q_lo, 1, 1] and [k, 1, 1, k_hi, k_lo], zero-padded to E % 8 == 0: their
+    product is the logit q.k - |q|^2/2 - |k|^2/2 (hi + lo: each f32 bias as
+    two bf16 values, as K6 hi/lo carries it; in f32 the bias and 0), so the
+    call returns (so / denom, log denom). Returns library_ms, its max|d|
+    against `want` = the plain (denom, so), and that error over the plain
+    so's scale; where the call refuses the inputs, library_ms None and why."""
+    r, d, n = sq.shape
+    dv, nb, dt = sv.shape[1], n // bs, sq.dtype
+    width = -(-(d + 4) // 8) * 8
+
+    def augment(x, bias_first: bool):
+        xf = x.float().reshape(r, d, nb, bs)
+        bias = -0.5 * (xf * xf).sum(1)  # (r, nb, bs), from the f32 values
+        hi = bias.to(dt).float()
+        lo = bias - hi if dt == torch.float32 else (bias - hi).to(dt).float()
+        ones = torch.ones_like(bias)
+        tail = (hi, lo, ones, ones) if bias_first else (ones, ones, hi, lo)
+        out = torch.zeros((r, nb, bs, width), dtype=dt, device=x.device)
+        out[..., :d] = xf.permute(0, 2, 3, 1).to(dt)
+        out[..., d:d + 4] = torch.stack(tail, -1).to(dt)
+        return out.reshape(r * nb, 1, bs, width)
+
+    qa, ka = augment(sq, True), augment(sk, False)
+    va = sv.reshape(r, dv, nb, bs).permute(0, 2, 3, 1).reshape(r * nb, 1, bs, dv).contiguous()
+
+    def call():
+        return torch.ops.aten._scaled_dot_product_efficient_attention(
+            qa, ka, va, None, True, 0.0, False, scale=1.0)[:2]
+
+    try:
+        out, lse = call()
+        torch.cuda.synchronize()
+    except RuntimeError as exc:
+        return {"library_ms": None,
+                "library_note": "efficient attention refused: " + str(exc).splitlines()[0][:160]}
+    den = lse[..., :bs].float().exp()  # the log-sum-exp may be padded to 32 points
+    so = (out.float() * den[..., None]).reshape(r, nb, bs, dv).permute(0, 3, 1, 2)
+    err = max(max_err(den.reshape(r, 1, n) + 1e-20, want[0]), max_err(so.reshape(r, dv, n), want[1]))
+    del out, lse, den, so
+    return {"library_ms": graph_ms(call, 10), "library_max_abs_err": err,
+            "library_err_over_scale": err / scale(want[1]),
+            "library_call": f"_scaled_dot_product_efficient_attention {dt} (B={r * nb}, L={bs}, "
+                            f"E={width}, Ev={dv}), so = out * exp(lse)"}
+
+
+def log_library(row: dict) -> None:
+    if row["library_ms"] is None:
+        log(f"  {row['name']} library yardstick: {row['library_note']}")
+    else:
+        log(f"  {row['name']} library yardstick: {row['library_call']}: {row['library_ms']:.4f} "
+            f"ms device, max|d| vs plain {row['library_max_abs_err']:.3e} "
+            f"({row['library_err_over_scale']:.2e} of the plain so's scale)")
 
 
 def nvidia_smi_line() -> str:
@@ -269,7 +336,8 @@ def phase_kernels(torch, batch, seed: int) -> dict:
                      ms=time_ms(lambda: ba.bucket_attn_fwd_cuda(sq, sk, sv, bs)),
                      device_ms=graph_ms(lambda: ba.bucket_attn_fwd_cuda(sq, sk, sv, bs)),
                      plain_ms=time_ms(lambda: ba.bucket_attn_fwd_plain(sq, sk, sv, bs), 3, 1),
-                     bound_ms=b_ms, bound_by=b_by, library_ms=None))
+                     bound_ms=b_ms, bound_by=b_by,
+                     **library_yardstick(torch, sq, sk, sv, bs, (den_p, so_p))))
 
     dq_k, dk_k, dv_k = ba.bucket_attn_bwd_cuda(sq, sk, sv, g_den, g_so, bs)
     dq_p, dk_p, dv_p = ba.bucket_attn_bwd_plain(sq, sk, sv, g_den, g_so, bs)
@@ -335,12 +403,6 @@ def phase_kernels(torch, batch, seed: int) -> dict:
         scalar_f32_device_ms=graph_ms(lambda: ba.bucket_attn_bwd_cuda(*s32, g_den, g_so, bs), 3),
         scalar_f32_max_abs_err=max(e32[2:]))
     del s32
-    # a sanity line only, not the same function (softmax attention, one
-    # output): flash attention over the same buckets as (r * nb) batches of
-    # 512 tokens at head dim 32, bf16; the port never calls it
-    qh = torch.randn((r * nb, 1, bs, 32), generator=gen, device=dev).to(torch.bfloat16)
-    sdpa_ms = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qh, qh, qh))
-    del qh
     # the floors are estimates for this log line only: the kernels line
     # carries measured numbers and bound_ms
     for row, floors in zip(rows, (logit_floors(r * n * bs, K1_FP32_PER_LOGIT, 1),
@@ -351,8 +413,7 @@ def phase_kernels(torch, batch, seed: int) -> dict:
             f"({row['bound_by']}); per-logit floors outside the tensor cores (not in bound_ms, "
             f"at {SM_CLOCK_HZ / 1e9:.2f} GHz): ex2 {floors['sfu_floor_ms']:.4f} ms, FP32 "
             f"{floors['alu_floor_ms']:.4f} ms")
-    log(f"  sanity, not the same function: scaled_dot_product_attention (bf16, batch {r * nb}, "
-        f"{bs} tokens, head dim 32, forward) {sdpa_ms:.4f} ms device")
+    log_library(rows[0])
     del sq, sk, sv, g_den, g_so
     torch.cuda.empty_cache()
 
@@ -570,10 +631,20 @@ def phase_row_gather(torch, n: int, seed: int) -> dict:
     return rows
 
 
+def same_bits(torch, label: str, first, call) -> None:
+    """Three more calls give `first`'s bits exactly."""
+    if not all(torch.equal(a, b) for _ in range(3) for a, b in zip(first, call())):
+        raise AssertionError(f"{label}: repeated calls differ in their bits")
+    log(f"  {label}: the same bits on 4 calls")
+
+
 def phase_cols_kernels(torch, seed: int) -> dict:
     """K6/K7 against their plain versions: the parity profile's shapes in f32
     (r = 3 hashes x 8 heads), hept_fast's in bf16 (r = 2 x 8) in K6's three
-    modes and both K7 variants, and a ragged bucket count; timed at both."""
+    modes and both K7 variants, and a ragged bucket count; each kernel on its
+    route (tensor cores for bf16 K6 and K7 v2, FP32 FMAs for f32), the same
+    bits on 4 calls, timed by CUDA graph replay; K6's library yardstick at
+    both shapes."""
     from hept_tpu_torch.ops import bucket_attn_cuda as ba
 
     dev = torch.device(DEVICE)
@@ -612,15 +683,33 @@ def phase_cols_kernels(torch, seed: int) -> dict:
             fl = 2.0 * r * nb * bs * bs * (3 * d + 2 * dv)
         return bound_ms(by, fl, flop_rate)
 
+    def k6(label, sq, sk, sv, hilo, tols):
+        """K6 on the route its inputs take (one launch on that route's
+        counter), against its plain version, and the same bits on 4 calls;
+        returns its error and its plain output."""
+        name = "cols_fwd_tc" if ba.cols_fwd_route(sq.dtype, bs) == "tc" else "cols_fwd"
+        before = dict(ba.LAUNCHES)
+        got = ba.cols_fwd_cuda(sq, sk, sv, bs, hilo)
+        delta = {k: v - before[k] for k, v in ba.LAUNCHES.items() if v != before[k]}
+        if delta != {name: 1}:
+            raise AssertionError(f"{label}: launched {delta}, want {{{name!r}: 1}}")
+        want = ba.cols_fwd_plain(sq, sk, sv, bs, hilo)
+        err = compare(label, got, want, tols)
+        same_bits(torch, label, got, lambda: ba.cols_fwd_cuda(sq, sk, sv, bs, hilo))
+        return err, want
+
     rows, n = {}, 60000
     # parity shapes, f32: FP32-FMA peak bounds (no TF32, no tensor cores)
     r = 24
     sq, sk, sv, gden, gso = inputs(r, n, torch.float32, common=2.0)
     log(f"kernel K6 cols_fwd / K7 cols_bwd (parity: f32, r={r} d={d} dv={dv} n={n} bs={bs}):")
-    # f32 sums of 100 terms in other orders: ~1e-6 relative per output; the
-    # max over 1.4M outputs is held at 1e-4 x scale
-    e6 = compare("K6 f32", ba.cols_fwd_cuda(sq, sk, sv, bs), ba.cols_fwd_plain(sq, sk, sv, bs),
-                 (1e-4, 1e-4))
+    # K6 on FP32 FMAs (cols_fwd_tiled_kernel, 2 x 4 register tiles); f32 sums
+    # of 100 terms in other orders: ~1e-6 relative per output, the max over
+    # 1.4M outputs held at 1e-4 x scale
+    assert ba.cols_fwd_route(torch.float32, bs) == "scalar"
+    e6, want6 = k6("K6 f32", sq, sk, sv, False, (1e-4, 1e-4))
+    lib6 = library_yardstick(torch, sq, sk, sv, bs, want6)
+    del want6
     # K7 v1 runs on FP32 FMAs (cols_bwd_tiled_kernel, one pass per bucket)
     assert ba.cols_bwd_route(torch.float32, bs, False) == "scalar"
     e7 = compare("K7 v1 f32", ba.cols_bwd_cuda(sq, sk, sv, gden, gso, bs, False),
@@ -643,7 +732,10 @@ def phase_cols_kernels(torch, seed: int) -> dict:
                                    "hept_tpu/ops/bucket_attn_pallas.py:1273"),
                          max_abs_err=err, ms=time_ms(kern), device_ms=graph_ms(kern, 5),
                          plain_ms=time_ms(plain, 3, 1), bound_ms=b_ms, bound_by=b_by,
-                         library_ms=None)
+                         **(lib6 if fwd else {"library_ms": None}))
+    rows["K6"]["routes"] = ("f32 (parity): FP32 FMAs, cols_fwd_tiled_kernel, counter cols_fwd; "
+                            "bf16 (hept_fast / hept_turbo, exact bias; slab = K8, hi/lo bias): "
+                            "tensor cores, tc_cols_fwd_kernel, counter cols_fwd_tc")
     rows["K7"]["routes"] = ("v1 (f32, parity; and v1 on bf16 = K9): FP32 FMAs, "
                             "cols_bwd_tiled_kernel, counter cols_bwd; v2 (bf16, hept_fast / "
                             "hept_turbo): tensor cores, tc_cols_bwd_kernel, counter cols_bwd_tc")
@@ -655,14 +747,19 @@ def phase_cols_kernels(torch, seed: int) -> dict:
     sq, sk, sv, gden, gso = inputs(r, n, torch.bfloat16)
     log(f"kernel K6 / K7 (hept_fast: bf16, r={r}, centred RPE rows):")
     extra = {}
+    # K6 on the tensor cores (buckets padded to 112) in both bias modes
+    assert ba.cols_fwd_route(torch.bfloat16, bs) == "tc"
     for hilo in (False, True):
         label = "K6 bf16 " + ("hi/lo bias" if hilo else "exact bias")
         # pt is rounded to bf16 before the value product: a rounding can flip
-        err = compare(label, ba.cols_fwd_cuda(sq, sk, sv, bs, hilo),
-                      ba.cols_fwd_plain(sq, sk, sv, bs, hilo), (1e-4, 5e-3))
-        extra[label] = (err, time_ms(lambda: ba.cols_fwd_cuda(sq, sk, sv, bs, hilo)), None,
+        err, want = k6(label, sq, sk, sv, hilo, (1e-4, 5e-3))
+        kern = (lambda hilo=hilo: ba.cols_fwd_cuda(sq, sk, sv, bs, hilo))
+        extra[label] = (err, time_ms(kern), graph_ms(kern, 10),
                         time_ms(lambda: ba.cols_fwd_plain(sq, sk, sv, bs, hilo), 3, 1),
                         bounds(r, n, 2, True, BF16_FLOP_PER_S))
+        if hilo:  # the call's augmented columns carry the bias as hi + lo bf16
+            lib6 = library_yardstick(torch, sq, sk, sv, bs, want)
+        del want
     # K7 v2 on the tensor cores (buckets padded to 112), v1 upcast on FP32 FMAs
     assert ba.cols_bwd_route(torch.bfloat16, bs, True) == "tc"
     for v2 in (True, False):
@@ -686,7 +783,13 @@ def phase_cols_kernels(torch, seed: int) -> dict:
     ins = [t.float().requires_grad_(True) for t in (cq, ck, sv)]
     den_f, so_f = ba.cols_fwd_plain(*ins, bs)
     ref = torch.autograd.grad((den_f * gden).sum() + (so_f * gso).sum(), ins)
-    del den_f, so_f, ins
+    # K6 on the tensor cores at the same values against that f32 forward: the
+    # biases enter in f32, so the O(1) logits survive the common mode
+    got = ba.cols_fwd_cuda(cq, ck, sv, bs)
+    for nm, a, b in zip(("denom", "so"), got, (den_f, so_f)):
+        check(f"K6 bf16 {nm} max|d| vs the f32 forward of the bf16 values (common mode 40)",
+              max_err(a, b), 2e-2 * scale(b))
+    del den_f, so_f, ins, got
     before = ba.LAUNCHES["cols_bwd_tc"]
     got = ba.cols_bwd_cuda(cq, ck, sv, gden, gso, bs, True)
     assert ba.LAUNCHES["cols_bwd_tc"] == before + 1
@@ -701,13 +804,20 @@ def phase_cols_kernels(torch, seed: int) -> dict:
     n_rag = 60100
     sq, sk, sv, gden, gso = inputs(4, n_rag, torch.float32, common=2.0)
     log(f"kernel K6 / K7 (ragged: f32 and bf16, r=4, n={n_rag}, 601 buckets):")
-    compare("K6 ragged", ba.cols_fwd_cuda(sq, sk, sv, bs), ba.cols_fwd_plain(sq, sk, sv, bs),
-            (1e-4, 1e-4))
+    k6("K6 f32 ragged", sq, sk, sv, False, (1e-4, 1e-4))
     compare("K7 v1 ragged", ba.cols_bwd_cuda(sq, sk, sv, gden, gso, bs, False),
             ba.cols_bwd_plain(sq, sk, sv, gden, gso, bs, False), (1e-4,) * 3)
     sq, sk, sv = (t.to(torch.bfloat16) for t in (sq, sk, sv))
+    k6("K6 bf16 ragged", sq, sk, sv, False, (1e-4, 5e-3))
     compare("K7 v2 ragged", ba.cols_bwd_cuda(sq, sk, sv, gden, gso, bs, True),
             ba.cols_bwd_plain(sq, sk, sv, gden, gso, bs, True), (1e-2,) * 3)
+    # hi/lo on rows centred per bucket, as kernel_center feeds the bf16 paths:
+    # on uncentred rows each bias's lo half is a bf16 rounding of an f32
+    # |x|^2 whose summation order differs from torch's, and flips one bf16
+    # ulp of lo (~1e-4 relative in a denominator) in kernel and first-cut
+    # kernel alike
+    sq, sk, sv, _, _ = inputs(4, n_rag, torch.bfloat16)
+    k6("K6 bf16 ragged hi/lo (centred rows)", sq, sk, sv, True, (1e-4, 5e-3))
     del sq, sk, sv, gden, gso
     torch.cuda.empty_cache()
     for key in ("K6", "K7"):
@@ -716,14 +826,20 @@ def phase_cols_kernels(torch, seed: int) -> dict:
             f"ms device), plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
             f"({row['bound_by']}, operations at the FP32 peak {F32_FLOP_PER_S / 1e12:.0f} "
             "TFLOP/s)")
+    log_library(rows["K6"])
     for label, (_, ms, dev_ms, plain_ms, (b_ms, b_by)) in extra.items():
-        dev = "" if dev_ms is None else f" ({dev_ms:.4f} ms device)"
-        log(f"  {label} (hept_fast): kernel {ms:.4f} ms{dev}, plain {plain_ms:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by}; operations at the bf16 peak, K7 v1's at the FP32 peak)")
-    # K7 v2's own figures beside the f32 route's in the K7 row
-    err, ms, dev_ms, plain_ms, (b_ms, b_by) = extra["K7 bf16 v2"]
-    rows["K7"].update(v2_tc_max_abs_err=err, v2_tc_ms=ms, v2_tc_device_ms=dev_ms,
-                      v2_tc_plain_ms=plain_ms, v2_tc_bound_ms=b_ms, v2_tc_bound_by=b_by)
+        log(f"  {label} (hept_fast): kernel {ms:.4f} ms ({dev_ms:.4f} ms device), plain "
+            f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; operations at the bf16 peak, K7 "
+            "v1's at the FP32 peak)")
+    # the tensor-core routes' own figures beside the f32 routes' in the K6
+    # and K7 rows
+    for key, label, pre in (("K6", "K6 bf16 exact bias", "bf16_tc_"),
+                            ("K7", "K7 bf16 v2", "v2_tc_")):
+        err, ms, dev_ms, plain_ms, (b_ms, b_by) = extra[label]
+        rows[key].update({pre + "max_abs_err": err, pre + "ms": ms, pre + "device_ms": dev_ms,
+                          pre + "plain_ms": plain_ms, pre + "bound_ms": b_ms,
+                          pre + "bound_by": b_by})
+    rows["K6"].update({"bf16_tc_" + k: v for k, v in lib6.items()})
     # the slab kernels K8 / K9 of `attn_impl: slab` run K6 hi/lo and K7 v1
     # (the TPU's K9 upcasts its bf16 operands): their figures at hept_fast's
     # shapes, where the slab phase runs them
@@ -733,10 +849,12 @@ def phase_cols_kernels(torch, seed: int) -> dict:
         err, ms, dev_ms, plain_ms, (b_ms, b_by) = extra[label]
         rows[key] = dict(name=name, route="cuda", source="hept_tpu_torch/csrc/bucket_attn.cu",
                          replaces=f"hept_tpu/ops/bucket_attn_pallas.py:{src_line}",
-                         ported_by=("K6 hi/lo bias" if key == "K8" else "K7 v1"),
-                         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                         bound_by=b_by, library_ms=None,
-                         **({} if dev_ms is None else {"device_ms": dev_ms}))
+                         ported_by=("K6 hi/lo bias, tensor cores (tc_cols_fwd_kernel)"
+                                    if key == "K8" else "K7 v1"),
+                         max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by,
+                         **(lib6 if key == "K8" else {"library_ms": None}))
+    log_library(rows["K8"])
     return rows
 
 
@@ -775,8 +893,7 @@ def phase_eval(torch, trainer, model, cfg, event, batch, zero_counts, read_count
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     want = {"bucket_attn_fwd_tc": 4, "bucket_attn_bwd_tc": 0, "bucket_attn_fwd": 0,
-            "bucket_attn_bwd": 0, "cols_fwd": 0, "cols_bwd_tc": 0, "cols_bwd": 0,
-            "row_gather": 4, **PAIR_LAUNCHES_EVAL}
+            "bucket_attn_bwd": 0, **NO_K6_K7, "row_gather": 4, **PAIR_LAUNCHES_EVAL}
     for k, v in want.items():
         if launches[k] != v:
             raise AssertionError(f"eval of one event launched {k} {launches[k]}x, want {v}")
@@ -888,12 +1005,12 @@ def compare_first_step(torch, label: str, cfg, model, loss_fn, batch) -> None:
 
 
 def phase_profile(torch, trainer, profile: str, batch_np, ds, steps: int, seed: int,
-                  zero_counts, read_counts, k7: str) -> dict:
+                  zero_counts, read_counts, k6: str, k7: str) -> dict:
     """A bs-100 profile (`hept` or `hept_fast`) at full width: `steps` timed
-    Adam steps with dropout, launches counted (K7 on the route whose counter
-    is `k7`, none on the other); one timed `evaluate` of the event (split
-    "test" of `ds`), launches counted; then the first step, dropout off,
-    with kernels and with plain versions, compared."""
+    Adam steps with dropout, launches counted (K6 and K7 on the routes whose
+    counters are `k6` and `k7`, none on the others); one timed `evaluate` of
+    the event (split "test" of `ds`), launches counted; then the first step,
+    dropout off, with kernels and with plain versions, compared."""
     from hept_tpu_torch.train.config import profile_config
 
     cfg = profile_config(profile, device=DEVICE, num_epochs=1)
@@ -922,7 +1039,7 @@ def phase_profile(torch, trainer, profile: str, batch_np, ds, steps: int, seed: 
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{profile}: non-finite loss: {losses}")
     # per step and layer: one K6, one K7, the unsort's K5 forward and backward
-    want = {"cols_fwd": 4 * steps, "cols_bwd_tc": 0, "cols_bwd": 0, k7: 4 * steps, **NO_K1_K2,
+    want = {**NO_K6_K7, k6: 4 * steps, k7: 4 * steps, **NO_K1_K2,
             "rows_fwd": 0, "rows_bwd": 0, "row_gather": 8 * steps,
             **{k: v * steps for k, v in PAIR_LAUNCHES_STEP.items()}}
     for k, v in want.items():
@@ -945,8 +1062,7 @@ def phase_profile(torch, trainer, profile: str, batch_np, ds, steps: int, seed: 
     eval_ms = (time.perf_counter() - t0) * 1e3
     eval_launches = read_counts()
     # per layer: one K6 and the unsort's K5; no backward
-    want = {"cols_fwd": 4, "cols_bwd_tc": 0, "cols_bwd": 0, **NO_K1_K2,
-            "row_gather": 4, **PAIR_LAUNCHES_EVAL}
+    want = {**NO_K6_K7, k6: 4, **NO_K1_K2, "row_gather": 4, **PAIR_LAUNCHES_EVAL}
     for k, v in want.items():
         if eval_launches[k] != v:
             raise AssertionError(f"{profile}: eval launched {k} {eval_launches[k]}x, want {v}")
@@ -1010,8 +1126,7 @@ def phase_core(torch, trainer, batch_np, seed: int, zero_counts, read_counts) ->
     torch.cuda.synchronize()
     core_ms = (time.perf_counter() - t0) * 1e3
     launches = read_counts()
-    want = {"rows_fwd": 1, "rows_bwd": 1, "row_gather": 8, **NO_K1_K2,
-            "cols_fwd": 0, "cols_bwd_tc": 0, "cols_bwd": 0}
+    want = {"rows_fwd": 1, "rows_bwd": 1, "row_gather": 8, **NO_K1_K2, **NO_K6_K7}
     for k, v in want.items():
         if launches[k] != v:
             raise AssertionError(f"hept_attention_core launched {k} {launches[k]}x, want {v}")
@@ -1091,8 +1206,9 @@ def phase_slab(torch, trainer, batch_np, seed: int, zero_counts, read_counts) ->
     """`attn_impl: slab` and `hybrid_slab` (the JAX package's slab kernels
     K8/K9, run as K6 hi/lo + K7 v1 and K6 + K7 v1) in the full-width
     hept_fast profile on the bs-100 event: one Adam step each with dropout,
-    launches counted (K6 4, K7 4, K5 8, K1/K2/K10 none), then the first step
-    with kernels and plain versions compared at hept_fast's levels."""
+    launches counted (K6 4 on the tensor cores, K7 v1 4 on FP32 FMAs, K5 8,
+    K1/K2/K10 none), then the first step with kernels and plain versions
+    compared at hept_fast's levels."""
     from hept_tpu_torch.train.config import profile_config
 
     batch = trainer.batch_to_device(batch_np, DEVICE)
@@ -1115,7 +1231,7 @@ def phase_slab(torch, trainer, batch_np, seed: int, zero_counts, read_counts) ->
         launches = read_counts()
         if not math.isfinite(loss):
             raise AssertionError(f"hept_fast {mode}: non-finite loss {loss}")
-        want = {"cols_fwd": 4, "cols_bwd": 4, "cols_bwd_tc": 0, **NO_K1_K2,
+        want = {**NO_K6_K7, "cols_fwd_tc": 4, "cols_bwd": 4, **NO_K1_K2,
                 "rows_fwd": 0, "rows_bwd": 0, "row_gather": 8, **PAIR_LAUNCHES_STEP}
         for k, v in want.items():
             if launches[k] != v:
@@ -1194,12 +1310,14 @@ def bits_digest(tensors) -> str:
     return h.hexdigest()[:16]
 
 
-def k2_k7_yardsticks(torch, ba, n: int, seed: int) -> dict:
-    """K2 at the main path's shape (bf16, r 16, bs 512, tensor cores) and K7
-    on each of its paths' inputs (v1 f32 at the parity shape, v2 bf16 at
-    hept_fast's, v1 on bf16 = K9), through the wrappers every tree has:
-    device time by CUDA graph replay and a digest of the outputs' bits, on
-    inputs made here from the seed (the same in every tree)."""
+def bucket_yardsticks(torch, ba, n: int, seed: int) -> dict:
+    """K2 at the main path's shape (bf16, r 16, bs 512, tensor cores), K6 and
+    K7 on each of their paths' inputs (K6 f32 at the parity shape, bf16 with
+    exact and with hi/lo bias (= K8) at hept_fast's; K7 v1 f32 at the parity
+    shape, v2 bf16 at hept_fast's, v1 on bf16 = K9), through the wrappers
+    every tree has: device time by CUDA graph replay and a digest of the
+    outputs' bits, on inputs made here from the seed (the same in every
+    tree)."""
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
@@ -1231,13 +1349,25 @@ def k2_k7_yardsticks(torch, ba, n: int, seed: int) -> dict:
         out[f"{key}_bits"] = bits_digest(fn())
         out[f"{key}_device_ms"] = graph_ms(fn, 10)
         del ins
+    for key, r, dtype, hilo, common in (("K6_f32", 24, torch.float32, False, 2.0),
+                                        ("K6_bf16", 16, torch.bfloat16, False, 0.0),
+                                        ("K6_hilo_bf16", 16, torch.bfloat16, True, 0.0)):
+        shared = rn(r, 6, n // bs, 1, s=common)
+        ins = [rn(r, 30, n // bs, bs, s=0.5) for _ in range(2)]
+        for x in ins:
+            x[:, 24:] += shared
+        ins = [x.reshape(r, 30, n).to(dtype).contiguous() for x in ins] + [rn(r, 24, n).to(dtype)]
+        fn = lambda: ba.cols_fwd_cuda(*ins, bs, hilo)  # noqa: E731
+        out[f"{key}_bits"] = bits_digest(fn())
+        out[f"{key}_device_ms"] = graph_ms(fn, 10)
+        del ins
     torch.cuda.empty_cache()
     return out
 
 
 def yardsticks_only(torch, args) -> int:
-    """K4 and K5, K2 and K7 of the imported package at the paths' shapes,
-    one JSON line."""
+    """K4 and K5, K2, K6 and K7 of the imported package at the paths'
+    shapes, one JSON line."""
     from hept_tpu_torch.ops import bucket_attn_cuda, cuda_lib, pair_ops, row_gather
 
     secs = cuda_lib.build(("pair_ops", "row_gather", "bucket_attn"), force=True)
@@ -1252,8 +1382,9 @@ def yardsticks_only(torch, args) -> int:
     k5 = k5_yardsticks(torch, row_gather, gen)
     del idx, mask, batch
     torch.cuda.empty_cache()
-    k27 = k2_k7_yardsticks(torch, bucket_attn_cuda, 60416, args.seed)
-    log(json.dumps({"package": str(root), "card": smi, "K4": k4, "K5": k5, "K2_K7": k27}))
+    buckets = bucket_yardsticks(torch, bucket_attn_cuda, 60416, args.seed)
+    log(json.dumps({"package": str(root), "card": smi, "K4": k4, "K5": k5,
+                    "K2_K6_K7": buckets}))
     return 0
 
 
@@ -1270,8 +1401,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile-steps", type=int, default=3)
     ap.add_argument("--yardsticks-only", action="store_true",
-                    help="build the kernels, print K2's, K4's, K5's and K7's times at the paths' "
-                         "shapes as one JSON line, and stop (no result line)")
+                    help="build the kernels, print K2's, K4's, K5's, K6's and K7's times at the "
+                         "paths' shapes as one JSON line, and stop (no result line)")
     ap.add_argument("--package-root", default=None,
                     help="import hept_tpu_torch from this directory instead (a parent tree "
                          "for an A/B of the yardsticks)")
@@ -1364,8 +1495,7 @@ def main(argv=None) -> int:
     # per step and layer: one K1, one K2 (tensor cores; the scalar route none),
     # and the unsort's K5 forward and backward
     want = {"bucket_attn_fwd_tc": 4 * args.steps, "bucket_attn_bwd_tc": 4 * args.steps,
-            "bucket_attn_fwd": 0, "bucket_attn_bwd": 0,
-            "cols_fwd": 0, "cols_bwd_tc": 0, "cols_bwd": 0, "rows_fwd": 0, "rows_bwd": 0,
+            "bucket_attn_fwd": 0, "bucket_attn_bwd": 0, **NO_K6_K7, "rows_fwd": 0, "rows_bwd": 0,
             "row_gather": 8 * args.steps,
             **{k: v * args.steps for k, v in PAIR_LAUNCHES_STEP.items()}}
     for k, v in want.items():
@@ -1458,16 +1588,20 @@ def main(argv=None) -> int:
                          coords_dim=event100.coords.shape[1])
     log(f"phase data: the event packed for block_size 100 -> n={batch100['x'].shape[1]} "
         f"({time.perf_counter() - t0:.1f} s)")
-    # 7. parity: K7 v1 on FP32 FMAs; 8. hept_fast: K7 v2 on the tensor cores
+    # 7. parity: K6 and K7 v1 on FP32 FMAs; 8. hept_fast: K6 and K7 v2 on the
+    # tensor cores
     parity = phase_profile(torch, trainer, "hept", batch100, ds100, args.profile_steps,
-                           args.seed, zero_counts, read_counts, k7="cols_bwd")
+                           args.seed, zero_counts, read_counts, k6="cols_fwd", k7="cols_bwd")
     rows["K6"]["launches"] = parity["launches"]["cols_fwd"]
+    rows["K6"]["launches_in"] = f"phase 7, {args.profile_steps} parity steps (f32)"
     rows["K5p"]["launches"] = parity["launches"]["row_gather"]
     rows["K5p"]["launches_in"] = f"phase 7, {args.profile_steps} parity steps"
     rows["K7"]["launches"] = parity["launches"]["cols_bwd"]
     rows["K7"]["launches_in"] = f"phase 7, {args.profile_steps} parity steps (v1)"
     fast = phase_profile(torch, trainer, "hept_fast", batch100, ds100, args.profile_steps,
-                         args.seed, zero_counts, read_counts, k7="cols_bwd_tc")
+                         args.seed, zero_counts, read_counts, k6="cols_fwd_tc", k7="cols_bwd_tc")
+    rows["K6"]["bf16_tc_launches"] = fast["launches"]["cols_fwd_tc"]
+    rows["K6"]["bf16_tc_launches_in"] = f"phase 8, {args.profile_steps} hept_fast steps"
     rows["K7"]["v2_tc_launches"] = fast["launches"]["cols_bwd_tc"]
     rows["K7"]["v2_tc_launches_in"] = f"phase 8, {args.profile_steps} hept_fast steps"
 
@@ -1480,7 +1614,7 @@ def main(argv=None) -> int:
         rows[key]["launches_in"] = ("phase 9, one hept_attention_core forward + backward "
                                     "(120, 96 and 100 B rows together)")
     slab = phase_slab(torch, trainer, batch100, args.seed, zero_counts, read_counts)
-    rows["K8"]["launches"] = slab["slab"]["cols_fwd"]
+    rows["K8"]["launches"] = slab["slab"]["cols_fwd_tc"]
     rows["K9"]["launches"] = slab["slab"]["cols_bwd"] + slab["hybrid_slab"]["cols_bwd"]
     rows["K12"] = phase_sort(torch, args.seed, zero_counts, read_counts)
     # K11 (row_gather_vreg) has K5's contract and runs on K5's kernel

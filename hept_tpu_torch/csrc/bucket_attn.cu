@@ -369,14 +369,14 @@ int launch_bwd(const void* q, const void* k, const void* v, const float* gso, co
 // 2dv) flop for K6 (K7 ~2.5x), on scalar FP32 FMAs (f32 inputs must not use
 // TF32 or bf16 tensor cores), so the least time is operations at the FP32
 // peak (~67 TFLOP/s) for f32; for bf16 inputs the bound is the bytes (the
-// bf16 tensor-core rate would allow ~16x the FP32 one). K6 is the simple
-// first version: scalar FMAs with shared-memory operands, not wgmma. K7 has
-// two faster routes below, chosen by the wrapper before launch
-// (cols_bwd_route): v2 on bf16 at bs % 4 == 0 runs K2's tensor-core halves
-// on buckets padded to 16 points (tc_cols_bwd_kernel), and f32 (v1) at bs
-// <= 100 runs one pass per bucket on FP32 FMAs (cols_bwd_tiled_kernel).
-// cols_bwd_kernel here stays for v2 at other bucket sizes, f32 at larger
-// ones, and K10.
+// bf16 tensor-core rate would allow ~16x the FP32 one). The kernels here are
+// the simple first versions. K6 and K7 each have two faster routes below,
+// chosen by the wrapper before launch (cols_fwd_route, cols_bwd_route): K6
+// on bf16 and K7 v2 at bs % 4 == 0 run K1's and K2's tensor-core scheme on
+// buckets padded to 16 points (tc_cols_fwd_kernel, tc_cols_bwd_kernel), and
+// f32 (K6, K7 v1) at bs <= 100 runs one pass per bucket on FP32 FMAs
+// (cols_fwd_tiled_kernel, cols_bwd_tiled_kernel). cols_fwd_kernel and
+// cols_bwd_kernel here stay for the other bucket sizes and for K10.
 //
 // K10 (template argument ROWS) is K6 in f32 and K7 v1 on the ROW layout:
 // (g * bs, d) rows, bucket b owning rows [b*bs, (b+1)*bs). It replaces
@@ -1338,6 +1338,193 @@ int launch_tc_cols_bwd(const void* q, const void* k, const void* v, const float*
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// K6 on the tensor cores: the route of bf16 K6 at bs % 4 == 0 (hept_fast,
+// hept_turbo, and attn_impl slab / hybrid_slab on bf16, where K6 with HILO
+// carries K8's contract). K1's products on K7 v2's padded buckets: a CTA
+// takes g consecutive buckets (one, as measured), each staged once as bsp =
+// round_up(bs, 16) point-major bf16 rows of keys and of values
+// (stage_rows_padded: 8-byte loads, since a bucket of bf16 starts only
+// 8-byte aligned; rows bs..bsp-1 zero) with the keys' f32 norms, the padded
+// ones kPadBias, so pt = 0 for a padded key whatever the mma adds and its
+// zero value row adds nothing. A warp takes TPW 16-query tiles of one
+// bucket at a time (two, as measured), their A fragments read from global
+// memory (rows past the bucket read as zero and are never stored), and walks
+// its bucket's keys in chunks of 16: S = Q.K^T on the tensor cores from
+// accumulators that start at the f32 bias sum (with HILO each bias as hi +
+// lo bf16 values, _bias's split), pt = ex2.approx of the clamped,
+// log2(e)-scaled logits on the accumulator registers, denom summed from the
+// f32 pt, and so += bf16(pt) . V with the point-major value tile read
+// transposed by ldmatrix (one B fragment for all TPW tiles). What bounds it
+// at hept_fast's shape: the bytes (0.077 ms); it runs at ~2.3x that, with
+// ~1.2e8 padded logits at K1's per-logit cost near 0.07 ms.
+
+// acc[m][nt] += a[m] . B for M row tiles m, where B (16 points x
+// NT*8 columns) is points p0..p0+15 of a point-major shared tile with row
+// stride RS, read transposed by ldmatrix once for all M tiles
+template <int NT, int RS, int M>
+__device__ __forceinline__ void mma_points_tiles(float (&acc)[M][NT][4], const uint32_t (&a)[M][4],
+                                                 const bf16* tile, int p0, int lane) {
+  const bf16* row = tile + (p0 + (lane & 15)) * RS;
+#pragma unroll
+  for (int nt = 0; nt + 1 < NT; nt += 2) {
+    uint32_t b[4];
+    ldsm_x4_trans(b, row + nt * 8 + (lane >> 4) * 8);
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      mma_bf16(acc[m][nt], a[m], b[0], b[1]);
+      mma_bf16(acc[m][nt + 1], a[m], b[2], b[3]);
+    }
+  }
+  if constexpr (NT % 2 == 1) {
+    uint32_t b[2];
+    ldsm_x2_trans(b, row + (NT - 1) * 8);
+#pragma unroll
+    for (int m = 0; m < M; ++m) mma_bf16(acc[m][NT - 1], a[m], b[0], b[1]);
+  }
+}
+
+// a -|x|^2/2 bias as K6 carries it: hi + lo bf16 with HILO, else exact f32
+template <bool HILO>
+__device__ __forceinline__ float cols_bias(float x_sq) {
+  return HILO ? split_bf16(x_sq) : x_sq;
+}
+
+// keys [rows][RS] and values [rows][RSV] bf16, key norms [rows] f32
+template <int D, int DV>
+size_t tc_cols_fwd_smem(int rows) {
+  return (size_t)rows * (TcDims<D, DV>::RS + TcDims<D, DV>::RSV) * 2 + (size_t)rows * 4;
+}
+
+// at most 4 warps a CTA, 80 registers a thread: six CTAs an SM
+constexpr int kTcColsFwdWarps = 4;
+
+template <int D, int DV, bool HILO, int TPW>
+__global__ void __launch_bounds__(kTcColsFwdWarps * 32, 6)
+tc_cols_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, float* __restrict__ denom, float* __restrict__ so,
+                   int n, int bs, int g_buckets) {
+  using Dm = TcDims<D, DV>;
+  constexpr int KS = Dm::DK / 16, NTV = Dm::DVN / 8;
+  extern __shared__ uint4 smem_tc[];
+  const int bsp = round_up(bs, 16);  // a bucket's shared rows
+  const int nbk = min(g_buckets, n / bs - (int)blockIdx.x * g_buckets);
+  const int rows = nbk * bsp;
+  bf16* k_s = reinterpret_cast<bf16*>(smem_tc);                  // [rows][RS]
+  bf16* v_s = k_s + rows * Dm::RS;                                // [rows][RSV]
+  float* kb_s = reinterpret_cast<float*>(v_s + rows * Dm::RSV);  // [rows]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const size_t nn = n, r = blockIdx.y, base = (size_t)blockIdx.x * g_buckets * bs;
+  stage_rows_padded<D, Dm::DK, Dm::RS, false>(k + r * D * nn, nn, base, bs, bsp, nbk, k_s);
+  stage_rows_padded<DV, Dm::DVN, Dm::RSV, false>(v + r * DV * nn, nn, base, bs, bsp, nbk, v_s);
+  __syncthreads();
+  for (int j = threadIdx.x; j < rows; j += blockDim.x)
+    kb_s[j] = j % bsp < bs ? cols_bias<HILO>(half_sq_bf16<D>(k_s + j * Dm::RS)) : kPadBias;
+  __syncthreads();
+
+  const bf16* qr = q + r * D * nn;
+  const int gpb = (bsp / 16 + TPW - 1) / TPW;  // groups of TPW tiles a bucket
+  for (int grp = warp; grp < nbk * gpb; grp += (int)(blockDim.x >> 5)) {
+    const int kb = grp / gpb, tile0 = (grp % gpb) * TPW, c0 = kb * bsp;
+    const size_t p0 = base + (size_t)kb * bs + tile0 * 16;  // this warp's first query
+    uint32_t qa[TPW][KS][4];
+    float2 qsq[TPW];
+    int own[TPW];  // queries of each tile inside the bucket
+#pragma unroll
+    for (int m = 0; m < TPW; ++m) {
+      own[m] = bs - (tile0 + m) * 16;
+      float qf[KS][8];
+      load_a<D, KS, true>(qr, nn, p0 + 16 * m, lane, qa[m], qf, own[m]);
+      const float2 x = half_sq_rows<KS>(qf);
+      qsq[m] = make_float2(cols_bias<HILO>(x.x), cols_bias<HILO>(x.y));
+    }
+    float acc[TPW][NTV][4] = {};
+    float den[TPW][2] = {};
+#pragma unroll 2
+    for (int kc = c0; kc < c0 + bsp; kc += 16) {
+      // the logits start from their f32 bias sum; the mma adds q.k
+      float s[TPW][2][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const float2 kb2 = *reinterpret_cast<const float2*>(kb_s + kc + nt * 8 + 2 * t);
+#pragma unroll
+        for (int m = 0; m < TPW; ++m) {
+          s[m][nt][0] = qsq[m].x + kb2.x;
+          s[m][nt][1] = qsq[m].x + kb2.y;
+          s[m][nt][2] = qsq[m].y + kb2.x;
+          s[m][nt][3] = qsq[m].y + kb2.y;
+        }
+      }
+      mma_cols<KS, Dm::RS, TPW>(s, qa, k_s, kc, lane);
+      uint32_t pa[TPW][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+        for (int m = 0; m < TPW; ++m) {
+          const float p00 = exp_clamped(s[m][nt][0]);
+          const float p01 = exp_clamped(s[m][nt][1]);
+          const float p10 = exp_clamped(s[m][nt][2]);
+          const float p11 = exp_clamped(s[m][nt][3]);
+          den[m][0] += p00 + p01;
+          den[m][1] += p10 + p11;
+          pa[m][2 * nt] = pack_bf16(p00, p01);
+          pa[m][2 * nt + 1] = pack_bf16(p10, p11);
+        }
+      }
+      mma_points_tiles<NTV, Dm::RSV, TPW>(acc, pa, v_s, kc, lane);
+    }
+#pragma unroll
+    for (int m = 0; m < TPW; ++m) {
+      const size_t pm = p0 + 16 * m;
+      const float d0 = quad_sum(den[m][0]), d1 = quad_sum(den[m][1]);
+      if (t == 0) {
+        if (g < own[m]) denom[r * nn + pm + g] = d0 + kDenomEps;
+        if (g + 8 < own[m]) denom[r * nn + pm + g + 8] = d1 + kDenomEps;
+      }
+      // a 32-byte sector holds 8 queries of one column: each store fills whole ones
+#pragma unroll
+      for (int vt = 0; vt < NTV; ++vt) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int e = vt * 8 + 2 * t + j;
+          if (e < DV) {
+            if (g < own[m]) so[(r * DV + e) * nn + pm + g] = acc[m][vt][j];
+            if (g + 8 < own[m]) so[(r * DV + e) * nn + pm + g + 8] = acc[m][vt][2 + j];
+          }
+        }
+      }
+    }
+  }
+}
+
+// Buckets a CTA of tc_cols_fwd_kernel takes, and 16-query tiles a warp, as
+// measured on the H100 at hept_fast's shape (bs 100, PERF.md): one bucket
+// and two tiles a warp (4 warps for its 7 tiles) 0.178 ms a launch; two
+// buckets 0.216, one tile a warp 0.235-0.257, four tiles 0.205. The bucket
+// count stays a kernel argument: compiled with it fixed at one, the kernel
+// spilled 52-84 bytes at its 80-register bound and took 0.189 ms.
+constexpr int kTcColsFwdGroup = 1, kTcColsFwdTiles = 2;
+
+template <int D, int DV, bool HILO, int TPW>
+int launch_tc_cols_fwd(const void* q, const void* k, const void* v, float* denom, float* so,
+                       int r, int n, int bs, int g, cudaStream_t stream) {
+  const int bsp = round_up(bs, 16), nb = n / bs;
+  const size_t smem = tc_cols_fwd_smem<D, DV>(g * bsp);
+  if (bs % 4 != 0 || smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(tc_cols_fwd_kernel<D, DV, HILO, TPW>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  // warps: the fewest that take the tile groups in the same number of rounds
+  // as kTcColsFwdWarps
+  const int groups = g * ((bsp / 16 + TPW - 1) / TPW);
+  const int rounds = (groups + kTcColsFwdWarps - 1) / kTcColsFwdWarps;
+  const int warps = (groups + rounds - 1) / rounds;
+  dim3 grid((nb + g - 1) / g, r);
+  tc_cols_fwd_kernel<D, DV, HILO, TPW><<<grid, warps * 32, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, denom, so, n, bs, g);
+  return (int)cudaGetLastError();
+}
+
 template <int D, int DV, int TPW>
 int launch_tc_fwd_with(const void* q, const void* k, const void* v, float* denom, float* so,
                        int r, int n, int bs, cudaStream_t stream) {
@@ -1696,6 +1883,157 @@ int launch_cols_bwd_f32(const void* q, const void* k, const void* v, const float
   return launch_cols_bwd<D, DV, false>(q, k, v, gso, gden, dq, dk, dv, r, n, bs, stream);
 }
 
+// ---------------------------------------------------------------------------
+// K6 in f32 on FP32 FMAs, register-tiled: the route of f32 K6 at bs <= 100
+// with bs % 4 == 0 (the parity profile); other bucket sizes and K10's row
+// layout keep cols_fwd_kernel above.
+//
+// What held cols_fwd_kernel back (0.78 ms at the parity shape against a
+// 0.232 ms FP32 bound): one query a thread and one key a step, so each
+// logit is one 32-long dependent FMA chain and each key's broadcast k and v
+// rows (14 shared loads) feed only ~57 FMAs; the full expf; k rows staged at
+// a stride of 32 words, so the staging's stores hit one bank. Here a thread
+// holds two queries of one bucket in registers (i and i + bs / 2) and walks
+// its bucket's keys four at a time: a 2 x 4 tile of logits, eight
+// independent chains, each broadcast k row feeding both queries; pt =
+// ex2.approx of the clamped, log2(e)-scaled logit; each v row feeding both
+// queries' 24 outputs. The sums run in one fixed order (no atomics, the
+// same bits on every call). A CTA takes two buckets (bs threads), staged
+// once as point-major rows at strides of 4 words modulo 8, so the rows of
+// the two buckets a warp may straddle fall in distinct banks.
+//
+// Measured on the H100 at the parity shape (PERF.md): a one-pass design on
+// K7 v1's persistent 512-thread tiles (cols_bwd_tiled_kernel: 4 x 5 pair
+// tiles, cp.async double buffering, pt through shared memory) read 0.93-1.08
+// ms, slower than cols_fwd_kernel: a warp's 128-bit loads there fetch 8
+// distinct rows, the phases' barriers leave the SM idle, and the staging was
+// exposed. This design keeps the first cut's broadcast loads and its many
+// CTAs an SM, and moves the work per load up.
+
+constexpr int kFwdTileMaxBs = 100;
+constexpr int kFwdQueries = 2, kFwdKeys = 4;  // a thread's register tile
+constexpr int kFwdGroup = 2;                  // buckets a CTA
+
+template <int D, int DV>
+struct TiledFwdDims {
+  static constexpr int DP = pad4(D), DVP = pad4(DV);
+  static constexpr int SK = DP + 4, SV = DVP + 4;  // k / v row strides
+  // k [g*bs][SK], v [g*bs][SV], key norms [g*bs]
+  static size_t smem(int g, int bs) { return (size_t)g * bs * (SK + SV + 1) * 4; }
+};
+
+template <int D, int DV>
+__global__ void __launch_bounds__(round_up(kFwdGroup * kFwdTileMaxBs / kFwdQueries, 32))
+cols_fwd_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ denom,
+                      float* __restrict__ so, int n, int bs) {
+  using Fm = TiledFwdDims<D, DV>;
+  constexpr int DP = Fm::DP, DVP = Fm::DVP, SK = Fm::SK, SV = Fm::SV;
+  constexpr int QT = kFwdQueries, KT = kFwdKeys;
+  extern __shared__ float4 smem_tiled[];
+  const int tpb = bs / QT;  // threads a bucket
+  const int b0 = blockIdx.x * kFwdGroup, nbk = min(kFwdGroup, n / bs - b0), span = nbk * bs;
+  float* k_s = reinterpret_cast<float*>(smem_tiled);  // [g*bs][SK]
+  float* v_s = k_s + kFwdGroup * bs * SK;             // [g*bs][SV]
+  float* kb_s = v_s + kFwdGroup * bs * SV;            // [g*bs] -|k|^2/2
+  const size_t nn = n, r = blockIdx.y, base = (size_t)b0 * bs;
+  // a thread a point, its row's loads all in flight; padding columns zero
+  for (int p = threadIdx.x; p < span; p += blockDim.x) {
+#pragma unroll
+    for (int e = 0; e < DP; ++e) k_s[p * SK + e] = e < D ? __ldg(k + (r * D + e) * nn + base + p) : 0.f;
+#pragma unroll
+    for (int e = 0; e < DVP; ++e)
+      v_s[p * SV + e] = e < DV ? __ldg(v + (r * DV + e) * nn + base + p) : 0.f;
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < span; j += blockDim.x) kb_s[j] = half_sq<D>(k_s + j * SK);
+  __syncthreads();
+  if ((int)threadIdx.x >= nbk * tpb) return;
+  const int cb = threadIdx.x / tpb * bs, i0 = threadIdx.x % tpb;  // bucket's first column, slot
+  float qi[QT][DP], qb[QT];
+#pragma unroll
+  for (int m = 0; m < QT; ++m) {
+    const size_t col = base + cb + i0 + m * tpb;
+    float a = 0.f;
+#pragma unroll
+    for (int e = 0; e < DP; ++e) {
+      qi[m][e] = e < D ? __ldg(q + (r * D + e) * nn + col) : 0.f;
+      a = fmaf(qi[m][e], qi[m][e], a);
+    }
+    qb[m] = -0.5f * a;
+  }
+  float acc[QT][DVP] = {}, den[QT] = {};
+  for (int j = cb; j < cb + bs; j += KT) {
+    // q.k in column order for the QT x KT pairs, four columns a broadcast load
+    float s[QT][KT] = {};
+#pragma unroll
+    for (int e4 = 0; e4 < DP / 4; ++e4) {
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk) {
+        const float4 w = *reinterpret_cast<const float4*>(k_s + (j + kk) * SK + 4 * e4);
+#pragma unroll
+        for (int m = 0; m < QT; ++m) {
+          s[m][kk] = fmaf(qi[m][4 * e4], w.x, s[m][kk]);
+          s[m][kk] = fmaf(qi[m][4 * e4 + 1], w.y, s[m][kk]);
+          s[m][kk] = fmaf(qi[m][4 * e4 + 2], w.z, s[m][kk]);
+          s[m][kk] = fmaf(qi[m][4 * e4 + 3], w.w, s[m][kk]);
+        }
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+      float pt[QT];
+#pragma unroll
+      for (int m = 0; m < QT; ++m) {
+        pt[m] = exp_clamped(s[m][kk] + qb[m] + kb_s[j + kk]);
+        den[m] += pt[m];
+      }
+#pragma unroll
+      for (int e4 = 0; e4 < DVP / 4; ++e4) {
+        const float4 w = *reinterpret_cast<const float4*>(v_s + (j + kk) * SV + 4 * e4);
+#pragma unroll
+        for (int m = 0; m < QT; ++m) {
+          acc[m][4 * e4] = fmaf(w.x, pt[m], acc[m][4 * e4]);
+          acc[m][4 * e4 + 1] = fmaf(w.y, pt[m], acc[m][4 * e4 + 1]);
+          acc[m][4 * e4 + 2] = fmaf(w.z, pt[m], acc[m][4 * e4 + 2]);
+          acc[m][4 * e4 + 3] = fmaf(w.w, pt[m], acc[m][4 * e4 + 3]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < QT; ++m) {
+    const size_t col = base + cb + i0 + m * tpb;
+    denom[r * nn + col] = den[m] + kDenomEps;
+#pragma unroll
+    for (int e = 0; e < DV; ++e) so[(r * DV + e) * nn + col] = acc[m][e];
+  }
+}
+
+template <int D, int DV>
+int launch_cols_fwd_tiled(const void* q, const void* k, const void* v, float* denom, float* so,
+                          int r, int n, int bs, cudaStream_t stream) {
+  const size_t smem = TiledFwdDims<D, DV>::smem(kFwdGroup, bs);
+  if (bs > kFwdTileMaxBs || bs % kFwdKeys != 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(cols_fwd_tiled_kernel<D, DV>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int nb = n / bs, threads = round_up(kFwdGroup * bs / kFwdQueries, 32);
+  dim3 grid((nb + kFwdGroup - 1) / kFwdGroup, r);
+  cols_fwd_tiled_kernel<D, DV><<<grid, threads, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, denom, so, n, bs);
+  return (int)cudaGetLastError();
+}
+
+// K6's f32 kernel for this bucket size: the register-tiled one where it fits
+template <int D, int DV>
+int launch_cols_fwd_f32(const void* q, const void* k, const void* v, float* denom, float* so,
+                        int r, int n, int bs, cudaStream_t stream) {
+  if (bs <= kFwdTileMaxBs && bs % kFwdKeys == 0)
+    return launch_cols_fwd_tiled<D, DV>(q, k, v, denom, so, r, n, bs, stream);
+  return launch_cols_fwd<D, DV, false, false>(q, k, v, denom, so, r, n, bs, stream);
+}
+
 }  // namespace
 
 // (d, dv) pairs compiled; ops/bucket_attn_cuda.py SUPPORTED_DIMS lists the same.
@@ -1774,6 +2112,8 @@ extern "C" int hept_cols_bwd_tc(const void* q, const void* k, const void* v, con
   return (int)cudaErrorInvalidValue;
 }
 
+// K6 on FP32 FMAs: f32 (cols_fwd_tiled_kernel up to bs 100, else
+// cols_fwd_kernel) and bf16 off the tensor-core route (cols_fwd_kernel)
 extern "C" int hept_cols_fwd(const void* q, const void* k, const void* v, float* denom, float* so,
                              int r, int d, int dv, int n, int bs, int bf16, int hilo,
                              void* stream) {
@@ -1781,12 +2121,31 @@ extern "C" int hept_cols_fwd(const void* q, const void* k, const void* v, float*
   cudaStream_t s = (cudaStream_t)stream;
 #define HEPT_COLS_FWD_CASE(D_, DV_)                                                        \
   if (d == D_ && dv == DV_) {                                                              \
-    if (!bf16) return launch_cols_fwd<D_, DV_, false, false>(q, k, v, denom, so, r, n, bs, s); \
+    if (!bf16) return launch_cols_fwd_f32<D_, DV_>(q, k, v, denom, so, r, n, bs, s);        \
     return hilo ? launch_cols_fwd<D_, DV_, true, true>(q, k, v, denom, so, r, n, bs, s)      \
                 : launch_cols_fwd<D_, DV_, true, false>(q, k, v, denom, so, r, n, bs, s);    \
   }
   HEPT_DIMS(HEPT_COLS_FWD_CASE)
 #undef HEPT_COLS_FWD_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// K6 on the tensor cores: bf16 inputs, bs % 4 == 0, every pointer 16-byte
+// aligned (the wrapper checks); hilo = 1 carries each bias as hi + lo bf16.
+extern "C" int hept_cols_fwd_tc(const void* q, const void* k, const void* v, float* denom,
+                                float* so, int r, int d, int dv, int n, int bs, int hilo,
+                                void* stream) {
+  if (bs <= 0 || n % bs != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int g = kTcColsFwdGroup;
+#define HEPT_TC_COLS_FWD_CASE(D_, DV_)                                                       \
+  if (d == D_ && dv == DV_)                                                                  \
+    return hilo ? launch_tc_cols_fwd<D_, DV_, true, kTcColsFwdTiles>(q, k, v, denom, so, r, n, \
+                                                                      bs, g, s)               \
+                : launch_tc_cols_fwd<D_, DV_, false, kTcColsFwdTiles>(q, k, v, denom, so, r, n, \
+                                                                       bs, g, s);
+  HEPT_DIMS(HEPT_TC_COLS_FWD_CASE)
+#undef HEPT_TC_COLS_FWD_CASE
   return (int)cudaErrorInvalidValue;
 }
 

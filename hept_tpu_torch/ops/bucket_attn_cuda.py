@@ -15,10 +15,11 @@ run the mixed-precision contract of the JAX kernels: products of bf16 values
 summed in f32, exact f32 norms, pt rounded to bf16 for the value product,
 g_so rounded to bf16 in the backward, gradients cast to the input dtype.
 K1/K2 run bf16 inputs at block sizes that are multiples of 16 on the tensor
-cores and everything else on scalar FMAs (`bucket_attn_route`); K7 runs v2 on
-bf16 at block sizes that are multiples of 4 on the same tensor-core scheme,
-with buckets padded to 16 points, and v1 on FP32 FMAs (`cols_bwd_route`);
-each route with its own launch counters.
+cores and everything else on scalar FMAs (`bucket_attn_route`); K6 on bf16
+and K7 v2 run at block sizes that are multiples of 4 on the same tensor-core
+scheme, with buckets padded to 16 points, and f32 K6 and K7 v1 on FP32 FMAs
+(`cols_fwd_route`, `cols_bwd_route`); each route with its own launch
+counters.
 
 The plain forward is `bucket_rbf_attention_cols_xla`'s einsum math (K6 in
 `pallas` mode on bf16 adds the bias terms as hi/lo bf16 pairs instead); the
@@ -45,15 +46,19 @@ SUPPORTED_DIMS = ((30, 24), (7, 5))
 ATTN_IMPLS = ("slab2", "hybrid", "hybrid2", "hybrid2l", "pallas", "loop2", "slab",
               "hybrid_slab")
 # launches of each kernel since the last reset (plain integer counters);
-# K1 / K2 and K7 count per route: "_tc" the tensor-core kernels, the bare
-# names the FP32 ones (`bucket_attn_route`, `cols_bwd_route`)
+# K1 / K2, K6 and K7 count per route: "_tc" the tensor-core kernels, the bare
+# names the FP32 ones (`bucket_attn_route`, `cols_fwd_route`, `cols_bwd_route`)
 LAUNCHES = {"bucket_attn_fwd_tc": 0, "bucket_attn_bwd_tc": 0, "bucket_attn_fwd": 0,
-            "bucket_attn_bwd": 0, "cols_fwd": 0, "cols_bwd_tc": 0, "cols_bwd": 0,
-            "rows_fwd": 0, "rows_bwd": 0}
+            "bucket_attn_bwd": 0, "cols_fwd_tc": 0, "cols_fwd": 0, "cols_bwd_tc": 0,
+            "cols_bwd": 0, "rows_fwd": 0, "rows_bwd": 0}
 # shared bytes per padded point of K7's tensor-core tiles at the widest
 # compiled (d, dv) = (30, 24): bf16 rows of 40 (q / k, ones column) and 24
 # (v / g_so) values, and two f32 norms (TcDims in csrc/bucket_attn.cu)
 _TC_COLS_BYTES_PER_POINT = (40 + 24) * 2 + 8
+# and of K6's: bf16 rows of 40 (k) and 24 (v) values and one f32 norm
+# (tc_cols_fwd_smem)
+_TC_COLS_FWD_BYTES_PER_POINT = (40 + 24) * 2 + 4
+_SMEM_BYTES = 227 * 1024
 
 
 def _bf16_round(x: torch.Tensor) -> torch.Tensor:
@@ -156,6 +161,25 @@ def bucket_attn_route(dtype: torch.dtype, block_size: int) -> str:
     return "tc" if dtype == torch.bfloat16 and block_size % 16 == 0 else "scalar"
 
 
+def _tc_cols_fits(block_size: int, bytes_per_point: int) -> bool:
+    """A bucket padded to a multiple of 16 points fits a CTA's shared memory
+    on the column kernels' tensor-core route (staged with 8-byte loads, so
+    block_size % 4 == 0)."""
+    padded = -(-block_size // 16) * 16
+    return block_size % 4 == 0 and padded * bytes_per_point <= _SMEM_BYTES
+
+
+def cols_fwd_route(dtype: torch.dtype, block_size: int) -> str:
+    """K6's route, fixed by dtype and bucket size before launch: "tc" (K1's
+    bf16 tensor-core products on buckets padded to a multiple of 16 points)
+    for bf16 inputs where block_size % 4 == 0 and the padded tiles fit in
+    shared memory; "scalar" (FP32 FMAs) otherwise: f32, whose math must not
+    use TF32 or bf16, and bf16 at any other block size."""
+    if dtype == torch.bfloat16 and _tc_cols_fits(block_size, _TC_COLS_FWD_BYTES_PER_POINT):
+        return "tc"
+    return "scalar"
+
+
 def cols_bwd_route(dtype: torch.dtype, block_size: int, v2: bool) -> str:
     """K7's route, fixed by dtype, bucket size and variant before launch:
     "tc" (K2's bf16 tensor-core halves on buckets padded to a multiple of 16
@@ -163,9 +187,7 @@ def cols_bwd_route(dtype: torch.dtype, block_size: int, v2: bool) -> str:
     8-byte loads) and the padded tiles fit in shared memory; "scalar" (FP32
     FMAs) otherwise: v1, whose f32 math must not use TF32 or bf16, and v2 at
     any other block size."""
-    padded = -(-block_size // 16) * 16
-    if dtype == torch.bfloat16 and v2 and block_size % 4 == 0 \
-            and padded * _TC_COLS_BYTES_PER_POINT <= 227 * 1024:
+    if dtype == torch.bfloat16 and v2 and _tc_cols_fits(block_size, _TC_COLS_BYTES_PER_POINT):
         return "tc"
     return "scalar"
 
@@ -182,7 +204,7 @@ def _check_inputs(sq, sk, sv, block_size, route="scalar", cotangents=()):
         raise ValueError(f"(d, dv) = {(d, dv)} not compiled; have {SUPPORTED_DIMS}")
     # the scalar route (and K6 / K7) stages f32 rows; the tensor-core
     # launchers refuse a bucket whose bf16 tiles overflow shared memory
-    if n % block_size or (route == "scalar" and block_size * (d + dv + 2) * 4 > 227 * 1024):
+    if n % block_size or (route == "scalar" and block_size * (d + dv + 2) * 4 > _SMEM_BYTES):
         raise ValueError(f"n={n} / block_size={block_size} unsupported")
     for t in (sq, sk, sv):
         if not t.is_cuda or t.device != sq.device or not t.is_contiguous():
@@ -245,20 +267,27 @@ def bucket_attn_bwd_cuda(sq, sk, sv, g_denom, g_so, block_size: int):
 
 
 def cols_fwd_cuda(sq, sk, sv, block_size: int, hilo: bool = False):
-    """K6 on the card: (denom (r, 1, n), so (r, dv, n)) float32."""
-    r, d, dv, n = _check_inputs(sq, sk, sv, block_size)
+    """K6 on the card, on the route `cols_fwd_route` picks: (denom (r, 1, n),
+    so (r, dv, n)) float32. `hilo` applies to bf16 inputs only."""
+    route = cols_fwd_route(sq.dtype, block_size)
+    r, d, dv, n = _check_inputs(sq, sk, sv, block_size, route)
     denom = torch.empty((r, 1, n), dtype=torch.float32, device=sq.device)
     so = torch.empty((r, dv, n), dtype=torch.float32, device=sq.device)
     lib = cuda_lib.load("bucket_attn")
-    fn = lib.hept_cols_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     bf16 = sq.dtype == torch.bfloat16
-    err = fn(sq.data_ptr(), sk.data_ptr(), sv.data_ptr(), denom.data_ptr(), so.data_ptr(),
-             r, d, dv, n, block_size, int(bf16), int(hilo and bf16),
-             cuda_lib.stream_ptr(sq.device))
-    cuda_lib.check(err, lib, "hept_bucket_attn_error_string", "cols_fwd")
-    LAUNCHES["cols_fwd"] += 1
+    args = [sq.data_ptr(), sk.data_ptr(), sv.data_ptr(), denom.data_ptr(), so.data_ptr(),
+            r, d, dv, n, block_size]
+    if route == "tc":
+        fn, name = lib.hept_cols_fwd_tc, "cols_fwd_tc"
+        args.append(int(hilo))
+    else:
+        fn, name = lib.hept_cols_fwd, "cols_fwd"
+        args += [int(bf16), int(hilo and bf16)]
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * (len(args) - 5) + [ctypes.c_void_p]
+    err = fn(*args, cuda_lib.stream_ptr(sq.device))
+    cuda_lib.check(err, lib, "hept_bucket_attn_error_string", name)
+    LAUNCHES[name] += 1
     return denom, so
 
 
@@ -432,7 +461,7 @@ def _check_rows(sq, sk, sv, *cotangents):
         raise ValueError(f"shapes sq {tuple(sq.shape)} sk {tuple(sk.shape)} sv {tuple(sv.shape)}")
     if (d, dv) not in SUPPORTED_DIMS:
         raise ValueError(f"(d, dv) = {(d, dv)} not compiled; have {SUPPORTED_DIMS}")
-    if b * (d + dv + 2) * 4 > 227 * 1024:
+    if b * (d + dv + 2) * 4 > _SMEM_BYTES:
         raise ValueError(f"bucket size {b} unsupported")
     for t in (sq, sk, sv, *cotangents):
         if t.dtype != torch.float32 or not t.is_cuda or t.device != sq.device \

@@ -37,6 +37,7 @@ PORT_KERNELS = {"tc_fwd_kernel": "K1", "tc_bwd_kernel": "K2", "fwd_kernel": "K1"
                 "bwd_kernel": "K2", "gather_kernel": "K3",
                 "segment_sum_kernel": "K4", "row_gather_kernel": "K5",
                 "row_gather_staged_kernel": "K5", "cols_fwd_kernel": "K6",
+                "tc_cols_fwd_kernel": "K6", "cols_fwd_tiled_kernel": "K6",
                 "cols_bwd_kernel": "K7", "tc_cols_bwd_kernel": "K7",
                 "cols_bwd_tiled_kernel": "K7"}
 _PORT_KERNEL_RE = re.compile(r"anonymous namespace\)::(" + "|".join(PORT_KERNELS) + r")\b")

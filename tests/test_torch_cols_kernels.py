@@ -195,6 +195,23 @@ def test_cols_bwd_route_table(dt, bs, v2, want):
     assert ba.cols_bwd_route(getattr(torch, dt), bs, v2) == want
 
 
+@pytest.mark.parametrize("dt,bs,want", [
+    ("bfloat16", 100, "tc"),  # hept_fast / hept_turbo / slab on bf16: padded to 112
+    ("bfloat16", 36, "tc"),
+    ("bfloat16", 64, "tc"),
+    ("bfloat16", 300, "tc"),
+    ("bfloat16", 1760, "tc"),  # the widest padded bucket that fits
+    ("bfloat16", 1764, "scalar"),  # its tiles (1776 points) overflow shared memory
+    ("bfloat16", 50, "scalar"),  # no multiple of 4: 8-byte staging
+    ("bfloat16", 10, "scalar"),
+    ("float32", 100, "scalar"),  # the parity profile: no TF32, no bf16
+])
+def test_cols_fwd_route_table(dt, bs, want):
+    """K6's route is fixed before launch by dtype and bucket size: the tensor
+    cores only for bf16 at bs % 4 == 0 that fits, in either bias mode."""
+    assert ba.cols_fwd_route(getattr(torch, dt), bs) == want
+
+
 @pytest.mark.parametrize("name,want", [
     ("void (anonymous namespace)::tc_bwd_kernel<30, 24>(__nv_bfloat16 const*, int, int)", "K2"),
     ("void (anonymous namespace)::tc_cols_bwd_kernel<30, 24>(__nv_bfloat16 const*, int)", "K7"),
@@ -202,12 +219,16 @@ def test_cols_bwd_route_table(dt, bs, v2, want):
     ("void (anonymous namespace)::cols_bwd_kernel<30, 24, false, false>(float const*)", "K7"),
     ("void (anonymous namespace)::bwd_kernel<30, 24, false>(float const*, int, int)", "K2"),
     ("void (anonymous namespace)::tc_fwd_kernel<30, 24, 2>(__nv_bfloat16 const*)", "K1"),
+    ("void (anonymous namespace)::tc_cols_fwd_kernel<30, 24, true, 1>(__nv_bfloat16 const*)",
+     "K6"),
+    ("void (anonymous namespace)::cols_fwd_tiled_kernel<30, 24, 5>(float const*, int)", "K6"),
+    ("void (anonymous namespace)::cols_fwd_kernel<30, 24, true, false, false>(int)", "K6"),
     ("void at::native::elementwise_kernel<128, 4>(int, float)", None),
 ])
 def test_profiler_maps_kernel_names(name, want):
     """utils/profiling.py books each kernel's device time to its TPU kernel
-    by the profiler's name: K7's tensor-core and tiled kernels count as K7,
-    and tc_bwd_kernel as K2 only."""
+    by the profiler's name: K6's and K7's tensor-core and tiled kernels count
+    as K6 and K7, tc_fwd_kernel as K1 and tc_bwd_kernel as K2 only."""
     from hept_tpu_torch.utils.profiling import _PORT_KERNEL_RE, PORT_KERNELS
 
     m = _PORT_KERNEL_RE.search(name)

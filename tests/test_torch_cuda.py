@@ -1,5 +1,5 @@
 """The CUDA kernels (K1-K7, K10, K12) against their plain versions, on the card
-(K1/K2 and K7 on both routes, tensor cores and scalar).
+(K1/K2, K6 and K7 on both routes, tensor cores and scalar).
 
 Marked `cuda`: each test skips (inside the fixture, never at import) when no
 CUDA device is present, which is the case on CPU-only hosts. On a GPU
@@ -143,19 +143,52 @@ def test_k1_k2_routes(dev, dtype, bs, route):
 
 @pytest.mark.parametrize("dtype,hilo", [(torch.float32, False), (torch.bfloat16, False),
                                         (torch.bfloat16, True)])
-@pytest.mark.parametrize("nb,bs", [(6, 100), (7, 100), (5, 64), (3, 300)])
+@pytest.mark.parametrize("nb,bs", [(6, 100), (7, 100), (5, 64), (3, 300), (5, 36), (7, 64),
+                                   (5, 50)])
 def test_k6_matches_plain(dev, dtype, hilo, nb, bs):
-    """K6 in its three modes, several buckets per CTA and a ragged last CTA
-    (7 buckets of 100: CTAs of 2), one bucket wider than a CTA (300):
-    f32 1e-5 x scale; bf16 5e-3 x scale (pt rounding flips)."""
+    """K6 in its three modes, each on the route `cols_fwd_route` gives it:
+    bf16 on the tensor cores (buckets padded to 16 points, odd buckets
+    starting 8 bytes off a 16-byte boundary), f32 on 2 x 4 register tiles
+    up to 100 points and the first-cut kernel at 300; a ragged last CTA (7
+    buckets: f32 CTAs of 2), and both on the first-cut kernel at bs 50 (no
+    multiple of 4): f32 1e-5 x scale; bf16 5e-3 x scale (pt rounding
+    flips)."""
     sq, sk, sv, _, _, _ = _inputs(dev, dtype, d=30, dv=24, nb=nb, bs=bs)
-    before = ba.LAUNCHES["cols_fwd"]
+    counter = "cols_fwd_tc" if ba.cols_fwd_route(dtype, bs) == "tc" else "cols_fwd"
+    before = dict(ba.LAUNCHES)
     den_k, so_k = ba.cols_fwd_cuda(sq, sk, sv, bs, hilo)
-    assert ba.LAUNCHES["cols_fwd"] == before + 1
+    after = {k: v - before[k] for k, v in ba.LAUNCHES.items() if v != before[k]}
+    assert after == {counter: 1}
     den_p, so_p = ba.cols_fwd_plain(sq, sk, sv, bs, hilo)
     torch.testing.assert_close(den_k, den_p, rtol=1e-5, atol=1e-5 * den_p.abs().max().item())
     tol = 1e-5 if dtype == torch.float32 else 5e-3
     torch.testing.assert_close(so_k, so_p, rtol=tol, atol=tol * so_p.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype,hilo", [(torch.float32, False), (torch.bfloat16, False),
+                                        (torch.bfloat16, True)])
+def test_k6_same_bits_on_repeated_calls(dev, dtype, hilo):
+    """No atomics on either K6 route (tensor cores for bf16, FP32 FMAs for
+    f32): every call gives the same bits, a ragged 7-bucket count too."""
+    sq, sk, sv, _, _, bs = _inputs(dev, dtype, d=30, dv=24, nb=7, bs=100, seed=6)
+    first = ba.cols_fwd_cuda(sq, sk, sv, bs, hilo)
+    for _ in range(3):
+        assert all(torch.equal(a, b) for a, b in zip(first, ba.cols_fwd_cuda(sq, sk, sv, bs, hilo)))
+
+
+def test_k6_tc_at_common_mode_40(dev):
+    """K6 on the tensor cores (bf16, exact bias) against the f32 plain
+    forward of the same bf16 values, with a per-bucket common mode of 40 in
+    the RPE rows: the biases enter in f32, so the logits keep their O(1)
+    part; 2e-2 x scale (pt rounded to bf16 for the value product)."""
+    sq, sk, sv, _, _ = _rpe_inputs(dev, 40.0, nb=15, bs=100)
+    assert ba.cols_fwd_route(sq.dtype, 100) == "tc"
+    before = ba.LAUNCHES["cols_fwd_tc"]
+    got = ba.cols_fwd_cuda(sq, sk, sv, 100)
+    assert ba.LAUNCHES["cols_fwd_tc"] == before + 1
+    ref = ba.cols_fwd_plain(sq.float(), sk.float(), sv.float(), 100)
+    for a, b, nm in zip(got, ref, ("denom", "so")):
+        torch.testing.assert_close(a, b, rtol=2e-2, atol=2e-2 * b.abs().max().item(), msg=nm)
 
 
 @pytest.mark.parametrize("dtype,v2", [(torch.float32, False), (torch.bfloat16, False),
@@ -194,11 +227,11 @@ def test_k7_same_bits_on_repeated_calls(dev, dtype, v2):
 
 
 @pytest.mark.parametrize("mode,dtype,want", [
-    ("pallas", torch.float32, ("cols_fwd", "cols_bwd")),
-    ("pallas", torch.bfloat16, ("cols_fwd", "cols_bwd")),
-    ("hybrid2", torch.bfloat16, ("cols_fwd", "cols_bwd_tc")),  # K7 v2 on the tensor cores
-    ("slab2", torch.bfloat16, ("cols_fwd", "cols_bwd_tc")),  # bs 100: no flat slab
-    ("slab", torch.bfloat16, ("cols_fwd", "cols_bwd")),  # K8 / K9 as K6 hilo / K7 v1
+    ("pallas", torch.float32, ("cols_fwd", "cols_bwd")),  # both on FP32 FMAs
+    ("pallas", torch.bfloat16, ("cols_fwd_tc", "cols_bwd")),  # K6 hilo on the tensor cores
+    ("hybrid2", torch.bfloat16, ("cols_fwd_tc", "cols_bwd_tc")),  # K6, K7 v2: tensor cores
+    ("slab2", torch.bfloat16, ("cols_fwd_tc", "cols_bwd_tc")),  # bs 100: no flat slab
+    ("slab", torch.bfloat16, ("cols_fwd_tc", "cols_bwd")),  # K8 / K9 as K6 hilo / K7 v1
     ("hybrid_slab", torch.float32, ("cols_fwd", "cols_bwd")),
 ])
 def test_modes_route_through_k6_k7(dev, mode, dtype, want):
@@ -209,8 +242,8 @@ def test_modes_route_through_k6_k7(dev, mode, dtype, want):
     (so / den).sum().backward()
     after = {k: v - before[k] for k, v in ba.LAUNCHES.items()}
     assert after == {"bucket_attn_fwd_tc": 0, "bucket_attn_bwd_tc": 0, "bucket_attn_fwd": 0,
-                     "bucket_attn_bwd": 0, "cols_bwd_tc": 0, "cols_bwd": 0, "rows_fwd": 0,
-                     "rows_bwd": 0, want[0]: 1, want[1]: 1}
+                     "bucket_attn_bwd": 0, "cols_fwd_tc": 0, "cols_fwd": 0, "cols_bwd_tc": 0,
+                     "cols_bwd": 0, "rows_fwd": 0, "rows_bwd": 0, want[0]: 1, want[1]: 1}
     with plain_reference():
         refs = [t.clone().requires_grad_(True) for t in (sq, sk, sv)]
         den2, so2 = bucket_rbf_attention_cols(*refs, bs, mode)
@@ -221,20 +254,26 @@ def test_modes_route_through_k6_k7(dev, mode, dtype, want):
                                    atol=tol * b.grad.float().abs().max().item())
 
 
-def test_autograd_routes_through_kernels(dev):
-    sq, sk, sv, _, _, bs = _inputs(dev, torch.bfloat16, seed=1)
+@pytest.mark.parametrize("nb,bs,want", [
+    (6, 64, ("bucket_attn_fwd_tc", "bucket_attn_bwd_tc")),  # slab2 with a flat slab: K1 / K2
+    (6, 100, ("cols_fwd_tc", "cols_bwd_tc")),  # slab2 at bs 100: K6 and K7 v2
+])
+def test_autograd_routes_through_kernels(dev, nb, bs, want):
+    """bf16 autograd through `bucket_rbf_attention_cols` (slab2) launches
+    one forward and one backward, both on the tensor cores, and none under
+    `plain_reference()`."""
+    sq, sk, sv, _, _, bs = _inputs(dev, torch.bfloat16, nb=nb, bs=bs, seed=1)
     ins = [t.clone().requires_grad_(True) for t in (sq, sk, sv)]
     before = dict(ba.LAUNCHES)
     den, so = bucket_rbf_attention_cols(*ins, bs)
     (so / den).sum().backward()
-    # bf16 at bs 64: the tensor-core route
-    assert ba.LAUNCHES["bucket_attn_fwd_tc"] == before["bucket_attn_fwd_tc"] + 1
-    assert ba.LAUNCHES["bucket_attn_bwd_tc"] == before["bucket_attn_bwd_tc"] + 1
+    after = {k: v - before[k] for k, v in ba.LAUNCHES.items() if v != before[k]}
+    assert after == {want[0]: 1, want[1]: 1}
     with plain_reference():
         refs = [t.clone().requires_grad_(True) for t in (sq, sk, sv)]
         den2, so2 = bucket_rbf_attention_cols(*refs, bs)
         (so2 / den2).sum().backward()
-    assert ba.LAUNCHES["bucket_attn_fwd_tc"] == before["bucket_attn_fwd_tc"] + 1
+    assert {k: v - before[k] for k, v in ba.LAUNCHES.items() if v != before[k]} == after
     for a, b in zip(ins, refs):
         torch.testing.assert_close(a.grad.float(), b.grad.float(), rtol=2e-2,
                                    atol=2e-2 * b.grad.float().abs().max().item())
@@ -327,6 +366,8 @@ def test_wrappers_reject_bad_inputs(dev):
     off.copy_(sq)
     with pytest.raises(ValueError):
         ba.bucket_attn_fwd_cuda(off, sk, sv, bs)
+    with pytest.raises(ValueError):  # K6's tensor-core route likewise
+        ba.cols_fwd_cuda(off, sk, sv, bs)
     with pytest.raises(ValueError):
         ba.bucket_attn_bwd_cuda(sq, sk, sv, gso, gden, bs)  # cotangents swapped
     with pytest.raises(ValueError):
@@ -467,8 +508,8 @@ def test_core_runs_k10_and_k5(dev):
     grads = torch.autograd.grad((out * w).sum(), ins)
     after = {k: v - before[k] for k, v in {**ba.LAUNCHES, **rg.LAUNCHES}.items()}
     assert after == {"bucket_attn_fwd_tc": 0, "bucket_attn_bwd_tc": 0, "bucket_attn_fwd": 0,
-                     "bucket_attn_bwd": 0, "cols_fwd": 0, "cols_bwd_tc": 0, "cols_bwd": 0,
-                     "rows_fwd": 1, "rows_bwd": 1, "row_gather": 8}
+                     "bucket_attn_bwd": 0, "cols_fwd_tc": 0, "cols_fwd": 0, "cols_bwd_tc": 0,
+                     "cols_bwd": 0, "rows_fwd": 1, "rows_bwd": 1, "row_gather": 8}
     with plain_reference():
         out_p = hept_attention_core(*ins, alpha, codes, block_size=bs, perms=perms[0])
         grads_p = torch.autograd.grad((out_p * w).sum(), ins)
