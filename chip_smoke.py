@@ -16,8 +16,11 @@ Phases, one line each (plus per-kernel lines):
      replay beside their bound and their per-logit ex2 / FP32 floors, then on
      the scalar route (f32) at the same shape, checked and timed once; K1's
      library yardstick (`library_yardstick`: efficient attention over the
-     buckets' augmented columns, the same function up to one rescale); K4
-     with its CSR given and building its own,
+     buckets' augmented columns, the same function up to one rescale); K3
+     bit-equal to its plain version at d = 12 and 1 on the batch's index,
+     at d = 7 on an emb 4 bytes into a larger buffer and with indices out
+     of range (NaN rows), timed at both widths (`k3_yardsticks`) beside its
+     bound and `index_select`; K4 with its CSR given and building its own,
      on the batch's index and an unsorted one, the same bits on repeated
      calls, then timed (`k4_yardsticks`: the kernel at d = 12 and 1, the
      CSR build, the loss's three calls against three `index_add_`); K5 (the
@@ -38,7 +41,7 @@ Phases, one line each (plus per-kernel lines):
      trainer's `train_step`, on one synthetic 60k-point event; launch
      counters are zeroed just before and read just after (per step K1 and
      K2 4 each on the tensor-core route and none on the scalar one, K5 8, K3
-     3, K4 3, one CSR build);
+     3 (2 of them at d = 1), K4 3, one CSR build);
   4. the first step's loss and gradients again, dropout off, once with the
      kernels and once with the plain versions, compared: in the hept_acc
      configuration, and with its bf16 modes off (f32 kernels: K1 / K2 4 each
@@ -66,19 +69,23 @@ Phases, one line each (plus per-kernel lines):
   9. the row-major core `hept_attention_core` (kernel K10) forward and
      backward at the parity width on the bs-100 event (layer 0's q/k/v of
      the parity model), launches counted, against `plain_reference()` on the
-     same permutations; then K10 alone on its sorted operands, timed;
+     same permutations; then K10 alone on its sorted operands: against its
+     plain version and float64, the same bits on 4 calls, on the tiled
+     forward route the bits of K6 f32 on the transposed operands, timed by
+     CUDA graph replay and events, the forward beside its library
+     yardstick (g batches of one bucket), each with the route it took;
  10. `attn_impl: slab` and `hybrid_slab` (the TPU's slab kernels K8/K9, run
      as K6 hi/lo + K7 v1 and K6 + K7 v1): one hept_fast step each, launches
      counted (K6 on the tensor cores), kernels against plain versions;
  11. K12 (`bitonic_sort_rows`) on 24 rows of 60000 keys with 16 payloads,
      bit-equal to its plain version, timed against torch.sort.
 Before the last line: one JSON line of per-kernel numbers (K5 once per row
-shape, K4 with its yardsticks as extra keys), and the `nvidia-smi`
-name/power-limit line. `--yardsticks-only [--package-root DIR]` builds the
-kernels of the package in DIR (a parent tree, for an A/B in one call),
-prints K4's and K5's yardsticks, K2's, K6's and K7's device times with a
-digest of their output bits as one JSON line and stops, without a result
-line. The last line is
+shape, K3 at d = 1 as K3d1, K4 with its yardsticks as extra keys), and the
+`nvidia-smi` name/power-limit line. `--yardsticks-only [--package-root
+DIR]` builds the kernels of the package in DIR (a parent tree, for an A/B
+in one call), prints K3's, K4's and K5's yardsticks, K2's, K6's, K7's and
+K10's device times with a digest of their output bits as one JSON line and
+stops, without a result line. The last line is
 {"ok": true, "device": {...}}. Any failed check raises (exit code != 0).
 Exits with code 2 and prints no result without a CUDA device or without the
 `hept_tpu_torch` package beside this script.
@@ -105,9 +112,12 @@ DEVICE = "cuda"
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
                "bound_ms", "bound_by", "library_ms")
 # K3 / K4 launches and CSR builds of one InfoNCE loss: per training step
-# (forward and backward) and per evaluated event (forward)
-PAIR_LAUNCHES_STEP = {"pair_gather": 3, "pair_segment_sum": 3, "anchor_csr": 1}
-PAIR_LAUNCHES_EVAL = {"pair_gather": 2, "pair_segment_sum": 1, "anchor_csr": 1}
+# (forward and backward) and per evaluated event (forward); K3 at d = 1 (the
+# negative sums' gather and the segment sum's backward) counted apart too
+PAIR_LAUNCHES_STEP = {"pair_gather": 3, "pair_gather_d1": 2, "pair_segment_sum": 3,
+                      "anchor_csr": 1}
+PAIR_LAUNCHES_EVAL = {"pair_gather": 2, "pair_gather_d1": 1, "pair_segment_sum": 1,
+                      "anchor_csr": 1}
 # K1 / K2 on neither route: the paths that run K6 / K7 or K10
 NO_K1_K2 = {"bucket_attn_fwd_tc": 0, "bucket_attn_bwd_tc": 0, "bucket_attn_fwd": 0,
             "bucket_attn_bwd": 0}
@@ -428,8 +438,7 @@ def phase_kernels(torch, batch, seed: int) -> dict:
     for width in (12, 1):
         emb = randn(n, width)
         vals = (randn(e, width) * mask[:, None]).contiguous()
-        errs3.append(max_err(po.gather_rows_cuda(emb, idx), po.gather_rows_plain(emb, idx)))
-        check(f"K3 d={width} max|d| (exact copy)", errs3[-1], 0.0)
+        errs3.append(k3_check(torch, po, emb, idx, f"d={width}"))
         ref4 = po.segment_sum_plain(vals, idx, n)
         got4 = po.segment_sum_cuda(vals, idx, n, csr)
         # index_add_ sums with atomics in another order
@@ -439,6 +448,13 @@ def phase_kernels(torch, batch, seed: int) -> dict:
         if not all(torch.equal(got4, po.segment_sum_cuda(vals, idx, n, csr)) for _ in range(3)):
             raise AssertionError(f"K4 d={width}: repeated calls differ in their bits")
         log(f"  K4 d={width}: the same bits on 4 calls")
+    # K3 off the vector path: 7-wide rows of an emb 4 bytes into a larger
+    # buffer, and indices out of range (NaN rows)
+    flat = randn(n * 7 + 1)
+    errs3.append(k3_check(torch, po, flat[1:].view(n, 7), idx, "d=7, emb at a 4-byte offset"))
+    bad = idx.clone()
+    bad[::97], bad[1::89] = n, -1
+    errs3.append(k3_check(torch, po, randn(n, 12), bad, "d=12, indices out of range"))
     # the training loader's cached layout is sorted per block only: K4 must
     # not depend on a globally sorted index
     perm = torch.randperm(e, generator=gen, device=dev)
@@ -446,15 +462,18 @@ def phase_kernels(torch, batch, seed: int) -> dict:
     errs4.append(max_err(po.segment_sum_cuda(vals[perm].contiguous(), idx[perm].contiguous(), n),
                          ref4))
     check("K4 d=1 max|d| (unsorted index)", errs4[-1], 1e-5 * scale(ref4) + 1e-6)
-    emb = randn(n, 12)
-    idx64 = idx.long()
-    b_ms, b_by = bound_ms(4.0 * (n * 12 + e + e * 12), 0.0, F32_FLOP_PER_S)
-    rows.append(dict(name="K3 pair_gather", route="cuda", source="hept_tpu_torch/csrc/pair_ops.cu",
-                     replaces="hept_tpu/ops/pair_ops.py:142", max_abs_err=max(errs3),
-                     ms=time_ms(lambda: po.gather_rows_cuda(emb, idx), 20),
-                     plain_ms=time_ms(lambda: po.gather_rows_plain(emb, idx), 20),
-                     bound_ms=b_ms, bound_by=b_by,
-                     library_ms=time_ms(lambda: emb.index_select(0, idx64), 20)))
+    k3 = k3_yardsticks(torch, po, idx, n, gen)
+    for width, key in ((12, "K3"), (1, "K3d1")):
+        emb = randn(n, width)
+        rows.append(dict(name=f"{key} pair_gather",
+                         route="cuda", source="hept_tpu_torch/csrc/pair_ops.cu",
+                         replaces="hept_tpu/ops/pair_ops.py:142", max_abs_err=max(errs3),
+                         ms=k3[f"kernel_d{width}_device_ms"],
+                         plain_ms=time_ms(lambda emb=emb: po.gather_rows_plain(emb, idx), 20),
+                         bound_ms=k3[f"kernel_d{width}_bound_ms"], bound_by="bytes",
+                         library_ms=k3[f"index_select_d{width}_device_ms"],
+                         events_ms=k3[f"kernel_d{width}_ms"],
+                         library_events_ms=k3[f"index_select_d{width}_ms"]))
     k4 = k4_yardsticks(torch, po, idx, mask, n, gen)
     vals = (randn(e, 12) * mask[:, None]).contiguous()
     rows.append(dict(name="K4 pair_segment_sum", route="cuda",
@@ -474,6 +493,49 @@ def phase_kernels(torch, batch, seed: int) -> dict:
         log(f"  {row['name']}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
             f"library {lib}, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     return {row["name"].split()[0]: row for row in rows}
+
+
+def k3_check(torch, po, emb, idx, label: str) -> float:
+    """K3 against its plain version, bit for bit; rows at an index outside
+    [0, n) must be NaN (the plain version cannot take them). Returns the
+    max|d| over the in-range rows (0)."""
+    got = po.gather_rows_cuda(emb, idx)
+    ok = (idx >= 0) & (idx < emb.shape[0])
+    want = po.gather_rows_plain(emb, idx.clamp(0, emb.shape[0] - 1))
+    same = torch.equal(got[ok].view(torch.int32), want[ok].view(torch.int32))
+    nan = bool(torch.isnan(got[~ok]).all())
+    log(f"  K3 {label}: {'bit-equal' if same else 'DIFFERS'} to plain over {int(ok.sum())} "
+        f"pairs" + (f", {int((~ok).sum())} out of range {'NaN' if nan else 'NOT NaN'}"
+                    if not bool(ok.all()) else ""))
+    if not (same and nan):
+        raise AssertionError(f"K3 {label}: not an exact copy")
+    return max_err(got[ok], want[ok])
+
+
+def k3_yardsticks(torch, po, idx, n: int, gen) -> dict:
+    """K3 on the batch's anchor index at d = 12 and d = 1 (the loss's
+    similarity gather; the negative sums' and the segment sum's backward),
+    each beside its bound (each index and output row once, emb once) and
+    `index_select`: `<name>_ms` by CUDA events around 50 calls in a row,
+    `<name>_device_ms` by CUDA graph replay, and a digest of the kernel's
+    output bits."""
+    e = idx.shape[0]
+    idx64 = idx.long()
+    out = {}
+    for d in (12, 1):
+        emb = torch.randn((n, d), generator=gen, device=idx.device)
+        out[f"kernel_d{d}_bits"] = bits_digest([po.gather_rows_cuda(emb, idx)])
+        out[f"kernel_d{d}_bound_ms"] = bound_ms(4.0 * (n * d + e + e * d), 0.0, F32_FLOP_PER_S)[0]
+        for name, fn in ((f"kernel_d{d}", lambda emb=emb: po.gather_rows_cuda(emb, idx)),
+                         (f"index_select_d{d}", lambda emb=emb: emb.index_select(0, idx64))):
+            out[f"{name}_ms"] = time_ms(fn, 50)
+            out[f"{name}_device_ms"] = graph_ms(fn)
+    log(f"  K3 (E={e}, n={n}; device ms by graph replay, in a row of calls): d=12 "
+        f"{out['kernel_d12_device_ms']:.4f} ({out['kernel_d12_ms']:.4f}), bound "
+        f"{out['kernel_d12_bound_ms']:.4f}, index_select {out['index_select_d12_device_ms']:.4f}; "
+        f"d=1 {out['kernel_d1_device_ms']:.4f} ({out['kernel_d1_ms']:.4f}), bound "
+        f"{out['kernel_d1_bound_ms']:.4f}, index_select {out['index_select_d1_device_ms']:.4f}")
+    return out
 
 
 def k4_yardsticks(torch, po, idx, mask, n: int, gen) -> dict:
@@ -1155,29 +1217,53 @@ def phase_core(torch, trainer, batch_np, seed: int, zero_counts, read_counts) ->
         sv = sort_carry_rows(None, ins[2].detach(), src=k_src)[0].reshape(g, bs, dv)
     g_den = torch.randn((g, bs, 1), generator=gen, device=DEVICE)
     g_so = torch.randn((g, bs, dv), generator=gen, device=DEVICE)
-    log(f"kernel K10 rows_fwd / rows_bwd (f32, {g} buckets of {bs}, d={d} dv={dv}):")
+    routes = (ba.rows_fwd_route(bs), ba.rows_bwd_route(bs, d, dv))
+    log(f"kernel K10 rows_fwd / rows_bwd (f32, {g} buckets of {bs}, d={d} dv={dv}; routes "
+        f"{routes[0]} / {routes[1]}):")
     errs = []
-    for nm, a, b in zip(("denom", "so"), ba.rows_fwd_cuda(sq, sk, sv),
-                        ba.rows_fwd_plain(sq, sk, sv)):
+    fwd = ba.rows_fwd_cuda(sq, sk, sv)
+    fwd_p = ba.rows_fwd_plain(sq, sk, sv)
+    for nm, a, b in zip(("denom", "so"), fwd, fwd_p):
         errs.append(max_err(a, b))
         check(f"K10 fwd {nm} max|d|", errs[-1], 1e-4 * scale(b))
     e_fwd = max(errs)
     errs = []
-    for nm, a, b in zip(("dq", "dk", "dv"), ba.rows_bwd_cuda(sq, sk, sv, g_den, g_so),
-                        ba.rows_bwd_plain(sq, sk, sv, g_den, g_so)):
+    bwd = ba.rows_bwd_cuda(sq, sk, sv, g_den, g_so)
+    for nm, a, b in zip(("dq", "dk", "dv"), bwd, ba.rows_bwd_plain(sq, sk, sv, g_den, g_so)):
         errs.append(max_err(a, b))
         check(f"K10 bwd {nm} max|d|", errs[-1], 1e-4 * scale(b))
     e_bwd = max(errs)
+    for label, first, call in (("fwd", fwd, lambda: ba.rows_fwd_cuda(sq, sk, sv)),
+                               ("bwd", bwd, lambda: ba.rows_bwd_cuda(sq, sk, sv, g_den, g_so))):
+        same_bits(torch, f"K10 {label}", first, call)
+    # the tiled forward runs K6 f32's arithmetic: its bits on the transposed
+    # operands, (1, d, g * bs) columns
+    if routes[0] == "tiled":
+        cols = [t.reshape(g * bs, -1).t().contiguous()[None] for t in (sq, sk, sv)]
+        want = [t[0].t().reshape(a.shape) for t, a in zip(ba.cols_fwd_cuda(*cols, bs), fwd)]
+        if not all(torch.equal(a, b) for a, b in zip(fwd, want)):
+            raise AssertionError("K10 fwd (tiled) differs in its bits from K6 f32 on the "
+                                 "transposed operands")
+        log("  K10 fwd (tiled): the bits of K6 f32 on the transposed operands")
+        del cols, want
     # both sides against a float64 run: the logit q.k - |q|^2/2 - |k|^2/2
     # cancels large RPE norms, so f32 rounding in either order shows there
     with torch.no_grad():
-        ref = ba.rows_fwd_plain(sq.double(), sk.double(), sv.double())
-        for nm, a, b, r_ in zip(("denom", "so"), ba.rows_fwd_cuda(sq, sk, sv),
-                                ba.rows_fwd_plain(sq, sk, sv), ref):
-            log(f"  K10 fwd {nm} max|d| against float64: kernel "
-                f"{float((a.double() - r_).abs().max()):.3e}, plain "
-                f"{float((b.double() - r_).abs().max()):.3e}")
-        del ref
+        ops64 = [t.double() for t in (sq, sk, sv, g_den, g_so)]
+        for label, names, got, plain, ref in (
+                ("fwd", ("denom", "so"), fwd, fwd_p, ba.rows_fwd_plain(*ops64[:3])),
+                ("bwd", ("dq", "dk", "dv"), bwd, ba.rows_bwd_plain(sq, sk, sv, g_den, g_so),
+                 ba.rows_bwd_plain(*ops64))):
+            for nm, a, b, r_ in zip(names, got, plain, ref):
+                log(f"  K10 {label} {nm} max|d| against float64: kernel "
+                    f"{float((a.double() - r_).abs().max()):.3e}, plain "
+                    f"{float((b.double() - r_).abs().max()):.3e}")
+        del ops64, ref, plain, bwd
+    # the library yardstick on the row layout: g batches of one bucket (the
+    # operands as (g, d, bs) columns)
+    lib = library_yardstick(torch, *(t.transpose(1, 2) for t in (sq, sk, sv)), bs,
+                            [t.transpose(1, 2) for t in fwd_p])
+    del fwd, fwd_p
     rows = {}
     pts = g * bs
     for key, name, src_line, err, fl, by, kern, plain in (
@@ -1189,14 +1275,21 @@ def phase_core(torch, trainer, batch_np, seed: int, zero_counts, read_counts) ->
              lambda: ba.rows_bwd_cuda(sq, sk, sv, g_den, g_so),
              lambda: ba.rows_bwd_plain(sq, sk, sv, g_den, g_so))):
         b_ms, b_by = bound_ms(by, fl, F32_FLOP_PER_S)
+        fwd_row = key == "K10f"
         rows[key] = dict(name=name, route="cuda", source="hept_tpu_torch/csrc/bucket_attn.cu",
                          replaces=f"hept_tpu/ops/bucket_attn_pallas.py:{src_line}",
-                         launches=launches["rows_fwd" if key == "K10f" else "rows_bwd"],
-                         max_abs_err=err, ms=time_ms(kern), plain_ms=time_ms(plain, 3, 1),
-                         bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                         launches=launches["rows_fwd" if fwd_row else "rows_bwd"],
+                         max_abs_err=err, ms=graph_ms(kern, 10), plain_ms=time_ms(plain, 3, 1),
+                         bound_ms=b_ms, bound_by=b_by, kernel_route=routes[0 if fwd_row else 1],
+                         events_ms=time_ms(kern),
+                         # no single PyTorch call takes the backward's
+                         # independent cotangents g_so and g_den
+                         **(lib if fwd_row else {"library_ms": None}))
         row = rows[key]
-        log(f"  {name}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+        log(f"  {name} ({row['kernel_route']}): kernel {row['ms']:.4f} ms device "
+            f"({row['events_ms']:.4f} ms by events), plain {row['plain_ms']:.4f} ms, bound "
             f"{b_ms:.4f} ms ({b_by}, at the FP32 peak {F32_FLOP_PER_S / 1e12:.0f} TFLOP/s)")
+    log_library(rows["K10f"])
     del sq, sk, sv, g_den, g_so, ins, w
     torch.cuda.empty_cache()
     return rows, launches
@@ -1365,9 +1458,36 @@ def bucket_yardsticks(torch, ba, n: int, seed: int) -> dict:
     return out
 
 
+def k10_yardsticks(torch, ba, seed: int) -> dict:
+    """K10 forward and backward at the parity core's shape (14400 buckets of
+    100, d 30, dv 24, f32; q / k with an RPE-like common mode of 2 per
+    bucket, as K6 / K7 v1's yardsticks), through the wrappers every tree has:
+    device time by CUDA graph replay and a digest of the outputs' bits, on
+    inputs made here from the seed (the same in every tree)."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g, bs = 14400, 100
+
+    def rn(*shape, s=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * s
+
+    shared = rn(g, 1, 6, s=2.0)
+    sq, sk = (torch.cat([rn(g, bs, 24, s=0.5), rn(g, bs, 6, s=0.5) + shared], -1)
+              for _ in range(2))
+    sv, g_den, g_so = rn(g, bs, 24), rn(g, bs, 1), rn(g, bs, 24)
+    out = {}
+    for key, fn in (("K10_fwd", lambda: ba.rows_fwd_cuda(sq, sk, sv)),
+                    ("K10_bwd", lambda: ba.rows_bwd_cuda(sq, sk, sv, g_den, g_so))):
+        out[f"{key}_bits"] = bits_digest(fn())
+        out[f"{key}_device_ms"] = graph_ms(fn, 10)
+    del sq, sk, sv, g_den, g_so
+    torch.cuda.empty_cache()
+    return out
+
+
 def yardsticks_only(torch, args) -> int:
-    """K4 and K5, K2, K6 and K7 of the imported package at the paths'
-    shapes, one JSON line."""
+    """K3 and K4, K5, K2, K6, K7 and K10 of the imported package at the
+    paths' shapes, one JSON line."""
     from hept_tpu_torch.ops import bucket_attn_cuda, cuda_lib, pair_ops, row_gather
 
     secs = cuda_lib.build(("pair_ops", "row_gather", "bucket_attn"), force=True)
@@ -1378,13 +1498,15 @@ def yardsticks_only(torch, args) -> int:
     gen = torch.Generator(device=DEVICE).manual_seed(args.seed)
     idx = torch.as_tensor(batch["pairs"][0, 0]).to(DEVICE).contiguous()
     mask = torch.as_tensor(batch["pair_mask"][0]).to(DEVICE)
+    k3 = k3_yardsticks(torch, pair_ops, idx, batch["x"].shape[1], gen)
     k4 = k4_yardsticks(torch, pair_ops, idx, mask, batch["x"].shape[1], gen)
     k5 = k5_yardsticks(torch, row_gather, gen)
     del idx, mask, batch
     torch.cuda.empty_cache()
     buckets = bucket_yardsticks(torch, bucket_attn_cuda, 60416, args.seed)
-    log(json.dumps({"package": str(root), "card": smi, "K4": k4, "K5": k5,
-                    "K2_K6_K7": buckets}))
+    k10 = k10_yardsticks(torch, bucket_attn_cuda, args.seed)
+    log(json.dumps({"package": str(root), "card": smi, "K3": k3, "K4": k4, "K5": k5,
+                    "K2_K6_K7": buckets, "K10": k10}))
     return 0
 
 
@@ -1401,8 +1523,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile-steps", type=int, default=3)
     ap.add_argument("--yardsticks-only", action="store_true",
-                    help="build the kernels, print K2's, K4's, K5's, K6's and K7's times at the "
-                         "paths' shapes as one JSON line, and stop (no result line)")
+                    help="build the kernels, print K2's, K3's, K4's, K5's, K6's, K7's and K10's "
+                         "times at the paths' shapes as one JSON line, and stop (no result line)")
     ap.add_argument("--package-root", default=None,
                     help="import hept_tpu_torch from this directory instead (a parent tree "
                          "for an A/B of the yardsticks)")
@@ -1507,8 +1629,10 @@ def main(argv=None) -> int:
         f"median after the first {steady:.1f} ms; launches {launches}; "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     for key, name in (("K1", "bucket_attn_fwd_tc"), ("K2", "bucket_attn_bwd_tc"),
-                      ("K3", "pair_gather"), ("K4", "pair_segment_sum"), ("K5", "row_gather")):
+                      ("K4", "pair_segment_sum"), ("K5", "row_gather")):
         rows[key]["launches"] = launches[name]
+    rows["K3"]["launches"] = launches["pair_gather"] - launches["pair_gather_d1"]
+    rows["K3d1"]["launches"] = launches["pair_gather_d1"]
     rows["K4"]["csr_builds"] = launches["anchor_csr"]
     rows["K5"]["launches_in"] = f"phase 3, {args.steps} hept_acc steps"
     trained_state = copy.deepcopy(model.state_dict())
@@ -1624,7 +1748,7 @@ def main(argv=None) -> int:
     log(json.dumps({"kernels": [
         {**{k: rows[key][k] for k in KERNEL_KEYS},
          **{k: v for k, v in rows[key].items() if k not in KERNEL_KEYS}}
-        for key in ("K1", "K2", "K3", "K4", "K5", "K5f32", "K5p", "K5q", "K5v", "K6", "K7", "K8",
+        for key in ("K1", "K2", "K3", "K3d1", "K4", "K5", "K5f32", "K5p", "K5q", "K5v", "K6", "K7", "K8",
                     "K9", "K10f", "K10b", "K11", "K12")]}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)

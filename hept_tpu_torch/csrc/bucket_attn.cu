@@ -70,6 +70,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <initializer_list>
 
 namespace {
 
@@ -376,7 +377,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const float* gso, co
 // buckets padded to 16 points (tc_cols_fwd_kernel, tc_cols_bwd_kernel), and
 // f32 (K6, K7 v1) at bs <= 100 runs one pass per bucket on FP32 FMAs
 // (cols_fwd_tiled_kernel, cols_bwd_tiled_kernel). cols_fwd_kernel and
-// cols_bwd_kernel here stay for the other bucket sizes and for K10.
+// cols_bwd_kernel here stay for the other bucket sizes, on either layout.
 //
 // K10 (template argument ROWS) is K6 in f32 and K7 v1 on the ROW layout:
 // (g * bs, d) rows, bucket b owning rows [b*bs, (b+1)*bs). It replaces
@@ -385,11 +386,25 @@ int launch_bwd(const void* q, const void* k, const void* v, const float* gso, co
 // the kernel of hept_tpu/ops/bucket_attn.py:hept_attention_core, f32 only.
 // Its math is K6's f32 forward and K7 v1's backward; the TPU pads the bucket
 // to a multiple of 8 rows (a sublane rule) and masks the padded keys, while
-// here any bs works unpadded. A CTA's g buckets are one contiguous run of
-// g * bs * d floats, copied flat into the same padded shared rows; a thread
-// reads its own query (or key) row with d-strided loads that the L1 serves,
-// and writes its output row likewise. Bound at the parity shapes (14400
-// buckets of 100, d 30, dv 24): operations at the FP32 peak, as K6 / K7.
+// here any bs works unpadded. Two routes, picked by the wrapper before
+// launch (rows_fwd_route, rows_bwd_route): the tiled kernels below with
+// ROWS true (forward at bs % 4 == 0 up to 100, backward up to 100: the
+// parity width's 14400 buckets of 100), and the first-cut kernels here for
+// every other bs. On rows a bucket's q, k, v (and g_so, g_den) are
+// contiguous runs, staged by cp.async in V-float pieces (V the widest of 4,
+// 2, 1 dividing the row: 8 bytes at d = 30, 16 at dv = 24) into the same
+// padded point-major shared rows as the columns; the tiled forward reads a
+// thread's two query rows by 8-byte loads that the L1 serves and stores its
+// so rows by 16-byte ones; the tiled backward stores a unit's 6 columns of
+// a point as three 8-byte pieces of its row. The forward's arithmetic is
+// K6 f32's own (its bits on the transposed operands). The backward's adds
+// the norm biases after the dot, as the forward and the plain version do,
+// where K7 v1 starts each logit from them: on the parity core's operands
+// (|q|^2/2 up to ~500) K7 v1's order lands 2-4x further from a float64 run
+// and trips the core's 1e-4 x scale gradient check (PERF.md §6). The
+// first cut copies a CTA's run flat and reads and writes rows with
+// d-strided loads. Bound at the parity shapes: operations at the FP32
+// peak, as K6 / K7.
 
 constexpr int kColsThreads = 256;  // most threads (and columns) of a column CTA
 constexpr size_t kMaxSmem = 227 * 1024;
@@ -1567,8 +1582,8 @@ int launch_tc_bwd(const void* q, const void* k, const void* v, const float* gso,
 // ---------------------------------------------------------------------------
 // K7 v1 (f32) on FP32 FMAs, one pass per bucket: the route of every f32 K7
 // (and of v1 on bf16, K9's contract) whose bucket fits (bs <= 100 at d 30,
-// dv 24); larger buckets, K7 v2 off the tensor-core route and K10's row
-// layout keep cols_bwd_kernel above.
+// dv 24), and with ROWS of K10's backward there; larger buckets and K7 v2
+// off the tensor-core route keep cols_bwd_kernel above.
 //
 // What held cols_bwd_kernel back (3.1 ms at the parity shape against a
 // 0.593 ms FP32 bound): its two halves recompute the logit and gp, ~200
@@ -1625,6 +1640,97 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
 __device__ __forceinline__ void cp_async_wait_prev() { asm volatile("cp.async.wait_group 1;\n" ::); }
+
+// The row layout (K10) of the tiled kernels: a point's C values are one row,
+// a bucket's rows one contiguous run. Rows move V floats at a time, V the
+// widest of 4, 2, 1 that divides C, where every pointer is 16-byte aligned
+// (vec; else one float at a time): C = 30 as 8-byte pieces (120-byte rows
+// keep 8-byte alignment), C = 24 as 16-byte ones.
+template <int C>
+__host__ __device__ constexpr int row_vec() {
+  return C % 4 == 0 ? 4 : C % 2 == 0 ? 2 : 1;
+}
+
+template <int BYTES>
+__device__ __forceinline__ void cp_async_n(float* dst, const float* src) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src), "n"(BYTES));
+}
+
+template <int V, int C, int S>
+__device__ __forceinline__ void copy_rows_async_v(const float* src, int count, float* dst) {
+  constexpr int NV = C / V;
+  for (int f = threadIdx.x; f < count * NV; f += blockDim.x) {
+    const int p = f / NV;
+    cp_async_n<4 * V>(dst + p * S + (f - p * NV) * V, src + f * V);
+  }
+}
+
+// cp.async copies (uncommitted) of `count` rows of C floats, the run at src,
+// into shared rows dst[p * S + e], e < C; every copy in flight at once
+template <int C, int S>
+__device__ __forceinline__ void copy_rows_async(const float* src, int count, float* dst, bool vec) {
+  if (vec)
+    copy_rows_async_v<row_vec<C>(), C, S>(src, count, dst);
+  else
+    copy_rows_async_v<1, C, S>(src, count, dst);
+}
+
+// a row of C floats at src into x[0..C), zeros in x[C..CP)
+template <int C, int CP>
+__device__ __forceinline__ void load_row(const float* src, float (&x)[CP], bool vec) {
+  constexpr int V = row_vec<C>();
+  if (V == 1 || !vec) {
+#pragma unroll
+    for (int e = 0; e < C; ++e) x[e] = __ldg(src + e);
+  } else if constexpr (V == 4) {
+#pragma unroll
+    for (int e = 0; e < C; e += 4) {
+      const float4 t = __ldg(reinterpret_cast<const float4*>(src + e));
+      x[e] = t.x, x[e + 1] = t.y, x[e + 2] = t.z, x[e + 3] = t.w;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < C; e += 2) {
+      const float2 t = __ldg(reinterpret_cast<const float2*>(src + e));
+      x[e] = t.x, x[e + 1] = t.y;
+    }
+  }
+#pragma unroll
+  for (int e = C; e < CP; ++e) x[e] = 0.f;
+}
+
+// x[0..C) as a row of C floats at dst
+template <int C, int CP>
+__device__ __forceinline__ void store_row(float* dst, const float (&x)[CP], bool vec) {
+  constexpr int V = row_vec<C>();
+  if (V == 1 || !vec) {
+#pragma unroll
+    for (int e = 0; e < C; ++e) dst[e] = x[e];
+  } else if constexpr (V == 4) {
+#pragma unroll
+    for (int e = 0; e < C; e += 4)
+      *reinterpret_cast<float4*>(dst + e) = make_float4(x[e], x[e + 1], x[e + 2], x[e + 3]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < C; e += 2) *reinterpret_cast<float2*>(dst + e) = make_float2(x[e], x[e + 1]);
+  }
+}
+
+// x[0..lim) (lim <= C, C even) at dst, as float2s where pair (dst 8-byte
+// aligned, lim even)
+template <int C>
+__device__ __forceinline__ void store_cols(float* dst, const float (&x)[C], int lim, bool pair) {
+  if (pair) {
+#pragma unroll
+    for (int c = 0; c < C; c += 2)
+      if (c < lim) *reinterpret_cast<float2*>(dst + c) = make_float2(x[c], x[c + 1]);
+  } else {
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      if (c < lim) dst[c] = x[c];
+  }
+}
 
 // acc[m][c] += a[x * sa + m] * b[x * sb + c] for x < len: an M x C tile of
 // a product whose contraction runs down the rows of two shared tiles (a at
@@ -1687,12 +1793,13 @@ __device__ __forceinline__ void pair_dots(float (&s)[4][5], const float* x, cons
   }
 }
 
-template <int D, int DV>
+template <int D, int DV, bool ROWS>
 __global__ void __launch_bounds__(kTiledThreads, 1)
 cols_bwd_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, const float* __restrict__ gso,
                       const float* __restrict__ gden, float* __restrict__ dq,
-                      float* __restrict__ dk, float* __restrict__ dv, int n, int bs, int items) {
+                      float* __restrict__ dk, float* __restrict__ dv, int n, int bs, int items,
+                      bool vec) {
   using Tm = TiledDims<D, DV>;
   constexpr int SQ = Tm::SQ, SV = Tm::SV;
   // phase C's unit: kCM points x kCC columns; DB, VB column blocks of dq /
@@ -1715,28 +1822,38 @@ cols_bwd_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int w = threadIdx.x; w < 2 * ob; w += blockDim.x) ops_s[w] = 0.f;
   __syncthreads();
 
-  // async copies of an item's columns into a staging buffer, one group: a
-  // warp takes a column at a time, a lane a point
+  // async copies of an item's operands into a staging buffer, one group
+  // (the column layout: a warp takes a column at a time, a lane a point)
   auto stage = [&](int item, float* buf) {
     if (item < items) {
-      const size_t r = item / nb, base = (size_t)(item % nb) * bs;
-      for (int c = threadIdx.x / 32; c < Tm::kCols; c += kTiledThreads / 32) {
-        const float* src;
-        float* dst;
-        int stride = SQ;
-        if (c < D) {
-          src = q + (r * D + c) * nn, dst = buf + c;
-        } else if (c < 2 * D) {
-          src = k + (r * D + c - D) * nn, dst = buf + bp * SQ + c - D;
-        } else if (c < 2 * D + 2 * DV) {
-          const int e = c - 2 * D;  // g_so, then v
-          src = e < DV ? gso + (r * DV + e) * nn : v + (r * DV + e - DV) * nn;
-          dst = buf + 2 * bp * SQ + (e < DV ? e : bp * SV + e - DV);
-          stride = SV;
-        } else {
-          src = gden + r * nn, dst = buf + 2 * bp * (SQ + SV), stride = 1;
+      if constexpr (ROWS) {
+        // the row layout: the bucket's q, k, g_so, v and g_den are five runs
+        const size_t base = (size_t)item * bs;
+        copy_rows_async<D, SQ>(q + base * D, bs, buf, vec);
+        copy_rows_async<D, SQ>(k + base * D, bs, buf + bp * SQ, vec);
+        copy_rows_async<DV, SV>(gso + base * DV, bs, buf + 2 * bp * SQ, vec);
+        copy_rows_async<DV, SV>(v + base * DV, bs, buf + 2 * bp * SQ + bp * SV, vec);
+        copy_rows_async<1, 1>(gden + base, bs, buf + 2 * bp * (SQ + SV), vec);
+      } else {
+        const size_t r = item / nb, base = (size_t)(item % nb) * bs;
+        for (int c = threadIdx.x / 32; c < Tm::kCols; c += kTiledThreads / 32) {
+          const float* src;
+          float* dst;
+          int stride = SQ;
+          if (c < D) {
+            src = q + (r * D + c) * nn, dst = buf + c;
+          } else if (c < 2 * D) {
+            src = k + (r * D + c - D) * nn, dst = buf + bp * SQ + c - D;
+          } else if (c < 2 * D + 2 * DV) {
+            const int e = c - 2 * D;  // g_so, then v
+            src = e < DV ? gso + (r * DV + e) * nn : v + (r * DV + e - DV) * nn;
+            dst = buf + 2 * bp * SQ + (e < DV ? e : bp * SV + e - DV);
+            stride = SV;
+          } else {
+            src = gden + r * nn, dst = buf + 2 * bp * (SQ + SV), stride = 1;
+          }
+          for (int p = threadIdx.x % 32; p < bs; p += 32) cp_async4(dst + p * stride, src + base + p);
         }
-        for (int p = threadIdx.x % 32; p < bs; p += 32) cp_async4(dst + p * stride, src + base + p);
       }
     }
     cp_async_commit();
@@ -1772,17 +1889,30 @@ cols_bwd_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int u = 0; u < 4; ++u) iu[u] = ti + ti_n * u;
 #pragma unroll
       for (int w = 0; w < 5; ++w) jw[w] = tj + tj_n * w;
-      float s[4][5], gp[4][5];  // from the f32 bias sum and g_den
+      // gp from g_den; s from the f32 bias sum (columns) or from 0, the
+      // biases added after the dot (rows: the forward's and the plain
+      // version's order, which holds the parity core's cancelling RPE norms)
+      float s[4][5], gp[4][5];
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
 #pragma unroll
         for (int w = 0; w < 5; ++w) {
-          s[u][w] = qb_s[iu[u]] + kb_s[jw[w]];
+          if constexpr (ROWS)
+            s[u][w] = 0.f;
+          else
+            s[u][w] = qb_s[iu[u]] + kb_s[jw[w]];
           gp[u][w] = gd_s[iu[u]];
         }
       }
       pair_dots<D, SQ>(s, q_s, k_s, iu, jw);
       pair_dots<DV, SV>(gp, g_s, v_s, iu, jw);
+      if constexpr (ROWS) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+#pragma unroll
+          for (int w = 0; w < 5; ++w) s[u][w] = s[u][w] + qb_s[iu[u]] + kb_s[jw[w]];
+        }
+      }
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
 #pragma unroll
@@ -1833,18 +1963,27 @@ cols_bwd_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
           for (int c = 0; c < kCC; ++c) acc[m][c] -= sum[p0 + m] * own[(p0 + m) * SQ + e0 + c];
         }
       }
-      float* out = (kind == 0 ? dq : kind == 1 ? dk : dv) + (r * width + e0) * nn + base + p0;
+      if constexpr (ROWS) {
+        // each point's kCC columns: 24 contiguous bytes of its row
+        float* out = (kind == 0 ? dq : kind == 1 ? dk : dv) + (base + p0) * width + e0;
 #pragma unroll
-      for (int c = 0; c < kCC; ++c) {
-        if (e0 + c >= width) continue;
-        if (bs % 4 == 0) {
-          if (p0 < bs)
-            *reinterpret_cast<float4*>(out + c * nn) =
-                make_float4(acc[0][c], acc[1][c], acc[2][c], acc[3][c]);
-        } else {
+        for (int m = 0; m < kCM; ++m) {
+          if (p0 + m < bs) store_cols<kCC>(out + m * width, acc[m], width - e0, vec && width % 2 == 0);
+        }
+      } else {
+        float* out = (kind == 0 ? dq : kind == 1 ? dk : dv) + (r * width + e0) * nn + base + p0;
 #pragma unroll
-          for (int m = 0; m < kCM; ++m) {
-            if (p0 + m < bs) out[c * nn + m] = acc[m][c];
+        for (int c = 0; c < kCC; ++c) {
+          if (e0 + c >= width) continue;
+          if (bs % 4 == 0) {
+            if (p0 < bs)
+              *reinterpret_cast<float4*>(out + c * nn) =
+                  make_float4(acc[0][c], acc[1][c], acc[2][c], acc[3][c]);
+          } else {
+#pragma unroll
+            for (int m = 0; m < kCM; ++m) {
+              if (p0 + m < bs) out[c * nn + m] = acc[m][c];
+            }
           }
         }
       }
@@ -1853,13 +1992,14 @@ cols_bwd_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// one CTA an SM, each walking its share of the r * nb items
-template <int D, int DV>
+// one CTA an SM, each walking its share of the r * nb items; ROWS: the row
+// layout (K10), r = 1; vec: every pointer 16-byte aligned
+template <int D, int DV, bool ROWS = false>
 int launch_cols_bwd_tiled(const void* q, const void* k, const void* v, const float* gso,
                           const float* gden, void* dq, void* dk, void* dv, int r, int n, int bs,
-                          cudaStream_t stream) {
+                          cudaStream_t stream, bool vec = false) {
   const size_t smem = TiledDims<D, DV>::smem(bs);
-  cudaError_t err = cudaFuncSetAttribute(cols_bwd_tiled_kernel<D, DV>,
+  cudaError_t err = cudaFuncSetAttribute(cols_bwd_tiled_kernel<D, DV, ROWS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   int device, sms;
@@ -1867,9 +2007,9 @@ int launch_cols_bwd_tiled(const void* q, const void* k, const void* v, const flo
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
     return (int)err;
   const int items = r * (n / bs);
-  cols_bwd_tiled_kernel<D, DV><<<std::min(items, sms), kTiledThreads, smem, stream>>>(
+  cols_bwd_tiled_kernel<D, DV, ROWS><<<std::min(items, sms), kTiledThreads, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, gso, gden, (float*)dq, (float*)dk,
-      (float*)dv, n, bs, items);
+      (float*)dv, n, bs, items, vec);
   return (int)cudaGetLastError();
 }
 
@@ -1885,8 +2025,8 @@ int launch_cols_bwd_f32(const void* q, const void* k, const void* v, const float
 
 // ---------------------------------------------------------------------------
 // K6 in f32 on FP32 FMAs, register-tiled: the route of f32 K6 at bs <= 100
-// with bs % 4 == 0 (the parity profile); other bucket sizes and K10's row
-// layout keep cols_fwd_kernel above.
+// with bs % 4 == 0 (the parity profile), and with ROWS of K10's forward
+// there; other bucket sizes keep cols_fwd_kernel above.
 //
 // What held cols_fwd_kernel back (0.78 ms at the parity shape against a
 // 0.232 ms FP32 bound): one query a thread and one key a step, so each
@@ -1922,11 +2062,11 @@ struct TiledFwdDims {
   static size_t smem(int g, int bs) { return (size_t)g * bs * (SK + SV + 1) * 4; }
 };
 
-template <int D, int DV>
+template <int D, int DV, bool ROWS>
 __global__ void __launch_bounds__(round_up(kFwdGroup * kFwdTileMaxBs / kFwdQueries, 32))
 cols_fwd_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ denom,
-                      float* __restrict__ so, int n, int bs) {
+                      float* __restrict__ so, int n, int bs, bool vec) {
   using Fm = TiledFwdDims<D, DV>;
   constexpr int DP = Fm::DP, DVP = Fm::DVP, SK = Fm::SK, SV = Fm::SV;
   constexpr int QT = kFwdQueries, KT = kFwdKeys;
@@ -1937,13 +2077,28 @@ cols_fwd_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* v_s = k_s + kFwdGroup * bs * SK;             // [g*bs][SV]
   float* kb_s = v_s + kFwdGroup * bs * SV;            // [g*bs] -|k|^2/2
   const size_t nn = n, r = blockIdx.y, base = (size_t)b0 * bs;
-  // a thread a point, its row's loads all in flight; padding columns zero
-  for (int p = threadIdx.x; p < span; p += blockDim.x) {
+  if constexpr (ROWS) {
+    // the CTA's points are one run of rows, every copy in flight at once;
+    // padding columns zero
+    copy_rows_async<D, SK>(k + base * D, span, k_s, vec);
+    copy_rows_async<DV, SV>(v + base * DV, span, v_s, vec);
+    cp_async_commit();
+    for (int p = threadIdx.x; p < span; p += blockDim.x) {
 #pragma unroll
-    for (int e = 0; e < DP; ++e) k_s[p * SK + e] = e < D ? __ldg(k + (r * D + e) * nn + base + p) : 0.f;
+      for (int e = D; e < DP; ++e) k_s[p * SK + e] = 0.f;
 #pragma unroll
-    for (int e = 0; e < DVP; ++e)
-      v_s[p * SV + e] = e < DV ? __ldg(v + (r * DV + e) * nn + base + p) : 0.f;
+      for (int e = DV; e < DVP; ++e) v_s[p * SV + e] = 0.f;
+    }
+    asm volatile("cp.async.wait_group 0;\n" ::);
+  } else {
+    // a thread a point, its row's loads all in flight; padding columns zero
+    for (int p = threadIdx.x; p < span; p += blockDim.x) {
+#pragma unroll
+      for (int e = 0; e < DP; ++e) k_s[p * SK + e] = e < D ? __ldg(k + (r * D + e) * nn + base + p) : 0.f;
+#pragma unroll
+      for (int e = 0; e < DVP; ++e)
+        v_s[p * SV + e] = e < DV ? __ldg(v + (r * DV + e) * nn + base + p) : 0.f;
+    }
   }
   __syncthreads();
   for (int j = threadIdx.x; j < span; j += blockDim.x) kb_s[j] = half_sq<D>(k_s + j * SK);
@@ -1955,9 +2110,10 @@ cols_fwd_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int m = 0; m < QT; ++m) {
     const size_t col = base + cb + i0 + m * tpb;
     float a = 0.f;
+    if constexpr (ROWS) load_row<D, DP>(q + col * D, qi[m], vec);
 #pragma unroll
     for (int e = 0; e < DP; ++e) {
-      qi[m][e] = e < D ? __ldg(q + (r * D + e) * nn + col) : 0.f;
+      if constexpr (!ROWS) qi[m][e] = e < D ? __ldg(q + (r * D + e) * nn + col) : 0.f;
       a = fmaf(qi[m][e], qi[m][e], a);
     }
     qb[m] = -0.5f * a;
@@ -2005,23 +2161,28 @@ cols_fwd_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int m = 0; m < QT; ++m) {
     const size_t col = base + cb + i0 + m * tpb;
     denom[r * nn + col] = den[m] + kDenomEps;
+    if constexpr (ROWS) {
+      store_row<DV, DVP>(so + col * DV, acc[m], vec);
+    } else {
 #pragma unroll
-    for (int e = 0; e < DV; ++e) so[(r * DV + e) * nn + col] = acc[m][e];
+      for (int e = 0; e < DV; ++e) so[(r * DV + e) * nn + col] = acc[m][e];
+    }
   }
 }
 
-template <int D, int DV>
+// ROWS: the row layout (K10), r = 1; vec: every pointer 16-byte aligned
+template <int D, int DV, bool ROWS = false>
 int launch_cols_fwd_tiled(const void* q, const void* k, const void* v, float* denom, float* so,
-                          int r, int n, int bs, cudaStream_t stream) {
+                          int r, int n, int bs, cudaStream_t stream, bool vec = false) {
   const size_t smem = TiledFwdDims<D, DV>::smem(kFwdGroup, bs);
   if (bs > kFwdTileMaxBs || bs % kFwdKeys != 0) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(cols_fwd_tiled_kernel<D, DV>,
+  cudaError_t err = cudaFuncSetAttribute(cols_fwd_tiled_kernel<D, DV, ROWS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int nb = n / bs, threads = round_up(kFwdGroup * bs / kFwdQueries, 32);
   dim3 grid((nb + kFwdGroup - 1) / kFwdGroup, r);
-  cols_fwd_tiled_kernel<D, DV><<<grid, threads, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, denom, so, n, bs);
+  cols_fwd_tiled_kernel<D, DV, ROWS><<<grid, threads, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, denom, so, n, bs, vec);
   return (int)cudaGetLastError();
 }
 
@@ -2032,6 +2193,33 @@ int launch_cols_fwd_f32(const void* q, const void* k, const void* v, float* deno
   if (bs <= kFwdTileMaxBs && bs % kFwdKeys == 0)
     return launch_cols_fwd_tiled<D, DV>(q, k, v, denom, so, r, n, bs, stream);
   return launch_cols_fwd<D, DV, false, false>(q, k, v, denom, so, r, n, bs, stream);
+}
+
+// K10 on the route the wrapper picked (ops/bucket_attn_cuda.py
+// rows_fwd_route / rows_bwd_route): tiled, the register-tiled kernels above
+// on the row layout; else the first-cut column kernels on it, any bs
+inline bool aligned16(std::initializer_list<const void*> ptrs) {
+  uintptr_t any = 0;
+  for (const void* p : ptrs) any |= (uintptr_t)p;
+  return any % 16 == 0;
+}
+
+template <int D, int DV>
+int launch_rows_fwd(const void* q, const void* k, const void* v, float* denom, float* so, int n,
+                    int bs, bool tiled, cudaStream_t s) {
+  if (!tiled) return launch_cols_fwd<D, DV, false, false, true>(q, k, v, denom, so, 1, n, bs, s);
+  return launch_cols_fwd_tiled<D, DV, true>(q, k, v, denom, so, 1, n, bs, s,
+                                            aligned16({q, k, v, so}));
+}
+
+template <int D, int DV>
+int launch_rows_bwd(const void* q, const void* k, const void* v, const float* gso,
+                    const float* gden, void* dq, void* dk, void* dv, int n, int bs, bool tiled,
+                    cudaStream_t s) {
+  if (!tiled) return launch_cols_bwd<D, DV, false, true>(q, k, v, gso, gden, dq, dk, dv, 1, n, bs, s);
+  if (bs > kTiledMaxBs || TiledDims<D, DV>::smem(bs) > kMaxSmem) return (int)cudaErrorInvalidValue;
+  return launch_cols_bwd_tiled<D, DV, true>(q, k, v, gso, gden, dq, dk, dv, 1, n, bs, s,
+                                            aligned16({q, k, v, gso, dq, dk, dv}));
 }
 
 }  // namespace
@@ -2164,14 +2352,15 @@ extern "C" int hept_cols_bwd(const void* q, const void* k, const void* v, const 
   return (int)cudaErrorInvalidValue;
 }
 
-// K10: the row layout, f32. q, k (n, d), v (n, dv) rows, n = g * bs.
+// K10: the row layout, f32. q, k (n, d), v (n, dv) rows, n = g * bs;
+// tiled = 1 the register-tiled kernels (forward bs % 4 == 0 up to 100,
+// backward up to 100), else the first-cut ones.
 extern "C" int hept_rows_fwd(const void* q, const void* k, const void* v, float* denom, float* so,
-                             int d, int dv, int n, int bs, void* stream) {
+                             int d, int dv, int n, int bs, int tiled, void* stream) {
   if (bs <= 0 || n % bs != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
 #define HEPT_ROWS_FWD_CASE(D_, DV_) \
-  if (d == D_ && dv == DV_)         \
-    return launch_cols_fwd<D_, DV_, false, false, true>(q, k, v, denom, so, 1, n, bs, s);
+  if (d == D_ && dv == DV_) return launch_rows_fwd<D_, DV_>(q, k, v, denom, so, n, bs, tiled, s);
   HEPT_DIMS(HEPT_ROWS_FWD_CASE)
 #undef HEPT_ROWS_FWD_CASE
   return (int)cudaErrorInvalidValue;
@@ -2179,12 +2368,12 @@ extern "C" int hept_rows_fwd(const void* q, const void* k, const void* v, float*
 
 extern "C" int hept_rows_bwd(const void* q, const void* k, const void* v, const float* gso,
                              const float* gden, void* dq, void* dk, void* dv_out, int d, int dv,
-                             int n, int bs, void* stream) {
+                             int n, int bs, int tiled, void* stream) {
   if (bs <= 0 || n % bs != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-#define HEPT_ROWS_BWD_CASE(D_, DV_) \
-  if (d == D_ && dv == DV_)         \
-    return launch_cols_bwd<D_, DV_, false, true>(q, k, v, gso, gden, dq, dk, dv_out, 1, n, bs, s);
+#define HEPT_ROWS_BWD_CASE(D_, DV_)                                                      \
+  if (d == D_ && dv == DV_)                                                              \
+    return launch_rows_bwd<D_, DV_>(q, k, v, gso, gden, dq, dk, dv_out, n, bs, tiled, s);
   HEPT_DIMS(HEPT_ROWS_BWD_CASE)
 #undef HEPT_ROWS_BWD_CASE
   return (int)cudaErrorInvalidValue;

@@ -14,6 +14,15 @@
 // matmul against a 256-row window; here it is a direct indexed copy, exact
 // in f32, with no window restriction (the permissive semantics of the plain
 // path). An index outside [0, n) yields NaN, as jnp.take's fill mode does.
+// A row is nvec vectors of V floats, V the widest of 4, 2, 1 that d and the
+// base pointers of emb and out allow (d = 12 aligned: three float4s). A
+// block is (nvec, rows) threads: thread (c, y) copies vector c of the pairs
+// y, y + rows, y + 2 rows, y + 3 rows of the block's span, each index read
+// once and the four rows' loads in flight before their stores, so the
+// threads of a warp write neighbouring vectors of out, with no division.
+// At d = 1 a thread takes four neighbouring pairs: one 16-byte index load,
+// four loads of emb, one 16-byte store (where idx and out are 16-byte
+// aligned; else the (1, 256) blocks above).
 //
 // K4: out[i, :] = sum_{e: idx[e] = i} vals[e, :], for any index. It takes a
 // CSR of the index: `order` (E,) int32, the pairs in stable anchor order,
@@ -32,27 +41,23 @@
 // nothing.
 //
 // What bounds them on the H100: both move bytes and do next to no
-// arithmetic. K4 with its CSR moves E*(4d + 4) + n*(4d + 4) bytes (each
-// value row and order entry once, each output row and row pointer once):
-// ~57 MB for E ~ 1.1M pairs at d = 12, 0.017 ms at 3.35 TB/s. At d = 1 it
-// moves ~9 MB (0.003 ms) and is bound by latency (two dependent loads per
-// lane, order then value), not by bytes.
+// arithmetic. K3 moves E*(4d + 4) + n*4d bytes (each index and output row
+// once; emb, 2.9 MB at n ~ 60k and d = 12, stays in the L2 cache): ~57 MB
+// for E ~ 1.1M pairs at d = 12, 0.018 ms at 3.35 TB/s; ~9 MB at d = 1
+// (0.003 ms), where the two dependent loads of a pair (index, then row)
+// bound it as much as the bytes. K4 with its CSR moves E*(4d + 4) +
+// n*(4d + 4) bytes (each value row and order entry once, each output row
+// and row pointer once): ~57 MB at d = 12, 0.017 ms. At d = 1 it moves
+// ~9 MB (0.003 ms) and is bound by latency (two dependent loads per lane,
+// order then value), not by bytes.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
 constexpr int kThreads = 256;
-
-__global__ void gather_kernel(const float* __restrict__ emb, const int32_t* __restrict__ idx,
-                              float* __restrict__ out, int n, int d, long long total) {
-  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (t >= total) return;
-  const long long e = t / d;
-  const int f = (int)(t - e * d);
-  const int i = idx[e];
-  out[t] = (i >= 0 && i < n) ? emb[(long long)i * d + f] : __int_as_float(0x7fc00000);
-}
 
 template <int V>
 struct Vec;
@@ -61,12 +66,14 @@ struct Vec<1> {
   using T = float;
   static __device__ void add(float* a, float v) { a[0] += v; }
   static __device__ float make(const float* a) { return a[0]; }
+  static __device__ float nan() { return __int_as_float(0x7fc00000); }
 };
 template <>
 struct Vec<2> {
   using T = float2;
   static __device__ void add(float* a, float2 v) { a[0] += v.x; a[1] += v.y; }
   static __device__ float2 make(const float* a) { return make_float2(a[0], a[1]); }
+  static __device__ float2 nan() { return make_float2(Vec<1>::nan(), Vec<1>::nan()); }
 };
 template <>
 struct Vec<4> {
@@ -75,7 +82,81 @@ struct Vec<4> {
     a[0] += v.x; a[1] += v.y; a[2] += v.z; a[3] += v.w;
   }
   static __device__ float4 make(const float* a) { return make_float4(a[0], a[1], a[2], a[3]); }
+  static __device__ float4 nan() {
+    const float x = Vec<1>::nan();
+    return make_float4(x, x, x, x);
+  }
 };
+
+// K3: the pairs a thread copies (the block's span is rows * kGatherPairs)
+constexpr int kGatherPairs = 4;
+
+template <int V>
+__global__ void __launch_bounds__(kThreads) gather_kernel(const float* __restrict__ emb,
+                                                          const int32_t* __restrict__ idx,
+                                                          float* __restrict__ out, int n,
+                                                          int nvec, int e) {
+  using T = typename Vec<V>::T;
+  const int rows = blockDim.y;
+  const int p0 = blockIdx.x * rows * kGatherPairs + threadIdx.y;
+  int src[kGatherPairs];
+#pragma unroll
+  for (int u = 0; u < kGatherPairs; ++u) {
+    const int p = p0 + u * rows;
+    src[u] = p < e ? __ldg(idx + p) : 0;
+  }
+  const T* rows_in = reinterpret_cast<const T*>(emb);
+  T* rows_out = reinterpret_cast<T*>(out);
+  for (int c = threadIdx.x; c < nvec; c += blockDim.x) {
+    T val[kGatherPairs];
+#pragma unroll
+    for (int u = 0; u < kGatherPairs; ++u)
+      val[u] = (unsigned)src[u] < (unsigned)n ? __ldg(rows_in + (size_t)src[u] * nvec + c)
+                                              : Vec<V>::nan();
+#pragma unroll
+    for (int u = 0; u < kGatherPairs; ++u) {
+      const int p = p0 + u * rows;
+      if (p < e) rows_out[(size_t)p * nvec + c] = val[u];
+    }
+  }
+}
+
+// K3 at d = 1: four neighbouring pairs a thread (idx and out 16-byte
+// aligned); the e % 4 last pairs go to the next threads, one each
+__global__ void __launch_bounds__(kThreads) gather1_kernel(const float* __restrict__ emb,
+                                                           const int32_t* __restrict__ idx,
+                                                           float* __restrict__ out, int n, int e) {
+  const int t = blockIdx.x * kThreads + threadIdx.x, quads = e / 4;
+  auto row = [&](int i) { return (unsigned)i < (unsigned)n ? __ldg(emb + i) : Vec<1>::nan(); };
+  if (t < quads) {
+    const int4 i = __ldg(reinterpret_cast<const int4*>(idx) + t);
+    reinterpret_cast<float4*>(out)[t] = make_float4(row(i.x), row(i.y), row(i.z), row(i.w));
+  } else if (t - quads < e % 4) {
+    const int p = 4 * quads + t - quads;
+    out[p] = row(__ldg(idx + p));
+  }
+}
+
+// one launch of K3 over e < 2^30 pairs
+int launch_gather(const float* emb, const int32_t* idx, float* out, int n, int d, int e,
+                  cudaStream_t st) {
+  const uintptr_t base = (uintptr_t)emb | (uintptr_t)out;
+  if (d == 1 && ((uintptr_t)idx | (uintptr_t)out) % 16 == 0) {
+    const int threads = e / 4 + e % 4;
+    gather1_kernel<<<(threads + kThreads - 1) / kThreads, kThreads, 0, st>>>(emb, idx, out, n, e);
+    return (int)cudaGetLastError();
+  }
+  const int v = d % 4 == 0 && base % 16 == 0 ? 4 : d % 2 == 0 && base % 8 == 0 ? 2 : 1;
+  const int nvec = d / v, x = std::min(nvec, kThreads), rows = kThreads / x;
+  const dim3 block(x, rows), grid((e + rows * kGatherPairs - 1) / (rows * kGatherPairs));
+  if (v == 4)
+    gather_kernel<4><<<grid, block, 0, st>>>(emb, idx, out, n, nvec, e);
+  else if (v == 2)
+    gather_kernel<2><<<grid, block, 0, st>>>(emb, idx, out, n, nvec, e);
+  else
+    gather_kernel<1><<<grid, block, 0, st>>>(emb, idx, out, n, nvec, e);
+  return (int)cudaGetLastError();
+}
 
 // One group of kLanes lanes per anchor row; V floats per vector, C vectors
 // per pass over the row's features (d = V * nvec, passes of C vectors; EXACT:
@@ -155,14 +236,19 @@ int launch_segment_sum(const float* vals, const int32_t* order, const int32_t* r
 
 }  // namespace
 
+// out (E, d) = emb rows at idx, NaN out of range. Returns the CUDA error
+// code of the launch.
 extern "C" int hept_pair_gather(const float* emb, const int32_t* idx, float* out, int n, int d,
                                 long long e, void* stream) {
-  const long long total = e * d;
-  if (total == 0) return 0;
-  const long long blocks = (total + kThreads - 1) / kThreads;
-  gather_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(emb, idx, out, n, d,
-                                                                          total);
-  return (int)cudaGetLastError();
+  if (e == 0 || d == 0) return 0;
+  if (d < 0 || n < 0 || e < 0) return (int)cudaErrorInvalidValue;
+  constexpr long long kSpan = 1LL << 30;  // pairs a launch: int indices inside
+  for (long long e0 = 0; e0 < e; e0 += kSpan) {
+    const int err = launch_gather(emb, idx + e0, out + e0 * d, n, d, (int)std::min(kSpan, e - e0),
+                                  (cudaStream_t)stream);
+    if (err) return err;
+  }
+  return 0;
 }
 
 // out (n, d) = the CSR segment sums of vals (E, d). Returns the CUDA error

@@ -19,7 +19,9 @@ cores and everything else on scalar FMAs (`bucket_attn_route`); K6 on bf16
 and K7 v2 run at block sizes that are multiples of 4 on the same tensor-core
 scheme, with buckets padded to 16 points, and f32 K6 and K7 v1 on FP32 FMAs
 (`cols_fwd_route`, `cols_bwd_route`); each route with its own launch
-counters.
+counters. K10 runs f32 K6's and K7 v1's register-tiled kernels on the row
+layout up to bs 100 and the first-cut ones otherwise (`rows_fwd_route`,
+`rows_bwd_route`; one counter each way).
 
 The plain forward is `bucket_rbf_attention_cols_xla`'s einsum math (K6 in
 `pallas` mode on bf16 adds the bias terms as hi/lo bf16 pairs instead); the
@@ -454,6 +456,42 @@ def rows_bwd_plain(sq, sk, sv, g_denom, g_so):
     return dq, dk, dv
 
 
+# the most points a bucket of K10's tiled kernels holds (kFwdTileMaxBs,
+# kTiledMaxBs in csrc/bucket_attn.cu)
+_ROWS_TILED_MAX_BS = 100
+
+
+def _tiled_bwd_smem(block_size: int, d: int, dv: int) -> int:
+    """Shared bytes of the tiled backward's CTA (TiledDims::smem): dl, its
+    transpose and pt [bp][sl], two staging buffers of q, k, g_so, v, g_den,
+    four [bp] vectors; bp the bucket padded to a multiple of 20, sl >= bp at
+    4 words modulo 32, rows of q / k (g_so / v) padded to 4 floats + 4."""
+    bp = -(-block_size // 20) * 20
+    sl = bp + (36 - bp % 32) % 32
+    sq, sv = -(-d // 4) * 4 + 4, -(-dv // 4) * 4 + 4
+    return (3 * bp * sl + 2 * bp * (2 * sq + 2 * sv + 1) + 4 * bp) * 4
+
+
+def rows_fwd_route(block_size: int) -> str:
+    """K10 forward's route, fixed by the bucket size before launch: "tiled"
+    (K6 f32's register-tiled kernel on the row layout: two queries x four
+    keys a thread) at block_size % 4 == 0 up to 100, the parity width's
+    buckets; "first_cut" (the first-cut column kernel on rows) otherwise."""
+    if block_size % 4 == 0 and block_size <= _ROWS_TILED_MAX_BS:
+        return "tiled"
+    return "first_cut"
+
+
+def rows_bwd_route(block_size: int, d: int, dv: int) -> str:
+    """K10 backward's route, fixed by bucket size and widths before launch:
+    "tiled" (K7 v1's persistent one-pass kernel on the row layout) up to
+    block_size 100 where its CTA's shared memory fits; "first_cut" (the
+    two-half column kernel on rows) otherwise."""
+    if block_size <= _ROWS_TILED_MAX_BS and _tiled_bwd_smem(block_size, d, dv) <= _SMEM_BYTES:
+        return "tiled"
+    return "first_cut"
+
+
 def _check_rows(sq, sk, sv, *cotangents):
     b, d = sq.shape[-2:]
     dv = sv.shape[-1]
@@ -472,23 +510,25 @@ def _check_rows(sq, sk, sv, *cotangents):
 
 
 def rows_fwd_cuda(sq, sk, sv):
-    """K10 forward on the card: (denom (..., B, 1), so (..., B, Dv)) f32."""
+    """K10 forward on the card, on the route `rows_fwd_route` picks:
+    (denom (..., B, 1), so (..., B, Dv)) f32."""
     g, b, d, dv = _check_rows(sq, sk, sv)
     denom = torch.empty((*sq.shape[:-1], 1), dtype=torch.float32, device=sq.device)
     so = torch.empty(sv.shape, dtype=torch.float32, device=sq.device)
     lib = cuda_lib.load("bucket_attn")
     fn = lib.hept_rows_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     err = fn(sq.data_ptr(), sk.data_ptr(), sv.data_ptr(), denom.data_ptr(), so.data_ptr(),
-             d, dv, g * b, b, cuda_lib.stream_ptr(sq.device))
+             d, dv, g * b, b, int(rows_fwd_route(b) == "tiled"), cuda_lib.stream_ptr(sq.device))
     cuda_lib.check(err, lib, "hept_bucket_attn_error_string", "rows_fwd")
     LAUNCHES["rows_fwd"] += 1
     return denom, so
 
 
 def rows_bwd_cuda(sq, sk, sv, g_denom, g_so):
-    """K10 backward on the card: (dq, dk, dv) f32."""
+    """K10 backward on the card, on the route `rows_bwd_route` picks: (dq,
+    dk, dv) f32."""
     g, b, d, dv = _check_rows(sq, sk, sv, g_denom, g_so)
     if g_denom.shape != (*sq.shape[:-1], 1) or g_so.shape != sv.shape:
         raise ValueError(f"cotangents {tuple(g_denom.shape)} {tuple(g_so.shape)}")
@@ -496,9 +536,10 @@ def rows_bwd_cuda(sq, sk, sv, g_denom, g_so):
     lib = cuda_lib.load("bucket_attn")
     fn = lib.hept_rows_bwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     err = fn(sq.data_ptr(), sk.data_ptr(), sv.data_ptr(), g_so.data_ptr(), g_denom.data_ptr(),
-             *(t.data_ptr() for t in outs), d, dv, g * b, b, cuda_lib.stream_ptr(sq.device))
+             *(t.data_ptr() for t in outs), d, dv, g * b, b,
+             int(rows_bwd_route(b, d, dv) == "tiled"), cuda_lib.stream_ptr(sq.device))
     cuda_lib.check(err, lib, "hept_bucket_attn_error_string", "rows_bwd")
     LAUNCHES["rows_bwd"] += 1
     return outs

@@ -27,8 +27,9 @@ import torch
 from . import cuda_lib
 from .dispatch import use_kernel
 
-# launches of each kernel since the last reset (plain integer counters)
-LAUNCHES = {"pair_gather": 0, "pair_segment_sum": 0}
+# launches of each kernel since the last reset (plain integer counters);
+# "pair_gather_d1": those of K3's launches at d = 1 (also in "pair_gather")
+LAUNCHES = {"pair_gather": 0, "pair_gather_d1": 0, "pair_segment_sum": 0}
 # CSRs built by `anchor_csr` since the last reset (PyTorch's sort, no kernel
 # of csrc/)
 CSR_BUILDS = {"anchor_csr": 0}
@@ -91,6 +92,7 @@ def gather_rows_cuda(emb: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
              cuda_lib.stream_ptr(emb.device))
     cuda_lib.check(err, lib, "hept_pair_error_string", "pair_gather")
     LAUNCHES["pair_gather"] += 1
+    LAUNCHES["pair_gather_d1"] += int(d == 1)
     return out
 
 

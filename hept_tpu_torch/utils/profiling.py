@@ -34,13 +34,29 @@ from .device import resolve_device
 
 # kernels of csrc/*.cu (all in an anonymous namespace) as the profiler names them
 PORT_KERNELS = {"tc_fwd_kernel": "K1", "tc_bwd_kernel": "K2", "fwd_kernel": "K1",
-                "bwd_kernel": "K2", "gather_kernel": "K3",
+                "bwd_kernel": "K2", "gather_kernel": "K3", "gather1_kernel": "K3",
                 "segment_sum_kernel": "K4", "row_gather_kernel": "K5",
                 "row_gather_staged_kernel": "K5", "cols_fwd_kernel": "K6",
                 "tc_cols_fwd_kernel": "K6", "cols_fwd_tiled_kernel": "K6",
                 "cols_bwd_kernel": "K7", "tc_cols_bwd_kernel": "K7",
                 "cols_bwd_tiled_kernel": "K7"}
-_PORT_KERNEL_RE = re.compile(r"anonymous namespace\)::(" + "|".join(PORT_KERNELS) + r")\b")
+_PORT_KERNEL_RE = re.compile(r"anonymous namespace\)::(" + "|".join(PORT_KERNELS)
+                             + r")\b(?:<([^>]*)>)?")
+# the column kernels that K10 instantiates on the row layout: there their
+# last template argument (ROWS) is true
+_ROW_LAYOUT_KERNELS = ("cols_fwd_kernel", "cols_bwd_kernel", "cols_fwd_tiled_kernel",
+                       "cols_bwd_tiled_kernel")
+
+
+def port_kernel(name: str) -> str | None:
+    """The TPU kernel (K1-K10) that a device kernel of csrc/ stands for, by
+    the profiler's name; None for any other kernel."""
+    m = _PORT_KERNEL_RE.search(name)
+    if m is None:
+        return None
+    if m.group(1) in _ROW_LAYOUT_KERNELS and (m.group(2) or "").split(",")[-1].strip() == "true":
+        return "K10"
+    return PORT_KERNELS[m.group(1)]
 
 
 def main(argv=None) -> dict:
@@ -93,9 +109,8 @@ def main(argv=None) -> dict:
     busy_ms = sum(kernel_us.values()) / 1e3 / args.steps
     ours, sort_ms = {}, 0.0
     for name, us in kernel_us.items():
-        m = _PORT_KERNEL_RE.search(name)
-        if m:
-            kid = PORT_KERNELS[m.group(1)]
+        kid = port_kernel(name)
+        if kid:
             ours[kid] = ours.get(kid, 0.0) + us / 1e3 / args.steps
         elif "sort" in name.lower():  # torch.sort / argsort's radix-sort passes
             sort_ms += us / 1e3 / args.steps

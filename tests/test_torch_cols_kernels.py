@@ -224,15 +224,31 @@ def test_cols_fwd_route_table(dt, bs, want):
     ("void (anonymous namespace)::cols_fwd_tiled_kernel<30, 24, 5>(float const*, int)", "K6"),
     ("void (anonymous namespace)::cols_fwd_kernel<30, 24, true, false, false>(int)", "K6"),
     ("void at::native::elementwise_kernel<128, 4>(int, float)", None),
+    # K10: the column kernels instantiated on the row layout (ROWS, the last
+    # template argument, true)
+    ("void (anonymous namespace)::cols_fwd_tiled_kernel<30, 24, true>(float const*, int, bool)",
+     "K10"),
+    ("void (anonymous namespace)::cols_fwd_tiled_kernel<30, 24, false>(float const*, int, bool)",
+     "K6"),
+    ("void (anonymous namespace)::cols_bwd_tiled_kernel<30, 24, true>(float const*, int, bool)",
+     "K10"),
+    ("void (anonymous namespace)::cols_bwd_tiled_kernel<7, 5, false>(float const*, int, bool)",
+     "K7"),
+    ("void (anonymous namespace)::cols_fwd_kernel<30, 24, false, false, true>(float const*)",
+     "K10"),
+    ("void (anonymous namespace)::cols_bwd_kernel<7, 5, false, true>(float const*, int)", "K10"),
+    ("void (anonymous namespace)::gather_kernel<4>(float const*, int const*, float*, int)", "K3"),
+    ("void (anonymous namespace)::gather1_kernel(float const*, int const*, float*, int)", "K3"),
+    ("void (anonymous namespace)::row_gather_kernel<16>(void const*, long const*)", "K5"),
 ])
 def test_profiler_maps_kernel_names(name, want):
     """utils/profiling.py books each kernel's device time to its TPU kernel
     by the profiler's name: K6's and K7's tensor-core and tiled kernels count
-    as K6 and K7, tc_fwd_kernel as K1 and tc_bwd_kernel as K2 only."""
-    from hept_tpu_torch.utils.profiling import _PORT_KERNEL_RE, PORT_KERNELS
+    as K6 and K7, tc_fwd_kernel as K1 and tc_bwd_kernel as K2 only, the
+    column kernels on the row layout as K10, both gather kernels as K3."""
+    from hept_tpu_torch.utils.profiling import port_kernel
 
-    m = _PORT_KERNEL_RE.search(name)
-    assert (PORT_KERNELS[m.group(1)] if m else None) == want
+    assert port_kernel(name) == want
 
 
 @pytest.mark.parametrize("mode", ["xla"])

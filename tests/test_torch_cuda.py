@@ -1,5 +1,6 @@
 """The CUDA kernels (K1-K7, K10, K12) against their plain versions, on the card
-(K1/K2, K6 and K7 on both routes, tensor cores and scalar).
+(K1/K2, K6 and K7 on both routes, tensor cores and scalar; K10 on both of
+its routes, tiled and first cut).
 
 Marked `cuda`: each test skips (inside the fixture, never at import) when no
 CUDA device is present, which is the case on CPU-only hosts. On a GPU
@@ -324,6 +325,34 @@ def test_k3_k4_match_plain(dev, layout, d):
     assert torch.equal(own, got) and torch.equal(po.segment_sum_cuda(vals, idx, n, csr), got)
 
 
+@pytest.mark.parametrize("base", ["aligned", "emb at +4 bytes", "idx at +4 bytes"])
+@pytest.mark.parametrize("d", [1, 2, 3, 7, 12, 24])
+def test_k3_exact_at_each_width_and_alignment(dev, d, base):
+    """K3 copies rows bit for bit on each vector path (float4 / float2 /
+    scalar rows, d = 1's four pairs a thread), with emb or idx 4 bytes into
+    a larger buffer, E not a multiple of 4, and NaN rows where the index is
+    outside [0, n); a d = 1 launch counts on its own counter too."""
+    rng = np.random.default_rng(d)
+    n, e = 777, 10001
+    raw = rng.integers(0, n, e).astype(np.int32)
+    raw[::13], raw[5::17], raw[7::19] = n, -1, 2**31 - 1
+    flat_emb = torch.tensor(rng.normal(size=n * d + 1), dtype=torch.float32, device=dev)
+    flat_idx = torch.tensor(np.concatenate([[0], raw]).astype(np.int32), device=dev)
+    emb = (flat_emb[1:] if base == "emb at +4 bytes" else flat_emb[:-1]).view(n, d)
+    idx = flat_idx[1:] if base == "idx at +4 bytes" else flat_idx[1:].clone()
+    assert (emb.data_ptr() % 16 != 0) == (base == "emb at +4 bytes")
+    assert (idx.data_ptr() % 16 != 0) == (base == "idx at +4 bytes")
+    before = dict(po.LAUNCHES)
+    got = po.gather_rows_cuda(emb, idx)
+    assert po.LAUNCHES["pair_gather"] == before["pair_gather"] + 1
+    assert po.LAUNCHES["pair_gather_d1"] == before["pair_gather_d1"] + (d == 1)
+    ok = (idx >= 0) & (idx < n)
+    want = po.gather_rows_plain(emb, idx.clamp(0, n - 1))
+    assert torch.equal(got[ok].view(torch.int32), want[ok].view(torch.int32))
+    assert torch.isnan(got[~ok]).all() and int((~ok).sum()) > 0
+    assert torch.equal(po.gather_rows_cuda(emb, idx).view(torch.int32), got.view(torch.int32))
+
+
 def test_k4_csr_built_once_per_loss(dev):
     """infonce_loss builds one CSR of its anchor index and its three K4 calls
     (forward negative sums, the gather's and the similarity's backward) use
@@ -486,6 +515,48 @@ def test_k10_matches_plain(dev, d, dv, g, bs):
     assert ba.LAUNCHES["rows_bwd"] == before["rows_bwd"] + 1
     with pytest.raises(ValueError):
         ba.rows_fwd_cuda(sq.to(torch.bfloat16), sk.to(torch.bfloat16), sv.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("d,dv,g,bs,offset", [
+    (30, 24, 12, 100, 0),  # the parity core's buckets: both tiled
+    (30, 24, 7, 100, 0),  # a ragged last CTA of the tiled forward
+    (30, 24, 7, 100, 1),  # operands 4 bytes into their buffers: no vector copies
+    (30, 24, 6, 50, 0),  # bs % 4 != 0: forward first cut, backward tiled
+    (30, 24, 3, 300, 0),  # above 100: both first cut
+    (7, 5, 9, 8, 0),  # JAX's bs 8 case: both tiled, scalar rows
+    (7, 5, 5, 100, 1),
+])
+def test_k10_routes_match_plain(dev, d, dv, g, bs, offset):
+    """K10 on each route (`rows_fwd_route`, `rows_bwd_route`) against its
+    plain version (1e-5 x scale forward, 1e-4 x scale backward), the same
+    bits on 4 calls, one launch a call each way; on the tiled forward route
+    the bits of K6 f32 on the transposed operands, (1, d, g * bs) columns
+    (the tiled backward adds the norm biases after the dot, K7 v1 before)."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def rn(*s, scale=1.0):
+        flat = torch.randn(int(np.prod(s)) + offset, generator=gen, device=dev) * scale
+        return flat[offset:].view(s)
+
+    sq, sk = rn(g, bs, d, scale=0.5), rn(g, bs, d, scale=0.5)
+    sv, gden, gso = rn(g, bs, dv), rn(g, bs, 1), rn(g, bs, dv)
+    before = dict(ba.LAUNCHES)
+    fwd = ba.rows_fwd_cuda(sq, sk, sv)
+    bwd = ba.rows_bwd_cuda(sq, sk, sv, gden, gso)
+    assert ba.LAUNCHES["rows_fwd"] == before["rows_fwd"] + 1
+    assert ba.LAUNCHES["rows_bwd"] == before["rows_bwd"] + 1
+    for a, b in zip(fwd, ba.rows_fwd_plain(sq, sk, sv)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * b.abs().max().item())
+    for a, b in zip(bwd, ba.rows_bwd_plain(sq, sk, sv, gden, gso)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * b.abs().max().item())
+    for _ in range(3):
+        assert all(torch.equal(a, b) for a, b in zip(fwd, ba.rows_fwd_cuda(sq, sk, sv)))
+        assert all(torch.equal(a, b)
+                   for a, b in zip(bwd, ba.rows_bwd_cuda(sq, sk, sv, gden, gso)))
+    if ba.rows_fwd_route(bs) == "tiled":
+        cols = [t.reshape(g * bs, -1).t().contiguous()[None] for t in (sq, sk, sv)]
+        want = ba.cols_fwd_cuda(*cols, bs)
+        assert all(torch.equal(a, w[0].t().reshape(a.shape)) for a, w in zip(fwd, want))
 
 
 def test_core_runs_k10_and_k5(dev):

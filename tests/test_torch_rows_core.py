@@ -81,6 +81,32 @@ def test_k10_is_float32_only():
         bucket_rbf_attention_rows(x, x, torch.zeros((2, 8, 5), dtype=torch.bfloat16))
 
 
+@pytest.mark.parametrize("bs,d,dv,want", [
+    (100, 30, 24, ("tiled", "tiled")),  # the parity core: 14400 buckets of 100
+    (96, 30, 24, ("tiled", "tiled")),
+    (12, 30, 24, ("tiled", "tiled")),
+    (8, 7, 5, ("tiled", "tiled")),  # JAX's unpadded bs 8 case
+    (4, 7, 5, ("tiled", "tiled")),
+    (100, 7, 5, ("tiled", "tiled")),
+    (50, 30, 24, ("first_cut", "tiled")),  # bs % 4 != 0: the forward's 4-key steps
+    (99, 30, 24, ("first_cut", "tiled")),
+    (1, 7, 5, ("first_cut", "tiled")),
+    (104, 30, 24, ("first_cut", "first_cut")),  # above the tiled kernels' 100 points
+    (300, 30, 24, ("first_cut", "first_cut")),
+    (512, 7, 5, ("first_cut", "first_cut")),
+])
+def test_k10_route_table(bs, d, dv, want):
+    """K10's routes are fixed before launch by bucket size and widths: K6
+    f32's tiled forward at bs % 4 == 0 up to 100, K7 v1's tiled backward up
+    to 100 (its CTA's shared memory fits every compiled width there, 224,800
+    bytes at bs 100, d 30, dv 24), the first-cut kernels otherwise."""
+    from hept_tpu_torch.ops import bucket_attn_cuda as ba
+
+    assert (ba.rows_fwd_route(bs), ba.rows_bwd_route(bs, d, dv)) == want
+    if bs == 100 and d == 30:
+        assert ba._tiled_bwd_smem(bs, d, dv) == 224_800 <= ba._SMEM_BYTES
+
+
 @pytest.mark.parametrize("pack", [False, True])
 @pytest.mark.parametrize("layout", ["(h, n, d)", "(c, h, n, d)"])
 def test_sort_carry_rows_matches_sort_carry(layout, pack):
