@@ -77,15 +77,18 @@ Phases, one line each (plus per-kernel lines):
  10. `attn_impl: slab` and `hybrid_slab` (the TPU's slab kernels K8/K9, run
      as K6 hi/lo + K7 v1 and K6 + K7 v1): one hept_fast step each, launches
      counted (K6 on the tensor cores), kernels against plain versions;
- 11. K12 (`bitonic_sort_rows`) on 24 rows of 60000 keys with 16 payloads,
-     bit-equal to its plain version, timed against torch.sort.
+ 11. K12 (`bitonic_sort_rows`) on 24 rows of 60000 keys with 16 payloads
+     (the cluster route), launches counted per route, bit-equal to its plain
+     version, timed by CUDA graph replay against torch.sort and the
+     payload gathers; then the bitonic route at 4 rows of 70000 keys.
 Before the last line: one JSON line of per-kernel numbers (K5 once per row
 shape, K3 at d = 1 as K3d1, K4 with its yardsticks as extra keys), and the
 `nvidia-smi` name/power-limit line. `--yardsticks-only [--package-root
 DIR]` builds the kernels of the package in DIR (a parent tree, for an A/B
-in one call), prints K3's, K4's and K5's yardsticks, K2's, K6's, K7's and
-K10's device times with a digest of their output bits as one JSON line and
-stops, without a result line. The last line is
+in one call), prints K3's, K4's and K5's yardsticks, K2's, K6's, K7's,
+K10's and K12's device times with a digest of their output bits (K12 with
+its library yardstick, its bound and its kernels' device times) as one
+JSON line and stops, without a result line. The last line is
 {"ok": true, "device": {...}}. Any failed check raises (exit code != 0).
 Exits with code 2 and prints no result without a CUDA device or without the
 `hept_tpu_torch` package beside this script.
@@ -1340,53 +1343,117 @@ def phase_slab(torch, trainer, batch_np, seed: int, zero_counts, read_counts) ->
     return out
 
 
-def phase_sort(torch, seed: int, zero_counts, read_counts) -> dict:
-    """K12 through `bitonic_sort_rows` on 24 rows of 60000 keys (a +BIG tail
-    and interior ties, -0.0 and +0.0 among them) carrying 15 payloads and
-    the row-position iota, launches counted; bit-equal to its plain version;
-    timed against `torch.sort(stable=True)` plus the payload gathers."""
-    from hept_tpu_torch.ops import sort as srt
-
+def sort_inputs(torch, rows: int, n: int, ops: int, seed: int):
+    """K12's inputs: (rows, n) keys with a +BIG tail and interior ties (-0.0
+    and +0.0 among them), ops - 1 random int32 payloads and the row-position
+    iota (the tie-break)."""
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    rows, n, ops = 24, 60000, 16
     keys = torch.randn((rows, n), generator=gen, device=dev)
-    keys[:, -600:] = 3.0e38
+    keys[:, -min(n, 600):] = 3.0e38
     keys[:, :2000] = torch.round(keys[:, :2000] * 10) / 10
-    keys[:, :4] = torch.tensor([-0.0, 0.0, -0.0, 0.0], device=dev)
+    keys[:, :4] = torch.tensor([-0.0, 0.0, -0.0, 0.0], device=dev)[:n]
     pays = [torch.randint(-2**31, 2**31 - 1, (rows, n), generator=gen, device=dev,
                           dtype=torch.int32) for _ in range(ops - 1)]
     pays.append(torch.arange(n, device=dev, dtype=torch.int32).expand(rows, n).contiguous())
+    return keys, pays
+
+
+def sort_library(torch, keys, pays):
+    """K12's library yardstick: `torch.sort(stable=True)` and one gather per
+    payload (the same function for an iota tie-break)."""
+    idx = torch.sort(keys, dim=-1, stable=True).indices
+    return [p.gather(-1, idx) for p in pays]
+
+
+def kernel_breakdown(torch, fn, calls: int = 5) -> dict:
+    """Device microseconds per call of `fn`, by kernel name (torch.profiler)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us: dict[str, float] = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA and not evt.is_user_annotation:
+            name = evt.name.replace("(anonymous namespace)::", "").split("(")[0][:60]
+            us[name] = us.get(name, 0.0) + evt.time_range.elapsed_us() / calls
+    return us
+
+
+def k12_yardsticks(torch, srt, seed: int) -> dict:
+    """K12 at 24 rows x 60000 keys x 16 payloads through the wrapper every
+    tree has: device time by CUDA graph replay beside the library yardstick
+    and the byte bound, a digest of the output bits, and the device time of
+    each kernel one call launches."""
+    rows, n, ops = 24, 60000, 16
+    keys, pays = sort_inputs(torch, rows, n, ops, seed)
+    fn = lambda: srt.bitonic_sort_rows_cuda(keys, pays)  # noqa: E731
+    out = {"bits": bits_digest(fn()), "device_ms": graph_ms(fn),
+           "library_ms": graph_ms(lambda: sort_library(torch, keys, pays)),
+           "bound_ms": bound_ms(4.0 * rows * n * (1 + 2 * ops), 0.0, F32_FLOP_PER_S)[0],
+           "kernels_us": kernel_breakdown(torch, fn)}
+    del keys, pays
+    torch.cuda.empty_cache()
+    return out
+
+
+def sort_exact(torch, srt, keys, pays, zero_counts, read_counts) -> tuple[str, int]:
+    """One K12 call through `bitonic_sort_rows` with the counters zeroed just
+    before and read just after: one launch on the route `sort_route` picks,
+    none on the other, every payload bit-equal to the plain version.
+    Returns the route and its launches."""
+    route = srt.sort_route(*keys.shape, len(pays))
     torch.cuda.synchronize()
     zero_counts()
     got = srt.bitonic_sort_rows(keys, pays)
     torch.cuda.synchronize()
     launches = read_counts()
-    if launches["bitonic_sort"] != 1:
-        raise AssertionError(f"bitonic_sort_rows launched K12 {launches['bitonic_sort']}x")
+    want_launches = {k: int(k == f"sort_{route}") for k in srt.LAUNCHES}
+    if {k: launches[k] for k in srt.LAUNCHES} != want_launches:
+        raise AssertionError(f"K12 launches {launches}, want {want_launches}")
     want = srt.bitonic_sort_rows_plain(keys, pays)
-    log(f"kernel K12 bitonic_sort_rows ({rows} rows x {n} keys, {ops} payloads; exact):")
     for j, (a, b) in enumerate(zip(got, want)):
         if not torch.equal(a, b):
-            raise AssertionError(f"K12 payload {j}: kernel and plain version differ in "
-                                 f"{int((a != b).sum())} elements")
-    check("K12 all payloads max|d| (bit patterns)",
+            raise AssertionError(f"K12 ({route} route) payload {j}: kernel and plain version "
+                                 f"differ in {int((a != b).sum())} elements")
+    check(f"K12 {route} route, {tuple(keys.shape)} x {len(pays)} payloads, max|d| (bit patterns)",
           max(float((a.long() - b.long()).abs().max()) for a, b in zip(got, want)), 0.0)
-    del got, want
+    return route, launches[f"sort_{route}"]
 
-    def library():
-        idx = torch.sort(keys, dim=-1, stable=True).indices
-        return [p.gather(-1, idx) for p in pays]
 
+def phase_sort(torch, seed: int, zero_counts, read_counts) -> dict:
+    """K12 through `bitonic_sort_rows` on 24 rows of 60000 keys (a +BIG tail
+    and interior ties, -0.0 and +0.0 among them) carrying 15 payloads and
+    the row-position iota (the cluster route), launches counted per route;
+    bit-equal to its plain version; timed by CUDA graph replay against
+    `torch.sort(stable=True)` plus the payload gathers, the plain version by
+    CUDA events. Then the bitonic route once at a shape that takes it (4 rows
+    of 70000 keys, 4 payloads), the same way."""
+    from hept_tpu_torch.ops import sort as srt
+
+    rows, n, ops = 24, 60000, 16
+    keys, pays = sort_inputs(torch, rows, n, ops, seed)
+    log(f"kernel K12 bitonic_sort_rows ({rows} rows x {n} keys, {ops} payloads; exact):")
+    route, launches = sort_exact(torch, srt, keys, pays, zero_counts, read_counts)
     b_ms, b_by = bound_ms(4.0 * rows * n * (1 + 2 * ops), 0.0, F32_FLOP_PER_S)
     row = dict(name="K12 bitonic_sort_rows", route="cuda", source="hept_tpu_torch/csrc/sort.cu",
-               replaces="hept_tpu/ops/sort_pallas.py:158", launches=launches["bitonic_sort"],
-               max_abs_err=0.0, ms=time_ms(lambda: srt.bitonic_sort_rows_cuda(keys, pays), 20),
+               replaces="hept_tpu/ops/sort_pallas.py:158", launches=launches, max_abs_err=0.0,
+               ms=graph_ms(lambda: srt.bitonic_sort_rows_cuda(keys, pays)),
                plain_ms=time_ms(lambda: srt.bitonic_sort_rows_plain(keys, pays), 20),
-               bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(library, 20))
-    log(f"  K12: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
-        f"(torch.sort stable + {ops} gathers) {row['library_ms']:.4f} ms, bound "
-        f"{b_ms:.4f} ms ({b_by})")
+               bound_ms=b_ms, bound_by=b_by,
+               library_ms=graph_ms(lambda: sort_library(torch, keys, pays)), sort_route=route)
+    log(f"  K12 ({route} route): kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+        f"library (torch.sort stable + {ops} gathers) {row['library_ms']:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}) (device ms by graph replay; plain by events)")
+    del keys, pays
+    keys, pays = sort_inputs(torch, 4, 70000, 4, seed + 1)
+    row["other_route"], row["other_route_launches"] = sort_exact(torch, srt, keys, pays,
+                                                                 zero_counts, read_counts)
+    row["other_route_shape"] = "4 x 70000 keys, 4 payloads"
+    del keys, pays
+    torch.cuda.empty_cache()
     return row
 
 
@@ -1486,11 +1553,11 @@ def k10_yardsticks(torch, ba, seed: int) -> dict:
 
 
 def yardsticks_only(torch, args) -> int:
-    """K3 and K4, K5, K2, K6, K7 and K10 of the imported package at the
+    """K3 and K4, K5, K2, K6, K7, K10 and K12 of the imported package at the
     paths' shapes, one JSON line."""
-    from hept_tpu_torch.ops import bucket_attn_cuda, cuda_lib, pair_ops, row_gather
+    from hept_tpu_torch.ops import bucket_attn_cuda, cuda_lib, pair_ops, row_gather, sort
 
-    secs = cuda_lib.build(("pair_ops", "row_gather", "bucket_attn"), force=True)
+    secs = cuda_lib.build(("pair_ops", "row_gather", "bucket_attn", "sort"), force=True)
     smi = nvidia_smi_line()
     root = Path(hept_tpu_torch_root()).resolve()
     log(f"yardsticks of {root}: build {secs:.1f} s; card: {smi}")
@@ -1505,8 +1572,9 @@ def yardsticks_only(torch, args) -> int:
     torch.cuda.empty_cache()
     buckets = bucket_yardsticks(torch, bucket_attn_cuda, 60416, args.seed)
     k10 = k10_yardsticks(torch, bucket_attn_cuda, args.seed)
+    k12 = k12_yardsticks(torch, sort, args.seed)
     log(json.dumps({"package": str(root), "card": smi, "K3": k3, "K4": k4, "K5": k5,
-                    "K2_K6_K7": buckets, "K10": k10}))
+                    "K2_K6_K7": buckets, "K10": k10, "K12": k12}))
     return 0
 
 
@@ -1523,8 +1591,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile-steps", type=int, default=3)
     ap.add_argument("--yardsticks-only", action="store_true",
-                    help="build the kernels, print K2's, K3's, K4's, K5's, K6's, K7's and K10's "
-                         "times at the paths' shapes as one JSON line, and stop (no result line)")
+                    help="build the kernels, print K2's, K3's, K4's, K5's, K6's, K7's, K10's and "
+                         "K12's times at the paths' shapes as one JSON line, and stop (no result "
+                         "line)")
     ap.add_argument("--package-root", default=None,
                     help="import hept_tpu_torch from this directory instead (a parent tree "
                          "for an A/B of the yardsticks)")

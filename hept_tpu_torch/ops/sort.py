@@ -11,6 +11,11 @@ orders the same way signed). Unsigned payloads travel as int32 bit patterns
 (`.view(torch.int32)`), since PyTorch has few uint32 ops. The order is total
 on non-NaN keys, so the result does not depend on how the sort runs; -0.0
 and +0.0 compare equal, as in the TPU kernel.
+
+The kernel has two routes, picked by shape before launch (`sort_route`):
+rows of up to 65536 keys sort inside one thread-block cluster's shared
+memory, and each payload then moves once through it; longer rows take the
+bitonic network through device memory. See `csrc/sort.cu`.
 """
 
 from __future__ import annotations
@@ -24,9 +29,17 @@ from .dispatch import use_kernel
 
 # most payload operands one call carries (the kernel's pointer table)
 MAX_OPS = 32
-# launches of the kernel since the last reset (a plain integer counter; one
-# per call, which runs the sort's few grid launches on one stream)
-LAUNCHES = {"bitonic_sort": 0}
+# longest row the cluster route takes: 8 CTAs of 8192 (key, position) pairs
+CLUSTER_MAX_N = 65536
+# launches of the kernel per route since the last reset (plain integer
+# counters; one per call, which runs its route's few grid launches on one
+# stream)
+LAUNCHES = {"sort_cluster": 0, "sort_bitonic": 0}
+
+_ENTRIES: dict[str, object] = {}
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {"hept_sort_rows_cluster": [_PTR, _PTR, _PTR] + [_INT] * 3 + [_PTR, _PTR],
+             "hept_bitonic_sort_rows": [_PTR, _PTR, _PTR] + [_INT] * 4 + [_PTR, _PTR]}
 
 
 def bitonic_sort_rows_plain(keys: torch.Tensor, payloads: list[torch.Tensor]) -> list[torch.Tensor]:
@@ -36,6 +49,18 @@ def bitonic_sort_rows_plain(keys: torch.Tensor, payloads: list[torch.Tensor]) ->
     keys = keys.gather(-1, by_tie) + 0.0  # -0.0 + 0.0 is +0.0: signed zeros tie
     perm = by_tie.gather(-1, torch.argsort(keys, dim=-1, stable=True))
     return [p.gather(-1, perm) for p in payloads]
+
+
+def sort_route(rows: int, n: int, ops: int) -> str:
+    """The kernel route for a (rows, n) sort carrying `ops` payloads, chosen
+    by shape before launch: "cluster" (a row held in one thread-block
+    cluster's shared memory) up to CLUSTER_MAX_N keys a row, else "bitonic"
+    (the network through device memory). Raises on shapes neither takes."""
+    if not 1 <= ops <= MAX_OPS:
+        raise ValueError(f"need 1 to {MAX_OPS} payloads, got {ops}")
+    if not (0 <= rows <= 65535 and 0 <= n < 2**30):
+        raise ValueError(f"keys ({rows}, {n}): at most 65535 rows of < 2^30 keys")
+    return "cluster" if n <= CLUSTER_MAX_N else "bitonic"
 
 
 def _check(keys: torch.Tensor, payloads: list[torch.Tensor]) -> None:
@@ -50,29 +75,46 @@ def _check(keys: torch.Tensor, payloads: list[torch.Tensor]) -> None:
                 or not p.is_contiguous():
             raise ValueError(f"payloads must be contiguous 4-byte {tuple(keys.shape)} tensors "
                              f"on {keys.device}, got {tuple(p.shape)} {p.dtype} on {p.device}")
-    if keys.shape[0] > 65535 or keys.shape[1] >= 2**30:
-        raise ValueError(f"keys {tuple(keys.shape)}: at most 65535 rows of < 2^30 keys")
+
+
+def _entry(name: str):
+    """The library's entry point, its argument types set once per process."""
+    fn = _ENTRIES.get(name)
+    if fn is None:
+        fn = getattr(cuda_lib.load("sort"), name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = _ARGTYPES[name]
+        _ENTRIES[name] = fn
+    return fn
 
 
 def bitonic_sort_rows_cuda(keys: torch.Tensor, payloads: list[torch.Tensor]) -> list[torch.Tensor]:
-    """K12 on the card. Raises on any input the kernel does not take."""
+    """K12 on the card, on the route `sort_route` picks. Raises on any input
+    no route takes, and on a failed build or launch."""
     _check(keys, payloads)
     rows, n = keys.shape
-    n_pad = 1 << max(1, (n - 1).bit_length())
-    scratch = torch.empty((3, rows, n_pad), dtype=torch.int32, device=keys.device)
-    outs = [torch.empty_like(p) for p in payloads]
     ops = len(payloads)
+    route = sort_route(rows, n, ops)
+    outs = [torch.empty_like(p) for p in payloads]
+    if keys.numel() == 0:
+        return outs
     ins_arr = (ctypes.c_void_p * ops)(*(p.data_ptr() for p in payloads))
     outs_arr = (ctypes.c_void_p * ops)(*(o.data_ptr() for o in outs))
-    lib = cuda_lib.load("sort")
-    fn = lib.hept_bitonic_sort_rows
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4 \
-        + [ctypes.c_void_p, ctypes.c_void_p]
-    err = fn(keys.data_ptr(), ins_arr, outs_arr, ops, rows, n, n_pad, scratch.data_ptr(),
-             cuda_lib.stream_ptr(keys.device))
-    cuda_lib.check(err, lib, "hept_sort_error_string", "bitonic_sort_rows")
-    LAUNCHES["bitonic_sort"] += 1
+    stream = cuda_lib.stream_ptr(keys.device)
+    if route == "cluster":
+        # the sorted positions (< 65536) as uint16 bit patterns
+        scratch = torch.empty((rows, n), dtype=torch.int16, device=keys.device)
+        err = _entry("hept_sort_rows_cluster")(keys.data_ptr(), ins_arr, outs_arr, ops, rows,
+                                               n, scratch.data_ptr(), stream)
+    else:
+        n_pad = 1 << max(1, (n - 1).bit_length())
+        # (key, tie-break, position) triples
+        scratch = torch.empty((3, rows, n_pad), dtype=torch.int32, device=keys.device)
+        err = _entry("hept_bitonic_sort_rows")(keys.data_ptr(), ins_arr, outs_arr, ops, rows,
+                                               n, n_pad, scratch.data_ptr(), stream)
+    cuda_lib.check(err, cuda_lib.load("sort"), "hept_sort_error_string",
+                   f"bitonic_sort_rows ({route} route)")
+    LAUNCHES[f"sort_{route}"] += 1
     return outs
 
 

@@ -589,26 +589,88 @@ def test_core_runs_k10_and_k5(dev):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * b.abs().max().item())
 
 
-@pytest.mark.parametrize("rows,n,ops", [(2, 384, 4), (3, 512, 2), (24, 60000, 16), (1, 1, 1),
-                                        (5, 4097, 3)])
-def test_k12_matches_plain_bit_for_bit(dev, rows, n, ops):
-    """Tiles only (384, 512), the global strides and merges (60000 -> 65536,
-    4097 -> 8192), one key; a +BIG tail and interior ties (-0.0 and +0.0
-    among them), uint32 payloads as int32 bit patterns."""
-    gen = torch.Generator(device=dev).manual_seed(5)
+def _k12_keys(dev, rows, n, seed=5):
+    """Normal keys with a +BIG tail and interior ties (-0.0 and +0.0 among
+    them)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
     keys = torch.randn((rows, n), generator=gen, device=dev)
     keys[:, -min(n, 30):] = 3.0e38
     keys[:, :40] = torch.round(keys[:, :40] * 10) / 10
     keys[:, :4] = torch.tensor([-0.0, 0.0, -0.0, 0.0], device=dev)[:min(n, 4)]
+    return keys
+
+
+def _k12_payloads(dev, rows, n, ops, seed=6, tie=None):
+    """ops - 1 random uint32 payloads as int32 bit patterns, then the
+    tie-break (the row-position iota unless given)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
     pays = [torch.randint(-2**31, 2**31 - 1, (rows, n), generator=gen, device=dev,
                           dtype=torch.int32) for _ in range(ops - 1)]
-    pays.append(torch.arange(n, device=dev, dtype=torch.int32).expand(rows, n).contiguous())
-    before = srt.LAUNCHES["bitonic_sort"]
+    if tie is None:
+        tie = torch.arange(n, device=dev, dtype=torch.int32).expand(rows, n).contiguous()
+    return pays + [tie]
+
+
+def _k12_exact(keys, pays):
+    """One launch on the route `sort_route` picks, bit-equal to plain K12."""
+    route = srt.sort_route(*keys.shape, len(pays))
+    before = dict(srt.LAUNCHES)
     got = srt.bitonic_sort_rows_cuda(keys, pays)
-    assert srt.LAUNCHES["bitonic_sort"] == before + 1
+    assert {k: v - before[k] for k, v in srt.LAUNCHES.items()} == {
+        k: int(k == f"sort_{route}") for k in srt.LAUNCHES}
     want = srt.bitonic_sort_rows_plain(keys, pays)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+    return got
+
+
+@pytest.mark.parametrize("rows,n,ops", [
+    (2, 384, 4), (3, 512, 2), (24, 60000, 16), (1, 1, 1), (5, 4097, 3),  # the first shapes
+    (2, 2, 2), (2, 513, 2), (2, 8192, 3), (2, 8193, 3),  # one CTA a row, then a cluster
+    (2, 16384, 2), (2, 16385, 2), (2, 32769, 2),  # clusters of 2, 4, 8; the move 1, 2, 4
+    (2, 65536, 3), (2, 65537, 3),  # the cluster route's last n, the bitonic route's first
+    (1, 3000, 1), (1, 3000, 32),  # fewest and most payloads
+])
+def test_k12_matches_plain_bit_for_bit(dev, rows, n, ops):
+    """Every route and every shape edge of the cluster route (CTA slice,
+    cluster size, the move's slice), a +BIG tail and interior ties (-0.0 and
+    +0.0 among them), uint32 payloads as int32 bit patterns; exactly one
+    launch, counted on the route `sort_route` picks."""
+    assert srt.sort_route(rows, n, ops) == ("cluster" if n <= 65536 else "bitonic")
+    _k12_exact(_k12_keys(dev, rows, n), _k12_payloads(dev, rows, n, ops))
+
+
+@pytest.mark.parametrize("n", [700, 20000, 65537])
+@pytest.mark.parametrize("kind", ["equal", "big", "specials", "tie"])
+def test_k12_hard_keys(dev, kind, n):
+    """All keys equal; all +3e38; +-inf, denormals, +-0.0, the extreme
+    finite values and many ties; a tie-break that is not the iota (random,
+    with repeats, so that the position decides too): bit-equal on both
+    routes."""
+    rows = 3
+    gen = torch.Generator(device=dev).manual_seed(7)
+    tie = None
+    if kind == "equal":
+        keys = torch.full((rows, n), 1.5, device=dev)
+    elif kind == "big":
+        keys = torch.full((rows, n), 3.0e38, device=dev)
+    elif kind == "specials":
+        pool = torch.tensor([float("inf"), float("-inf"), 1e-45, -1e-45, 1e-40, -1e-40, 0.0, -0.0,
+                             3.4028235e38, -3.4028235e38, 1.0, -1.0], device=dev)
+        keys = pool[torch.randint(0, len(pool), (rows, n), generator=gen, device=dev)]
+    else:
+        keys = torch.round(torch.randn((rows, n), generator=gen, device=dev) * 4) / 4
+        tie = torch.randint(-50, 50, (rows, n), generator=gen, device=dev, dtype=torch.int32)
+    _k12_exact(keys, _k12_payloads(dev, rows, n, 3, tie=tie))
+
+
+@pytest.mark.parametrize("n", [60000, 70000])
+def test_k12_same_bits_on_repeated_calls(dev, n):
+    keys, pays = _k12_keys(dev, 4, n), _k12_payloads(dev, 4, n, 5)
+    first = _k12_exact(keys, pays)
+    for _ in range(3):
+        for a, b in zip(srt.bitonic_sort_rows_cuda(keys, pays), first):
+            assert torch.equal(a, b)
 
 
 def test_k12_rejects_what_it_does_not_take(dev):
@@ -623,6 +685,8 @@ def test_k12_rejects_what_it_does_not_take(dev):
         (keys.cpu(), [tie.cpu()]),  # not on the card
         (keys, []),  # no tie-break
         (keys, [tie] * 33),  # too many payloads
+        (torch.zeros((65536, 1), device=dev),
+         [torch.zeros((65536, 1), dtype=torch.int32, device=dev)]),  # too many rows
     ]
     for k_, p_ in bad:
         with pytest.raises(ValueError):

@@ -27,7 +27,7 @@ from hept_tpu.data import datasets as jdatasets  # noqa: E402
 from hept_tpu.models import HeptTransformer as JaxHept  # noqa: E402
 from hept_tpu.train.config import ExperimentConfig as JaxExperimentConfig  # noqa: E402
 from hept_tpu.train.trainer import evaluate as jax_evaluate  # noqa: E402
-from hept_tpu.train.trainer import make_model_apply  # noqa: E402
+from hept_tpu.train.trainer import make_eval_step, make_model_apply  # noqa: E402
 from hept_tpu_torch.data.batching import slab_friendly_n  # noqa: E402
 from hept_tpu_torch.data.datasets import SplitDataset  # noqa: E402
 from hept_tpu_torch.data.synthetic import synthetic_tracking_event  # noqa: E402
@@ -72,6 +72,16 @@ def _tpu_kernels(monkeypatch):
     return pltpu.force_tpu_interpret_mode()
 
 
+def _waited(eval_step):
+    """JAX's eval step with every call waited for."""
+    def get_step(g):
+        step = eval_step(g)
+        return lambda *a: jax.block_until_ready(step(*a))
+
+    get_step.chunk = eval_step.chunk
+    return get_step
+
+
 def _compare_eval(modes, loss_rtol, metric_atol, ctx=None):
     tds, jds = _datasets()
     n_max = slab_friendly_n(378, BS)
@@ -80,9 +90,14 @@ def _compare_eval(modes, loss_rtol, metric_atol, ctx=None):
     jmodel = JaxHept(jcfg.model_config(10, 6))
     b0 = jbatching.pack_events(jds.train, BS, n_max=n_max)
     with ctx or contextlib.nullcontext():
-        variables = jmodel.init(jax.random.PRNGKey(2), b0["x"][0], b0["coords"][0],
-                                b0["valid"][0])
-        want = jax_evaluate(jcfg, make_model_apply(jmodel), variables, jds, "test", BS, n_max, 0)
+        # each JAX computation is one jitted call, waited for before the next
+        # dispatch: eager dispatch from this thread while an interpret-mode
+        # kernel's callbacks dispatch on XLA's can deadlock (the 6-worker
+        # suite hung here in JAX's eager flax init)
+        variables = jax.block_until_ready(jax.jit(jmodel.init)(
+            jax.random.PRNGKey(2), b0["x"][0], b0["coords"][0], b0["valid"][0]))
+        want = jax_evaluate(jcfg, make_model_apply(jmodel), variables, jds, "test", BS, n_max, 0,
+                            eval_step=_waited(make_eval_step(jcfg, make_model_apply(jmodel))))
 
     cfg = ExperimentConfig(device="cpu", **kw)
     model = trainer.build_model(cfg, 10, 6, torch.Generator().manual_seed(0), "cpu")

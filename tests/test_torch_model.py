@@ -115,15 +115,21 @@ def _compare(modes, fwd_tol, grad_tol, ctx=None, attn_impl="slab2"):
     w_out = np.random.default_rng(2).normal(size=(x.shape[0], 4)).astype(np.float32)
     w_out *= valid[:, None]
     with ctx or contextlib.nullcontext():
-        variables = jmodel.init(jax.random.PRNGKey(1), x, coords, valid)
+        # each JAX computation that may run interpret-mode kernels is one
+        # jitted call on traced inputs, waited for before the next dispatch:
+        # eager dispatch from this thread while an interpret-mode kernel's
+        # callbacks dispatch on XLA's can deadlock
+        variables = jax.block_until_ready(
+            jax.jit(jmodel.init)(jax.random.PRNGKey(1), x, coords, valid))
         plan, _ = _jax_plan(variables, jcfg, x, coords, valid)
 
-        def jloss(params):
+        def jloss(params, x, coords, valid):
             out = jmodel.apply({"params": params, "constants": variables["constants"]},
                                x, coords, valid)
             return jnp.sum(out * w_out), out
 
-        (_, jout), jgrads = jax.value_and_grad(jloss, has_aux=True)(variables["params"])
+        (_, jout), jgrads = jax.block_until_ready(jax.jit(
+            jax.value_and_grad(jloss, has_aux=True))(variables["params"], x, coords, valid))
 
     model = _port(variables, modes, attn_impl)
     tplan = tuple(_t(a, torch.int64) for a in plan[:2]) + (_t(plan[2]).float(),)
