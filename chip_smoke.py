@@ -36,6 +36,9 @@ Phases, one line each (plus per-kernel lines):
      calls, timed by CUDA graph replay; K6 and K7 v2 on the tensor cores
      against the f32 forward / autograd of the same bf16 values at a
      per-bucket common mode of 40; K6's library yardstick at both shapes;
+     then K6 and K7 again at the pileup width d = 28 (coords_dim 4), on the
+     routes and modes the pileup paths run (f32 K6 / K7 v1, bf16 K6 exact
+     bias / K7 v2, ragged, common mode 40; rows K6d28 / K7d28);
   3. the main path: the full-width `hept_acc` model (random weights from the
      seed) takes `--steps` Adam steps at lr 1e-2 with dropout on, through the
      trainer's `train_step`, on one synthetic 60k-point event; launch
@@ -80,7 +83,22 @@ Phases, one line each (plus per-kernel lines):
  11. K12 (`bitonic_sort_rows`) on 24 rows of 60000 keys with 16 payloads
      (the cluster route), launches counted per route, bit-equal to its plain
      version, timed by CUDA graph replay against torch.sort and the
-     payload gathers; then the bitonic route at 4 rows of 70000 keys.
+     payload gathers; then the bitonic route at 4 rows of 70000 keys;
+ 12. `hept_max` (hept_acc at OR width 3 over 12 static rounds) on the
+     phase-3 event: `--profile-steps` steps, launches counted (K1 / K2 4
+     each a step on the tensor-core route), one `evaluate`, the first step
+     with kernels against plain versions (as phase 4 holds hept_acc);
+ 13./14. the pileup task on one synthetic 60k pileup event (block_size
+     100, PID embedding, sigmoid head, focal loss on the neutral points):
+     the parity `hept` profile (K6 / K7 v1 on FP32 FMAs at d = 28) and
+     `hept_fast` (K6 / K7 v2 on the tensor cores), each `--profile-steps`
+     Adam steps at lr 1e-3 with launches counted (K6 4, K7 4 a step on
+     their routes' counters, K5 8, K1-K4 none), one timed `evaluate` (K6 4,
+     K5 4) against `plain_reference()` (loss 1e-3 relative, AP / ROC-AUC /
+     F1 5e-3), then the first step with kernels against plain versions;
+ 15. the pileup trainer: `run_one_seed` (hept_fast) for one epoch on three
+     synthetic 60k pileup events, checkpoint restored and re-evaluated to
+     the in-loop best test metrics (AP included).
 Before the last line: one JSON line of per-kernel numbers (K5 once per row
 shape, K3 at d = 1 as K3d1, K4 with its yardsticks as extra keys), and the
 `nvidia-smi` name/power-limit line. `--yardsticks-only [--package-root
@@ -294,6 +312,18 @@ def make_batch(points: int, seed: int, block_size: int):
             and (p[0, rev[m]] == p[1, m]).all()):
         raise AssertionError("packed pairs break the windowed layout")
     return ev, batch
+
+
+def make_pileup_batch(points: int, seed: int, block_size: int):
+    """One synthetic pileup event and its packed batch (no pairs)."""
+    import numpy as np
+
+    from hept_tpu_torch.data.batching import pack_events, slab_friendly_n
+    from hept_tpu_torch.data.synthetic import synthetic_pileup_event
+
+    ev = synthetic_pileup_event(np.random.default_rng(seed), n_points=points)
+    return ev, pack_events([ev], block_size=block_size,
+                           n_max=slab_friendly_n(points, block_size))
 
 
 def phase_kernels(torch, batch, seed: int) -> dict:
@@ -703,24 +733,28 @@ def same_bits(torch, label: str, first, call) -> None:
     log(f"  {label}: the same bits on 4 calls")
 
 
-def phase_cols_kernels(torch, seed: int) -> dict:
-    """K6/K7 against their plain versions: the parity profile's shapes in f32
-    (r = 3 hashes x 8 heads), hept_fast's in bf16 (r = 2 x 8) in K6's three
-    modes and both K7 variants, and a ragged bucket count; each kernel on its
-    route (tensor cores for bf16 K6 and K7 v2, FP32 FMAs for f32), the same
-    bits on 4 calls, timed by CUDA graph replay; K6's library yardstick at
-    both shapes."""
+def phase_cols_kernels(torch, seed: int, d: int = 30) -> dict:
+    """K6/K7 against their plain versions at d = 24 + coords_dim columns (30
+    tracking, 28 pileup): the parity profile's shapes in f32 (r = 3 hashes x
+    8 heads), hept_fast's in bf16 (r = 2 x 8), and a ragged bucket count;
+    each kernel on its route (tensor cores for bf16 K6 and K7 v2, FP32 FMAs
+    for f32), the same bits on 4 calls, timed by CUDA graph replay; K6's
+    library yardstick. At d = 30 also K6's hi/lo mode and K7 v1 on bf16 (the
+    slab kernels K8 / K9); at 28 the modes the pileup paths run (rows
+    K6d28 / K7d28)."""
     from hept_tpu_torch.ops import bucket_attn_cuda as ba
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    d, dv, bs = 30, 24, 100
+    dv, bs = 24, 100
+    full, tag = d == 30, "" if d == 30 else f"d{d}"
+    wide = f"d={d}" if full else f"d={d}, pileup"
 
     def inputs(r, n, dtype, common=0.0):
-        """q/k: 24 projection rows O(0.5) and 6 RPE rows with a per-bucket
-        common mode shared by q and k; values, cotangents."""
+        """q/k: 24 projection rows O(0.5) and d - 24 RPE rows with a
+        per-bucket common mode shared by q and k; values, cotangents."""
         nb = n // bs
-        shared = torch.randn((r, 6, nb, 1), generator=gen, device=dev) * common
+        shared = torch.randn((r, d - 24, nb, 1), generator=gen, device=dev) * common
 
         def qk():
             x = torch.randn((r, d, nb, bs), generator=gen, device=dev) * 0.5
@@ -764,6 +798,7 @@ def phase_cols_kernels(torch, seed: int) -> dict:
         return err, want
 
     rows, n = {}, 60000
+    k6_key, k7_key = "K6" + tag, "K7" + tag
     # parity shapes, f32: FP32-FMA peak bounds (no TF32, no tensor cores)
     r = 24
     sq, sk, sv, gden, gso = inputs(r, n, torch.float32, common=2.0)
@@ -772,71 +807,69 @@ def phase_cols_kernels(torch, seed: int) -> dict:
     # of 100 terms in other orders: ~1e-6 relative per output, the max over
     # 1.4M outputs held at 1e-4 x scale
     assert ba.cols_fwd_route(torch.float32, bs) == "scalar"
-    e6, want6 = k6("K6 f32", sq, sk, sv, False, (1e-4, 1e-4))
+    e6, want6 = k6(f"K6 f32 {wide}", sq, sk, sv, False, (1e-4, 1e-4))
     lib6 = library_yardstick(torch, sq, sk, sv, bs, want6)
     del want6
     # K7 v1 runs on FP32 FMAs (cols_bwd_tiled_kernel, one pass per bucket)
     assert ba.cols_bwd_route(torch.float32, bs, False) == "scalar"
-    e7 = compare("K7 v1 f32", ba.cols_bwd_cuda(sq, sk, sv, gden, gso, bs, False),
+    e7 = compare(f"K7 v1 f32 {wide}", ba.cols_bwd_cuda(sq, sk, sv, gden, gso, bs, False),
                  ba.cols_bwd_plain(sq, sk, sv, gden, gso, bs, False), (1e-4,) * 3)
-    first = ba.cols_bwd_cuda(sq, sk, sv, gden, gso, bs, False)
-    if not all(torch.equal(a, b) for _ in range(3) for a, b in
-               zip(first, ba.cols_bwd_cuda(sq, sk, sv, gden, gso, bs, False))):
-        raise AssertionError("K7 v1: repeated calls differ in their bits")
-    log("  K7 v1: the same bits on 4 calls")
-    del first
+    same_bits(torch, f"K7 v1 {wide}", ba.cols_bwd_cuda(sq, sk, sv, gden, gso, bs, False),
+              lambda: ba.cols_bwd_cuda(sq, sk, sv, gden, gso, bs, False))
     for key, name, fwd, err, kern, plain in (
-            ("K6", "K6 cols_fwd", True, e6, lambda: ba.cols_fwd_cuda(sq, sk, sv, bs),
+            (k6_key, "K6 cols_fwd", True, e6, lambda: ba.cols_fwd_cuda(sq, sk, sv, bs),
              lambda: ba.cols_fwd_plain(sq, sk, sv, bs)),
-            ("K7", "K7 cols_bwd", False, e7,
+            (k7_key, "K7 cols_bwd", False, e7,
              lambda: ba.cols_bwd_cuda(sq, sk, sv, gden, gso, bs, False),
              lambda: ba.cols_bwd_plain(sq, sk, sv, gden, gso, bs, False))):
         b_ms, b_by = bounds(r, n, 4, fwd, F32_FLOP_PER_S)
-        rows[key] = dict(name=name, route="cuda", source="hept_tpu_torch/csrc/bucket_attn.cu",
+        rows[key] = dict(name=name if full else f"{name} ({wide})", route="cuda",
+                         source="hept_tpu_torch/csrc/bucket_attn.cu",
                          replaces=("hept_tpu/ops/bucket_attn_pallas.py:1196" if fwd else
                                    "hept_tpu/ops/bucket_attn_pallas.py:1273"),
                          max_abs_err=err, ms=time_ms(kern), device_ms=graph_ms(kern, 5),
                          plain_ms=time_ms(plain, 3, 1), bound_ms=b_ms, bound_by=b_by,
                          **(lib6 if fwd else {"library_ms": None}))
-    rows["K6"]["routes"] = ("f32 (parity): FP32 FMAs, cols_fwd_tiled_kernel, counter cols_fwd; "
-                            "bf16 (hept_fast / hept_turbo, exact bias; slab = K8, hi/lo bias): "
-                            "tensor cores, tc_cols_fwd_kernel, counter cols_fwd_tc")
-    rows["K7"]["routes"] = ("v1 (f32, parity; and v1 on bf16 = K9): FP32 FMAs, "
-                            "cols_bwd_tiled_kernel, counter cols_bwd; v2 (bf16, hept_fast / "
-                            "hept_turbo): tensor cores, tc_cols_bwd_kernel, counter cols_bwd_tc")
+    rows[k6_key]["routes"] = (
+        "f32 (parity): FP32 FMAs, cols_fwd_tiled_kernel, counter cols_fwd; bf16 (hept_fast"
+        + (" / hept_turbo, exact bias; slab = K8, hi/lo bias" if full else ", exact bias")
+        + "): tensor cores, tc_cols_fwd_kernel, counter cols_fwd_tc")
+    rows[k7_key]["routes"] = (
+        "v1 (f32, parity" + ("; and v1 on bf16 = K9" if full else "")
+        + "): FP32 FMAs, cols_bwd_tiled_kernel, counter cols_bwd; v2 (bf16, hept_fast"
+        + (" / hept_turbo" if full else "") + "): tensor cores, tc_cols_bwd_kernel, counter "
+        "cols_bwd_tc")
     del sq, sk, sv, gden, gso
     torch.cuda.empty_cache()
 
-    # hept_fast shapes, bf16: the three K6 modes and both K7 variants
+    # hept_fast shapes, bf16: K6 exact bias (and at d = 30 hi/lo) and K7 v2
+    # (and at d = 30 v1 upcast)
     r = 16
     sq, sk, sv, gden, gso = inputs(r, n, torch.bfloat16)
-    log(f"kernel K6 / K7 (hept_fast: bf16, r={r}, centred RPE rows):")
+    log(f"kernel K6 / K7 (hept_fast: bf16, r={r}, {wide}, centred RPE rows):")
     extra = {}
-    # K6 on the tensor cores (buckets padded to 112) in both bias modes
+    # K6 on the tensor cores (buckets padded to 112)
     assert ba.cols_fwd_route(torch.bfloat16, bs) == "tc"
-    for hilo in (False, True):
+    for hilo in (False, True) if full else (False,):
         label = "K6 bf16 " + ("hi/lo bias" if hilo else "exact bias")
         # pt is rounded to bf16 before the value product: a rounding can flip
-        err, want = k6(label, sq, sk, sv, hilo, (1e-4, 5e-3))
+        err, want = k6(f"{label} {wide}", sq, sk, sv, hilo, (1e-4, 5e-3))
         kern = (lambda hilo=hilo: ba.cols_fwd_cuda(sq, sk, sv, bs, hilo))
         extra[label] = (err, time_ms(kern), graph_ms(kern, 10),
                         time_ms(lambda: ba.cols_fwd_plain(sq, sk, sv, bs, hilo), 3, 1),
                         bounds(r, n, 2, True, BF16_FLOP_PER_S))
-        if hilo:  # the call's augmented columns carry the bias as hi + lo bf16
+        if hilo == full:  # at 30 the call's augmented columns carry hi + lo bf16
             lib6 = library_yardstick(torch, sq, sk, sv, bs, want)
         del want
     # K7 v2 on the tensor cores (buckets padded to 112), v1 upcast on FP32 FMAs
     assert ba.cols_bwd_route(torch.bfloat16, bs, True) == "tc"
-    for v2 in (True, False):
+    for v2 in (True, False) if full else (True,):
         label = "K7 bf16 " + ("v2" if v2 else "v1 (upcast)")
         # bf16 outputs: one rounding of slightly different f32 values
-        err = compare(label, ba.cols_bwd_cuda(sq, sk, sv, gden, gso, bs, v2),
+        err = compare(f"{label} {wide}", ba.cols_bwd_cuda(sq, sk, sv, gden, gso, bs, v2),
                       ba.cols_bwd_plain(sq, sk, sv, gden, gso, bs, v2), (1e-2,) * 3)
-        first = ba.cols_bwd_cuda(sq, sk, sv, gden, gso, bs, v2)
-        if not all(torch.equal(a, b) for _ in range(3) for a, b in
-                   zip(first, ba.cols_bwd_cuda(sq, sk, sv, gden, gso, bs, v2))):
-            raise AssertionError(f"{label}: repeated calls differ in their bits")
-        log(f"  {label}: the same bits on 4 calls")
+        same_bits(torch, f"{label} {wide}", ba.cols_bwd_cuda(sq, sk, sv, gden, gso, bs, v2),
+                  lambda v2=v2: ba.cols_bwd_cuda(sq, sk, sv, gden, gso, bs, v2))
         kern = (lambda v2=v2: ba.cols_bwd_cuda(sq, sk, sv, gden, gso, bs, v2))
         extra[label] = (err, time_ms(kern), graph_ms(kern, 5),
                         time_ms(lambda: ba.cols_bwd_plain(sq, sk, sv, gden, gso, bs, v2), 3, 1),
@@ -852,15 +885,15 @@ def phase_cols_kernels(torch, seed: int) -> dict:
     # biases enter in f32, so the O(1) logits survive the common mode
     got = ba.cols_fwd_cuda(cq, ck, sv, bs)
     for nm, a, b in zip(("denom", "so"), got, (den_f, so_f)):
-        check(f"K6 bf16 {nm} max|d| vs the f32 forward of the bf16 values (common mode 40)",
-              max_err(a, b), 2e-2 * scale(b))
+        check(f"K6 bf16 {nm} max|d| vs the f32 forward of the bf16 values (common mode 40, "
+              f"{wide})", max_err(a, b), 2e-2 * scale(b))
     del den_f, so_f, ins, got
     before = ba.LAUNCHES["cols_bwd_tc"]
     got = ba.cols_bwd_cuda(cq, ck, sv, gden, gso, bs, True)
     assert ba.LAUNCHES["cols_bwd_tc"] == before + 1
     for nm, a, b in zip(("dq", "dk", "dv"), got, ref):
-        check(f"K7 v2 {nm} max|d| vs f32 autograd of the bf16 forward (common mode 40)",
-              max_err(a, b), 2e-2 * scale(b))
+        check(f"K7 v2 {nm} max|d| vs f32 autograd of the bf16 forward (common mode 40, "
+              f"{wide})", max_err(a, b), 2e-2 * scale(b))
     del ref, got, cq, ck, sq, sk, sv, gden, gso
     torch.cuda.empty_cache()
 
@@ -868,43 +901,47 @@ def phase_cols_kernels(torch, seed: int) -> dict:
     # alone); the last bucket ends at n, where K7 v2's padded tiles stop
     n_rag = 60100
     sq, sk, sv, gden, gso = inputs(4, n_rag, torch.float32, common=2.0)
-    log(f"kernel K6 / K7 (ragged: f32 and bf16, r=4, n={n_rag}, 601 buckets):")
-    k6("K6 f32 ragged", sq, sk, sv, False, (1e-4, 1e-4))
-    compare("K7 v1 ragged", ba.cols_bwd_cuda(sq, sk, sv, gden, gso, bs, False),
+    log(f"kernel K6 / K7 (ragged: f32 and bf16, r=4, n={n_rag}, 601 buckets, {wide}):")
+    k6(f"K6 f32 ragged {wide}", sq, sk, sv, False, (1e-4, 1e-4))
+    compare(f"K7 v1 ragged {wide}", ba.cols_bwd_cuda(sq, sk, sv, gden, gso, bs, False),
             ba.cols_bwd_plain(sq, sk, sv, gden, gso, bs, False), (1e-4,) * 3)
     sq, sk, sv = (t.to(torch.bfloat16) for t in (sq, sk, sv))
-    k6("K6 bf16 ragged", sq, sk, sv, False, (1e-4, 5e-3))
-    compare("K7 v2 ragged", ba.cols_bwd_cuda(sq, sk, sv, gden, gso, bs, True),
+    k6(f"K6 bf16 ragged {wide}", sq, sk, sv, False, (1e-4, 5e-3))
+    compare(f"K7 v2 ragged {wide}", ba.cols_bwd_cuda(sq, sk, sv, gden, gso, bs, True),
             ba.cols_bwd_plain(sq, sk, sv, gden, gso, bs, True), (1e-2,) * 3)
-    # hi/lo on rows centred per bucket, as kernel_center feeds the bf16 paths:
-    # on uncentred rows each bias's lo half is a bf16 rounding of an f32
-    # |x|^2 whose summation order differs from torch's, and flips one bf16
-    # ulp of lo (~1e-4 relative in a denominator) in kernel and first-cut
-    # kernel alike
-    sq, sk, sv, _, _ = inputs(4, n_rag, torch.bfloat16)
-    k6("K6 bf16 ragged hi/lo (centred rows)", sq, sk, sv, True, (1e-4, 5e-3))
+    if full:
+        # hi/lo on rows centred per bucket, as kernel_center feeds the bf16
+        # paths: on uncentred rows each bias's lo half is a bf16 rounding of
+        # an f32 |x|^2 whose summation order differs from torch's, and flips
+        # one bf16 ulp of lo (~1e-4 relative in a denominator) in kernel and
+        # first-cut kernel alike
+        sq, sk, sv, _, _ = inputs(4, n_rag, torch.bfloat16)
+        k6("K6 bf16 ragged hi/lo (centred rows)", sq, sk, sv, True, (1e-4, 5e-3))
     del sq, sk, sv, gden, gso
     torch.cuda.empty_cache()
-    for key in ("K6", "K7"):
+    for key in (k6_key, k7_key):
         row = rows[key]
         log(f"  {row['name']} (parity, f32): kernel {row['ms']:.4f} ms ({row['device_ms']:.4f} "
             f"ms device), plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
             f"({row['bound_by']}, operations at the FP32 peak {F32_FLOP_PER_S / 1e12:.0f} "
             "TFLOP/s)")
-    log_library(rows["K6"])
+    log_library(rows[k6_key])
     for label, (_, ms, dev_ms, plain_ms, (b_ms, b_by)) in extra.items():
-        log(f"  {label} (hept_fast): kernel {ms:.4f} ms ({dev_ms:.4f} ms device), plain "
-            f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; operations at the bf16 peak, K7 "
-            "v1's at the FP32 peak)")
+        log(f"  {label} (hept_fast, {wide}): kernel {ms:.4f} ms ({dev_ms:.4f} ms device), "
+            f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; operations at the bf16 "
+            "peak, K7 v1's at the FP32 peak)")
     # the tensor-core routes' own figures beside the f32 routes' in the K6
     # and K7 rows
-    for key, label, pre in (("K6", "K6 bf16 exact bias", "bf16_tc_"),
-                            ("K7", "K7 bf16 v2", "v2_tc_")):
+    for key, label, pre in ((k6_key, "K6 bf16 exact bias", "bf16_tc_"),
+                            (k7_key, "K7 bf16 v2", "v2_tc_")):
         err, ms, dev_ms, plain_ms, (b_ms, b_by) = extra[label]
         rows[key].update({pre + "max_abs_err": err, pre + "ms": ms, pre + "device_ms": dev_ms,
                           pre + "plain_ms": plain_ms, pre + "bound_ms": b_ms,
                           pre + "bound_by": b_by})
-    rows["K6"].update({"bf16_tc_" + k: v for k, v in lib6.items()})
+    rows[k6_key].update({"bf16_tc_" + k: v for k, v in lib6.items()})
+    if not full:
+        log_library(dict(lib6, name=f"K6 bf16 exact bias ({wide})"))
+        return rows
     # the slab kernels K8 / K9 of `attn_impl: slab` run K6 hi/lo and K7 v1
     # (the TPU's K9 upcasts its bf16 operands): their figures at hept_fast's
     # shapes, where the slab phase runs them
@@ -928,7 +965,8 @@ def loss_and_grads(torch, model, loss_fn, batch, **forward_kw):
     `forward_kw` go to the model's forward."""
     model.zero_grad(set_to_none=True)
     out = model(batch["x"][0], batch["coords"][0], batch["valid"][0], **forward_kw)[None]
-    if out.shape != (1, batch["x"].shape[1], 12) or not torch.isfinite(out).all():
+    width = 1 if model.cfg.task == "pileup" else model.cfg.h_dim // 2
+    if out.shape != (1, batch["x"].shape[1], width) or not torch.isfinite(out).all():
         raise AssertionError(f"model output {tuple(out.shape)} not finite / wrong shape")
     loss = loss_fn(out, batch)
     loss.backward()
@@ -993,18 +1031,23 @@ def phase_eval(torch, trainer, model, cfg, event, batch, zero_counts, read_count
           abs(res[worst] - plain[worst]), 5e-3)
 
 
-def phase_trainer(torch, trainer, points: int, seed: int) -> None:
-    """`run_one_seed`, one epoch on three synthetic events: a checkpoint is
-    written, restored into a fresh model and re-evaluated to the in-loop
-    best test metrics."""
-    from hept_tpu_torch.data.datasets import make_synthetic_tracking
+def phase_trainer(torch, trainer, points: int, seed: int, task: str = "tracking",
+                  profile: str = "hept_acc") -> None:
+    """`run_one_seed`, one epoch on three synthetic events of the task: a
+    checkpoint is written, restored into a fresh model and re-evaluated to
+    the in-loop best test metrics."""
+    from hept_tpu_torch.data.datasets import make_synthetic_pileup, make_synthetic_tracking
     from hept_tpu_torch.train.config import profile_config
     from hept_tpu_torch.train.state import CheckpointManager
 
     t0 = time.perf_counter()
-    ds = make_synthetic_tracking(n_events=3, n_points=points, seed=seed, avg_track_size=8,
-                                 pairs_per_point=16)
-    log(f"phase trainer: 3 synthetic events ({len(ds.train)} train, {len(ds.valid)} valid, "
+    if task == "pileup":
+        ds = make_synthetic_pileup(n_events=3, n_points=points, seed=seed)
+    else:
+        ds = make_synthetic_tracking(n_events=3, n_points=points, seed=seed, avg_track_size=8,
+                                     pairs_per_point=16)
+    label = "trainer" if task == "tracking" else f"{task} trainer ({profile})"
+    log(f"phase {label}: 3 synthetic events ({len(ds.train)} train, {len(ds.valid)} valid, "
         f"{len(ds.test)} test; {time.perf_counter() - t0:.1f} s)")
     lines = []
 
@@ -1013,7 +1056,8 @@ def phase_trainer(torch, trainer, points: int, seed: int) -> None:
         log("  " + lines[-1])
 
     with tempfile.TemporaryDirectory() as tmp:
-        cfg = profile_config("hept_acc", device=DEVICE, num_epochs=1, log_dir=tmp, seed=seed)
+        cfg = profile_config(profile, task=task, device=DEVICE, num_epochs=1, log_dir=tmp,
+                             seed=seed)
         t0 = time.perf_counter()
         res = trainer.run_one_seed(cfg, ds, log=run_log)
         secs = time.perf_counter() - t0
@@ -1026,8 +1070,10 @@ def phase_trainer(torch, trainer, points: int, seed: int) -> None:
     if any("WARNING" in x for x in lines):
         raise AssertionError("run_one_seed warned about its re-eval")
     diffs = {k: abs(v - in_loop[f"test/{k}"]) for k, v in res.items()}
-    log(f"phase trainer: 1 epoch in {secs:.1f} s; checkpoint at step {step}; restored re-eval "
+    log(f"phase {label}: 1 epoch in {secs:.1f} s; checkpoint at step {step}; restored re-eval "
         + " ".join(f"{k}={v:.6f}" for k, v in res.items()))
+    if cfg.main_metric not in res:
+        raise AssertionError(f"the restored re-eval has no {cfg.main_metric}: {res}")
     check("re-eval of the restored checkpoint vs in-loop best test, max|d|",
           max(diffs.values()), 1e-6)
 
@@ -1070,15 +1116,21 @@ def compare_first_step(torch, label: str, cfg, model, loss_fn, batch) -> None:
 
 
 def phase_profile(torch, trainer, profile: str, batch_np, ds, steps: int, seed: int,
-                  zero_counts, read_counts, k6: str, k7: str) -> dict:
-    """A bs-100 profile (`hept` or `hept_fast`) at full width: `steps` timed
-    Adam steps with dropout, launches counted (K6 and K7 on the routes whose
-    counters are `k6` and `k7`, none on the others); one timed `evaluate` of
-    the event (split "test" of `ds`), launches counted; then the first step,
-    dropout off, with kernels and with plain versions, compared."""
+                  zero_counts, read_counts, fwd: str, bwd: str, task: str = "tracking") -> dict:
+    """A profile of the task at full width: `steps` timed Adam steps with
+    dropout, launches counted (the bucket forward and backward on the
+    counters `fwd` and `bwd`, 4 each a step, no other bucket kernel; the
+    pair kernels for tracking, none for pileup); one timed `evaluate` of the
+    event (split "test" of `ds`), launches counted, and for pileup held
+    against the same evaluation under `plain_reference()`; then the first
+    step, dropout off, with kernels and with plain versions, compared."""
+    from hept_tpu_torch.ops.dispatch import plain_reference
     from hept_tpu_torch.train.config import profile_config
 
-    cfg = profile_config(profile, device=DEVICE, num_epochs=1)
+    cfg = profile_config(profile, task=task, device=DEVICE, num_epochs=1)
+    label = profile if task == "tracking" else f"{task} {profile}"
+    pairs_step = PAIR_LAUNCHES_STEP if task == "tracking" else dict.fromkeys(PAIR_LAUNCHES_STEP, 0)
+    pairs_eval = PAIR_LAUNCHES_EVAL if task == "tracking" else dict.fromkeys(PAIR_LAUNCHES_EVAL, 0)
     batch = trainer.batch_to_device(batch_np, DEVICE)
     model = trainer.build_model(cfg, batch_np["x"].shape[2], batch_np["coords"].shape[2],
                                 torch.Generator(device=DEVICE).manual_seed(seed), DEVICE)
@@ -1097,22 +1149,23 @@ def phase_profile(torch, trainer, profile: str, batch_np, ds, steps: int, seed: 
         losses.append(float(m["loss"]))  # synchronises
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
-        log(f"  {profile} step {s}: loss={losses[-1]:.6f} "
+        log(f"  {label} step {s}: loss={losses[-1]:.6f} "
             f"grad_norm={float(m['grad_norm']):.4f} {step_ms[-1]:.1f} ms")
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"{profile}: non-finite loss: {losses}")
-    # per step and layer: one K6, one K7, the unsort's K5 forward and backward
-    want = {**NO_K6_K7, k6: 4 * steps, k7: 4 * steps, **NO_K1_K2,
+        raise AssertionError(f"{label}: non-finite loss: {losses}")
+    # per step and layer: one bucket forward and backward, the unsort's K5
+    # forward and backward
+    want = {**NO_K6_K7, **NO_K1_K2, fwd: 4 * steps, bwd: 4 * steps,
             "rows_fwd": 0, "rows_bwd": 0, "row_gather": 8 * steps,
-            **{k: v * steps for k, v in PAIR_LAUNCHES_STEP.items()}}
+            **{k: v * steps for k, v in pairs_step.items()}}
     for k, v in want.items():
         if launches[k] != v:
-            raise AssertionError(f"{profile}: {k} launched {launches[k]}x in {steps} steps, "
+            raise AssertionError(f"{label}: {k} launched {launches[k]}x in {steps} steps, "
                                  f"want {v}")
     steady = statistics.median(step_ms[1:])
-    log(f"phase {profile}: {steps} steps (bs {cfg.model_kwargs['block_size']}, "
+    log(f"phase {label}: {steps} steps (bs {cfg.model_kwargs['block_size']}, "
         f"{cfg.model_kwargs['n_hashes']} hashes, attn_impl {cfg.attn_impl}, dropout on), "
         f"losses {losses}; step ms {step_ms}; median after the first {steady:.1f} ms; "
         f"launches {launches}; peak memory {peak:.2f} GiB")
@@ -1126,20 +1179,29 @@ def phase_profile(torch, trainer, profile: str, batch_np, ds, steps: int, seed: 
     res = trainer.evaluate(cfg, model, ds, "test", block_size, n_max)  # ends in a host read
     eval_ms = (time.perf_counter() - t0) * 1e3
     eval_launches = read_counts()
-    # per layer: one K6 and the unsort's K5; no backward
-    want = {**NO_K6_K7, k6: 4, **NO_K1_K2, "row_gather": 4, **PAIR_LAUNCHES_EVAL}
+    # per layer: one bucket forward and the unsort's K5; no backward
+    want = {**NO_K6_K7, **NO_K1_K2, fwd: 4, "row_gather": 4, **pairs_eval}
     for k, v in want.items():
         if eval_launches[k] != v:
-            raise AssertionError(f"{profile}: eval launched {k} {eval_launches[k]}x, want {v}")
+            raise AssertionError(f"{label}: eval launched {k} {eval_launches[k]}x, want {v}")
     bad = {k: v for k, v in res.items()
            if not math.isfinite(v) or (k != "loss" and not 0.0 <= v <= 1.0)}
-    if bad:
-        raise AssertionError(f"{profile}: eval metrics out of range: {bad}")
-    log(f"phase {profile} eval: evaluate() of the event {eval_ms:.1f} ms; "
+    if bad or (task == "pileup" and set(res) != {"auc", "roc", "f1", "loss"}):
+        raise AssertionError(f"{label}: eval metrics out of range or missing: {res}")
+    log(f"phase {label} eval: evaluate() of the event {eval_ms:.1f} ms; "
         f"launches {eval_launches}; " + " ".join(f"{k}={v:.6f}" for k, v in res.items()))
+    if task == "pileup":
+        with plain_reference():
+            plain = trainer.evaluate(cfg, model, ds, "test", block_size, n_max)
+        log("  plain: " + " ".join(f"{k}={v:.6f}" for k, v in plain.items()))
+        check(f"{label} eval loss |d| (kernels vs plain)", abs(res["loss"] - plain["loss"]),
+              1e-3 * abs(plain["loss"]))
+        worst = max(("auc", "roc", "f1"), key=lambda k: abs(res[k] - plain[k]))
+        check(f"{label} eval metrics max|d| (kernels vs plain, worst {worst})",
+              abs(res[worst] - plain[worst]), 5e-3)
 
     model.load_state_dict(init_state)
-    compare_first_step(torch, profile, cfg, model, loss_fn, batch)
+    compare_first_step(torch, label, cfg, model, loss_fn, batch)
     del model, init_state
     torch.cuda.empty_cache()
     return {"launches": launches, "eval_launches": eval_launches, "steady_ms": steady,
@@ -1646,7 +1708,9 @@ def main(argv=None) -> int:
     rows.update(phase_row_gather(torch, batch_np["x"].shape[1], args.seed))
     torch.cuda.empty_cache()
     rows.update(phase_cols_kernels(torch, args.seed))
-    log("phase kernels: K1-K9 match their plain versions")
+    torch.cuda.empty_cache()
+    rows.update(phase_cols_kernels(torch, args.seed, d=28))
+    log("phase kernels: K1-K9 match their plain versions (K6 / K7 at d = 30 and 28)")
 
     # 3. the main path
     gen_init = torch.Generator(device=DEVICE).manual_seed(args.seed)
@@ -1784,7 +1848,7 @@ def main(argv=None) -> int:
     # 7. parity: K6 and K7 v1 on FP32 FMAs; 8. hept_fast: K6 and K7 v2 on the
     # tensor cores
     parity = phase_profile(torch, trainer, "hept", batch100, ds100, args.profile_steps,
-                           args.seed, zero_counts, read_counts, k6="cols_fwd", k7="cols_bwd")
+                           args.seed, zero_counts, read_counts, fwd="cols_fwd", bwd="cols_bwd")
     rows["K6"]["launches"] = parity["launches"]["cols_fwd"]
     rows["K6"]["launches_in"] = f"phase 7, {args.profile_steps} parity steps (f32)"
     rows["K5p"]["launches"] = parity["launches"]["row_gather"]
@@ -1792,7 +1856,8 @@ def main(argv=None) -> int:
     rows["K7"]["launches"] = parity["launches"]["cols_bwd"]
     rows["K7"]["launches_in"] = f"phase 7, {args.profile_steps} parity steps (v1)"
     fast = phase_profile(torch, trainer, "hept_fast", batch100, ds100, args.profile_steps,
-                         args.seed, zero_counts, read_counts, k6="cols_fwd_tc", k7="cols_bwd_tc")
+                         args.seed, zero_counts, read_counts, fwd="cols_fwd_tc",
+                         bwd="cols_bwd_tc")
     rows["K6"]["bf16_tc_launches"] = fast["launches"]["cols_fwd_tc"]
     rows["K6"]["bf16_tc_launches_in"] = f"phase 8, {args.profile_steps} hept_fast steps"
     rows["K7"]["v2_tc_launches"] = fast["launches"]["cols_bwd_tc"]
@@ -1810,6 +1875,45 @@ def main(argv=None) -> int:
     rows["K8"]["launches"] = slab["slab"]["cols_fwd_tc"]
     rows["K9"]["launches"] = slab["slab"]["cols_bwd"] + slab["hybrid_slab"]["cols_bwd"]
     rows["K12"] = phase_sort(torch, args.seed, zero_counts, read_counts)
+
+    # 12. hept_max: K1 / K2 on the tensor cores at OR width 3 over 12 static
+    # rounds, on the phase-3 event
+    ds512 = SplitDataset(train=[], valid=[], test=[event], in_dim=event.x.shape[1],
+                         coords_dim=event.coords.shape[1])
+    hmax = phase_profile(torch, trainer, "hept_max", batch_np, ds512, args.profile_steps,
+                         args.seed, zero_counts, read_counts, fwd="bucket_attn_fwd_tc",
+                         bwd="bucket_attn_bwd_tc")
+    for key, name in (("K1", "bucket_attn_fwd_tc"), ("K2", "bucket_attn_bwd_tc")):
+        rows[key]["hept_max_launches"] = hmax["launches"][name]
+        rows[key]["hept_max_launches_in"] = f"phase 12, {args.profile_steps} hept_max steps"
+    del ds512
+    torch.cuda.empty_cache()
+
+    # 13./14. the pileup profiles on one synthetic 60k pileup event (bs 100,
+    # d = 24 + 4): 13. parity (K6 / K7 v1 on FP32 FMAs), 14. hept_fast (K6 /
+    # K7 v2 on the tensor cores); 15. the pileup trainer
+    t0 = time.perf_counter()
+    pev, pbatch = make_pileup_batch(args.points, args.seed, 100)
+    pds = SplitDataset(train=[], valid=[], test=[pev], in_dim=pev.x.shape[1],
+                       coords_dim=pev.coords.shape[1])
+    log(f"phase data: one synthetic pileup event, {args.points} points -> "
+        f"n={pbatch['x'].shape[1]}, {int(pev.is_neu.sum())} neutral points scored "
+        f"({time.perf_counter() - t0:.1f} s)")
+    pparity = phase_profile(torch, trainer, "hept", pbatch, pds, args.profile_steps, args.seed,
+                            zero_counts, read_counts, fwd="cols_fwd", bwd="cols_bwd",
+                            task="pileup")
+    pfast = phase_profile(torch, trainer, "hept_fast", pbatch, pds, args.profile_steps,
+                          args.seed, zero_counts, read_counts, fwd="cols_fwd_tc",
+                          bwd="cols_bwd_tc", task="pileup")
+    for key, fwd, pre in (("K6d28", True, "bf16_tc_"), ("K7d28", False, "v2_tc_")):
+        rows[key]["launches"] = pparity["launches"]["cols_fwd" if fwd else "cols_bwd"]
+        rows[key]["launches_in"] = (f"phase 13, {args.profile_steps} pileup parity steps "
+                                    + ("(f32)" if fwd else "(v1)"))
+        rows[key][pre + "launches"] = pfast["launches"]["cols_fwd_tc" if fwd else "cols_bwd_tc"]
+        rows[key][pre + "launches_in"] = f"phase 14, {args.profile_steps} pileup hept_fast steps"
+    del pds, pbatch
+    torch.cuda.empty_cache()
+    phase_trainer(torch, trainer, args.points, args.seed, task="pileup", profile="hept_fast")
     # K11 (row_gather_vreg) has K5's contract and runs on K5's kernel
     rows["K11"] = dict(rows["K5"], name="K11 row_gather_vreg", ported_by="K5",
                        replaces="hept_tpu/ops/gather_pallas.py:124")
@@ -1817,8 +1921,8 @@ def main(argv=None) -> int:
     log(json.dumps({"kernels": [
         {**{k: rows[key][k] for k in KERNEL_KEYS},
          **{k: v for k, v in rows[key].items() if k not in KERNEL_KEYS}}
-        for key in ("K1", "K2", "K3", "K3d1", "K4", "K5", "K5f32", "K5p", "K5q", "K5v", "K6", "K7", "K8",
-                    "K9", "K10f", "K10b", "K11", "K12")]}))
+        for key in ("K1", "K2", "K3", "K3d1", "K4", "K5", "K5f32", "K5p", "K5q", "K5v", "K6", "K7",
+                    "K6d28", "K7d28", "K8", "K9", "K10f", "K10b", "K11", "K12")]}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

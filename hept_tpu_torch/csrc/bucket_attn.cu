@@ -411,6 +411,14 @@ constexpr size_t kMaxSmem = 227 * 1024;
 
 __host__ __device__ constexpr int pad4(int c) { return (c + 3) / 4 * 4; }
 
+// A shared row stride for rows of at least w floats, padded to 4 words
+// modulo 8: 8 rows read as float4s at once (a quarter warp) fall in distinct
+// banks, and so do 2 rows read at once by broadcast. pad4(w) + 4 is that at
+// w = 30 (36) and 24 (28), but 32 at w = 28: every row in one bank.
+__host__ __device__ constexpr int stride_4mod8(int w) {
+  return pad4(w) % 8 == 4 ? pad4(w) : pad4(w) + 4;
+}
+
 __host__ __device__ constexpr int cols_group(int bs) {
   return bs >= kColsThreads ? 1 : kColsThreads / bs;
 }
@@ -1609,16 +1617,20 @@ int launch_tc_bwd(const void* q, const void* k, const void* v, const float* gso,
 // for 80 FMAs in A and 4 for 24 in C.
 // Padded points (bs up to the next multiple of 20) have zero rows and the
 // norm kPadBias: pt = 0 and dl = 0. Every sum runs in a fixed order: no
-// atomics, the same bits on every call. The shared rows are strided 4 words
-// modulo 32 where a quarter-warp reads 8 rows at once.
+// atomics, the same bits on every call. Where a quarter-warp reads 8 rows
+// at once, the dl / pt rows are strided 4 words modulo 32 and the operand
+// rows 4 modulo 8 (stride_4mod8).
 
 constexpr int kTiledThreads = 512;
 constexpr int kTiledMaxBs = 100;
 
 template <int D, int DV>
 struct TiledDims {
-  static constexpr int DP = pad4(D), DVP = pad4(DV);
-  static constexpr int SQ = DP + 4, SV = DVP + 4;  // q / k and g / v row strides
+  static constexpr int kCC = 6;  // phase C's columns a unit
+  // q / k and g / v row strides: phase C reads whole units of kCC columns,
+  // past D (zero padding) where kCC does not divide it
+  static constexpr int SQ = stride_4mod8(round_up(D, kCC));
+  static constexpr int SV = stride_4mod8(round_up(DV, kCC));
   static constexpr int kCols = 2 * D + 2 * DV + 1;  // staged: q, k, g_so, v, g_den
   static __host__ __device__ int bp(int bs) { return round_up(bs, 20); }
   // dl / pt row stride: >= bp and 4 words modulo 32
@@ -1804,7 +1816,7 @@ cols_bwd_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int SQ = Tm::SQ, SV = Tm::SV;
   // phase C's unit: kCM points x kCC columns; DB, VB column blocks of dq /
   // dk and of dv
-  constexpr int kCM = 4, kCC = 6, DB = (D + kCC - 1) / kCC, VB = (DV + kCC - 1) / kCC;
+  constexpr int kCM = 4, kCC = Tm::kCC, DB = (D + kCC - 1) / kCC, VB = (DV + kCC - 1) / kCC;
   static_assert(kCM == 4, "a unit's points are one float4 of a column");
   const int bp = Tm::bp(bs), sl = Tm::sl(bs), ob = Tm::ops(bs), nb = n / bs;
   extern __shared__ float4 smem_tiled[];
@@ -2057,7 +2069,7 @@ constexpr int kFwdGroup = 2;                  // buckets a CTA
 template <int D, int DV>
 struct TiledFwdDims {
   static constexpr int DP = pad4(D), DVP = pad4(DV);
-  static constexpr int SK = DP + 4, SV = DVP + 4;  // k / v row strides
+  static constexpr int SK = stride_4mod8(D), SV = stride_4mod8(DV);  // k / v row strides
   // k [g*bs][SK], v [g*bs][SV], key norms [g*bs]
   static size_t smem(int g, int bs) { return (size_t)g * bs * (SK + SV + 1) * 4; }
 };
@@ -2225,7 +2237,10 @@ int launch_rows_bwd(const void* q, const void* k, const void* v, const float* gs
 }  // namespace
 
 // (d, dv) pairs compiled; ops/bucket_attn_cuda.py SUPPORTED_DIMS lists the same.
+// The column kernels K6 / K7 also take the pileup width (coords_dim 4:
+// d = 28; COLS_DIMS there); K1 / K2 and K10 run on no pileup path.
 #define HEPT_DIMS(X) X(30, 24) X(7, 5)
+#define HEPT_COLS_DIMS(X) HEPT_DIMS(X) X(28, 24)
 
 extern "C" int hept_bucket_attn_fwd(const void* q, const void* k, const void* v, float* denom,
                                     float* so, int r, int d, int dv, int n, int bs, int bf16,
@@ -2295,7 +2310,7 @@ extern "C" int hept_cols_bwd_tc(const void* q, const void* k, const void* v, con
   if (d == D_ && dv == DV_)                                                                \
     return launch_tc_cols_bwd<D_, DV_>(q, k, v, gso, gden, dq, dk, dv_out, r, n, bs,       \
                                        tc_cols_group(bs), s);
-  HEPT_DIMS(HEPT_TC_COLS_BWD_CASE)
+  HEPT_COLS_DIMS(HEPT_TC_COLS_BWD_CASE)
 #undef HEPT_TC_COLS_BWD_CASE
   return (int)cudaErrorInvalidValue;
 }
@@ -2313,7 +2328,7 @@ extern "C" int hept_cols_fwd(const void* q, const void* k, const void* v, float*
     return hilo ? launch_cols_fwd<D_, DV_, true, true>(q, k, v, denom, so, r, n, bs, s)      \
                 : launch_cols_fwd<D_, DV_, true, false>(q, k, v, denom, so, r, n, bs, s);    \
   }
-  HEPT_DIMS(HEPT_COLS_FWD_CASE)
+  HEPT_COLS_DIMS(HEPT_COLS_FWD_CASE)
 #undef HEPT_COLS_FWD_CASE
   return (int)cudaErrorInvalidValue;
 }
@@ -2332,7 +2347,7 @@ extern "C" int hept_cols_fwd_tc(const void* q, const void* k, const void* v, flo
                                                                       bs, g, s)               \
                 : launch_tc_cols_fwd<D_, DV_, false, kTcColsFwdTiles>(q, k, v, denom, so, r, n, \
                                                                        bs, g, s);
-  HEPT_DIMS(HEPT_TC_COLS_FWD_CASE)
+  HEPT_COLS_DIMS(HEPT_TC_COLS_FWD_CASE)
 #undef HEPT_TC_COLS_FWD_CASE
   return (int)cudaErrorInvalidValue;
 }
@@ -2347,7 +2362,7 @@ extern "C" int hept_cols_bwd(const void* q, const void* k, const void* v, const 
   if (d == D_ && dv == DV_)                                                                  \
     return v2 ? launch_cols_bwd<D_, DV_, true>(q, k, v, gso, gden, dq, dk, dv_out, r, n, bs, s) \
               : launch_cols_bwd_f32<D_, DV_>(q, k, v, gso, gden, dq, dk, dv_out, r, n, bs, s);
-  HEPT_DIMS(HEPT_COLS_BWD_CASE)
+  HEPT_COLS_DIMS(HEPT_COLS_BWD_CASE)
 #undef HEPT_COLS_BWD_CASE
   return (int)cudaErrorInvalidValue;
 }

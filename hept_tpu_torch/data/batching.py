@@ -32,6 +32,7 @@ class Event:
       cluster_ids: (n,) dense ids in [0, n); 0 = noise (tracking).
       recons: (n,) reconstructability flags; pts: (n,) transverse momenta.
       pairs: (2, e) supervision point pairs (tracking).
+      y: (n,) binary labels (pileup); is_neu: (n,) neutral-particle mask.
     """
 
     x: np.ndarray
@@ -40,6 +41,8 @@ class Event:
     recons: np.ndarray | None = None
     pts: np.ndarray | None = None
     pairs: np.ndarray | None = None
+    y: np.ndarray | None = None
+    is_neu: np.ndarray | None = None
     # window size -> processed base pairs (see _process_event_pairs)
     pair_cache: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
 
@@ -240,7 +243,7 @@ def pack_events(
 
     Returns dict of numpy arrays with leading batch dim B:
       x (B, N, F), coords (B, N, C), valid (B, N) bool, and when present:
-      cluster_ids/recons/pts (B, N), pairs (B, 2, E) int32, pair_mask (B, E)
+      cluster_ids/recons/pts/y (B, N), is_neu (B, N) bool, pairs (B, 2, E) int32, pair_mask (B, E)
       bool, and on the windowed path pair_rev/pair_weight/pair_neg (B, E).
       N is a multiple of block_size.
     `cache=True` keeps each event's processed base pairs on the Event and
@@ -273,16 +276,18 @@ def pack_events(
         # across the padding tail too (masked either way)
         out["pairs"] = np.full((b, 2, e), n - 1, np.int32)
         out["pair_mask"] = np.zeros((b, e), bool)
-    for name in ("cluster_ids", "recons", "pts"):
+    dtypes = {"cluster_ids": np.int32, "recons": np.float32, "pts": np.float32,
+              "y": np.float32, "is_neu": bool}
+    for name, dt in dtypes.items():
         if getattr(events[0], name) is not None:
-            out[name] = np.zeros((b, n), np.int32 if name == "cluster_ids" else np.float32)
+            out[name] = np.zeros((b, n), dt)
 
     for i, ev in enumerate(events):
         ni = ev.n
         out["x"][i, :ni] = ev.x
         out["coords"][i, :ni] = ev.coords
         out["valid"][i, :ni] = True
-        for name in ("cluster_ids", "recons", "pts"):
+        for name in dtypes:
             val = getattr(ev, name)
             if val is not None:
                 out[name][i, :ni] = val

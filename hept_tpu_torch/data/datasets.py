@@ -1,5 +1,5 @@
-"""Synthetic tracking dataset with the reference's 80/10/10 split (own copy
-of the synthetic part of `hept_tpu/data/datasets.py`)."""
+"""Synthetic tracking and pileup datasets with the reference's 80/10/10
+split (own copy of the synthetic part of `hept_tpu/data/datasets.py`)."""
 
 from __future__ import annotations
 
@@ -8,7 +8,7 @@ import dataclasses
 import numpy as np
 
 from .batching import pack_events
-from .synthetic import synthetic_tracking_event
+from .synthetic import synthetic_pileup_event, synthetic_tracking_event
 
 
 @dataclasses.dataclass
@@ -41,15 +41,9 @@ class SplitDataset:
             )
 
 
-def make_synthetic_tracking(n_events: int = 20, n_points: int = 1000,
-                            seed: int = 0, **kwargs) -> SplitDataset:
-    rng = np.random.default_rng(seed)
-    sizes = rng.integers(int(n_points * 0.8), n_points + 1, n_events)
-    events = [
-        synthetic_tracking_event(rng, n_points=int(s), **kwargs) for s in sizes
-    ]
-    n_tr = int(n_events * 0.8)
-    n_va = max(1, int(n_events * 0.1))
+def _split(events: list) -> SplitDataset:
+    n_tr = int(len(events) * 0.8)
+    n_va = max(1, int(len(events) * 0.1))
     return SplitDataset(
         train=events[:n_tr],
         valid=events[n_tr : n_tr + n_va],
@@ -59,10 +53,28 @@ def make_synthetic_tracking(n_events: int = 20, n_points: int = 1000,
     )
 
 
+def make_synthetic_tracking(n_events: int = 20, n_points: int = 1000,
+                            seed: int = 0, **kwargs) -> SplitDataset:
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(int(n_points * 0.8), n_points + 1, n_events)
+    return _split([synthetic_tracking_event(rng, n_points=int(s), **kwargs) for s in sizes])
+
+
+def make_synthetic_pileup(n_events: int = 20, n_points: int = 1000,
+                          seed: int = 0, **kwargs) -> SplitDataset:
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(int(n_points * 0.8), n_points + 1, n_events)
+    return _split([synthetic_pileup_event(rng, n_points=int(s), **kwargs) for s in sizes])
+
+
 def get_dataset(name: str, seed: int = 0, **kwargs) -> SplitDataset:
-    """`synthetic-tracking-<n>[k]` datasets, e.g. synthetic-tracking-60k."""
+    """`synthetic-tracking-<n>[k]` datasets, e.g. synthetic-tracking-60k, and
+    `synthetic-pileup` (events of up to 1000 points; as in the JAX package,
+    the name takes no size)."""
+    if name.startswith("synthetic-pileup"):
+        return make_synthetic_pileup(seed=seed, **kwargs)
     if not name.startswith("synthetic-tracking"):
-        raise NotImplementedError(f"{name}: only synthetic tracking is ported")
+        raise NotImplementedError(f"{name}: only the synthetic datasets are ported")
     tail = name.rsplit("-", 1)[-1]
     n_points = int(tail.replace("k", "000")) if tail[-1] in "k0123456789" \
         and tail[0].isdigit() else 1000

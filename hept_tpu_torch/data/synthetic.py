@@ -1,4 +1,5 @@
-"""Synthetic tracking events (own copy of `hept_tpu/data/synthetic.py`).
+"""Synthetic tracking and pileup events (own copy of
+`hept_tpu/data/synthetic.py`).
 
 Tracks are clusters of hits around an (eta, phi) centre whose features
 correlate with the track, so contrastive embedding learning is possible.
@@ -98,3 +99,33 @@ def radius_pairs(eta, phi, radius, k):
     if len(src) == 0:
         return np.zeros((2, 0), np.int32)
     return np.stack([src, dst]).astype(np.int32)
+
+
+def synthetic_pileup_event(
+    rng: np.random.Generator,
+    n_points: int = 1000,
+    n_feature_dim: int = 8,
+    neutral_frac: float = 0.3,
+) -> Event:
+    """One pileup event: per-point binary labels that follow a latent density
+    field over (eta, phi), the PID integer in the last feature column, and
+    evaluation on neutral high-pT points (`is_neu`). The same draws, in the
+    same order, as the JAX package's generator, so one seed gives the same
+    event in both. coords = [eta, phi, x[:, :2]] -> coords_dim = 4."""
+    eta = rng.uniform(-4, 4, n_points).astype(np.float32)
+    phi = rng.uniform(-np.pi, np.pi, n_points).astype(np.float32)
+    centers = rng.uniform(-3, 3, (8, 2))
+    pos = np.stack([eta, phi], axis=1)
+    score = sum(
+        np.exp(-np.linalg.norm(pos - c[None], axis=1) ** 2 / 0.5) for c in centers
+    )
+    y = (score + rng.normal(0, 0.2, n_points) > np.median(score)).astype(np.float32)
+    pt = rng.lognormal(0, 0.8, n_points).astype(np.float32)
+    charge_neutral = rng.uniform(size=n_points) < neutral_frac
+    is_neu = charge_neutral & (pt > 0.9)
+    pid = rng.integers(0, 7, n_points)
+    feats = rng.normal(0, 1, (n_points, n_feature_dim - 1)).astype(np.float32)
+    feats[:, 0] += y * 1.0  # the label shows in one feature: the task is learnable
+    x = np.concatenate([feats, pid[:, None].astype(np.float32)], axis=1)
+    coords = np.concatenate([pos, x[:, :2]], axis=1)
+    return Event(x=x, coords=coords.astype(np.float32), y=y, is_neu=is_neu)

@@ -3,7 +3,8 @@ ported profiles).
 
 Feature-MLP encoder -> N pre-LN attention blocks with residual + FF ->
 concat of all layer outputs -> bias-free `W` -> 5-layer tanh/LayerNorm MLP
-residual head. Two ways to bucket the points:
+residual head. The pileup task embeds the PID in the last feature column
+before the encoder and ends in a sigmoid classifier. Two ways to bucket the points:
 - static plan (hept_acc, hept_fast, hept_turbo): keys are hashed once per
   step from the encoder output and coords (`static_hash`); one plan of
   `static_rounds` rounds is built, and layer l uses rounds
@@ -15,7 +16,8 @@ Layers run as a Python loop (the JAX package's `scan_layers` is a compile-
 time device with the same math).
 
 The model is defined on ONE event: x (N, in_dim), coords (N, coords_dim),
-valid (N,) with N a multiple of block_size; it returns (N, h_dim // 2).
+valid (N,) with N a multiple of block_size; it returns (N, h_dim // 2)
+embeddings (tracking) or (N, num_classes) probabilities (pileup).
 """
 
 from __future__ import annotations
@@ -36,7 +38,9 @@ from ..ops.bucket_attn_cuda import ATTN_IMPLS
 from .attention.hept import HeptAttention
 from .mlp import FeedForward, OutMLP, TorchLinear, dropout, layer_norm, uniform_
 
-_ROADMAP = "ROADMAP.md queue 1, item 2 (other HEPT profiles)"
+_ROADMAP = "ROADMAP.md queue 1, item 2b (the refused modes)"
+# the pileup PID embedding: PIDs 0..6, 10 features each
+NUM_PIDS, PID_DIM = 7, 10
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,6 +61,7 @@ class TransformerConfig:
     in_dim: int
     coords_dim: int
     task: str = "tracking"
+    num_classes: int = 1  # pileup head width
     attn_type: str = "hept"
     h_dim: int = 24
     num_heads: int = 8
@@ -87,7 +92,7 @@ class TransformerConfig:
 
     def check_supported(self) -> None:
         need = {
-            "task == 'tracking'": self.task == "tracking",
+            "task in ('tracking', 'pileup')": self.task in ("tracking", "pileup"),
             "attn_type == 'hept'": self.attn_type == "hept",
             f"padding_mode == 'replicate' (zero padding: {_ROADMAP})":
                 self.padding_mode == "replicate",
@@ -207,7 +212,18 @@ class HeptTransformer(nn.Module):
         self.register_buffer("regions", get_regions(
             generator, cfg.num_regions, cfg.n_hashes, cfg.num_heads, cfg.num_and_hashes,
             device=device))
-        self.feat_enc_0 = TorchLinear(cfg.in_dim, cfg.h_dim, generator=generator, device=device)
+        in_dim = cfg.in_dim
+        if cfg.task == "pileup":
+            # flax's nn.Embed default init (default_embed_init):
+            # variance_scaling(1.0, "fan_in", "normal", out_axis=0), where
+            # fan_in is the embedding width and jax's "normal" is the
+            # untruncated normal: N(0, 1 / PID_DIM)
+            self.pids_enc = nn.Embedding(NUM_PIDS, PID_DIM, device=device)
+            with torch.no_grad():
+                nn.init.normal_(self.pids_enc.weight, 0.0, math.sqrt(1.0 / PID_DIM),
+                                generator=generator)
+            in_dim = cfg.in_dim - 1 + PID_DIM
+        self.feat_enc_0 = TorchLinear(in_dim, cfg.h_dim, generator=generator, device=device)
         self.feat_enc_1 = TorchLinear(cfg.h_dim, cfg.h_dim, generator=generator, device=device)
         if cfg.static_keys:
             self.register_buffer("static_alpha", e2lsh_init(
@@ -219,6 +235,9 @@ class HeptTransformer(nn.Module):
                              generator=generator, device=device)
         self.mlp_out = OutMLP(cfg.h_dim // 2, cfg.h_dim // 2, generator=generator,
                               device=device)
+        if cfg.task == "pileup":
+            self.out_proj = TorchLinear(cfg.h_dim // 2, cfg.num_classes, generator=generator,
+                                        device=device)
 
     def build_plan(self, h, coords, codes, invalid):
         """The once-per-step plan of `total_rounds` rounds (static_hash of the
@@ -249,6 +268,11 @@ class HeptTransformer(nn.Module):
             raise ValueError("N must be a multiple of block_size")
         x, coords, codes, invalid = prepare_event(x, coords, valid, self.regions,
                                                   cfg.block_size)
+        if cfg.task == "pileup":
+            # after the padding plan: replication pads carry their source
+            # row's PID, inert slots PID 0
+            pids = torch.clamp(x[:, -1].to(torch.int32), 0, NUM_PIDS - 1)
+            x = torch.cat([x[:, :-1], self.pids_enc(pids)], dim=-1)
         h = self.feat_enc_1(torch.relu(self.feat_enc_0(x)))
         if cfg.static_keys and plan is None:
             plan = self.build_plan(h, coords, codes, invalid)
@@ -259,4 +283,7 @@ class HeptTransformer(nn.Module):
                       perms=None if perms is None else perms[i], record_perms=record_perms)
             layers.append(h)
         out = self.W(torch.cat(layers, dim=-1))
-        return out + dropout(self.mlp_out(out), cfg.dropout, generator)
+        out = out + dropout(self.mlp_out(out), cfg.dropout, generator)
+        if cfg.task == "pileup":
+            out = torch.sigmoid(self.out_proj(out))
+        return out

@@ -41,8 +41,12 @@ from . import cuda_lib
 from .dispatch import use_kernel
 
 DENOM_EPS = 1e-20
-# (d, dv) pairs compiled into csrc/bucket_attn.cu (HEPT_DIMS there)
+# (d, dv) pairs compiled into csrc/bucket_attn.cu (HEPT_DIMS there): d = 30
+# the tracking width (h_dim 24 + coords_dim 6), 7 / 5 the tests'
 SUPPORTED_DIMS = ((30, 24), (7, 5))
+# and for the column kernels K6 / K7 (HEPT_COLS_DIMS): also the pileup width,
+# coords_dim 4
+COLS_DIMS = SUPPORTED_DIMS + ((28, 24),)
 # attn_impl modes the port runs (`cols_routes`); the JAX package's "xla" is
 # its kernel-free einsum + autodiff path, which the port does not run
 ATTN_IMPLS = ("slab2", "hybrid", "hybrid2", "hybrid2l", "pallas", "loop2", "slab",
@@ -54,8 +58,9 @@ LAUNCHES = {"bucket_attn_fwd_tc": 0, "bucket_attn_bwd_tc": 0, "bucket_attn_fwd":
             "bucket_attn_bwd": 0, "cols_fwd_tc": 0, "cols_fwd": 0, "cols_bwd_tc": 0,
             "cols_bwd": 0, "rows_fwd": 0, "rows_bwd": 0}
 # shared bytes per padded point of K7's tensor-core tiles at the widest
-# compiled (d, dv) = (30, 24): bf16 rows of 40 (q / k, ones column) and 24
-# (v / g_so) values, and two f32 norms (TcDims in csrc/bucket_attn.cu)
+# compiled (d, dv) = (30, 24), and at (28, 24) alike (d + 1 rounds up to 32
+# at both): bf16 rows of 40 (q / k, ones column) and 24 (v / g_so) values,
+# and two f32 norms (TcDims in csrc/bucket_attn.cu)
 _TC_COLS_BYTES_PER_POINT = (40 + 24) * 2 + 8
 # and of K6's: bf16 rows of 40 (k) and 24 (v) values and one f32 norm
 # (tc_cols_fwd_smem)
@@ -194,7 +199,7 @@ def cols_bwd_route(dtype: torch.dtype, block_size: int, v2: bool) -> str:
     return "scalar"
 
 
-def _check_inputs(sq, sk, sv, block_size, route="scalar", cotangents=()):
+def _check_inputs(sq, sk, sv, block_size, route="scalar", cotangents=(), dims=SUPPORTED_DIMS):
     r, d, n = sq.shape
     dv = sv.shape[1]
     if sk.shape != sq.shape or sv.shape != (r, dv, n):
@@ -202,8 +207,8 @@ def _check_inputs(sq, sk, sv, block_size, route="scalar", cotangents=()):
     if sq.dtype not in (torch.bfloat16, torch.float32) or sk.dtype != sq.dtype \
             or sv.dtype != sq.dtype:
         raise ValueError(f"dtypes {sq.dtype} {sk.dtype} {sv.dtype}: need one of bf16/f32")
-    if (d, dv) not in SUPPORTED_DIMS:
-        raise ValueError(f"(d, dv) = {(d, dv)} not compiled; have {SUPPORTED_DIMS}")
+    if (d, dv) not in dims:
+        raise ValueError(f"(d, dv) = {(d, dv)} not compiled; have {dims}")
     # the scalar route (and K6 / K7) stages f32 rows; the tensor-core
     # launchers refuse a bucket whose bf16 tiles overflow shared memory
     if n % block_size or (route == "scalar" and block_size * (d + dv + 2) * 4 > _SMEM_BYTES):
@@ -272,7 +277,7 @@ def cols_fwd_cuda(sq, sk, sv, block_size: int, hilo: bool = False):
     """K6 on the card, on the route `cols_fwd_route` picks: (denom (r, 1, n),
     so (r, dv, n)) float32. `hilo` applies to bf16 inputs only."""
     route = cols_fwd_route(sq.dtype, block_size)
-    r, d, dv, n = _check_inputs(sq, sk, sv, block_size, route)
+    r, d, dv, n = _check_inputs(sq, sk, sv, block_size, route, dims=COLS_DIMS)
     denom = torch.empty((r, 1, n), dtype=torch.float32, device=sq.device)
     so = torch.empty((r, dv, n), dtype=torch.float32, device=sq.device)
     lib = cuda_lib.load("bucket_attn")
@@ -298,7 +303,7 @@ def cols_bwd_cuda(sq, sk, sv, g_denom, g_so, block_size: int, v2: bool):
     the input dtypes. v2 runs on bf16 inputs only; v1 runs the f32 kernel,
     on upcast copies of bf16 inputs."""
     route = cols_bwd_route(sq.dtype, block_size, v2)
-    r, d, dv, n = _check_inputs(sq, sk, sv, block_size, route, (g_denom, g_so))
+    r, d, dv, n = _check_inputs(sq, sk, sv, block_size, route, (g_denom, g_so), COLS_DIMS)
     v2 = v2 and sq.dtype == torch.bfloat16
     ins = (sq, sk, sv) if v2 else tuple(t.float() for t in (sq, sk, sv))
     outs = tuple(torch.empty_like(t) for t in ins)

@@ -1,0 +1,22 @@
+"""CLI: `python -m hept_tpu_torch.pileup_trainer -m hept
+[--dataset synthetic-pileup] [--epochs 1] [--device cpu] [-c config.yaml]
+[--log-dir runs/] [--resume RUN_DIR] [--only-eval]`.
+
+The pileup counterpart of `tracking_trainer` (the JAX package's
+`pileup_trainer`): `-m` selects `configs/pileup/pileup_trans_<model>.yaml`
+(hept, the reference-parity profile, or hept_fast); the run trains the focal
+loss with best-by-valid AP and prints the best checkpoint's test AP ("auc"),
+ROC-AUC, F1 and loss. The run is on the GPU unless `--device cpu` is given.
+"""
+
+from __future__ import annotations
+
+from . import tracking_trainer
+
+
+def main(argv=None):
+    tracking_trainer.main(argv, task="pileup", default_model="hept")
+
+
+if __name__ == "__main__":
+    main()

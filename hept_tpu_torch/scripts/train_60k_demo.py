@@ -3,7 +3,7 @@ port of `scripts/train_60k_demo.py` (the recipe behind the JAX package's
 acc@0.9 seed spreads), for the profiles the port runs.
 
     python -m hept_tpu_torch.scripts.train_60k_demo [lr seed n_events epochs]
-        [--profile hept_acc|hept_fast|hept_turbo|hept] [--device cuda|cpu]
+        [--profile hept_acc|hept_max|hept_fast|hept_turbo|hept] [--device cuda|cpu]
         [--log-dir runs/train60k]
 
 Defaults: the hept_acc profile, lr 1e-2, seed 42, 10 events of up to 60000
@@ -24,8 +24,8 @@ from ..utils.device import resolve_device
 
 # the JAX demo's arm of each profile's composition (BASELINE.md); the parity
 # profile has no JAX arm of its own (its nearest, r2known, is another stack)
-VARIANTS = {"hept_acc": "nh2r8bs512cv2r", "hept_fast": "nh2r8cv2r", "hept_turbo": "nh1r4cv2r",
-            "hept": "parity"}
+VARIANTS = {"hept_acc": "nh2r8bs512cv2r", "hept_max": "r12bs512cv2r", "hept_fast": "nh2r8cv2r",
+            "hept_turbo": "nh1r4cv2r", "hept": "parity"}
 
 
 def demo_config(profile: str, lr: float, seed: int, epochs: int, log_dir: str,

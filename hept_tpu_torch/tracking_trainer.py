@@ -7,20 +7,21 @@ The run trains with best-by-valid selection (`train/trainer.py:
 run_one_seed`) and prints the best checkpoint's test metrics. `--resume`
 goes on from an earlier run dir's latest checkpoint; `--only-eval` only
 evaluates the test split (of the resumed weights, with `--resume`). The run
-is on the GPU unless `--device cpu` is given.
+is on the GPU unless `--device cpu` is given. `pileup_trainer.py` is the
+same CLI for the pileup task.
 """
 
 from __future__ import annotations
 
 import argparse
 
-from .train.config import CONFIG_DIR, load_config
+from .train.config import CONFIG_ROOT, load_config
 from .train.trainer import run_one_seed
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser()
-    ap.add_argument("-m", "--model", default="hept_acc")
+def main(argv=None, task: str = "tracking", default_model: str = "hept_acc"):
+    ap = argparse.ArgumentParser(prog=f"python -m hept_tpu_torch.{task}_trainer")
+    ap.add_argument("-m", "--model", default=default_model)
     ap.add_argument("-c", "--config", default=None)
     ap.add_argument("--dataset", default=None)
     ap.add_argument("--epochs", type=int, default=None)
@@ -30,8 +31,8 @@ def main(argv=None):
     ap.add_argument("--only-eval", action="store_true")
     args = ap.parse_args(argv)
 
-    path = args.config or CONFIG_DIR / f"tracking_trans_{args.model}.yaml"
-    overrides = {"task": "tracking"}
+    path = args.config or CONFIG_ROOT / task / f"{task}_trans_{args.model}.yaml"
+    overrides = {"task": task}
     for key, val in (("dataset_name", args.dataset), ("num_epochs", args.epochs),
                      ("device", args.device), ("log_dir", args.log_dir),
                      ("resume", args.resume)):

@@ -10,7 +10,8 @@ from typing import Optional
 
 from ..models.transformer import TransformerConfig
 
-CONFIG_DIR = Path(__file__).resolve().parent.parent / "configs" / "tracking"
+CONFIG_ROOT = Path(__file__).resolve().parent.parent / "configs"
+CONFIG_DIR = CONFIG_ROOT / "tracking"
 
 
 @dataclasses.dataclass
@@ -32,6 +33,9 @@ class ExperimentConfig:
 
     lr_scheduler_name: Optional[str] = None
     lr_scheduler_kwargs: dict = dataclasses.field(default_factory=dict)
+    # the metric the "impatient" plateau watches: "loss" (the train loss) or
+    # a valid metric's name; None means "loss"
+    lr_scheduler_metric: Optional[str] = None
 
     data_dir: str = "data/"
     dataset_name: str = "synthetic-tracking-1k"
@@ -76,7 +80,8 @@ def load_config(path: str | Path, **overrides) -> ExperimentConfig:
     return ExperimentConfig(**raw)
 
 
-def profile_config(profile: str, **overrides) -> ExperimentConfig:
-    """The shipped profile `configs/tracking/tracking_trans_<profile>.yaml`
-    (hept, hept_acc, hept_fast, hept_turbo) with `overrides`."""
-    return load_config(CONFIG_DIR / f"tracking_trans_{profile}.yaml", **overrides)
+def profile_config(profile: str, task: str = "tracking", **overrides) -> ExperimentConfig:
+    """The shipped profile `configs/<task>/<task>_trans_<profile>.yaml` with
+    `overrides`: tracking hept, hept_acc, hept_fast, hept_turbo, hept_max;
+    pileup hept, hept_fast."""
+    return load_config(CONFIG_ROOT / task / f"{task}_trans_{profile}.yaml", **overrides)

@@ -1,5 +1,6 @@
-"""InfoNCE tracking loss on the windowed pair layout (port of the windowed
-path of `hept_tpu/train/losses.py:infonce_loss`)."""
+"""The tasks' losses: InfoNCE for tracking on the windowed pair layout (port
+of the windowed path of `hept_tpu/train/losses.py:infonce_loss`) and the
+focal loss for pileup (`focal_loss`)."""
 
 from __future__ import annotations
 
@@ -42,3 +43,19 @@ def infonce_loss(embeddings: torch.Tensor, pairs: torch.Tensor, pair_mask: torch
     denominator = pair_gather(neg_sum[:, None], p0, csr)[:, 0]
     loss_per_pair = -torch.log(exp_sim / (exp_sim + denominator + 1e-30) + 1e-30)
     return torch.sum(loss_per_pair * pair_weight)
+
+
+def focal_loss(probs: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor | None = None,
+               alpha: float = 0.25, gamma: float = 2.0) -> torch.Tensor:
+    """Focal binary cross-entropy on probabilities (the model ends in a
+    sigmoid): BCE of p clipped to [1e-7, 1 - 1e-7], pt = exp(-BCE), loss
+    alpha (1 - pt)^gamma BCE, averaged over the `mask`ed points (at least
+    one in the denominator), or over all points without a mask."""
+    p = torch.clamp(probs, 1e-7, 1.0 - 1e-7)
+    bce = -(targets * torch.log(p) + (1.0 - targets) * torch.log(1.0 - p))
+    pt = torch.exp(-bce)
+    fl = alpha * (1.0 - pt) ** gamma * bce
+    if mask is None:
+        return fl.mean()
+    fl = torch.where(mask, fl, torch.zeros_like(fl))
+    return fl.sum() / torch.clamp(mask.sum(), min=1)

@@ -1,15 +1,20 @@
-"""Tracking retrieval metrics (port of the tracking part of
-`hept_tpu/train/metrics.py`).
+"""Task metrics (port of `hept_tpu/train/metrics.py`).
 
-kNN-retrieval accuracy / precision / recall at pT thresholds: each scored
-point retrieves its K+1 nearest neighbours in the embedding space (itself
-first), drops itself, and counts the neighbours of its own cluster. The
-distance blocks are tiled over queries (`ops/knn.py`), so a 60k-point event
-never holds an N x N matrix. Pileup metrics are not ported yet.
+Tracking: kNN-retrieval accuracy / precision / recall at pT thresholds: each
+scored point retrieves its K+1 nearest neighbours in the embedding space
+(itself first), drops itself, and counts the neighbours of its own cluster.
+The distance blocks are tiled over queries (`ops/knn.py`), so a 60k-point
+event never holds an N x N matrix.
+
+Pileup: average precision, ROC-AUC and F1 at 0.5 of the classifier's
+probabilities (`binary_classification_metrics`), in numpy on the host, with
+scikit-learn's definitions (the JAX package calls scikit-learn, which the
+port does not need).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..ops.knn import knn_brute_force
@@ -101,3 +106,49 @@ def tracking_metrics_batch(embeddings, cluster_ids, recons, pts, valid, k: int =
             rows.append(_masked_means(scores[:3], include))
         out.append(torch.stack(rows))
     return torch.stack(out)
+
+
+def _binary_clf_curve(targets: np.ndarray, probs: np.ndarray):
+    """False and true positives at each distinct threshold, highest first
+    (scikit-learn's `_binary_clf_curve`): scores sorted descending by a
+    stable sort, ties grouped at their last position."""
+    order = np.argsort(probs, kind="mergesort")[::-1]
+    s, t = probs[order], targets[order]
+    idx = np.r_[np.where(np.diff(s))[0], t.size - 1]
+    tps = np.cumsum(t, dtype=np.float64)[idx]
+    return 1 + idx - tps, tps
+
+
+def _average_precision(targets, probs) -> float:
+    """sum_n (R_n - R_{n-1}) P_n over distinct thresholds, no interpolation."""
+    fps, tps = _binary_clf_curve(targets, probs)
+    ps = tps + fps
+    precision = np.zeros_like(tps)
+    np.divide(tps, ps, out=precision, where=ps != 0)
+    recall = np.ones_like(tps) if tps[-1] == 0 else tps / tps[-1]
+    precision, recall = np.r_[precision[::-1], 1], np.r_[recall[::-1], 0]
+    return float(-np.sum(np.diff(recall) * precision[:-1]))
+
+
+def _roc_auc(targets, probs) -> float:
+    """The trapezoid under the ROC curve through its distinct thresholds
+    (collinear points dropped, as `roc_curve` does by default)."""
+    fps, tps = _binary_clf_curve(targets, probs)
+    if len(fps) > 2:
+        keep = np.where(np.r_[True, np.logical_or(np.diff(fps, 2), np.diff(tps, 2)), True])[0]
+        fps, tps = fps[keep], tps[keep]
+    fpr, tpr = np.r_[0, fps] / fps[-1], np.r_[0, tps] / tps[-1]
+    return float((np.diff(fpr) * (tpr[1:] + tpr[:-1]) / 2.0).sum())
+
+
+def binary_classification_metrics(probs, targets) -> dict:
+    """AP ("auc", as the reference configs name it), ROC-AUC ("roc") and F1 of
+    the strict prediction probs > 0.5 ("f1") over the given points; the
+    targets hold both classes."""
+    probs = np.asarray(probs).reshape(-1)
+    targets = np.asarray(targets).reshape(-1) == 1
+    pred = probs > 0.5
+    tp = float(np.sum(pred & targets))
+    denom = 2 * tp + float(np.sum(pred & ~targets)) + float(np.sum(~pred & targets))
+    return {"auc": _average_precision(targets, probs), "roc": _roc_auc(targets, probs),
+            "f1": 2 * tp / denom if denom else 0.0}

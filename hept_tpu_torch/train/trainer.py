@@ -1,12 +1,15 @@
 """Training step, evaluation and the best-by-valid run (port of
-`hept_tpu/parallel/dp.py:make_single_device_train_step` and the tracking
-parts of `hept_tpu/train/trainer.py`: `make_eval_step`, `evaluate`,
-`run_one_seed`).
+`hept_tpu/parallel/dp.py:make_single_device_train_step` and the tracking and
+pileup parts of `hept_tpu/train/trainer.py`: `make_loss_fn`,
+`make_eval_step`, `evaluate`, `run_one_seed`).
 
 `run_one_seed` trains for `num_epochs`, evaluates the valid split after
 every epoch, and at each new best of `main_metric` evaluates the test split
 and saves a checkpoint (`train/state.py`). At the end it restores the best
-checkpoint into a fresh model and evaluates the test split again.
+checkpoint into a fresh model and evaluates the test split again. Tracking
+trains the InfoNCE loss on windowed supervision pairs; pileup the focal loss
+on the neutral points, with the "impatient" plateau schedule where the
+config names it.
 """
 
 from __future__ import annotations
@@ -24,15 +27,16 @@ from ..models.transformer import HeptTransformer
 from ..utils.device import resolve_device
 from ..utils.logging import ScalarLogger, log
 from .config import ExperimentConfig
-from .losses import infonce_loss
-from .metrics import THRESHOLDS, tracking_metrics_batch
+from .losses import focal_loss, infonce_loss
+from .metrics import THRESHOLDS, binary_classification_metrics, tracking_metrics_batch
 from .optim import make_lr_scheduler, make_optimizer
 from .state import CheckpointManager
 
 _DTYPES = {"x": torch.float32, "coords": torch.float32, "valid": torch.bool,
            "cluster_ids": torch.int32, "recons": torch.float32, "pts": torch.float32,
            "pairs": torch.int32, "pair_mask": torch.bool, "pair_rev": torch.int32,
-           "pair_weight": torch.float32, "pair_neg": torch.bool}
+           "pair_weight": torch.float32, "pair_neg": torch.bool, "y": torch.float32,
+           "is_neu": torch.bool}
 
 
 def batch_to_device(batch: dict, device) -> dict:
@@ -47,7 +51,18 @@ def build_model(cfg: ExperimentConfig, in_dim: int, coords_dim: int,
 
 
 def make_loss_fn(cfg: ExperimentConfig):
-    """InfoNCE over the events of a batch (mean over events)."""
+    """Tracking: InfoNCE over the events of a batch (mean over events).
+    Pileup: the focal loss of the probabilities over the batch's real
+    neutral points (alpha, gamma from `loss_kwargs`)."""
+    if cfg.task == "pileup":
+        alpha = cfg.loss_kwargs.get("alpha", 0.25)
+        gamma = cfg.loss_kwargs.get("gamma", 2.0)
+
+        def focal(outputs, batch):
+            return focal_loss(outputs[..., 0], batch["y"], batch["is_neu"] & batch["valid"],
+                              alpha=alpha, gamma=gamma)
+
+        return focal
     if cfg.task != "tracking" or cfg.loss_name != "infonce" or not cfg.windowed_pairs:
         raise NotImplementedError("the port trains the tracking InfoNCE loss on windowed pairs")
     tau = cfg.loss_kwargs.get("tau", 0.05)
@@ -91,9 +106,9 @@ def train_step(model, optimizer, loss_fn, batch, generator: torch.Generator | No
 
 
 def make_eval_step(cfg: ExperimentConfig):
-    """Eval step of the tracking task: forward (no dropout), the windowed-pair
-    loss and the retrieval metrics of one batch, as device tensors:
-    (loss scalar, (B, 3 thresholds, 3 metrics)).
+    """Eval step of one batch, forward without dropout, as device tensors:
+    tracking (the windowed-pair loss, (B, 3 thresholds, 3 metrics) retrieval
+    metrics); pileup (the focal loss, (B, N) probabilities).
 
     The JAX package's `eval_chunk` (several batches per device call) and
     `eval_split_programs` (forward and metrics as two compiled programs)
@@ -101,6 +116,12 @@ def make_eval_step(cfg: ExperimentConfig):
     the eager port has neither, so it has no counterpart of them.
     """
     loss_fn = make_loss_fn(cfg)
+    if cfg.task == "pileup":
+        def pileup_step(model, batch):
+            out = model_apply(model, batch)
+            return loss_fn(out, batch), out[..., 0]
+
+        return pileup_step
 
     def eval_step(model, batch):
         out = model_apply(model, batch)
@@ -109,6 +130,11 @@ def make_eval_step(cfg: ExperimentConfig):
         return loss_fn(out, batch), tm
 
     return eval_step
+
+
+def _window_pairs(cfg: ExperimentConfig) -> int:
+    """Tracking packs its pairs in 128-pair windows; pileup has no pairs."""
+    return 128 if cfg.task == "tracking" else 0
 
 
 def eval_batches(cfg: ExperimentConfig, dataset: SplitDataset, split: str, block_size: int,
@@ -120,30 +146,57 @@ def eval_batches(cfg: ExperimentConfig, dataset: SplitDataset, split: str, block
     key = (split, cfg.batch_size, block_size, n_max)
     if key not in cache:
         cache[key] = list(dataset.iter_batches(split, cfg.batch_size, block_size, n_max=n_max,
-                                               window_pairs=128))
+                                               window_pairs=_window_pairs(cfg)))
     return cache[key]
+
+
+def _pileup_metrics(losses: list, probs: list, batches: list) -> dict:
+    """AP / ROC-AUC / F1 per batch over its real neutral points, averaged
+    over the batches that hold both classes (the reference's per-batch
+    mean, not a micro-average), and the mean loss; the device results are
+    read to the host at once."""
+    if not losses:
+        return {"loss": float("nan")}
+    n = len(losses)
+    host = torch.cat([torch.stack(losses), *(p.reshape(-1) for p in probs)]).cpu().numpy()
+    per_batch, off = [], n
+    for b in batches:
+        mask = b["is_neu"] & b["valid"]
+        p = host[off:off + mask.size].reshape(mask.shape)[mask]
+        off += mask.size
+        t = b["y"][mask]
+        if t.size and t.min() != t.max():  # a batch of one class has no AUC
+            per_batch.append(binary_classification_metrics(p, t))
+    keys = per_batch[0].keys() if per_batch else ()
+    res = {k: float(np.mean([m[k] for m in per_batch])) for k in keys}
+    res["loss"] = float(np.mean(host[:n], dtype=np.float64))
+    return res
 
 
 def evaluate(cfg: ExperimentConfig, model: HeptTransformer, dataset: SplitDataset, split: str,
              block_size: int, n_max: int) -> dict:
-    """Mean loss and retrieval metrics over a split, on the model's device.
+    """Mean loss and the task's metrics over a split, on the model's device.
 
     The model runs in eval mode under `torch.inference_mode()`; the results
     stay on the device until one host read at the end of the split.
-    Returns {"loss", "accuracy@t", "precision@t", "recall@t"} for t in
-    (0, 0.5, 0.9).
+    Tracking returns {"loss", "accuracy@t", "precision@t", "recall@t"} for t
+    in (0, 0.5, 0.9); pileup {"auc", "roc", "f1", "loss"} (AP, ROC-AUC and F1
+    averaged over the batches with both classes; only "loss" if none).
     """
     eval_step = make_eval_step(cfg)
     device = next(model.parameters()).device
     was_training = model.training
     model.eval()
+    batches = eval_batches(cfg, dataset, split, block_size, n_max)
     losses, tms = [], []
     with torch.inference_mode():
-        for b in eval_batches(cfg, dataset, split, block_size, n_max):
+        for b in batches:
             loss, tm = eval_step(model, batch_to_device(b, device))
             losses.append(loss)
             tms.append(tm)
     model.train(was_training)
+    if cfg.task == "pileup":
+        return _pileup_metrics(losses, tms, batches)
     if not losses:
         return {"loss": float("nan"), **{f"{m}@{t:g}": float("nan") for t in THRESHOLDS
                                          for m in ("accuracy", "precision", "recall")}}
@@ -205,7 +258,9 @@ def run_one_seed(cfg: ExperimentConfig, dataset: SplitDataset | None = None,
                                cfg.optimizer_kwargs.get("lr", 1e-3))
     scheduler = make_lr_scheduler(
         optimizer, cfg.lr_scheduler_name,
-        **{k: v for k, v in cfg.lr_scheduler_kwargs.items() if k in ("gamma", "step_size")})
+        **{k: v for k, v in cfg.lr_scheduler_kwargs.items()
+           if k in ("gamma", "step_size", "factor", "patience", "mode")})
+    plateau = isinstance(scheduler, torch.optim.lr_scheduler.ReduceLROnPlateau)
     loss_fn = make_loss_fn(cfg)
     data_rng = np.random.default_rng(cfg.seed)
 
@@ -240,17 +295,23 @@ def run_one_seed(cfg: ExperimentConfig, dataset: SplitDataset | None = None,
         model.train()
         losses = []
         for b in dataset.iter_batches("train", cfg.batch_size, block_size, n_max=n_max,
-                                      shuffle_rng=data_rng, aug_pair_p=cfg.pair_aug_p,
-                                      window_pairs=128):
+                                      shuffle_rng=data_rng,
+                                      aug_pair_p=cfg.pair_aug_p if cfg.task == "tracking" else 0.0,
+                                      window_pairs=_window_pairs(cfg)):
             losses.append(train_step(model, optimizer, loss_fn, batch_to_device(b, device),
                                      gen)["loss"])
             step += 1
-        scheduler.step()
+        if not plateau:
+            scheduler.step()
         train_loss = float(torch.stack(losses).mean()) if losses else float("nan")
         t_train = time.perf_counter() - t0
         valid = evaluate(cfg, model, dataset, "valid", block_size, n_max)
         logger.write(epoch, {"loss": train_loss, "epoch_sec": t_train}, prefix="train/")
         logger.write(epoch, valid, prefix="valid/")
+        if plateau:
+            # "loss" is the epoch's train loss, as in the JAX trainer
+            key = cfg.lr_scheduler_metric or "loss"
+            scheduler.step(train_loss if key == "loss" else valid.get(key, train_loss))
         score = valid.get(cfg.main_metric, valid["loss"])
         if math.isnan(score):
             score = -sign * math.inf
@@ -261,7 +322,8 @@ def run_one_seed(cfg: ExperimentConfig, dataset: SplitDataset | None = None,
             ckpt.save(step, _checkpoint(model, optimizer, scheduler, epoch, step, gen,
                                         data_rng), metrics={cfg.main_metric: score})
         log(f"epoch {epoch}: train_loss={train_loss:.4f} valid[{cfg.main_metric}]={score:.4f} "
-            f"best={best:.4f} (train {t_train:.1f} s, "
+            f"best={best:.4f}" + (f" lr={optimizer.param_groups[0]['lr']:g}" if plateau else "")
+            + f" (train {t_train:.1f} s, "
             f"eval {time.perf_counter() - t0 - t_train:.1f} s)")
 
     if best_test:

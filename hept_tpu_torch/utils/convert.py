@@ -2,7 +2,7 @@
 
 `from_jax_variables` turns the flax `{"params", "constants"}` tree of a
 `hept_tpu` HeptTransformer (static-plan or dynamic-key path; scan or loop
-layer layout) into a state dict for
+layer layout; tracking or pileup head) into a state dict for
 `hept_tpu_torch.models.transformer.HeptTransformer`. It takes any nested
 mapping of arrays (numpy, or anything `np.asarray` reads) and imports no
 JAX. The frozen constants (`regions`, `static_alpha` where the model has a
@@ -59,6 +59,9 @@ def from_jax_variables(variables) -> dict[str, torch.Tensor]:
         sd[f"{prefix}.weight"] = _t(node["scale"])
         sd[f"{prefix}.bias"] = _t(node["bias"])
 
+    if "pids_enc" in params:  # the pileup task: PID embedding and classifier
+        sd["pids_enc.weight"] = _t(params["pids_enc"]["embedding"])
+        lin("out_proj", params["out_proj"])
     lin("feat_enc_0", params["feat_enc_0"])
     lin("feat_enc_1", params["feat_enc_1"])
     lin("W", params["W"])

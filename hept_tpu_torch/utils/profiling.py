@@ -1,10 +1,11 @@
 """Where a full-width training step spends its time on the GPU.
 
-    python -m hept_tpu_torch.utils.profiling [--profile hept_acc] [--points 60000]
-        [--steps 3] [--out torch_step_profile]
+    python -m hept_tpu_torch.utils.profiling [--task tracking|pileup]
+        [--profile hept_acc] [--points 60000] [--steps 3] [--out torch_step_profile]
 
-Builds the step chip_smoke.py drives (one synthetic event, 16 pairs per
-point, the profile's model at full width, dropout on), warms up two steps,
+Builds the step chip_smoke.py drives (one synthetic event of the task:
+tracking with 16 pairs per point, or pileup; the profile's model at full
+width, dropout on), warms up two steps,
 times `--steps` steps without the profiler, then records `--steps` steps
 with torch.profiler. Prints the step's wall time (both ways), the device's
 busy and idle shares (kernel time over the profiled wall time), the
@@ -26,7 +27,7 @@ import numpy as np
 import torch
 
 from ..data.batching import pack_events, slab_friendly_n
-from ..data.synthetic import synthetic_tracking_event
+from ..data.synthetic import synthetic_pileup_event, synthetic_tracking_event
 from ..train.config import profile_config
 from ..train.trainer import batch_to_device, build_model, make_loss_fn, train_step
 from ..train.optim import make_optimizer
@@ -61,8 +62,10 @@ def port_kernel(name: str) -> str | None:
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--task", default="tracking", choices=("tracking", "pileup"))
     ap.add_argument("--profile", default="hept_acc",
-                    choices=("hept", "hept_acc", "hept_fast", "hept_turbo"))
+                    help="tracking: hept, hept_acc, hept_fast, hept_turbo, hept_max; "
+                         "pileup: hept, hept_fast")
     ap.add_argument("--points", type=int, default=60000)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
@@ -70,12 +73,16 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     device = resolve_device("cuda")
 
-    cfg = profile_config(args.profile, device="cuda")
+    cfg = profile_config(args.profile, task=args.task, device="cuda")
     bs = cfg.model_kwargs["block_size"]
-    ev = synthetic_tracking_event(np.random.default_rng(args.seed), n_points=args.points,
-                                  pairs_per_point=16)
+    rng = np.random.default_rng(args.seed)
+    if args.task == "pileup":
+        ev = synthetic_pileup_event(rng, n_points=args.points)
+    else:
+        ev = synthetic_tracking_event(rng, n_points=args.points, pairs_per_point=16)
     batch = batch_to_device(pack_events([ev], bs, n_max=slab_friendly_n(args.points, bs),
-                                        window_pairs=128), device)
+                                        window_pairs=128 if args.task == "tracking" else 0),
+                            device)
     model = build_model(cfg, ev.x.shape[1], ev.coords.shape[1],
                         torch.Generator(device=device).manual_seed(args.seed), device)
     opt = make_optimizer(model.parameters(), lr=cfg.optimizer_kwargs["lr"])
@@ -116,6 +123,7 @@ def main(argv=None) -> dict:
             sort_ms += us / 1e3 / args.steps
     top = sorted(kernel_us.items(), key=lambda kv: -kv[1])[:25]
     summary = {
+        "task": args.task,
         "profile": args.profile,
         "device": torch.cuda.get_device_name(0),
         "peak_memory_gib": peak_gib,

@@ -146,15 +146,17 @@ def test_k1_k2_routes(dev, dtype, bs, route):
                                         (torch.bfloat16, True)])
 @pytest.mark.parametrize("nb,bs", [(6, 100), (7, 100), (5, 64), (3, 300), (5, 36), (7, 64),
                                    (5, 50)])
-def test_k6_matches_plain(dev, dtype, hilo, nb, bs):
-    """K6 in its three modes, each on the route `cols_fwd_route` gives it:
+@pytest.mark.parametrize("d", [30, 28])
+def test_k6_matches_plain(dev, dtype, hilo, nb, bs, d):
+    """K6 in its three modes at the tracking (d = 30) and pileup (28)
+    widths, each on the route `cols_fwd_route` gives it:
     bf16 on the tensor cores (buckets padded to 16 points, odd buckets
     starting 8 bytes off a 16-byte boundary), f32 on 2 x 4 register tiles
     up to 100 points and the first-cut kernel at 300; a ragged last CTA (7
     buckets: f32 CTAs of 2), and both on the first-cut kernel at bs 50 (no
     multiple of 4): f32 1e-5 x scale; bf16 5e-3 x scale (pt rounding
     flips)."""
-    sq, sk, sv, _, _, _ = _inputs(dev, dtype, d=30, dv=24, nb=nb, bs=bs)
+    sq, sk, sv, _, _, _ = _inputs(dev, dtype, d=d, dv=24, nb=nb, bs=bs)
     counter = "cols_fwd_tc" if ba.cols_fwd_route(dtype, bs) == "tc" else "cols_fwd"
     before = dict(ba.LAUNCHES)
     den_k, so_k = ba.cols_fwd_cuda(sq, sk, sv, bs, hilo)
@@ -195,14 +197,16 @@ def test_k6_tc_at_common_mode_40(dev):
 @pytest.mark.parametrize("dtype,v2", [(torch.float32, False), (torch.bfloat16, False),
                                       (torch.bfloat16, True)])
 @pytest.mark.parametrize("nb,bs", [(6, 100), (7, 100), (3, 300), (5, 36), (5, 50)])
-def test_k7_matches_plain(dev, dtype, v2, nb, bs):
-    """K7 v1 (f32, and bf16 upcast) and v2 (bf16), each on the route
+@pytest.mark.parametrize("d", [30, 28])
+def test_k7_matches_plain(dev, dtype, v2, nb, bs, d):
+    """K7 v1 (f32, and bf16 upcast) and v2 (bf16) at the tracking (d = 30)
+    and pileup (28) widths, each on the route
     `cols_bwd_route` gives it: v2 on the tensor cores at bs 100 (odd buckets
     start 8 bytes off a 16-byte boundary; 7 buckets end at n), 36 and 300,
     on FP32 FMAs at bs 50 (no multiple of 4); v1 one pass per bucket up to
     100 points and two halves at 300. f32 1e-5 x scale, bf16 outputs 1e-2 x
     scale (one bf16 ulp)."""
-    sq, sk, sv, gden, gso, _ = _inputs(dev, dtype, d=30, dv=24, nb=nb, bs=bs)
+    sq, sk, sv, gden, gso, _ = _inputs(dev, dtype, d=d, dv=24, nb=nb, bs=bs)
     counter = "cols_bwd_tc" if ba.cols_bwd_route(dtype, bs, v2) == "tc" else "cols_bwd"
     before = dict(ba.LAUNCHES)
     got = ba.cols_bwd_cuda(sq, sk, sv, gden, gso, bs, v2)

@@ -165,6 +165,20 @@ def test_model_hept_acc_modes_match_jax(monkeypatch):
         jba.hept_attention_core_xcols.clear_cache()
 
 
+def test_model_hept_max_modes_match_jax(monkeypatch):
+    """The hept_max flags (hept_acc's at OR width 3 over 3 rounds a layer,
+    all distinct: 6 static rounds for 2 layers), JAX running its slab2
+    kernels K1/K2 in interpret mode: 2e-2 x scale, as hept_acc."""
+    import hept_tpu.ops.bucket_attn as jba
+
+    monkeypatch.setitem(SMALL, "n_hashes", 3)
+    monkeypatch.setitem(SMALL, "static_rounds", 6)
+    try:
+        _compare(ACC_MODES, 2e-2, 2e-2, ctx=_tpu_kernels(monkeypatch))
+    finally:
+        jba.hept_attention_core_xcols.clear_cache()
+
+
 @pytest.mark.parametrize("n_hashes,static_rounds", [(2, 4), (1, 2)])
 def test_model_hept_fast_modes_match_jax(monkeypatch, n_hashes, static_rounds):
     """The hept_fast / hept_turbo flags (attn_impl hybrid2: K6's exact-bias

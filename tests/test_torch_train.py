@@ -115,10 +115,12 @@ def test_hept_acc_yaml_equals_dataclass():
     ("hept", (100, 3, 4, 8, 24, 0)),
     ("hept_fast", (100, 2, 4, 8, 24, 8)),
     ("hept_turbo", (100, 1, 4, 8, 24, 4)),
+    ("hept_max", (512, 3, 4, 8, 24, 12)),
 ])
 def test_profile_yaml_equals_jax(profile, shape):
-    """The bs-100 profiles: the port's YAML equals the JAX package's, and the
-    port runs each (the parity profile on the dynamic-key path)."""
+    """The profiles beside hept_acc (the bs-100 ones and hept_max): the port's
+    YAML equals the JAX package's, and the port runs each (the parity profile
+    on the dynamic-key path)."""
     pytest.importorskip("yaml")
     from hept_tpu.train.config import load_config as jax_load_config
 
