@@ -98,7 +98,20 @@ Phases, one line each (plus per-kernel lines):
      F1 5e-3), then the first step with kernels against plain versions;
  15. the pileup trainer: `run_one_seed` (hept_fast) for one epoch on three
      synthetic 60k pileup events, checkpoint restored and re-evaluated to
-     the in-loop best test metrics (AP included).
+     the in-loop best test metrics (AP included);
+ 16./17. the seven baseline attentions (performer, flt, reformer, smyrf, sb,
+     pct, flatformer; `models/attention/`, plain PyTorch) at their YAMLs'
+     widths and lr, 16 on the bs-100 tracking event (2 Adam steps each,
+     dropout and the LSH draws from the step's generator; K3 / K4 counted as
+     the loss launches them, no other kernel), 17 on the pileup event (1
+     step, no kernel): one more step under torch.profiler (device busy ms,
+     K3 / K4 ms), peak GiB, one timed `evaluate` against
+     `plain_reference()` (loss 1e-3, metrics 5e-3), the first step with
+     kernels against plain (f32 levels; the LSH baselines on the kernel
+     run's sort orders); then each baseline (tracking, 2 layers) on a
+     1200-point event on the CPU and on the card, the same weights, fixed
+     draws and sort orders: outputs to 1e-4 of their scale; a table line
+     per baseline with the card's name and power limit.
 Before the last line: one JSON line of per-kernel numbers (K5 once per row
 shape, K3 at d = 1 as K3d1, K4 with its yardsticks as extra keys), and the
 `nvidia-smi` name/power-limit line. `--yardsticks-only [--package-root
@@ -970,7 +983,9 @@ def loss_and_grads(torch, model, loss_fn, batch, **forward_kw):
         raise AssertionError(f"model output {tuple(out.shape)} not finite / wrong shape")
     loss = loss_fn(out, batch)
     loss.backward()
-    return float(loss.detach()), {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+    # a parameter off the loss's path (reformer's w_k: q = k) has no gradient
+    return float(loss.detach()), {k: torch.zeros_like(p) if p.grad is None else
+                                  p.grad.detach().clone() for k, p in model.named_parameters()}
 
 
 def phase_eval(torch, trainer, model, cfg, event, batch, zero_counts, read_counts) -> None:
@@ -1087,15 +1102,16 @@ def compare_first_step(torch, label: str, cfg, model, loss_fn, batch) -> None:
     from hept_tpu_torch.ops.dispatch import plain_reference
 
     f32 = not cfg.model_kwargs.get("kernel_bf16", False)
+    # the parity run and the LSH baselines sort by keys computed from the
+    # previous layer's output: the plain run takes the kernel run's
+    # permutations, so a near-tie flipped by f32 rounding cannot move a
+    # point's bucket
     perms = [] if cfg.model_kwargs.get("static_keys") is None else None
     kw_k = {} if perms is None else {"record_perms": perms}
     loss_k, grads_k = loss_and_grads(torch, model, loss_fn, batch, **kw_k)
     with plain_reference():
-        # the parity run sorts by keys computed from the previous layer's
-        # output: the plain run takes the kernel run's permutations, so a
-        # near-tie flipped by f32 rounding cannot move a point's bucket
         loss_p, grads_p = loss_and_grads(torch, model, loss_fn, batch,
-                                         **({} if perms is None else {"perms": perms}))
+                                         **({"perms": perms} if perms else {}))
     log(f"phase {label} compare: loss kernels {loss_k:.6f} plain {loss_p:.6f}")
     if f32:
         check(f"{label} loss |d| / |loss|", abs(loss_k - loss_p) / abs(loss_p), 1e-4)
@@ -1115,6 +1131,69 @@ def compare_first_step(torch, label: str, cfg, model, loss_fn, batch) -> None:
               math.sqrt(diff2 / norm2), 1e-2)
 
 
+def timed_steps(torch, trainer, model, opt, loss_fn, batch, gen, steps: int, label: str,
+                zero_counts, read_counts) -> tuple[list, list, dict, float]:
+    """`steps` Adam steps through the trainer's `train_step` (dropout and
+    the LSH draws from `gen`), each timed to its synchronise; launch
+    counters zeroed just before and read just after; the losses must be
+    finite. Returns (step ms, losses, launches, peak GiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    step_ms, losses = [], []
+    for s in range(steps):
+        t0 = time.perf_counter()
+        m = trainer.train_step(model, opt, loss_fn, batch, gen)
+        losses.append(float(m["loss"]))  # synchronises
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        log(f"  {label} step {s}: loss={losses[-1]:.6f} "
+            f"grad_norm={float(m['grad_norm']):.4f} {step_ms[-1]:.1f} ms")
+    launches = read_counts()
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{label}: non-finite loss: {losses}")
+    return step_ms, losses, launches, torch.cuda.max_memory_allocated() / 2**30
+
+
+def timed_eval(torch, trainer, cfg, model, ds, n_max: int, want: dict, label: str,
+               zero_counts, read_counts, plain_keys=None) -> tuple[dict, float, dict]:
+    """One `evaluate` of split "test" of `ds` after a warm-up (which packs
+    and caches the split), timed to its host read; launches counted (each
+    counter in `want` must read its value); metrics finite and in [0, 1].
+    With `plain_keys`, those metrics and the loss are held against the same
+    evaluation under `plain_reference()` (loss 1e-3 relative, metrics
+    5e-3). Returns (metrics, ms, launches)."""
+    from hept_tpu_torch.ops.dispatch import plain_reference
+
+    block_size = cfg.model_kwargs.get("block_size", 100)
+    trainer.evaluate(cfg, model, ds, "test", block_size, n_max)  # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    res = trainer.evaluate(cfg, model, ds, "test", block_size, n_max)  # ends in a host read
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counts()
+    bad = {k: (launches[k], v) for k, v in want.items() if launches[k] != v}
+    if bad:
+        raise AssertionError(f"{label}: eval launches (got, want) {bad}")
+    out_of_range = {k: v for k, v in res.items()
+                    if not math.isfinite(v) or (k != "loss" and not 0.0 <= v <= 1.0)}
+    if out_of_range or not set(plain_keys or ()) <= set(res):
+        raise AssertionError(f"{label}: eval metrics out of range or missing: {res}")
+    log(f"phase {label} eval: evaluate() of the event {eval_ms:.1f} ms; "
+        f"launches {launches}; " + " ".join(f"{k}={v:.6f}" for k, v in res.items()))
+    if plain_keys:
+        with plain_reference():
+            plain = trainer.evaluate(cfg, model, ds, "test", block_size, n_max)
+        log("  plain: " + " ".join(f"{k}={v:.6f}" for k, v in plain.items()))
+        check(f"{label} eval loss |d| (kernels vs plain)", abs(res["loss"] - plain["loss"]),
+              1e-3 * abs(plain["loss"]))
+        worst = max(plain_keys, key=lambda k: abs(res[k] - plain[k]))
+        check(f"{label} eval metrics max|d| (kernels vs plain, worst {worst})",
+              abs(res[worst] - plain[worst]), 5e-3)
+    return res, eval_ms, launches
+
+
 def phase_profile(torch, trainer, profile: str, batch_np, ds, steps: int, seed: int,
                   zero_counts, read_counts, fwd: str, bwd: str, task: str = "tracking") -> dict:
     """A profile of the task at full width: `steps` timed Adam steps with
@@ -1124,7 +1203,6 @@ def phase_profile(torch, trainer, profile: str, batch_np, ds, steps: int, seed: 
     event (split "test" of `ds`), launches counted, and for pileup held
     against the same evaluation under `plain_reference()`; then the first
     step, dropout off, with kernels and with plain versions, compared."""
-    from hept_tpu_torch.ops.dispatch import plain_reference
     from hept_tpu_torch.train.config import profile_config
 
     cfg = profile_config(profile, task=task, device=DEVICE, num_epochs=1)
@@ -1139,22 +1217,9 @@ def phase_profile(torch, trainer, profile: str, batch_np, ds, steps: int, seed: 
                                  cfg.optimizer_kwargs["lr"])
     loss_fn = trainer.make_loss_fn(cfg)
     gen_drop = torch.Generator(device=DEVICE).manual_seed(seed + 1)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    zero_counts()
-    step_ms, losses = [], []
-    for s in range(steps):
-        t0 = time.perf_counter()
-        m = trainer.train_step(model, opt, loss_fn, batch, gen_drop)
-        losses.append(float(m["loss"]))  # synchronises
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        log(f"  {label} step {s}: loss={losses[-1]:.6f} "
-            f"grad_norm={float(m['grad_norm']):.4f} {step_ms[-1]:.1f} ms")
-    launches = read_counts()
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"{label}: non-finite loss: {losses}")
+    step_ms, losses, launches, peak = timed_steps(torch, trainer, model, opt, loss_fn, batch,
+                                                  gen_drop, steps, label, zero_counts,
+                                                  read_counts)
     # per step and layer: one bucket forward and backward, the unsort's K5
     # forward and backward
     want = {**NO_K6_K7, **NO_K1_K2, fwd: 4 * steps, bwd: 4 * steps,
@@ -1171,34 +1236,11 @@ def phase_profile(torch, trainer, profile: str, batch_np, ds, steps: int, seed: 
         f"launches {launches}; peak memory {peak:.2f} GiB")
     del opt
 
-    block_size, n_max = cfg.model_kwargs["block_size"], batch_np["x"].shape[1]
-    trainer.evaluate(cfg, model, ds, "test", block_size, n_max)  # warm-up
-    torch.cuda.synchronize()
-    zero_counts()
-    t0 = time.perf_counter()
-    res = trainer.evaluate(cfg, model, ds, "test", block_size, n_max)  # ends in a host read
-    eval_ms = (time.perf_counter() - t0) * 1e3
-    eval_launches = read_counts()
     # per layer: one bucket forward and the unsort's K5; no backward
-    want = {**NO_K6_K7, **NO_K1_K2, fwd: 4, "row_gather": 4, **pairs_eval}
-    for k, v in want.items():
-        if eval_launches[k] != v:
-            raise AssertionError(f"{label}: eval launched {k} {eval_launches[k]}x, want {v}")
-    bad = {k: v for k, v in res.items()
-           if not math.isfinite(v) or (k != "loss" and not 0.0 <= v <= 1.0)}
-    if bad or (task == "pileup" and set(res) != {"auc", "roc", "f1", "loss"}):
-        raise AssertionError(f"{label}: eval metrics out of range or missing: {res}")
-    log(f"phase {label} eval: evaluate() of the event {eval_ms:.1f} ms; "
-        f"launches {eval_launches}; " + " ".join(f"{k}={v:.6f}" for k, v in res.items()))
-    if task == "pileup":
-        with plain_reference():
-            plain = trainer.evaluate(cfg, model, ds, "test", block_size, n_max)
-        log("  plain: " + " ".join(f"{k}={v:.6f}" for k, v in plain.items()))
-        check(f"{label} eval loss |d| (kernels vs plain)", abs(res["loss"] - plain["loss"]),
-              1e-3 * abs(plain["loss"]))
-        worst = max(("auc", "roc", "f1"), key=lambda k: abs(res[k] - plain[k]))
-        check(f"{label} eval metrics max|d| (kernels vs plain, worst {worst})",
-              abs(res[worst] - plain[worst]), 5e-3)
+    _, eval_ms, eval_launches = timed_eval(
+        torch, trainer, cfg, model, ds, batch_np["x"].shape[1],
+        {**NO_K6_K7, **NO_K1_K2, fwd: 4, "row_gather": 4, **pairs_eval}, label, zero_counts,
+        read_counts, plain_keys=("auc", "roc", "f1") if task == "pileup" else None)
 
     model.load_state_dict(init_state)
     compare_first_step(torch, label, cfg, model, loss_fn, batch)
@@ -1206,6 +1248,109 @@ def phase_profile(torch, trainer, profile: str, batch_np, ds, steps: int, seed: 
     torch.cuda.empty_cache()
     return {"launches": launches, "eval_launches": eval_launches, "steady_ms": steady,
             "eval_ms": eval_ms, "peak_gib": peak}
+
+
+def phase_baseline(torch, trainer, attn: str, task: str, batch_np, ds, steps: int, seed: int,
+                   zero_counts, read_counts) -> dict:
+    """A baseline attention at its YAML's widths and lr on one full-width
+    event of the task: `steps` Adam steps with dropout and the LSH draws
+    from the step's generator, launches counted (K3 / K4 as the InfoNCE
+    loss launches them for tracking; no other kernel of the port: the
+    baselines' attention is plain PyTorch, as JAX computes it outside any
+    Pallas kernel), then one more step under torch.profiler for the
+    device's busy time and K3 / K4's share; one timed `evaluate` (its
+    launches counted) against the same evaluation under `plain_reference()`;
+    then the first step, dropout off and the fixed draws, with kernels and
+    under `plain_reference()` (the LSH baselines on the kernel run's sort
+    orders), compared at the f32 levels."""
+    from hept_tpu_torch.train.config import profile_config
+    from hept_tpu_torch.utils.profiling import port_kernels_ms, profile_device
+
+    cfg = profile_config(attn, task=task, device=DEVICE, num_epochs=1)
+    label = f"{task} {attn}"
+    pairs_step = PAIR_LAUNCHES_STEP if task == "tracking" else {}
+    pairs_eval = PAIR_LAUNCHES_EVAL if task == "tracking" else {}
+    batch = trainer.batch_to_device(batch_np, DEVICE)
+    model = trainer.build_model(cfg, batch_np["x"].shape[2], batch_np["coords"].shape[2],
+                                torch.Generator(device=DEVICE).manual_seed(seed), DEVICE)
+    init_state = copy.deepcopy(model.state_dict())
+    opt = trainer.make_optimizer(model.parameters(), cfg.optimizer_name,
+                                 cfg.optimizer_kwargs["lr"])
+    loss_fn = trainer.make_loss_fn(cfg)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+    step_ms, losses, launches, peak = timed_steps(torch, trainer, model, opt, loss_fn, batch,
+                                                  gen, steps, label, zero_counts, read_counts)
+    no_kernel = dict.fromkeys(launches, 0)
+    want = {**no_kernel, **{k: v * steps for k, v in pairs_step.items()}}
+    bad = {k: (launches[k], v) for k, v in want.items() if launches[k] != v}
+    if bad:
+        raise AssertionError(f"{label}: launches (got, want) {bad} in {steps} steps")
+    prof_ms, kernel_us, _ = profile_device(
+        lambda: trainer.train_step(model, opt, loss_fn, batch, gen), 1)
+    busy_ms = sum(kernel_us.values()) / 1e3
+    ours = port_kernels_ms(kernel_us)
+    res = {"step_ms": step_ms, "steady_ms": statistics.median(step_ms[1:] or step_ms),
+           "profiled_step_ms": prof_ms, "busy_ms": busy_ms, "peak_gib": peak,
+           "k3_ms": ours.get("K3", 0.0), "k4_ms": ours.get("K4", 0.0), "launches": launches,
+           "losses": losses}
+    log(f"phase {label}: {steps} steps (h_dim {cfg.model_kwargs['h_dim']}, "
+        f"{cfg.model_kwargs['n_layers']} layers, lr {cfg.optimizer_kwargs['lr']:g}, dropout on), "
+        f"losses {losses}; step ms {step_ms}; profiled step {prof_ms:.1f} ms, device busy "
+        f"{busy_ms:.1f} ms, K3 {res['k3_ms']:.3f} ms, K4 {res['k4_ms']:.3f} ms; peak memory "
+        f"{peak:.2f} GiB; launches " + str({k: v for k, v in launches.items() if v}))
+    del opt
+
+    res["eval"], res["eval_ms"], _ = timed_eval(
+        torch, trainer, cfg, model, ds, batch_np["x"].shape[1], {**no_kernel, **pairs_eval},
+        label, zero_counts, read_counts,
+        plain_keys=("auc", "roc", "f1") if task == "pileup" else
+        tuple(f"{m}@{t}" for t in ("0", "0.5", "0.9") for m in ("accuracy", "precision",
+                                                                 "recall")))
+
+    model.load_state_dict(init_state)
+    compare_first_step(torch, label, cfg, model, loss_fn, batch)
+    del model, init_state, batch
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_baselines_cpu_vs_card(torch, trainer, seed: int, points: int = 1200) -> None:
+    """Each baseline at its YAML's widths (tracking; 2 layers) on a
+    `points`-point event: the same weights and fixed draws on the CPU and on
+    the card, the CPU run's sort orders imposed on the card run (a hash
+    near-tie that rounding flips cannot move a point's bucket), outputs
+    held at relative max|d| <= 1e-4. This holds the card's plain ops to the
+    CPU, which the CPU tests hold to JAX. pct sums its messages with
+    atomics: whether two card calls give the same bits is printed."""
+    from hept_tpu_torch.models.transformer import BASELINES
+    from hept_tpu_torch.train.config import profile_config
+
+    _, batch_np = make_batch(points, seed, 100)
+    cpu = trainer.batch_to_device(batch_np, "cpu")
+    card = trainer.batch_to_device(batch_np, DEVICE)
+    for attn in BASELINES:
+        cfg = profile_config(attn, device="cpu", num_epochs=1)
+        cfg.model_kwargs["n_layers"] = 2
+        model = trainer.build_model(cfg, batch_np["x"].shape[2], batch_np["coords"].shape[2],
+                                    torch.Generator().manual_seed(seed), "cpu")
+        perms = []
+        with torch.no_grad():
+            want = model(cpu["x"][0], cpu["coords"][0], cpu["valid"][0], record_perms=perms)
+            model.to(DEVICE)
+            moved = [tuple(t.to(DEVICE) for t in p) if isinstance(p, tuple) else p.to(DEVICE)
+                     for p in perms]
+            args = (card["x"][0], card["coords"][0], card["valid"][0])
+            got = model(*args, perms=moved or None)
+            again = model(*args, perms=moved or None) if attn == "pct" else got
+        real = cpu["valid"][0]
+        err = max_err(got.cpu()[real], want[real]) / scale(want[real])
+        note = ""
+        if attn == "pct":
+            same = "gave the same bits" if torch.equal(got, again) else "differ"
+            note = f" (two card calls {same})"
+        check(f"{attn} at {want.shape[0]} points, card vs CPU, max|d| / max|out|{note}", err, 1e-4)
+        del model, got, again
+    torch.cuda.empty_cache()
 
 
 def phase_core(torch, trainer, batch_np, seed: int, zero_counts, read_counts) -> dict:
@@ -1911,9 +2056,32 @@ def main(argv=None) -> int:
                                     + ("(f32)" if fwd else "(v1)"))
         rows[key][pre + "launches"] = pfast["launches"]["cols_fwd_tc" if fwd else "cols_bwd_tc"]
         rows[key][pre + "launches_in"] = f"phase 14, {args.profile_steps} pileup hept_fast steps"
-    del pds, pbatch
     torch.cuda.empty_cache()
     phase_trainer(torch, trainer, args.points, args.seed, task="pileup", profile="hept_fast")
+
+    # 16./17. the seven baseline attentions on the bs-100 tracking event and
+    # the pileup event, then each on the CPU against the card
+    from hept_tpu_torch.models.transformer import BASELINES
+
+    base = {}
+    for task, bnp, bds, steps in (("tracking", batch100, ds100, 2), ("pileup", pbatch, pds, 1)):
+        for attn in BASELINES:
+            base[task, attn] = phase_baseline(torch, trainer, attn, task, bnp, bds, steps,
+                                              args.seed, zero_counts, read_counts)
+    del pds, pbatch
+    phase_baselines_cpu_vs_card(torch, trainer, args.seed)
+    log(f"phase baselines ({smi}): task attn | step ms (median after the first; pileup: its one "
+        "step) | profiled step ms | device busy ms | peak GiB | eval ms | K3 ms | K4 ms a step")
+    for (task, attn), r in base.items():
+        log(f"  {task} {attn} | {r['steady_ms']:.1f} | {r['profiled_step_ms']:.1f} | "
+            f"{r['busy_ms']:.1f} | {r['peak_gib']:.2f} | {r['eval_ms']:.1f} | {r['k3_ms']:.3f} | "
+            f"{r['k4_ms']:.3f}")
+    for key, name in (("K3", None), ("K3d1", "pair_gather_d1"), ("K4", "pair_segment_sum")):
+        rows[key]["baseline_launches"] = {
+            attn: (base["tracking", attn]["launches"]["pair_gather"]
+                   - base["tracking", attn]["launches"]["pair_gather_d1"]) if name is None
+            else base["tracking", attn]["launches"][name] for attn in BASELINES}
+        rows[key]["baseline_launches_in"] = "phase 16, 2 steps of each tracking baseline"
     # K11 (row_gather_vreg) has K5's contract and runs on K5's kernel
     rows["K11"] = dict(rows["K5"], name="K11 row_gather_vreg", ported_by="K5",
                        replaces="hept_tpu/ops/gather_pallas.py:124")

@@ -39,6 +39,22 @@ def invert_permutation(perm: torch.Tensor) -> torch.Tensor:
     return torch.empty_like(perm).scatter_(-1, perm, ar.expand_as(perm).contiguous())
 
 
+def gather_rows(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """Permute the rows of per-(hash, head) feature arrays: x (h, n, d)
+    (shared across the c hash rounds) or (c, h, n, d), perm (c, h, n) row
+    indices into the n axis -> (c, h, n, d). Plain indexing of the flattened
+    rows (the baseline attentions' gather; JAX runs it as an XLA gather)."""
+    c, h, n = perm.shape
+    d = x.shape[-1]
+    if x.dim() == 3:
+        flat = x.reshape(h * n, d)
+        offs = (torch.arange(h, dtype=perm.dtype, device=perm.device) * n)[None, :, None]
+    else:
+        flat = x.reshape(c * h * n, d)
+        offs = (torch.arange(c * h, dtype=perm.dtype, device=perm.device) * n).reshape(c, h, 1)
+    return flat[(perm + offs).reshape(-1)].reshape(c, h, n, d)
+
+
 def _transport(x: torch.Tensor, pack: bool) -> torch.Tensor:
     return x.to(torch.bfloat16) if pack else x.to(torch.float32)
 

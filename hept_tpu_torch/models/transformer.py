@@ -1,5 +1,5 @@
 """HEPT transformer backbone (port of `hept_tpu/models/transformer.py` for the
-ported profiles).
+ported profiles and the seven baseline attentions).
 
 Feature-MLP encoder -> N pre-LN attention blocks with residual + FF ->
 concat of all layer outputs -> bias-free `W` -> 5-layer tanh/LayerNorm MLP
@@ -12,6 +12,13 @@ before the encoder and ends in a sigmoid classifier. Two ways to bucket the poin
 - dynamic keys (the reference-parity `hept`): each layer projects q/k/v
   before the sort and hashes every head on its own, with the per-head AND
   codes of `prepare_event`.
+The baselines (`attn_type` performer, flt, reformer, smyrf, sb, pct,
+flatformer; `models/attention/`) take the same encoder and head: pre-LN
+q/k/v projections of x + pe (a learned or sinusoidal positional embedding
+per block, `pe_type`), except pct (a kNN graph on (eta, phi), projected by
+w_q alone) and flatformer (four post-norm group layers replace the whole
+block, and the head concatenates all four of each block's outputs). They
+need no padding plan: invalid coords are zeroed and the pads are masked.
 Layers run as a Python loop (the JAX package's `scan_layers` is a compile-
 time device with the same math).
 
@@ -35,10 +42,20 @@ from ..core.padding import replication_pad_plan
 from ..core.regions import get_regions, region_codes
 from ..ops.bucket_attn import static_bucket_plan, static_hash
 from ..ops.bucket_attn_cuda import ATTN_IMPLS
+from .attention.flatformer import FlatformerAttention, discretize_coords
+from .attention.flt import FLTAttention
 from .attention.hept import HeptAttention
+from .attention.pct import PCTAttention, knn_graph
+from .attention.performer import PerformerAttention
+from .attention.reformer import ReformerAttention
+from .attention.sb import SBAttention
+from .attention.smyrf import SmyrfAttention
 from .mlp import FeedForward, OutMLP, TorchLinear, dropout, layer_norm, uniform_
 
 _ROADMAP = "ROADMAP.md queue 1, item 2b (the refused modes)"
+BASELINES = ("performer", "flt", "reformer", "smyrf", "sb", "pct", "flatformer")
+# the baselines that draw random rotations / E2LSH directions every forward
+LSH_BASELINES = ("reformer", "smyrf", "sb")
 # the pileup PID embedding: PIDs 0..6, 10 features each
 NUM_PIDS, PID_DIM = 7, 10
 
@@ -50,7 +67,9 @@ class TransformerConfig:
     The port implements two paths of attn_type "hept" with replicate
     padding (`check_supported`): the static plan (qkv_post_sort +
     share_heads + static_keys + unsort_rows) and dynamic per-layer keys
-    (all four off). `attn_impl` selects the bucket kernels
+    (all four off); and the seven baseline attentions (`BASELINES`), which
+    read the baseline fields at the end and none of hept's modes.
+    `attn_impl` selects the bucket kernels
     (`ops/bucket_attn_cuda.py:cols_routes`): every mode of the JAX package
     but "xla", its kernel-free einsum path; "slab" and "hybrid_slab" run the
     contracts of its slab kernels (K8/K9) on K6/K7. `sort_ops` and
@@ -89,11 +108,30 @@ class TransformerConfig:
     canon_residual: bool = False
     transport_groups: int = 1
     scan_layers: bool = False
+    # the baseline attentions' knobs, with the JAX package's defaults
+    pe_type: str = "none"  # none | learned | fixed (| rpe: performer, smyrf, flatformer)
+    use_ckpt: bool = False
+    nb_features: int = 200  # performer / flt outer features, sb's low-rank features
+    nb_features_inner: int = 6  # flt's inner random Fourier features
+    bucket_size: int = 100  # reformer / smyrf / sb cluster size, flatformer group size
+    allow_duplicate_attention: bool = True  # reformer
+    attend_across_buckets: bool = True  # reformer
+    knn_k: int = 16  # pct's kNN graph degree
+    b_grid: int = 1000  # flatformer's bins per axis
+    num_slices_per_axis: int = 30  # flatformer's windows per axis
 
     def check_supported(self) -> None:
         need = {
             "task in ('tracking', 'pileup')": self.task in ("tracking", "pileup"),
-            "attn_type == 'hept'": self.attn_type == "hept",
+            f"attn_type in {('hept',) + BASELINES}": self.attn_type in ("hept",) + BASELINES,
+            "no use_ckpt (recomputing a block under torch.utils.checkpoint would redraw its "
+            "dropout masks and rotations from the step's generator; it needs its own design, "
+            "ROADMAP.md queue 1, item 2b)": not self.use_ckpt,
+        }
+        if self.attn_type != "hept":
+            self._refuse(need)
+            return
+        need.update({
             f"padding_mode == 'replicate' (zero padding: {_ROADMAP})":
                 self.padding_mode == "replicate",
             "num_and_hashes == 2": self.num_and_hashes == 2,
@@ -104,7 +142,7 @@ class TransformerConfig:
             f"no gather_sort ({_ROADMAP})": not self.gather_sort,
             f"no canon_residual ({_ROADMAP})": not self.canon_residual,
             f"transport_groups == 1 ({_ROADMAP})": self.transport_groups == 1,
-        }
+        })
         if self.static_keys:
             need.update({
                 "static_keys in (True, 'x0')": self.static_keys in (True, "x0"),
@@ -126,11 +164,15 @@ class TransformerConfig:
                 f"dynamic keys: no kernel_bf16 / kernel_center ({_ROADMAP})":
                     not (self.kernel_bf16 or self.kernel_center),
             })
+        self._refuse(need)
+
+    @staticmethod
+    def _refuse(need: dict) -> None:
         missing = [k for k, ok in need.items() if not ok]
         if missing:
             raise NotImplementedError(
-                "the port runs the static-plan and the dynamic-key HEPT paths only; "
-                "unsupported: " + ", ".join(missing)
+                "the port runs the static-plan and the dynamic-key HEPT paths and the seven "
+                "baseline attentions only; unsupported: " + ", ".join(missing)
             )
 
 
@@ -154,10 +196,101 @@ def prepare_event(x, coords, valid, regions, block_size: int):
     return x, coords, codes[..., gather], inert
 
 
+def prepare_baseline(coords, valid, cfg: TransformerConfig):
+    """Per-event precompute of the baselines: invalid coords zeroed, no
+    padding plan; pct also gets its kNN graph (`knn_graph`, on the coords
+    before zeroing). Returns (coords, invalid, edges, edge_mask); the last
+    two are None but for pct."""
+    edges = edge_mask = None
+    if cfg.attn_type == "pct":
+        edges, edge_mask = knn_graph(coords, valid, cfg.knn_k)
+    coords = torch.where(valid[:, None], coords, torch.zeros_like(coords))
+    return coords, torch.logical_not(valid), edges, edge_mask
+
+
+class PELearned(nn.Module):
+    """Learned absolute positional embedding: Linear, LayerNorm, ReLU,
+    Linear."""
+
+    def __init__(self, coords_dim: int, h_dim: int, generator=None, device=None):
+        super().__init__()
+        self.lin0 = TorchLinear(coords_dim, h_dim, generator=generator, device=device)
+        self.norm = layer_norm(h_dim, device)
+        self.lin1 = TorchLinear(h_dim, h_dim, generator=generator, device=device)
+
+    def forward(self, coords):
+        return self.lin1(torch.relu(self.norm(self.lin0(coords))))
+
+
+class PESinusoidal(nn.Module):
+    """Fixed sinusoidal embedding of the binned (eta, phi): per axis, sin /
+    cos interleaved at temperature-scaled frequencies, zero-padded to h_dim."""
+
+    def __init__(self, h_dim: int, pos_temperature: float = 10000.0, bins: int = 1000):
+        super().__init__()
+        self.h_dim, self.pos_temperature, self.bins = h_dim, pos_temperature, bins
+
+    def forward(self, coords):
+        dis = discretize_coords(coords[:, :2], self.bins)
+        pos_length = (self.h_dim // 4) * 2
+        freqs = torch.arange(pos_length, dtype=torch.float32, device=coords.device)
+        inv_freq = self.pos_temperature ** (2 * torch.div(freqs, 2, rounding_mode="floor")
+                                            / pos_length)
+
+        def enc(t):  # (n,) -> (n, pos_length)
+            p = t[:, None] / inv_freq[None, :]
+            return torch.stack([torch.sin(p[:, ::2]), torch.cos(p[:, 1::2])],
+                               dim=-1).reshape(t.shape[0], -1)
+
+        pe = torch.cat([enc(dis[:, 0]), enc(dis[:, 1])], dim=-1)
+        gap = self.h_dim - pe.shape[-1]
+        if gap > 0:
+            pe = torch.cat([pe, pe.new_zeros((pe.shape[0], gap))], dim=-1)
+        return pe
+
+
+def make_attention(cfg: TransformerConfig, generator=None, device=None) -> nn.Module:
+    """The attention module of `cfg.attn_type`."""
+    common = dict(h_dim=cfg.h_dim, num_heads=cfg.num_heads, generator=generator, device=device)
+    t = cfg.attn_type
+    if t == "hept":
+        return HeptAttention(cfg, generator, device)
+    if t == "performer":
+        return PerformerAttention(nb_features=cfg.nb_features, num_w_per_dist=cfg.num_w_per_dist,
+                                  coords_dim=cfg.coords_dim, pe_type=cfg.pe_type, **common)
+    if t == "flt":
+        return FLTAttention(nb_features=cfg.nb_features, nb_features_inner=cfg.nb_features_inner,
+                            num_w_per_dist=cfg.num_w_per_dist, coords_dim=cfg.coords_dim,
+                            **common)
+    if t == "reformer":
+        return ReformerAttention(bucket_size=cfg.bucket_size, n_hashes=cfg.n_hashes,
+                                 allow_duplicate_attention=cfg.allow_duplicate_attention,
+                                 attend_across_buckets=cfg.attend_across_buckets, **common)
+    if t == "smyrf":
+        return SmyrfAttention(bucket_size=cfg.bucket_size, n_hashes=cfg.n_hashes,
+                              num_w_per_dist=cfg.num_w_per_dist, coords_dim=cfg.coords_dim,
+                              pe_type=cfg.pe_type, **common)
+    if t == "sb":
+        return SBAttention(bucket_size=cfg.bucket_size, n_hashes=cfg.n_hashes,
+                           nb_features=cfg.nb_features, **common)
+    if t == "pct":
+        return PCTAttention(coords_dim=cfg.coords_dim, **common)
+    if t == "flatformer":
+        return FlatformerAttention(group_size=cfg.bucket_size, num_w_per_dist=cfg.num_w_per_dist,
+                                   b_grid=cfg.b_grid, num_slices_per_axis=cfg.num_slices_per_axis,
+                                   pe_type=cfg.pe_type, **common)
+    raise NotImplementedError(t)
+
+
 class AttnBlock(nn.Module):
-    """Pre-LN attention block. On the static plan the q/k/v kernels are
-    applied after the plan's gather inside the attention core; with dynamic
-    keys they project before the sort."""
+    """One attention block, in one of three forms:
+    - hept and the q/k/v baselines: pre-LN; on hept's static plan the q/k/v
+      kernels are applied after the plan's gather inside the attention core,
+      with dynamic keys (and for the baselines, on x + pe) they project
+      before; then residual, pre-LN FF, residual, each with dropout;
+    - pct: the attention takes w_q(norm1(x)) alone;
+    - flatformer: four post-norm group layers replace the whole block, which
+      returns (x, [their four outputs])."""
 
     def __init__(self, cfg: TransformerConfig, generator=None, device=None):
         super().__init__()
@@ -166,11 +299,21 @@ class AttnBlock(nn.Module):
         rpe_in = cfg.num_w_per_dist * (cfg.coords_dim - 1)
         self.w_rpe = nn.Parameter(torch.empty((h * d, rpe_in), device=device))
         uniform_(self.w_rpe, 1.0 / math.sqrt(rpe_in), generator)
+        self.pe = None
+        if cfg.attn_type != "hept":
+            if cfg.pe_type == "learned":
+                self.pe = PELearned(cfg.coords_dim, d, generator, device)
+            elif cfg.pe_type == "fixed":
+                self.pe = PESinusoidal(d)
+        if cfg.attn_type == "flatformer":
+            self.attn = make_attention(cfg, generator, device)
+            return
         self.norm1 = layer_norm(d, device)
         self.w_q = TorchLinear(d, h * d, bias=False, generator=generator, device=device)
-        self.w_k = TorchLinear(d, h * d, bias=False, generator=generator, device=device)
-        self.w_v = TorchLinear(d, h * d, bias=False, generator=generator, device=device)
-        self.attn = HeptAttention(cfg, generator, device)
+        if cfg.attn_type != "pct":
+            self.w_k = TorchLinear(d, h * d, bias=False, generator=generator, device=device)
+            self.w_v = TorchLinear(d, h * d, bias=False, generator=generator, device=device)
+        self.attn = make_attention(cfg, generator, device)
         self.norm2 = layer_norm(d, device)
         self.ff = FeedForward(d, generator, device)
 
@@ -180,27 +323,52 @@ class AttnBlock(nn.Module):
         return lin.weight.t().reshape(d, h, d).permute(1, 0, 2)
 
     def forward(self, x, coords, codes, invalid, plan, generator=None, perms=None,
-                record_perms=None):
-        xn = self.norm1(x)
-        if self.cfg.qkv_post_sort:
-            aggr = self.attn.forward_static(xn, coords, invalid, plan, self.w_rpe,
-                                            self._heads(self.w_q), self._heads(self.w_k),
-                                            self._heads(self.w_v))
+                record_perms=None, valid=None, edges=None, edge_mask=None, rotations=None):
+        """`valid`, `edges`, `edge_mask` and `rotations` are the baselines':
+        the real rows, pct's graph, and an override of the LSH baselines'
+        random draws (`models/attention/draws.py`); `perms` / `record_perms`
+        impose / record hept's dynamic keys' and the LSH baselines' sort
+        orders."""
+        t = self.cfg.attn_type
+        pe = None if self.pe is None else self.pe(coords)
+        if t == "flatformer":
+            return self.attn(x, coords, coords if pe is None else pe, valid, self.w_rpe)
+        if t == "pct":
+            aggr = self.attn(self.w_q(self.norm1(x)), coords, valid, edges, edge_mask)
         else:
-            aggr = self.attn.forward_dynamic(self.w_q(xn), self.w_k(xn), self.w_v(xn), coords,
-                                             codes, invalid, self.w_rpe, perms, record_perms)
+            xn = self.norm1(x if pe is None else x + pe)
+            if t == "hept" and self.cfg.qkv_post_sort:
+                aggr = self.attn.forward_static(xn, coords, invalid, plan, self.w_rpe,
+                                                self._heads(self.w_q), self._heads(self.w_k),
+                                                self._heads(self.w_v))
+            elif t == "hept":
+                aggr = self.attn.forward_dynamic(self.w_q(xn), self.w_k(xn), self.w_v(xn),
+                                                 coords, codes, invalid, self.w_rpe, perms,
+                                                 record_perms)
+            else:
+                aggr = self._baseline(self.w_q(xn), self.w_k(xn), self.w_v(xn), coords, valid,
+                                      generator, rotations, perms, record_perms)
         x = x + dropout(aggr, self.cfg.dropout, generator)
         ff = self.ff(self.norm2(x))
         return x + dropout(ff, self.cfg.dropout, generator)
 
+    def _baseline(self, q, k, v, coords, valid, generator, rotations, perms, record_perms):
+        t = self.cfg.attn_type
+        if t in LSH_BASELINES:
+            extra = {"coords": coords, "w_rpe": self.w_rpe} if t == "smyrf" else {}
+            return self.attn(q, k, v, valid=valid, rotations=rotations, generator=generator,
+                             perms=perms, record_perms=record_perms, **extra)
+        return self.attn(q, k, v, coords, valid, self.w_rpe)
+
 
 class HeptTransformer(nn.Module):
     """Single-event HEPT transformer, on a static bucket plan or with dynamic
-    per-layer keys (`cfg.static_keys`).
+    per-layer keys (`cfg.static_keys`), or one of the baseline attentions
+    (`cfg.attn_type`).
 
     `generator` seeds the initial weights and the frozen constants
     (`regions`, `static_alpha` on the static plan, each layer's
-    `e2lsh_alpha`).
+    `e2lsh_alpha`; the baselines' projection matrices).
     """
 
     def __init__(self, cfg: TransformerConfig, generator: torch.Generator | None = None,
@@ -209,9 +377,10 @@ class HeptTransformer(nn.Module):
         cfg.check_supported()
         self.cfg = cfg
         self.total_rounds = cfg.static_rounds or cfg.n_hashes
-        self.register_buffer("regions", get_regions(
-            generator, cfg.num_regions, cfg.n_hashes, cfg.num_heads, cfg.num_and_hashes,
-            device=device))
+        if cfg.attn_type == "hept":
+            self.register_buffer("regions", get_regions(
+                generator, cfg.num_regions, cfg.n_hashes, cfg.num_heads, cfg.num_and_hashes,
+                device=device))
         in_dim = cfg.in_dim
         if cfg.task == "pileup":
             # flax's nn.Embed default init (default_embed_init):
@@ -225,14 +394,16 @@ class HeptTransformer(nn.Module):
             in_dim = cfg.in_dim - 1 + PID_DIM
         self.feat_enc_0 = TorchLinear(in_dim, cfg.h_dim, generator=generator, device=device)
         self.feat_enc_1 = TorchLinear(cfg.h_dim, cfg.h_dim, generator=generator, device=device)
-        if cfg.static_keys:
+        if cfg.attn_type == "hept" and cfg.static_keys:
             self.register_buffer("static_alpha", e2lsh_init(
                 generator, 1, cfg.h_dim + cfg.coords_dim, self.total_rounds, device=device))
         self.blocks = nn.ModuleList(
             AttnBlock(cfg, generator, device) for _ in range(cfg.n_layers)
         )
-        self.W = TorchLinear(cfg.h_dim * (cfg.n_layers + 1), cfg.h_dim // 2, bias=False,
-                             generator=generator, device=device)
+        # flatformer's blocks each give four outputs to the head
+        per_block = 4 if cfg.attn_type == "flatformer" else 1
+        self.W = TorchLinear(cfg.h_dim * (per_block * cfg.n_layers + 1), cfg.h_dim // 2,
+                             bias=False, generator=generator, device=device)
         self.mlp_out = OutMLP(cfg.h_dim // 2, cfg.h_dim // 2, generator=generator,
                               device=device)
         if cfg.task == "pileup":
@@ -257,31 +428,48 @@ class HeptTransformer(nn.Module):
         return tuple(a[idx] for a in plan)
 
     def forward(self, x, coords, valid, generator: torch.Generator | None = None,
-                plan=None, perms=None, record_perms: list | None = None):
-        """`generator` draws the dropout masks (no generator: no dropout).
-        Static plan: `plan` overrides the step's bucket plan (src, inv,
-        scoords) of `total_rounds` rounds, as built by `build_plan`. Dynamic
-        keys: `perms` overrides each layer's (q_src, k_src) permutations, and
-        `record_perms` (a list) receives them, one pair per layer."""
+                plan=None, perms=None, record_perms: list | None = None,
+                rotations: list | None = None):
+        """`generator` draws the dropout masks (no generator: no dropout)
+        and the LSH baselines' random rotations (no generator: a fixed
+        draw). Static plan: `plan` overrides the step's bucket plan (src,
+        inv, scoords) of `total_rounds` rounds, as built by `build_plan`.
+        Dynamic keys: `perms` overrides each layer's (q_src, k_src)
+        permutations, and `record_perms` (a list) receives them, one pair
+        per layer. Reformer / smyrf / sb: `rotations` overrides each layer's
+        random draws (a list, one entry per layer), and `perms` /
+        `record_perms` do the same for their sort orders (reformer's
+        bucket order, smyrf's and sb's (q, k) orders)."""
         cfg = self.cfg
         if x.shape[0] % cfg.block_size:
             raise ValueError("N must be a multiple of block_size")
-        x, coords, codes, invalid = prepare_event(x, coords, valid, self.regions,
-                                                  cfg.block_size)
+        codes = edges = edge_mask = None
+        if cfg.attn_type == "hept":
+            x, coords, codes, invalid = prepare_event(x, coords, valid, self.regions,
+                                                      cfg.block_size)
+        else:
+            coords, invalid, edges, edge_mask = prepare_baseline(coords, valid, cfg)
         if cfg.task == "pileup":
             # after the padding plan: replication pads carry their source
             # row's PID, inert slots PID 0
             pids = torch.clamp(x[:, -1].to(torch.int32), 0, NUM_PIDS - 1)
             x = torch.cat([x[:, :-1], self.pids_enc(pids)], dim=-1)
         h = self.feat_enc_1(torch.relu(self.feat_enc_0(x)))
-        if cfg.static_keys and plan is None:
+        static = cfg.attn_type == "hept" and cfg.static_keys
+        if static and plan is None:
             plan = self.build_plan(h, coords, codes, invalid)
         layers = [h]
         for i, block in enumerate(self.blocks):
-            h = block(h, coords, codes, invalid,
-                      self.layer_plan(plan, i) if cfg.static_keys else None, generator,
-                      perms=None if perms is None else perms[i], record_perms=record_perms)
-            layers.append(h)
+            out = block(h, coords, codes, invalid, self.layer_plan(plan, i) if static else None,
+                        generator, perms=None if perms is None else perms[i],
+                        record_perms=record_perms, valid=valid, edges=edges,
+                        edge_mask=edge_mask, rotations=None if rotations is None else rotations[i])
+            if cfg.attn_type == "flatformer":
+                h, inner = out
+                layers.extend(inner)
+            else:
+                h = out
+                layers.append(h)
         out = self.W(torch.cat(layers, dim=-1))
         out = out + dropout(self.mlp_out(out), cfg.dropout, generator)
         if cfg.task == "pileup":

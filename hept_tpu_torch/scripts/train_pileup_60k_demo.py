@@ -4,7 +4,8 @@ the "impatient" plateau schedule, per-batch AP / ROC / F1 on the neutral
 points).
 
     python -m hept_tpu_torch.scripts.train_pileup_60k_demo [seed]
-        [--profile hept_fast|hept] [--n-events 10] [--epochs 25] [--lr 1e-3]
+        [--profile hept_fast|hept|performer|flt|reformer|smyrf|sb|pct|flatformer]
+        [--n-events 10] [--epochs 25] [--lr 1e-3]
         [--device cuda|cpu] [--log-dir runs/pileup60k]
 
 Defaults: the hept_fast pileup profile, seed 42, 10 events of up to 60000
@@ -19,13 +20,15 @@ from __future__ import annotations
 import argparse
 
 from ..data.datasets import make_synthetic_pileup
+from ..models.transformer import BASELINES
 from ..train.config import ExperimentConfig, profile_config
 from ..train.trainer import run_one_seed
 from ..utils.device import resolve_device
 
 # the JAX demo's arm of each profile's math ("headline" is hept_fast's, since
-# its row-gather unsort is exact); the parity profile has no JAX arm
-VARIANTS = {"hept_fast": "headline", "hept": "parity"}
+# its row-gather unsort is exact); the parity profile and the baseline
+# attentions have no JAX arm
+VARIANTS = {"hept_fast": "headline", "hept": "parity", **{b: f"baseline_{b}" for b in BASELINES}}
 
 
 def demo_config(profile: str, lr: float, seed: int, epochs: int, log_dir: str,

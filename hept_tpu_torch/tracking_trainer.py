@@ -2,7 +2,9 @@
 [--dataset synthetic-tracking-60k] [--epochs 1] [--device cpu]
 [--log-dir runs/] [--resume RUN_DIR] [--only-eval]`.
 
-`-m` selects `configs/tracking/tracking_trans_<model>.yaml` (needs PyYAML).
+`-m` selects `configs/tracking/tracking_trans_<model>.yaml` (needs PyYAML):
+a HEPT profile or one of the seven baseline attentions (performer, flt,
+reformer, smyrf, sb, pct, flatformer).
 The run trains with best-by-valid selection (`train/trainer.py:
 run_one_seed`) and prints the best checkpoint's test metrics. `--resume`
 goes on from an earlier run dir's latest checkpoint; `--only-eval` only

@@ -83,5 +83,7 @@ def load_config(path: str | Path, **overrides) -> ExperimentConfig:
 def profile_config(profile: str, task: str = "tracking", **overrides) -> ExperimentConfig:
     """The shipped profile `configs/<task>/<task>_trans_<profile>.yaml` with
     `overrides`: tracking hept, hept_acc, hept_fast, hept_turbo, hept_max;
-    pileup hept, hept_fast."""
+    pileup hept, hept_fast; for both tasks the seven baseline attentions
+    (`models/transformer.py:BASELINES`: performer, flt, reformer, smyrf,
+    sb, pct, flatformer)."""
     return load_config(CONFIG_ROOT / task / f"{task}_trans_{profile}.yaml", **overrides)

@@ -3,12 +3,14 @@
 `from_jax_variables` turns the flax `{"params", "constants"}` tree of a
 `hept_tpu` HeptTransformer (static-plan or dynamic-key path; scan or loop
 layer layout; tracking or pileup head) into a state dict for
-`hept_tpu_torch.models.transformer.HeptTransformer`. It takes any nested
-mapping of arrays (numpy, or anything `np.asarray` reads) and imports no
-JAX. The frozen constants (`regions`, `static_alpha` where the model has a
-static plan, each layer's `e2lsh_alpha`: (1, ...) on the static plan,
-(h, d + cd, n_hashes) with dynamic keys) are copied, not redrawn:
-`jax.random` cannot be reproduced in torch.
+`hept_tpu_torch.models.transformer.HeptTransformer`, and of each of the
+seven baseline attentions. It takes any nested mapping of arrays (numpy, or
+anything `np.asarray` reads) and imports no JAX. The frozen constants
+(`regions` (hept only), `static_alpha` where the model has a static plan,
+each layer's `e2lsh_alpha`: (1, ...) on the static plan, (h, d + cd,
+n_hashes) with dynamic keys; the baselines' `projection_matrix`,
+`favor_omega`, `rff_omega_dr` / `rff_omega_da` and `sb_projection`) are
+copied, not redrawn: `jax.random` cannot be reproduced in torch.
 """
 
 from __future__ import annotations
@@ -75,15 +77,35 @@ def from_jax_variables(variables) -> dict[str, torch.Tensor]:
     for i, blk in enumerate(_layers(params)):
         p = f"blocks.{i}"
         sd[f"{p}.w_rpe"] = _t(blk["w_rpe"])
+        if "pe" in blk:  # the baselines' learned positional embedding
+            lin(f"{p}.pe.lin0", blk["pe"]["TorchLinear_0"])
+            norm(f"{p}.pe.norm", blk["pe"]["LayerNorm_0"])
+            lin(f"{p}.pe.lin1", blk["pe"]["TorchLinear_1"])
+        attn = blk["attn"]
+        if "block_0" in attn:  # flatformer: four post-norm group layers, no outer block
+            for j in range(4):
+                src, dst = attn[f"block_{j}"], f"{p}.attn.layers.{j}"
+                for nm in ("w_q", "w_k", "w_v", "out_linear"):
+                    lin(f"{dst}.attn.{nm}", src["attn"][nm])
+                for nm in ("fc1", "fc2"):
+                    lin(f"{dst}.{nm}", src[nm])
+                norm(f"{dst}.norm1", src["norm1"])
+                norm(f"{dst}.norm2", src["norm2"])
+            continue
         norm(f"{p}.norm1", blk["norm1"])
         norm(f"{p}.norm2", blk["norm2"])
         for nm in ("w_q", "w_k", "w_v"):
-            sd[f"{p}.{nm}.weight"] = _t(blk[nm]["kernel"]).t().contiguous()
-        lin(f"{p}.attn.out_linear", blk["attn"]["out_linear"])
+            if nm in blk:  # pct projects with w_q alone
+                sd[f"{p}.{nm}.weight"] = _t(blk[nm]["kernel"]).t().contiguous()
+        for nm in ("out_linear", "lin", "lin_src", "lin_dst", "pos_nn", "attn_nn"):
+            if nm in attn:  # pct: lin..attn_nn, no out_linear
+                lin(f"{p}.attn.{nm}", attn[nm])
         lin(f"{p}.ff.fc1", blk["ff"]["TorchLinear_0"])
         lin(f"{p}.ff.fc2", blk["ff"]["TorchLinear_1"])
-        sd[f"{p}.attn.e2lsh_alpha"] = _t(const_layers[i]["attn"]["e2lsh_alpha"])
-    sd["regions"] = _t(consts["regions"])
-    if "static_alpha" in consts:
-        sd["static_alpha"] = _t(consts["static_alpha"])
+        if const_layers:  # e2lsh_alpha (hept), the baselines' frozen matrices
+            for nm, val in const_layers[i]["attn"].items():
+                sd[f"{p}.attn.{nm}"] = _t(val)
+    for nm in ("regions", "static_alpha"):
+        if nm in consts:
+            sd[nm] = _t(consts[nm])
     return sd

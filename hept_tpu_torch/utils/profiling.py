@@ -60,12 +60,42 @@ def port_kernel(name: str) -> str | None:
     return PORT_KERNELS[m.group(1)]
 
 
+def profile_device(fn, calls: int) -> tuple[float, dict, object]:
+    """`calls` calls of `fn` under torch.profiler: the wall ms a call (ending
+    in a synchronise), the device time of each kernel by name, in us a call,
+    and the profiler. Only device kernels count: user annotations (e.g. the optimizer's
+    step range) span kernels that are counted on their own."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+    kernel_us: dict[str, float] = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA and not evt.is_user_annotation:
+            kernel_us[evt.name] = kernel_us.get(evt.name, 0.0) + evt.time_range.elapsed_us() / calls
+    return wall_ms, kernel_us, prof
+
+
+def port_kernels_ms(kernel_us: dict) -> dict:
+    """Device ms of the port's own kernels (K1-K10), by TPU kernel."""
+    ours: dict[str, float] = {}
+    for name, us in kernel_us.items():
+        kid = port_kernel(name)
+        if kid:
+            ours[kid] = ours.get(kid, 0.0) + us / 1e3
+    return ours
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--task", default="tracking", choices=("tracking", "pileup"))
     ap.add_argument("--profile", default="hept_acc",
                     help="tracking: hept, hept_acc, hept_fast, hept_turbo, hept_max; "
-                         "pileup: hept, hept_fast")
+                         "pileup: hept, hept_fast; both tasks: the seven baselines "
+                         "(performer, flt, reformer, smyrf, sb, pct, flatformer)")
     ap.add_argument("--points", type=int, default=60000)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
@@ -74,7 +104,7 @@ def main(argv=None) -> dict:
     device = resolve_device("cuda")
 
     cfg = profile_config(args.profile, task=args.task, device="cuda")
-    bs = cfg.model_kwargs["block_size"]
+    bs = cfg.model_kwargs.get("block_size", 100)
     rng = np.random.default_rng(args.seed)
     if args.task == "pileup":
         ev = synthetic_pileup_event(rng, n_points=args.points)
@@ -99,28 +129,13 @@ def main(argv=None) -> dict:
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     plain_wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(args.steps):
-            train_step(model, opt, loss_fn, batch, gen)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
-
-    kernel_us: dict[str, float] = {}
-    for evt in prof.events():
-        # device-side kernels only: user annotations (e.g. the optimizer's
-        # step range) span kernels that are counted on their own
-        if evt.device_type == torch.autograd.DeviceType.CUDA and not evt.is_user_annotation:
-            kernel_us[evt.name] = kernel_us.get(evt.name, 0.0) + evt.time_range.elapsed_us()
-    busy_ms = sum(kernel_us.values()) / 1e3 / args.steps
-    ours, sort_ms = {}, 0.0
-    for name, us in kernel_us.items():
-        kid = port_kernel(name)
-        if kid:
-            ours[kid] = ours.get(kid, 0.0) + us / 1e3 / args.steps
-        elif "sort" in name.lower():  # torch.sort / argsort's radix-sort passes
-            sort_ms += us / 1e3 / args.steps
+    wall_ms, kernel_us, prof = profile_device(
+        lambda: train_step(model, opt, loss_fn, batch, gen), args.steps)
+    busy_ms = sum(kernel_us.values()) / 1e3
+    ours = port_kernels_ms(kernel_us)
+    # torch.sort / argsort's radix-sort passes
+    sort_ms = sum(us for name, us in kernel_us.items()
+                  if port_kernel(name) is None and "sort" in name.lower()) / 1e3
     top = sorted(kernel_us.items(), key=lambda kv: -kv[1])[:25]
     summary = {
         "task": args.task,
@@ -134,7 +149,7 @@ def main(argv=None) -> dict:
         "port_kernels_ms": ours,
         "other_kernels_ms": busy_ms - sum(ours.values()),
         "sort_kernels_ms": sort_ms,
-        "top_kernels_ms": [(name[:120], us / 1e3 / args.steps) for name, us in top],
+        "top_kernels_ms": [(name[:120], us / 1e3) for name, us in top],
     }
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
