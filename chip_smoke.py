@@ -108,12 +108,33 @@ Phases, one line each (plus per-kernel lines):
      K3 / K4 ms), peak GiB, one timed `evaluate` against
      `plain_reference()` (loss 1e-3, metrics 5e-3), the first step with
      kernels against plain (f32 levels; the LSH baselines on the kernel
-     run's sort orders); then each baseline (tracking, 2 layers) on a
-     1200-point event on the CPU and on the card, the same weights, fixed
-     draws and sort orders: outputs to 1e-4 of their scale; a table line
-     per baseline with the card's name and power limit.
+     run's sort orders); a table line per baseline with the card's name
+     and power limit;
+ 18./19. the four GNN baselines (GatedGNN, GCN, DGCNN, GravNet;
+     `models/gnns.py`, plain PyTorch message passing) from their YAMLs
+     (`configs/<task>/<task>_gnn_<conv>.yaml`) on the same two events, as
+     16 / 17 run the baselines (18: 2 steps, K3 / K4 as PAIR_LAUNCHES_STEP,
+     no other kernel; 19: 1 step, no kernel), with torch.topk's device time
+     (the learned-space kNN of DGCNN / GravNet) from the profiled step; a
+     table line per GNN and task;
+ 20. each baseline and each GNN (tracking, 2 layers) on a 1200-point event
+     on the CPU and on the card, the same weights and fixed draws, the
+     CPU's sort orders, graph and neighbour lists imposed: outputs to 1e-4
+     of their scale, whether two card calls gave the same bits;
+ 21. `run_one_seed` of `tracking_gnn_gravnet.yaml` (as the CLI's -c loads
+     it) for one epoch on 3 events of its dataset's generator (6000
+     points), checkpoint restored and re-evaluated to the in-loop best;
+ 22. the trainer's options on the full-width hept_acc model and the phase-3
+     event: one step each of the InfoNCE with dist_metric cosine and
+     l2_inverse (K3 3, K4 4: `partner_gather`'s backward is a K4 at d = 12),
+     of the triplet loss and of `windowed_pairs: false` (no K3 / K4), each
+     one's first step with kernels against plain; three AdamW steps under
+     the per-step cosine schedule with clip_norm, each lr held to the
+     formula, the clipped gradient with kernels against plain.
 Before the last line: one JSON line of per-kernel numbers (K5 once per row
-shape, K3 at d = 1 as K3d1, K4 with its yardsticks as extra keys), and the
+shape, K3 at d = 1 as K3d1, K4 with its yardsticks as extra keys; K3 / K4
+with the baselines', the GNNs' and the loss options' launches at d = 12,
+K3d1 and K4's `d1_launches` with theirs at d = 1), and the
 `nvidia-smi` name/power-limit line. `--yardsticks-only [--package-root
 DIR]` builds the kernels of the package in DIR (a parent tree, for an A/B
 in one call), prints K3's, K4's and K5's yardsticks, K2's, K6's, K7's,
@@ -146,12 +167,17 @@ DEVICE = "cuda"
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
                "bound_ms", "bound_by", "library_ms")
 # K3 / K4 launches and CSR builds of one InfoNCE loss: per training step
-# (forward and backward) and per evaluated event (forward); K3 at d = 1 (the
-# negative sums' gather and the segment sum's backward) counted apart too
+# (forward and backward) and per evaluated event (forward); K3 and K4 at d = 1
+# (the negative sums, their gather and their backward) counted apart too
 PAIR_LAUNCHES_STEP = {"pair_gather": 3, "pair_gather_d1": 2, "pair_segment_sum": 3,
-                      "anchor_csr": 1}
+                      "pair_segment_sum_d1": 2, "anchor_csr": 1}
 PAIR_LAUNCHES_EVAL = {"pair_gather": 2, "pair_gather_d1": 1, "pair_segment_sum": 1,
-                      "anchor_csr": 1}
+                      "pair_segment_sum_d1": 1, "anchor_csr": 1}
+# a training step of the windowed InfoNCE with the cosine or l2_inverse
+# similarity: the l2_rbf step's launches, but the similarity's backward is
+# two K4 at d = 12, pair_gather's and partner_gather's
+PAIR_LAUNCHES_PARTNER = {**PAIR_LAUNCHES_STEP, "pair_segment_sum": 4}
+NO_PAIRS = dict.fromkeys(PAIR_LAUNCHES_STEP, 0)
 # K1 / K2 on neither route: the paths that run K6 / K7 or K10
 NO_K1_K2 = {"bucket_attn_fwd_tc": 0, "bucket_attn_bwd_tc": 0, "bucket_attn_fwd": 0,
             "bucket_attn_bwd": 0}
@@ -978,8 +1004,7 @@ def loss_and_grads(torch, model, loss_fn, batch, **forward_kw):
     `forward_kw` go to the model's forward."""
     model.zero_grad(set_to_none=True)
     out = model(batch["x"][0], batch["coords"][0], batch["valid"][0], **forward_kw)[None]
-    width = 1 if model.cfg.task == "pileup" else model.cfg.h_dim // 2
-    if out.shape != (1, batch["x"].shape[1], width) or not torch.isfinite(out).all():
+    if out.shape != (1, batch["x"].shape[1], model.out_width) or not torch.isfinite(out).all():
         raise AssertionError(f"model output {tuple(out.shape)} not finite / wrong shape")
     loss = loss_fn(out, batch)
     loss.backward()
@@ -1047,21 +1072,28 @@ def phase_eval(torch, trainer, model, cfg, event, batch, zero_counts, read_count
 
 
 def phase_trainer(torch, trainer, points: int, seed: int, task: str = "tracking",
-                  profile: str = "hept_acc") -> None:
+                  profile: str = "hept_acc", config_path=None) -> None:
     """`run_one_seed`, one epoch on three synthetic events of the task: a
     checkpoint is written, restored into a fresh model and re-evaluated to
-    the in-loop best test metrics."""
+    the in-loop best test metrics. `config_path` (a YAML, as the CLI's -c
+    takes it) replaces the profile; its events are then those of its own
+    dataset's generator."""
     from hept_tpu_torch.data.datasets import make_synthetic_pileup, make_synthetic_tracking
-    from hept_tpu_torch.train.config import profile_config
+    from hept_tpu_torch.train.config import load_config, profile_config
     from hept_tpu_torch.train.state import CheckpointManager
 
     t0 = time.perf_counter()
     if task == "pileup":
         ds = make_synthetic_pileup(n_events=3, n_points=points, seed=seed)
+    elif config_path is not None:
+        ds = make_synthetic_tracking(n_events=3, n_points=points, seed=seed)
     else:
         ds = make_synthetic_tracking(n_events=3, n_points=points, seed=seed, avg_track_size=8,
                                      pairs_per_point=16)
-    label = "trainer" if task == "tracking" else f"{task} trainer ({profile})"
+    if config_path is not None:
+        profile = Path(config_path).stem
+    label = "trainer" if task == "tracking" and config_path is None else \
+        f"{task} trainer ({profile})"
     log(f"phase {label}: 3 synthetic events ({len(ds.train)} train, {len(ds.valid)} valid, "
         f"{len(ds.test)} test; {time.perf_counter() - t0:.1f} s)")
     lines = []
@@ -1071,8 +1103,9 @@ def phase_trainer(torch, trainer, points: int, seed: int, task: str = "tracking"
         log("  " + lines[-1])
 
     with tempfile.TemporaryDirectory() as tmp:
-        cfg = profile_config(profile, task=task, device=DEVICE, num_epochs=1, log_dir=tmp,
-                             seed=seed)
+        overrides = dict(task=task, device=DEVICE, num_epochs=1, log_dir=tmp, seed=seed)
+        cfg = load_config(config_path, **overrides) if config_path is not None else \
+            profile_config(profile, **overrides)
         t0 = time.perf_counter()
         res = trainer.run_one_seed(cfg, ds, log=run_log)
         secs = time.perf_counter() - t0
@@ -1105,13 +1138,24 @@ def compare_first_step(torch, label: str, cfg, model, loss_fn, batch) -> None:
     # the parity run and the LSH baselines sort by keys computed from the
     # previous layer's output: the plain run takes the kernel run's
     # permutations, so a near-tie flipped by f32 rounding cannot move a
-    # point's bucket
-    perms = [] if cfg.model_kwargs.get("static_keys") is None else None
-    kw_k = {} if perms is None else {"record_perms": perms}
+    # point's bucket. DGCNN and GravNet pick neighbours in a learned space:
+    # both runs take those of a forward before them (an imposed neighbour's
+    # distance is computed by another expression than the kNN's, and
+    # GravNet's gradient flows through it)
+    kw_k, kw_p = {}, {}
+    if cfg.model_name.startswith("gnn_"):
+        nbrs = []
+        with torch.no_grad():
+            model(batch["x"][0], batch["coords"][0], batch["valid"][0], record_nbrs=nbrs)
+        kw_k = kw_p = {"nbrs": nbrs} if nbrs else {}
+    elif cfg.model_kwargs.get("static_keys") is None:
+        perms = []
+        kw_k, kw_p = {"record_perms": perms}, {"perms": perms}
     loss_k, grads_k = loss_and_grads(torch, model, loss_fn, batch, **kw_k)
+    if kw_p.get("perms") == []:  # no layer sorted by keys
+        kw_p = {}
     with plain_reference():
-        loss_p, grads_p = loss_and_grads(torch, model, loss_fn, batch,
-                                         **({"perms": perms} if perms else {}))
+        loss_p, grads_p = loss_and_grads(torch, model, loss_fn, batch, **kw_p)
     log(f"phase {label} compare: loss kernels {loss_k:.6f} plain {loss_p:.6f}")
     if f32:
         check(f"{label} loss |d| / |loss|", abs(loss_k - loss_p) / abs(loss_p), 1e-4)
@@ -1251,22 +1295,25 @@ def phase_profile(torch, trainer, profile: str, batch_np, ds, steps: int, seed: 
 
 
 def phase_baseline(torch, trainer, attn: str, task: str, batch_np, ds, steps: int, seed: int,
-                   zero_counts, read_counts) -> dict:
-    """A baseline attention at its YAML's widths and lr on one full-width
-    event of the task: `steps` Adam steps with dropout and the LSH draws
-    from the step's generator, launches counted (K3 / K4 as the InfoNCE
-    loss launches them for tracking; no other kernel of the port: the
-    baselines' attention is plain PyTorch, as JAX computes it outside any
-    Pallas kernel), then one more step under torch.profiler for the
-    device's busy time and K3 / K4's share; one timed `evaluate` (its
-    launches counted) against the same evaluation under `plain_reference()`;
-    then the first step, dropout off and the fixed draws, with kernels and
-    under `plain_reference()` (the LSH baselines on the kernel run's sort
-    orders), compared at the f32 levels."""
+                   zero_counts, read_counts, cfg=None) -> dict:
+    """A baseline at its YAML's widths and lr on one full-width event of the
+    task (an attention `attn` of `profile_config`, or the model of `cfg`: a
+    GNN): `steps` Adam steps with dropout and the LSH draws from the step's
+    generator, launches counted (K3 / K4 as the InfoNCE loss launches them
+    for tracking; no other kernel of the port: the baselines' attention and
+    the GNNs' message passing are plain PyTorch, as JAX computes them outside
+    any Pallas kernel), then one more step under torch.profiler for the
+    device's busy time, K3 / K4's share and torch.topk's; one timed
+    `evaluate` (its launches counted) against the same evaluation under
+    `plain_reference()`; then the first step, dropout off and the fixed
+    draws, with kernels and under `plain_reference()` (the LSH baselines on
+    the kernel run's sort orders, DGCNN / GravNet on its neighbours),
+    compared at the f32 levels."""
     from hept_tpu_torch.train.config import profile_config
-    from hept_tpu_torch.utils.profiling import port_kernels_ms, profile_device
+    from hept_tpu_torch.utils.profiling import port_kernels_ms, profile_device, topk_ms
 
-    cfg = profile_config(attn, task=task, device=DEVICE, num_epochs=1)
+    if cfg is None:
+        cfg = profile_config(attn, task=task, device=DEVICE, num_epochs=1)
     label = f"{task} {attn}"
     pairs_step = PAIR_LAUNCHES_STEP if task == "tracking" else {}
     pairs_eval = PAIR_LAUNCHES_EVAL if task == "tracking" else {}
@@ -1289,15 +1336,19 @@ def phase_baseline(torch, trainer, attn: str, task: str, batch_np, ds, steps: in
         lambda: trainer.train_step(model, opt, loss_fn, batch, gen), 1)
     busy_ms = sum(kernel_us.values()) / 1e3
     ours = port_kernels_ms(kernel_us)
+    top = sorted(kernel_us.items(), key=lambda kv: -kv[1])[:4]
     res = {"step_ms": step_ms, "steady_ms": statistics.median(step_ms[1:] or step_ms),
            "profiled_step_ms": prof_ms, "busy_ms": busy_ms, "peak_gib": peak,
-           "k3_ms": ours.get("K3", 0.0), "k4_ms": ours.get("K4", 0.0), "launches": launches,
-           "losses": losses}
-    log(f"phase {label}: {steps} steps (h_dim {cfg.model_kwargs['h_dim']}, "
-        f"{cfg.model_kwargs['n_layers']} layers, lr {cfg.optimizer_kwargs['lr']:g}, dropout on), "
-        f"losses {losses}; step ms {step_ms}; profiled step {prof_ms:.1f} ms, device busy "
-        f"{busy_ms:.1f} ms, K3 {res['k3_ms']:.3f} ms, K4 {res['k4_ms']:.3f} ms; peak memory "
-        f"{peak:.2f} GiB; launches " + str({k: v for k, v in launches.items() if v}))
+           "k3_ms": ours.get("K3", 0.0), "k4_ms": ours.get("K4", 0.0),
+           "topk_ms": topk_ms(kernel_us), "launches": launches, "losses": losses}
+    widths = {k: v for k, v in cfg.model_kwargs.items()
+              if k in ("h_dim", "hidden_dim", "n_layers", "num_layers", "out_dim", "k", "knn_dim")}
+    log(f"phase {label}: {steps} steps ({widths}, lr {cfg.optimizer_kwargs['lr']:g}, dropout "
+        f"on), losses {losses}; step ms {step_ms}; profiled step {prof_ms:.1f} ms, device busy "
+        f"{busy_ms:.1f} ms, K3 {res['k3_ms']:.3f} ms, K4 {res['k4_ms']:.3f} ms, torch.topk "
+        f"{res['topk_ms']:.3f} ms; peak memory {peak:.2f} GiB; launches "
+        + str({k: v for k, v in launches.items() if v}) + "; top kernels (ms): "
+        + "; ".join(f"{name[:90]} {us / 1e3:.2f}" for name, us in top))
     del opt
 
     res["eval"], res["eval_ms"], _ = timed_eval(
@@ -1314,43 +1365,175 @@ def phase_baseline(torch, trainer, attn: str, task: str, batch_np, ds, steps: in
     return res
 
 
-def phase_baselines_cpu_vs_card(torch, trainer, seed: int, points: int = 1200) -> None:
-    """Each baseline at its YAML's widths (tracking; 2 layers) on a
-    `points`-point event: the same weights and fixed draws on the CPU and on
-    the card, the CPU run's sort orders imposed on the card run (a hash
-    near-tie that rounding flips cannot move a point's bucket), outputs
-    held at relative max|d| <= 1e-4. This holds the card's plain ops to the
-    CPU, which the CPU tests hold to JAX. pct sums its messages with
-    atomics: whether two card calls give the same bits is printed."""
+def phase_cpu_vs_card(torch, trainer, seed: int, points: int = 1200) -> None:
+    """Each baseline attention and each GNN at its YAML's widths (tracking;
+    2 layers) on a `points`-point event: the same weights and fixed draws on
+    the CPU and on the card, outputs held at relative max|d| <= 1e-4. The
+    CPU's choices are imposed on both runs, so a near-tie that rounding
+    flips cannot move a point: the LSH baselines' sort orders, the GNNs'
+    fixed graph and learned-space neighbours (recorded by a forward before).
+    This holds the card's plain ops to the CPU, which the CPU tests hold to
+    JAX. pct and the gated / GCN convs sum their messages per destination
+    (`ops/segment.py`): whether two card calls give the same bits is
+    printed for each model."""
+    from hept_tpu_torch.models.gnns import CONVS, GRAPH_CONVS, gnn_graph
     from hept_tpu_torch.models.transformer import BASELINES
-    from hept_tpu_torch.train.config import profile_config
+    from hept_tpu_torch.train.config import gnn_config_path, load_config, profile_config
+
+    def to_card(choice):
+        return tuple(to_card(t) for t in choice) if isinstance(choice, tuple) \
+            else choice.to(DEVICE)
 
     _, batch_np = make_batch(points, seed, 100)
     cpu = trainer.batch_to_device(batch_np, "cpu")
     card = trainer.batch_to_device(batch_np, DEVICE)
-    for attn in BASELINES:
-        cfg = profile_config(attn, device="cpu", num_epochs=1)
-        cfg.model_kwargs["n_layers"] = 2
+    models = [(attn, profile_config(attn, device="cpu", num_epochs=1), "n_layers")
+              for attn in BASELINES]
+    models += [(f"gnn {conv}", load_config(gnn_config_path(conv), device="cpu", num_epochs=1),
+                "num_layers") for conv in CONVS]
+    for label, cfg, layers in models:
+        cfg.model_kwargs[layers] = 2
         model = trainer.build_model(cfg, batch_np["x"].shape[2], batch_np["coords"].shape[2],
                                     torch.Generator().manual_seed(seed), "cpu")
-        perms = []
+        gnn = cfg.model_name.startswith("gnn_")
+        record, impose = ("record_nbrs", "nbrs") if gnn else ("record_perms", "perms")
+        args_cpu = (cpu["x"][0], cpu["coords"][0], cpu["valid"][0])
+        fixed = {}
+        if gnn and cfg.model_name[len("gnn_"):] in GRAPH_CONVS:
+            fixed["graph"] = gnn_graph(*args_cpu[1:], model.cfg.graph_k)
+        chosen = []
         with torch.no_grad():
-            want = model(cpu["x"][0], cpu["coords"][0], cpu["valid"][0], record_perms=perms)
+            model(*args_cpu, **fixed, **{record: chosen})
+            want = model(*args_cpu, **fixed, **{impose: chosen or None})
             model.to(DEVICE)
-            moved = [tuple(t.to(DEVICE) for t in p) if isinstance(p, tuple) else p.to(DEVICE)
-                     for p in perms]
+            kw = {**{k: to_card(v) for k, v in fixed.items()},
+                  impose: [to_card(c) for c in chosen] or None}
             args = (card["x"][0], card["coords"][0], card["valid"][0])
-            got = model(*args, perms=moved or None)
-            again = model(*args, perms=moved or None) if attn == "pct" else got
+            got = model(*args, **kw)
+            again = model(*args, **kw)
         real = cpu["valid"][0]
         err = max_err(got.cpu()[real], want[real]) / scale(want[real])
-        note = ""
-        if attn == "pct":
-            same = "gave the same bits" if torch.equal(got, again) else "differ"
-            note = f" (two card calls {same})"
-        check(f"{attn} at {want.shape[0]} points, card vs CPU, max|d| / max|out|{note}", err, 1e-4)
+        same = "gave the same bits" if torch.equal(got, again) else "differ"
+        check(f"{label} at {want.shape[0]} points, card vs CPU, max|d| / max|out| (two card "
+              f"calls {same})", err, 1e-4)
         del model, got, again
     torch.cuda.empty_cache()
+
+
+def phase_train_options(torch, trainer, event, batch_np, seed: int, zero_counts,
+                        read_counts) -> dict:
+    """The trainer's loss and optimizer options on the full-width hept_acc
+    model and the phase-3 event: one step (dropout on) each of the windowed
+    InfoNCE with dist_metric cosine and l2_inverse (`partner_gather`'s
+    backward is a K4: PAIR_LAUNCHES_PARTNER), of the triplet loss and of the
+    InfoNCE on the pair list as packed (`windowed_pairs: false`; neither
+    launches K3 or K4), launches counted with the model's own (K1 / K2 4
+    each on the tensor cores, K5 8); each one's first step, dropout off,
+    with kernels against `plain_reference()`; then three steps of AdamW
+    (weight decay 0.01) under the per-step cosine schedule with clip_norm,
+    each lr held to the schedule's formula, and that step's clipped
+    gradient with kernels against plain."""
+    from hept_tpu_torch.data.batching import pack_events
+    from hept_tpu_torch.ops.dispatch import plain_reference
+    from hept_tpu_torch.train.config import profile_config
+    from hept_tpu_torch.train.optim import make_lr_scheduler, make_optimizer
+
+    model_kernels = {"bucket_attn_fwd_tc": 4, "bucket_attn_bwd_tc": 4, "bucket_attn_fwd": 0,
+                     "bucket_attn_bwd": 0, **NO_K6_K7, "rows_fwd": 0, "rows_bwd": 0,
+                     "row_gather": 8}
+    n_max = batch_np["x"].shape[1]
+    base = profile_config("hept_acc", device=DEVICE, num_epochs=1)
+    list_np = pack_events([event], block_size=base.model_kwargs["block_size"], n_max=n_max)
+    cases = {
+        "cosine": ({"loss_kwargs": {"tau": 0.05, "dist_metric": "cosine"}}, batch_np,
+                   PAIR_LAUNCHES_PARTNER),
+        "l2_inverse": ({"loss_kwargs": {"tau": 0.05, "dist_metric": "l2_inverse"}}, batch_np,
+                       PAIR_LAUNCHES_PARTNER),
+        "triplet": ({"loss_name": "triplet", "loss_kwargs": {"margin": 0.5}}, batch_np, NO_PAIRS),
+        "pair_list": ({"windowed_pairs": False}, list_np, NO_PAIRS),
+    }
+    gen_init = torch.Generator(device=DEVICE).manual_seed(seed)
+    model = trainer.build_model(base, batch_np["x"].shape[2], batch_np["coords"].shape[2],
+                                gen_init, DEVICE)
+    init_state = copy.deepcopy(model.state_dict())
+    out = {}
+    for name, (over, bnp, pairs) in cases.items():
+        cfg = profile_config("hept_acc", device=DEVICE, num_epochs=1, **over)
+        if trainer._window_pairs(cfg) != (128 if "pair_rev" in bnp else 0):
+            raise AssertionError(f"{name}: the trainer would pack another layout")
+        batch = trainer.batch_to_device(bnp, DEVICE)
+        loss_fn = trainer.make_loss_fn(cfg)
+        model.load_state_dict(init_state)
+        opt = trainer.make_optimizer(model.parameters(), "adam", 1e-2)
+        gen = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+        step_ms, losses, launches, _ = timed_steps(torch, trainer, model, opt, loss_fn, batch,
+                                                   gen, 1, f"option {name}", zero_counts,
+                                                   read_counts)
+        want = {**model_kernels, **pairs}
+        bad = {k: (launches[k], v) for k, v in want.items() if launches[k] != v}
+        if bad:
+            raise AssertionError(f"option {name}: launches (got, want) {bad}")
+        log(f"phase options {name}: one hept_acc step {step_ms[0]:.1f} ms, loss {losses[0]:.6f}; "
+            "pair launches " + str({k: launches[k] for k in pairs}))
+        out[name] = {k: launches[k] for k in pairs}
+        model.load_state_dict(init_state)
+        compare_first_step(torch, f"option {name}", cfg, model, loss_fn, batch)
+        del opt, batch
+
+    # AdamW, the per-step cosine schedule and clip_norm: 3 updates, warm-up 2
+    base_lr, clip, wd, warm, epochs, eta_ratio = 1e-2, 0.05, 0.01, 2, 3, 0.1
+    batch = trainer.batch_to_device(batch_np, DEVICE)
+    loss_fn = trainer.make_loss_fn(base)
+
+    def clipped_step(plain: bool):
+        model.load_state_dict(init_state)
+        opt = make_optimizer(model.parameters(), "adamw", base_lr, weight_decay=wd)
+        if plain:
+            with plain_reference():
+                m = trainer.train_step(model, opt, loss_fn, batch, clip_norm=clip)
+        else:
+            m = trainer.train_step(model, opt, loss_fn, batch, clip_norm=clip)
+        return float(m["grad_norm"]), {k: p.grad.detach().clone()
+                                       for k, p in model.named_parameters() if p.grad is not None}
+
+    norm_k, grads_k = clipped_step(False)
+    norm_p, grads_p = clipped_step(True)
+    clipped = math.sqrt(sum(float(g.double().pow(2).sum()) for g in grads_k.values()))
+    log(f"phase options adamw: first step's gradient norm kernels {norm_k:.6f} plain "
+        f"{norm_p:.6f}, clipped to {clipped:.6f} (clip_norm {clip})")
+    if norm_k >= clip:
+        check("adamw clipped gradient norm / clip_norm - 1", abs(clipped / clip - 1), 1e-5)
+    diff2 = sum(float((grads_k[k] - grads_p[k]).double().pow(2).sum()) for k in grads_p)
+    norm2 = sum(float(grads_p[k].double().pow(2).sum()) for k in grads_p)
+    check("adamw clipped gradient, |g_kernels - g_plain| / |g_plain|", math.sqrt(diff2 / norm2),
+          1e-2)
+    model.load_state_dict(init_state)
+    opt = make_optimizer(model.parameters(), "adamw", base_lr, weight_decay=wd)
+    sched = make_lr_scheduler(opt, "cosine", steps_per_epoch=1, num_epochs=epochs,
+                              num_warmup_epochs=warm, eta_min_ratio=eta_ratio)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+    lrs = []
+    for i in range(3):
+        lr = opt.param_groups[0]["lr"]
+        # the formula, written out: linear warm-up, then the cosine to eta_min
+        if i < warm:
+            want = base_lr * max(i, 1) / warm
+        else:
+            prog = min(max((i - warm) / max(epochs - warm, 1), 0.0), 1.0)
+            eta = base_lr * eta_ratio
+            want = eta + 0.5 * (base_lr - eta) * (1 + math.cos(math.pi * prog))
+        m = trainer.train_step(model, opt, loss_fn, batch, gen, clip_norm=clip)
+        sched.step()
+        lrs.append(lr)
+        log(f"  adamw + cosine step {i}: lr {lr:.8g} (formula {want:.8g}) loss "
+            f"{float(m['loss']):.6f} grad_norm {float(m['grad_norm']):.4f}")
+        check(f"adamw + cosine step {i} lr vs formula, relative", abs(lr - want) / want, 1e-12)
+        if not math.isfinite(float(m["loss"])):
+            raise AssertionError("adamw + cosine: non-finite loss")
+    out["adamw_cosine_lrs"] = lrs
+    del model, init_state, opt, batch
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_core(torch, trainer, batch_np, seed: int, zero_counts, read_counts) -> dict:
@@ -2060,7 +2243,7 @@ def main(argv=None) -> int:
     phase_trainer(torch, trainer, args.points, args.seed, task="pileup", profile="hept_fast")
 
     # 16./17. the seven baseline attentions on the bs-100 tracking event and
-    # the pileup event, then each on the CPU against the card
+    # the pileup event
     from hept_tpu_torch.models.transformer import BASELINES
 
     base = {}
@@ -2068,20 +2251,58 @@ def main(argv=None) -> int:
         for attn in BASELINES:
             base[task, attn] = phase_baseline(torch, trainer, attn, task, bnp, bds, steps,
                                               args.seed, zero_counts, read_counts)
+    # 18./19. the four GNN baselines on the same two events
+    from hept_tpu_torch.models.gnns import CONVS
+    from hept_tpu_torch.train.config import gnn_config_path, load_config
+
+    gnn = {}
+    for task, bnp, bds, steps in (("tracking", batch100, ds100, 2), ("pileup", pbatch, pds, 1)):
+        for conv in CONVS:
+            gcfg = load_config(gnn_config_path(conv, task), device=DEVICE, num_epochs=1)
+            gnn[task, conv] = phase_baseline(torch, trainer, f"gnn_{conv}", task, bnp, bds, steps,
+                                             args.seed, zero_counts, read_counts, cfg=gcfg)
     del pds, pbatch
-    phase_baselines_cpu_vs_card(torch, trainer, args.seed)
     log(f"phase baselines ({smi}): task attn | step ms (median after the first; pileup: its one "
         "step) | profiled step ms | device busy ms | peak GiB | eval ms | K3 ms | K4 ms a step")
     for (task, attn), r in base.items():
         log(f"  {task} {attn} | {r['steady_ms']:.1f} | {r['profiled_step_ms']:.1f} | "
             f"{r['busy_ms']:.1f} | {r['peak_gib']:.2f} | {r['eval_ms']:.1f} | {r['k3_ms']:.3f} | "
             f"{r['k4_ms']:.3f}")
-    for key, name in (("K3", None), ("K3d1", "pair_gather_d1"), ("K4", "pair_segment_sum")):
-        rows[key]["baseline_launches"] = {
-            attn: (base["tracking", attn]["launches"]["pair_gather"]
-                   - base["tracking", attn]["launches"]["pair_gather_d1"]) if name is None
-            else base["tracking", attn]["launches"][name] for attn in BASELINES}
-        rows[key]["baseline_launches_in"] = "phase 16, 2 steps of each tracking baseline"
+    log(f"phase gnns ({smi}): task conv | step ms (median after the first; pileup: its one "
+        "step) | profiled step ms | device busy ms | idle share (1 - busy / profiled step) | "
+        "peak GiB | eval ms | torch.topk ms (share of busy) | K3 ms | K4 ms a step")
+    for (task, conv), r in gnn.items():
+        log(f"  {task} {conv} | {r['steady_ms']:.1f} | {r['profiled_step_ms']:.1f} | "
+            f"{r['busy_ms']:.1f} | {1 - r['busy_ms'] / r['profiled_step_ms']:.3f} | "
+            f"{r['peak_gib']:.2f} | {r['eval_ms']:.1f} | {r['topk_ms']:.2f} "
+            f"({r['topk_ms'] / r['busy_ms']:.2f}) | {r['k3_ms']:.3f} | {r['k4_ms']:.3f}")
+    # 20. each baseline and GNN on the CPU against the card; 21. the GNN
+    # trainer (the -c path of tracking_gnn_gravnet.yaml on its own dataset's
+    # events); 22. the trainer's loss and optimizer options on hept_acc
+    phase_cpu_vs_card(torch, trainer, args.seed)
+    phase_trainer(torch, trainer, 6000, args.seed, config_path=gnn_config_path("gravnet"))
+    options = phase_train_options(torch, trainer, event, batch_np, args.seed, zero_counts,
+                                  read_counts)
+    # the K3 / K4 launches of each tracking run of phases 16, 18 and 22, each
+    # kernel's by width: K3 and K4 at d = 12, K3d1 and K4's d1_launches at d = 1
+    runs = {"baseline": ({attn: base["tracking", attn]["launches"] for attn in BASELINES},
+                         "phase 16, 2 steps of each tracking baseline"),
+            "gnn": ({conv: gnn["tracking", conv]["launches"] for conv in CONVS},
+                    "phase 18, 2 steps of each tracking GNN"),
+            "option": ({k: v for k, v in options.items() if k != "adamw_cosine_lrs"},
+                       "phase 22, one hept_acc step of each loss option")}
+    for key, count in (("K3", lambda c: c["pair_gather"] - c["pair_gather_d1"]),
+                       ("K3d1", lambda c: c["pair_gather_d1"]),
+                       ("K4", lambda c: c["pair_segment_sum"] - c["pair_segment_sum_d1"])):
+        for kind, (per_run, where) in runs.items():
+            rows[key][f"{kind}_launches"] = {name: count(c) for name, c in per_run.items()}
+            rows[key][f"{kind}_launches_in"] = where
+    rows["K4"]["d1_launches"] = {f"{kind} {name}": c["pair_segment_sum_d1"]
+                                 for kind, (per_run, _) in runs.items()
+                                 for name, c in per_run.items()}
+    rows["K4"]["launches_note"] = ("launches: all widths (phase 3); baseline_launches, "
+                                   "gnn_launches and option_launches: at d = 12; d1_launches: "
+                                   "at d = 1")
     # K11 (row_gather_vreg) has K5's contract and runs on K5's kernel
     rows["K11"] = dict(rows["K5"], name="K11 row_gather_vreg", ported_by="K5",
                        replaces="hept_tpu/ops/gather_pallas.py:124")

@@ -410,6 +410,11 @@ class HeptTransformer(nn.Module):
             self.out_proj = TorchLinear(cfg.h_dim // 2, cfg.num_classes, generator=generator,
                                         device=device)
 
+    @property
+    def out_width(self) -> int:
+        """Width of the output: the embedding (tracking) or the classes."""
+        return self.cfg.num_classes if self.cfg.task == "pileup" else self.cfg.h_dim // 2
+
     def build_plan(self, h, coords, codes, invalid):
         """The once-per-step plan of `total_rounds` rounds (static_hash of the
         encoder output + coords, AND codes of head 0 cycled over rounds)."""

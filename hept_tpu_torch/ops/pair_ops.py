@@ -12,6 +12,11 @@ needs the windows or a globally sorted index.
   gather_rows (K3):  out[e] = emb[idx[e]]     plain version: index_select
   segment_sum (K4):  out[i] = sum_{idx[e]=i} vals[e]   plain: index_add_
 
+`pair_gather` (K3 forward, K4 backward), `anchor_segment_sum` (K4, K3),
+`pair_l2rbf_sim` (the l2_rbf loss's similarity: K3, K4) and `partner_gather`
+(a plain take forward, K4 backward: the cosine and l2_inverse losses' p1
+side) are built on them.
+
 K4 takes the CSR of its index (`anchor_csr`: the pairs in stable anchor
 order and the row pointers). The loss builds it once for its anchor index
 and hands it to the ops below, whose forward or backward runs K4; without
@@ -28,8 +33,10 @@ from . import cuda_lib
 from .dispatch import use_kernel
 
 # launches of each kernel since the last reset (plain integer counters);
-# "pair_gather_d1": those of K3's launches at d = 1 (also in "pair_gather")
-LAUNCHES = {"pair_gather": 0, "pair_gather_d1": 0, "pair_segment_sum": 0}
+# "pair_gather_d1" / "pair_segment_sum_d1": those of K3's / K4's launches at
+# d = 1 (also in "pair_gather" / "pair_segment_sum")
+LAUNCHES = {"pair_gather": 0, "pair_gather_d1": 0, "pair_segment_sum": 0,
+            "pair_segment_sum_d1": 0}
 # CSRs built by `anchor_csr` since the last reset (PyTorch's sort, no kernel
 # of csrc/)
 CSR_BUILDS = {"anchor_csr": 0}
@@ -119,6 +126,7 @@ def segment_sum_cuda(vals: torch.Tensor, idx: torch.Tensor, n: int,
              cuda_lib.stream_ptr(vals.device))
     cuda_lib.check(err, lib, "hept_pair_error_string", "pair_segment_sum")
     LAUNCHES["pair_segment_sum"] += 1
+    LAUNCHES["pair_segment_sum_d1"] += int(d == 1)
     return out
 
 
@@ -169,6 +177,35 @@ def anchor_segment_sum(vals: torch.Tensor, idx: torch.Tensor, n: int, csr=None) 
     """Sum vals (E,) into (n,) segments keyed by the anchor idx (over `csr`
     when given); the backward is the K3 gather."""
     return _AnchorSegmentSum.apply(vals, idx, n, csr)
+
+
+class _PartnerGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, emb, p1, p0, rev, mask, csr):
+        ctx.save_for_backward(p0, rev, mask)
+        ctx.n, ctx.csr = emb.shape[0], csr
+        return emb.index_select(0, p1.to(torch.int64))
+
+    @staticmethod
+    def backward(ctx, g):
+        p0, rev, mask = ctx.saved_tensors
+        # d_emb[i] = sum_{p1[e] = i} g[e] = sum_{p0[e'] = i} g[rev[e']]: the
+        # reversed cotangents summed at the anchor (pads masked: rev[pad]
+        # aliases a real pair)
+        g_rev = torch.where(mask[:, None], g.index_select(0, rev.to(torch.int64)),
+                            torch.zeros((), dtype=g.dtype, device=g.device))
+        return (segment_sum(g_rev, p0, ctx.n, ctx.csr),) + (None,) * 5
+
+
+def partner_gather(emb, p1, p0, rev, mask, csr=None) -> torch.Tensor:
+    """emb (n, d) gathered at the partner index p1 (E,) -> (E, d). The
+    forward is a plain row take (p1 is not windowed). The backward's sum by
+    p1 is rewritten with the pack-time reverse-pair index as a sum by the
+    anchor p0 of the cotangent taken at rev, pads masked: the K4 segment sum
+    (over `csr`, p0's `anchor_csr`, when given). Requires the reversal-
+    closed windowed layout, and a zero cotangent on the pad pairs (the
+    loss's case)."""
+    return _PartnerGather.apply(emb, p1, p0, rev, mask, csr)
 
 
 class _PairL2RBFSim(torch.autograd.Function):

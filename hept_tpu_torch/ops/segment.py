@@ -1,10 +1,15 @@
 """Segmented reductions over axis 0 (port of `hept_tpu/ops/segment.py`).
 
-The PCT attention's per-destination softmax and sum (and the GNNs' mean and
-max) over an edge list. `segment_sum` is `index_add_`, which sums with
-atomics on the card: its bits may differ from call to call there and from
-the CPU's, within float32 rounding. Empty segments give 0 (sum, mean) or
--inf (max, floats), as in JAX.
+The PCT attention's per-destination softmax and sum, and the GNNs' sums and
+means, over an edge list. `segment_sum` takes on each device the call that
+gives the same bits on every call: `index_put_(accumulate=True)` on the
+card, which sums each segment in sorted-index order (`index_add_` sums with
+atomics there), and `index_add` on the CPU (where `index_put_` with
+accumulate adds floats with atomics from several threads once the input
+holds 32768 elements or more). So a step can be compared with another at
+f32 rounding, and a restored checkpoint re-evaluates to the same metrics;
+the CPU's and the card's bits may differ, within float32 rounding. Empty
+segments give 0 (sum, mean) or -inf (max, floats), as in JAX.
 """
 
 from __future__ import annotations
@@ -19,7 +24,10 @@ def _rows(t: torch.Tensor, ndim: int) -> torch.Tensor:
 
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
     out = data.new_zeros((num_segments,) + tuple(data.shape[1:]))
-    return out.index_add(0, segment_ids.to(torch.int64), data)
+    ids = segment_ids.to(torch.int64)
+    if data.is_cuda:
+        return out.index_put_((ids,), data, accumulate=True)
+    return out.index_add(0, ids, data)
 
 
 def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,

@@ -6,7 +6,8 @@ The pileup counterpart of `tracking_trainer` (the JAX package's
 `pileup_trainer`): `-m` selects `configs/pileup/pileup_trans_<model>.yaml`
 (hept, the reference-parity profile, hept_fast, or one of the seven
 baseline attentions: performer, flt, reformer, smyrf, sb, pct,
-flatformer); the run trains the focal
+flatformer); `-c configs/pileup/pileup_gnn_<conv>.yaml` runs a GNN
+baseline (gatedgnn, gcn, dgcnn, gravnet). The run trains the focal
 loss with best-by-valid AP and prints the best checkpoint's test AP ("auc"),
 ROC-AUC, F1 and loss. The run is on the GPU unless `--device cpu` is given.
 """

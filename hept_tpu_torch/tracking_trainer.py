@@ -4,7 +4,10 @@
 
 `-m` selects `configs/tracking/tracking_trans_<model>.yaml` (needs PyYAML):
 a HEPT profile or one of the seven baseline attentions (performer, flt,
-reformer, smyrf, sb, pct, flatformer).
+reformer, smyrf, sb, pct, flatformer). `-c` takes any YAML instead, e.g.
+the four GNN baselines' `configs/tracking/tracking_gnn_<conv>.yaml` (conv
+gatedgnn, gcn, dgcnn, gravnet), as in the JAX package, whose `-m` also
+names only the `*_trans_*` files.
 The run trains with best-by-valid selection (`train/trainer.py:
 run_one_seed`) and prints the best checkpoint's test metrics. `--resume`
 goes on from an earlier run dir's latest checkpoint; `--only-eval` only

@@ -8,6 +8,7 @@ import dataclasses
 from pathlib import Path
 from typing import Optional
 
+from ..models.gnns import GNNConfig
 from ..models.transformer import TransformerConfig
 
 CONFIG_ROOT = Path(__file__).resolve().parent.parent / "configs"
@@ -46,6 +47,11 @@ class ExperimentConfig:
     resume: Optional[str] = None
     # evaluate the test split (of the initial or resumed weights) and stop
     only_eval: bool = False
+    # log the parameter count and one forward's FLOPs, return them and stop
+    only_flops: bool = False
+    # declared by the JAX package's config and read by neither trainer:
+    # accepted and ignored (checkpoints are written at each new best)
+    ckpt_every: int = 0
     # time-stamped run dirs (scalars.jsonl, ckpt/) go under this directory
     log_dir: str = "runs/"
 
@@ -55,8 +61,9 @@ class ExperimentConfig:
     padding_mode: str = "replicate"
     # train-time random supervision-pair augmentation fraction
     pair_aug_p: float = 0.2
-    # pack pairs in the 128-window layout for the pair kernels; the port's
-    # loss has only this path, so False is refused
+    # tracking: pack pairs in the 128-window layout and run the InfoNCE loss
+    # on the pair kernels; False packs the pair list as it is and builds the
+    # positive / negative masks in the step
     windowed_pairs: bool = True
 
     def model_config(self, in_dim: int, coords_dim: int) -> TransformerConfig:
@@ -65,6 +72,18 @@ class ExperimentConfig:
             kw.setdefault("attn_type", self.model_name.split("_", 1)[1])
         return TransformerConfig(in_dim=in_dim, coords_dim=coords_dim, task=self.task,
                                  attn_impl=self.attn_impl, padding_mode=self.padding_mode, **kw)
+
+
+    def gnn_config(self, in_dim: int, coords_dim: int) -> GNNConfig:
+        """The GNNStack of `gnn_<conv>`: model_kwargs hidden_dim (64),
+        num_layers (4), out_dim, graph_k (16), k (8), knn_dim (4), the JAX
+        trainer's keys and defaults; other keys are not read."""
+        kw = self.model_kwargs
+        return GNNConfig(in_dim=in_dim, coords_dim=coords_dim,
+                         conv_type=self.model_name.split("_", 1)[1], task=self.task,
+                         h_dim=kw.get("hidden_dim", 64), n_layers=kw.get("num_layers", 4),
+                         out_dim=kw.get("out_dim"), graph_k=kw.get("graph_k", 16),
+                         k=kw.get("k", 8), knn_dim=kw.get("knn_dim", 4))
 
 
 def load_config(path: str | Path, **overrides) -> ExperimentConfig:
@@ -85,5 +104,12 @@ def profile_config(profile: str, task: str = "tracking", **overrides) -> Experim
     `overrides`: tracking hept, hept_acc, hept_fast, hept_turbo, hept_max;
     pileup hept, hept_fast; for both tasks the seven baseline attentions
     (`models/transformer.py:BASELINES`: performer, flt, reformer, smyrf,
-    sb, pct, flatformer)."""
+    sb, pct, flatformer). The GNN baselines' YAMLs,
+    `configs/<task>/<task>_gnn_<conv>.yaml`, load with `load_config`
+    (`gnn_config`)."""
     return load_config(CONFIG_ROOT / task / f"{task}_trans_{profile}.yaml", **overrides)
+
+
+def gnn_config_path(conv: str, task: str = "tracking") -> Path:
+    """The shipped YAML of a GNN baseline (`models/gnns.py:CONVS`)."""
+    return CONFIG_ROOT / task / f"{task}_gnn_{conv}.yaml"

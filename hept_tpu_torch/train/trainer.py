@@ -7,9 +7,13 @@ pileup parts of `hept_tpu/train/trainer.py`: `make_loss_fn`,
 every epoch, and at each new best of `main_metric` evaluates the test split
 and saves a checkpoint (`train/state.py`). At the end it restores the best
 checkpoint into a fresh model and evaluates the test split again. Tracking
-trains the InfoNCE loss on windowed supervision pairs; pileup the focal loss
-on the neutral points, with the "impatient" plateau schedule where the
-config names it.
+trains the InfoNCE loss (windowed supervision pairs, or the pair list as
+packed; l2_rbf, cosine or l2_inverse similarity) or the triplet margin
+loss; pileup the focal loss on the neutral points. The optimizer is Adam or
+AdamW (decoupled decay), optionally with global-norm gradient clipping;
+the schedule "step" (per epoch), "cosine" (warm-up then cosine, per
+optimizer step) or "impatient" (plateau). The model is a HEPT transformer
+(`trans_*`) or a GNN baseline (`gnn_*`, `models/gnns.py`).
 """
 
 from __future__ import annotations
@@ -21,15 +25,18 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..data.batching import slab_friendly_n
+from ..data.batching import pack_events, slab_friendly_n
 from ..data.datasets import SplitDataset, get_dataset
+from ..models.gnns import GNNStack
 from ..models.transformer import HeptTransformer
 from ..utils.device import resolve_device
+from ..utils.flops import forward_flops, param_count
 from ..utils.logging import ScalarLogger, log
 from .config import ExperimentConfig
-from .losses import focal_loss, infonce_loss
+from .losses import focal_loss, infonce_loss, infonce_loss_pairs, triplet_margin_loss
 from .metrics import THRESHOLDS, binary_classification_metrics, tracking_metrics_batch
-from .optim import make_lr_scheduler, make_optimizer
+from .optim import (PER_STEP_SCHEDULES, clip_by_global_norm_, global_norm, make_lr_scheduler,
+                    make_optimizer)
 from .state import CheckpointManager
 
 _DTYPES = {"x": torch.float32, "coords": torch.float32, "valid": torch.bool,
@@ -46,14 +53,22 @@ def batch_to_device(batch: dict, device) -> dict:
 
 
 def build_model(cfg: ExperimentConfig, in_dim: int, coords_dim: int,
-                generator: torch.Generator | None = None, device=None) -> HeptTransformer:
+                generator: torch.Generator | None = None,
+                device=None) -> HeptTransformer | GNNStack:
+    """The model of `cfg.model_name`: `gnn_<conv>` a GNNStack, `trans_<attn>`
+    a HeptTransformer."""
+    if cfg.model_name.startswith("gnn_"):
+        return GNNStack(cfg.gnn_config(in_dim, coords_dim), generator, device)
     return HeptTransformer(cfg.model_config(in_dim, coords_dim), generator, device)
 
 
 def make_loss_fn(cfg: ExperimentConfig):
-    """Tracking: InfoNCE over the events of a batch (mean over events).
-    Pileup: the focal loss of the probabilities over the batch's real
-    neutral points (alpha, gamma from `loss_kwargs`)."""
+    """Tracking: the loss of `loss_name` over the events of a batch (mean
+    over events): "infonce" (tau, dist_metric from `loss_kwargs`) on the
+    windowed pair layout when `windowed_pairs`, else on the pair list as
+    packed; "triplet" (margin, default 0.5). Pileup: the focal loss of the
+    probabilities over the batch's real neutral points (alpha, gamma from
+    `loss_kwargs`)."""
     if cfg.task == "pileup":
         alpha = cfg.loss_kwargs.get("alpha", 0.25)
         gamma = cfg.loss_kwargs.get("gamma", 2.0)
@@ -63,27 +78,39 @@ def make_loss_fn(cfg: ExperimentConfig):
                               alpha=alpha, gamma=gamma)
 
         return focal
-    if cfg.task != "tracking" or cfg.loss_name != "infonce" or not cfg.windowed_pairs:
-        raise NotImplementedError("the port trains the tracking InfoNCE loss on windowed pairs")
+    if cfg.task != "tracking" or cfg.loss_name not in ("infonce", "triplet"):
+        raise NotImplementedError(f"{cfg.task} loss {cfg.loss_name}: the port trains tracking "
+                                  "with infonce or triplet, pileup with the focal loss")
     tau = cfg.loss_kwargs.get("tau", 0.05)
     dist = cfg.loss_kwargs.get("dist_metric", "l2_rbf")
 
-    def loss_fn(outputs, batch):
-        if "pair_rev" not in batch:
+    def windowed(out, b, i):
+        if "pair_rev" not in b:
             raise ValueError("the loss needs the windowed pair layout (window_pairs=128) "
                              "with reverse index and cluster weights")
-        losses = [
-            infonce_loss(outputs[i], batch["pairs"][i], batch["pair_mask"][i],
-                         batch["pair_rev"][i], batch["pair_weight"][i], batch["pair_neg"][i],
-                         tau=tau, dist_metric=dist)
-            for i in range(outputs.shape[0])
-        ]
+        return infonce_loss(out, b["pairs"][i], b["pair_mask"][i], b["pair_rev"][i],
+                            b["pair_weight"][i], b["pair_neg"][i], tau=tau, dist_metric=dist)
+
+    def pair_list(out, b, i):
+        return infonce_loss_pairs(out, b["pairs"][i], b["pair_mask"][i], b["cluster_ids"][i],
+                                  b["recons"][i], b["pts"][i], tau=tau, dist_metric=dist)
+
+    def triplet(out, b, i):
+        return triplet_margin_loss(out, b["pairs"][i], b["pair_mask"][i], b["cluster_ids"][i],
+                                   b["recons"][i], b["pts"][i],
+                                   margin=cfg.loss_kwargs.get("margin", 0.5))
+
+    per_event = triplet if cfg.loss_name == "triplet" else \
+        windowed if cfg.windowed_pairs else pair_list
+
+    def loss_fn(outputs, batch):
+        losses = [per_event(outputs[i], batch, i) for i in range(outputs.shape[0])]
         return sum(losses) / len(losses)
 
     return loss_fn
 
 
-def model_apply(model: HeptTransformer, batch: dict,
+def model_apply(model: HeptTransformer | GNNStack, batch: dict,
                 generator: torch.Generator | None = None) -> torch.Tensor:
     """(B, N, out) outputs, one event at a time."""
     return torch.stack([
@@ -92,15 +119,19 @@ def model_apply(model: HeptTransformer, batch: dict,
     ])
 
 
-def train_step(model, optimizer, loss_fn, batch, generator: torch.Generator | None = None):
-    """One step: loss, gradients, Adam update. `generator` draws dropout
-    (none: no dropout). Returns detached {"loss", "grad_norm"} tensors; no
-    host synchronisation."""
+def train_step(model, optimizer, loss_fn, batch, generator: torch.Generator | None = None,
+               clip_norm: float = 0.0):
+    """One step: loss, gradients, the optimizer's update (the gradients
+    clipped first by their global norm where clip_norm > 0). `generator`
+    draws dropout (none: no dropout). Returns detached {"loss", "grad_norm"}
+    tensors, the norm before any clipping; no host synchronisation."""
     optimizer.zero_grad(set_to_none=True)
     loss = loss_fn(model_apply(model, batch, generator), batch)
     loss.backward()
     grads = [p.grad for p in model.parameters() if p.grad is not None]
-    grad_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    grad_norm = global_norm(grads)
+    if clip_norm:
+        clip_by_global_norm_(grads, grad_norm, clip_norm)
     optimizer.step()
     return {"loss": loss.detach(), "grad_norm": grad_norm.detach()}
 
@@ -133,8 +164,9 @@ def make_eval_step(cfg: ExperimentConfig):
 
 
 def _window_pairs(cfg: ExperimentConfig) -> int:
-    """Tracking packs its pairs in 128-pair windows; pileup has no pairs."""
-    return 128 if cfg.task == "tracking" else 0
+    """Tracking packs its pairs in 128-pair windows (unless `windowed_pairs`
+    is off); pileup has no pairs."""
+    return 128 if cfg.task == "tracking" and cfg.windowed_pairs else 0
 
 
 def eval_batches(cfg: ExperimentConfig, dataset: SplitDataset, split: str, block_size: int,
@@ -173,8 +205,8 @@ def _pileup_metrics(losses: list, probs: list, batches: list) -> dict:
     return res
 
 
-def evaluate(cfg: ExperimentConfig, model: HeptTransformer, dataset: SplitDataset, split: str,
-             block_size: int, n_max: int) -> dict:
+def evaluate(cfg: ExperimentConfig, model: HeptTransformer | GNNStack, dataset: SplitDataset,
+             split: str, block_size: int, n_max: int) -> dict:
     """Mean loss and the task's metrics over a split, on the model's device.
 
     The model runs in eval mode under `torch.inference_mode()`; the results
@@ -237,7 +269,10 @@ def run_one_seed(cfg: ExperimentConfig, dataset: SplitDataset | None = None,
     `resume` names an earlier run dir: its latest checkpoint (model,
     optimizer, scheduler, generators) is loaded and training goes on from
     the epoch after it. Each run writes `scalars.jsonl` and `ckpt/` under a
-    new time-stamped dir in `log_dir`.
+    new time-stamped dir in `log_dir`. `only_flops` returns {"params",
+    "flops"} (one forward of the first train event) without training.
+    `ckpt_every` is read by neither trainer: checkpoints are written at each
+    new best only.
     """
     device = resolve_device(cfg.device)
     if dataset is None:
@@ -252,15 +287,26 @@ def run_one_seed(cfg: ExperimentConfig, dataset: SplitDataset | None = None,
     gen = torch.Generator(device=device).manual_seed(cfg.seed)
     init_gen = torch.Generator(device=device).manual_seed(cfg.seed + 1)
     model = build_model(cfg, dataset.in_dim, dataset.coords_dim, init_gen, device)
-    log(f"model {cfg.model_name}: {sum(p.numel() for p in model.parameters()):,} params "
-        f"on {device}")
-    optimizer = make_optimizer(model.parameters(), cfg.optimizer_name,
-                               cfg.optimizer_kwargs.get("lr", 1e-3))
+    n_params = param_count(model)
+    log(f"model {cfg.model_name}: {n_params:,} params on {device}")
+    if cfg.only_flops:
+        b0 = batch_to_device(pack_events([dataset.train[0]], block_size, n_max=n_max), device)
+        flops = forward_flops(lambda: model_apply(model, b0))
+        log(f"forward FLOPs (matmuls and convolutions, torch's FlopCounterMode; not XLA's "
+            f"cost analysis): {flops:,}")
+        return {"params": n_params, "flops": flops}
+    okw = cfg.optimizer_kwargs
+    optimizer = make_optimizer(model.parameters(), cfg.optimizer_name, okw.get("lr", 1e-3),
+                               weight_decay=okw.get("weight_decay", 0.0))
+    clip_norm = okw.get("clip_norm", 0.0)
     scheduler = make_lr_scheduler(
         optimizer, cfg.lr_scheduler_name,
+        steps_per_epoch=max(1, len(dataset.train) // cfg.batch_size), num_epochs=cfg.num_epochs,
         **{k: v for k, v in cfg.lr_scheduler_kwargs.items()
-           if k in ("gamma", "step_size", "factor", "patience", "mode")})
+           if k in ("gamma", "step_size", "factor", "patience", "mode", "num_warmup_epochs",
+                    "eta_min_ratio")})
     plateau = isinstance(scheduler, torch.optim.lr_scheduler.ReduceLROnPlateau)
+    per_step = cfg.lr_scheduler_name in PER_STEP_SCHEDULES
     loss_fn = make_loss_fn(cfg)
     data_rng = np.random.default_rng(cfg.seed)
 
@@ -299,9 +345,11 @@ def run_one_seed(cfg: ExperimentConfig, dataset: SplitDataset | None = None,
                                       aug_pair_p=cfg.pair_aug_p if cfg.task == "tracking" else 0.0,
                                       window_pairs=_window_pairs(cfg)):
             losses.append(train_step(model, optimizer, loss_fn, batch_to_device(b, device),
-                                     gen)["loss"])
+                                     gen, clip_norm)["loss"])
             step += 1
-        if not plateau:
+            if per_step:
+                scheduler.step()
+        if not (plateau or per_step):
             scheduler.step()
         train_loss = float(torch.stack(losses).mean()) if losses else float("nan")
         t_train = time.perf_counter() - t0

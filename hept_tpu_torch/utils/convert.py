@@ -4,7 +4,9 @@
 `hept_tpu` HeptTransformer (static-plan or dynamic-key path; scan or loop
 layer layout; tracking or pileup head) into a state dict for
 `hept_tpu_torch.models.transformer.HeptTransformer`, and of each of the
-seven baseline attentions. It takes any nested mapping of arrays (numpy, or
+seven baseline attentions, and of the four GNN baselines
+(`hept_tpu_torch.models.gnns.GNNStack`: a flat tree, `pre_ln_i` / `conv_i`
+/ ... per layer, no `block_*` subtrees). It takes any nested mapping of arrays (numpy, or
 anything `np.asarray` reads) and imports no JAX. The frozen constants
 (`regions` (hept only), `static_alpha` where the model has a static plan,
 each layer's `e2lsh_alpha`: (1, ...) on the static plan, (h, d + cd,
@@ -48,6 +50,8 @@ def from_jax_variables(variables) -> dict[str, torch.Tensor]:
     """flax variables -> torch state dict (TorchLinear kernels (in, out)
     become nn.Linear weights (out, in); LayerNorm scale -> weight)."""
     params = variables["params"]
+    if "pre_ff_0" in params:
+        return _gnn_state_dict(params)
     consts = variables.get("constants", {}) if hasattr(variables, "get") \
         else variables["constants"]
     sd: dict[str, torch.Tensor] = {}
@@ -108,4 +112,46 @@ def from_jax_variables(variables) -> dict[str, torch.Tensor]:
     for nm in ("regions", "static_alpha"):
         if nm in consts:
             sd[nm] = _t(consts[nm])
+    return sd
+
+
+# the GNNStack's per-layer flax names -> its torch ModuleLists
+_GNN_LAYER_NAMES = {"pre_ln": "pre_ln", "pre_ff": "pre_ff", "conv": "convs", "norm2": "norm2",
+                    "ff0": "ff0", "ff1": "ff1"}
+
+
+def _gnn_state_dict(params) -> dict[str, torch.Tensor]:
+    """A GNNStack's params: TorchLinear and LayerNorm nodes by their keys,
+    the raw conv parameters (`bias`, `edge_weight_w`) as they are."""
+    sd: dict[str, torch.Tensor] = {}
+
+    def node(prefix, val):
+        if not hasattr(val, "keys"):
+            sd[prefix] = _t(val)
+        elif "kernel" in val:
+            sd[f"{prefix}.weight"] = _t(val["kernel"]).t().contiguous()
+            if "bias" in val:
+                sd[f"{prefix}.bias"] = _t(val["bias"])
+        elif "scale" in val:
+            sd[f"{prefix}.weight"] = _t(val["scale"])
+            sd[f"{prefix}.bias"] = _t(val["bias"])
+        elif "embedding" in val:
+            sd[f"{prefix}.weight"] = _t(val["embedding"])
+        else:
+            for k in val.keys():
+                node(f"{prefix}.{k}", val[k])
+
+    for key in params.keys():
+        head, _, idx = key.rpartition("_")
+        if head in _GNN_LAYER_NAMES and idx.isdigit():
+            node(f"{_GNN_LAYER_NAMES[head]}.{idx}", params[key])
+        elif key == "mlp_out":
+            mlp = params[key]
+            n_lin = sum(1 for k in mlp.keys() if k.startswith("TorchLinear_"))
+            for i in range(n_lin):
+                node(f"mlp_out.lins.{i}", mlp[f"TorchLinear_{i}"])
+            for i in range(n_lin - 1):
+                node(f"mlp_out.norms.{i}", mlp[f"LayerNorm_{i}"])
+        else:
+            node(key, params[key])
     return sd

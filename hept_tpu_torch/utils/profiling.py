@@ -79,6 +79,15 @@ def profile_device(fn, calls: int) -> tuple[float, dict, object]:
     return wall_ms, kernel_us, prof
 
 
+def topk_ms(kernel_us: dict) -> float:
+    """Device ms of `torch.topk`'s selection kernels (PyTorch names them
+    sbtopk / mbtopk: gatherTopK, radixFindKthValues, the blockwise k
+    counts); the sort of a sorted top-k is among the "sort" kernels."""
+    keys = ("topk", "radixfindkth", "kcounts")
+    return sum(us for name, us in kernel_us.items()
+               if any(k in name.lower() for k in keys)) / 1e3
+
+
 def port_kernels_ms(kernel_us: dict) -> dict:
     """Device ms of the port's own kernels (K1-K10), by TPU kernel."""
     ours: dict[str, float] = {}

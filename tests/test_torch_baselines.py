@@ -287,6 +287,22 @@ def test_segment_ops_match_jax(op):
     _close(x.grad, jg, 1e-5, op + " grad")
 
 
+def test_segment_sum_same_bits_on_the_cpu():
+    """The segment sum on the CPU at a size where index_put_ with accumulate
+    would add with atomics from several threads (200000 x 8 values into 500
+    segments): the same bits on repeated calls, and the float64 sum to f32
+    rounding."""
+    rng = np.random.default_rng(4)
+    ids = _t(rng.integers(0, 500, 200000), torch.int64)
+    vals = _t(rng.normal(size=(200000, 8)).astype(np.float32))
+    first = segment.segment_sum(vals, ids, 500)
+    for _ in range(5):
+        assert torch.equal(segment.segment_sum(vals, ids, 500), first)
+    want = np.zeros((500, 8))
+    np.add.at(want, ids.numpy(), vals.numpy().astype(np.float64))
+    np.testing.assert_allclose(first.numpy(), want, rtol=0, atol=1e-5 * np.abs(want).max())
+
+
 def test_gather_rows_matches_jax():
     rng = np.random.default_rng(3)
     perm = np.stack([np.stack([rng.permutation(10) for _ in range(2)]) for _ in range(3)])

@@ -695,3 +695,23 @@ def test_k12_rejects_what_it_does_not_take(dev):
     for k_, p_ in bad:
         with pytest.raises(ValueError):
             srt.bitonic_sort_rows_cuda(k_, p_)
+
+
+def test_segment_sum_same_bits_on_the_card(dev):
+    """ops/segment.py's segment sum on the card (index_put_ accumulating in
+    sorted-index order: the GNNs' and pct's message sums) gives the same bits
+    on repeated calls, equals index_add_ to f32 rounding, and its gradient
+    is the gather of the cotangent."""
+    from hept_tpu_torch.ops.segment import segment_sum
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    ids = torch.randint(0, 5000, (200000,), generator=g, device=dev)
+    vals = torch.randn((200000, 24), generator=g, device=dev, requires_grad=True)
+    first = segment_sum(vals, ids, 5000)
+    for _ in range(3):
+        assert torch.equal(segment_sum(vals, ids, 5000), first)
+    ref = torch.zeros((5000, 24), device=dev).index_add_(0, ids, vals.detach())
+    torch.testing.assert_close(first.detach(), ref, rtol=0, atol=1e-5 * ref.abs().max().item())
+    cot = torch.randn((5000, 24), generator=g, device=dev)
+    (first * cot).sum().backward()
+    assert torch.equal(vals.grad, cot[ids])
