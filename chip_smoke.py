@@ -130,11 +130,37 @@ Phases, one line each (plus per-kernel lines):
      of the triplet loss and of `windowed_pairs: false` (no K3 / K4), each
      one's first step with kernels against plain; three AdamW steps under
      the per-step cosine schedule with clip_norm, each lr held to the
-     formula, the clipped gradient with kernels against plain.
+     formula, the clipped gradient with kernels against plain;
+ 23. flat batching: the hept_acc model on two 60k events (seeds `--seed`
+     and `--seed` + 1) as one forward of 2 x 60416 points (`batch_mode:
+     flat`) and stacked (`sort_events` 2): the first step, dropout off,
+     flat against the event loop and against `plain_reference()`, stacked
+     against the loop (loss 1e-3, gradients 1e-2 relative L2); then
+     `--profile-steps` Adam steps each of the flat batch, the loop batch and
+     one event, launches counted (a flat step: K1 / K2 4 each, K5 8), one
+     more under torch.profiler (device busy ms), peak GiB;
+ 24. DP at world 1 over NCCL: 3 hept_acc steps through `train_step` with
+     the one-rank data group, bit-equal to the plain step on a copy of the
+     model (loss, gradient norm, every parameter), step ms of each;
+ 25.-27. two processes of this script (`--rank-worker`) share the card in
+     a gloo group (NCCL refuses two ranks on one device), each with a join
+     timeout: 25 DP, hept_acc, an event a rank, one Adam step against the
+     single-process step of both events (loss 1e-3, averaged gradient and
+     parameter update 1e-2 relative L2; K1 / K2 4 each a rank); 26 TP, the
+     parity profile with shard_heads 2 (4 heads a rank) on the bs-100 event
+     and the reference's permutations, against the single-process step
+     (loss 1e-4, every parameter gradient 1e-3 of its scale; K6 f32 and K7
+     v1 4 each a rank); 27 SP, `head_sharded_attention` (14400 buckets of
+     100, f32) against the unsharded core on the card (output 1e-5,
+     input gradients 1e-4 of scale; K10 one each way a rank). The two-rank
+     phases are correctness evidence: two ranks sharing one card measure
+     no scaling.
 Before the last line: one JSON line of per-kernel numbers (K5 once per row
 shape, K3 at d = 1 as K3d1, K4 with its yardsticks as extra keys; K3 / K4
 with the baselines', the GNNs' and the loss options' launches at d = 12,
-K3d1 and K4's `d1_launches` with theirs at d = 1), and the
+K3d1 and K4's `d1_launches` with theirs at d = 1; K1 / K2 with the flat
+and DP phases' launches, K6 / K7 with the TP ranks', K10 with the SP
+ranks'), and the
 `nvidia-smi` name/power-limit line. `--yardsticks-only [--package-root
 DIR]` builds the kernels of the package in DIR (a parent tree, for an A/B
 in one call), prints K3's, K4's and K5's yardsticks, K2's, K6's, K7's,
@@ -1176,18 +1202,19 @@ def compare_first_step(torch, label: str, cfg, model, loss_fn, batch) -> None:
 
 
 def timed_steps(torch, trainer, model, opt, loss_fn, batch, gen, steps: int, label: str,
-                zero_counts, read_counts) -> tuple[list, list, dict, float]:
+                zero_counts, read_counts, **step_kw) -> tuple[list, list, dict, float]:
     """`steps` Adam steps through the trainer's `train_step` (dropout and
-    the LSH draws from `gen`), each timed to its synchronise; launch
-    counters zeroed just before and read just after; the losses must be
-    finite. Returns (step ms, losses, launches, peak GiB)."""
+    the LSH draws from `gen`; `step_kw` to it), each timed to its
+    synchronise; launch counters zeroed just before and read just after;
+    the losses must be finite. Returns (step ms, losses, launches, peak
+    GiB)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     step_ms, losses = [], []
     for s in range(steps):
         t0 = time.perf_counter()
-        m = trainer.train_step(model, opt, loss_fn, batch, gen)
+        m = trainer.train_step(model, opt, loss_fn, batch, gen, **step_kw)
         losses.append(float(m["loss"]))  # synchronises
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
@@ -1968,6 +1995,490 @@ def yardsticks_only(torch, args) -> int:
     return 0
 
 
+def rel_l2(torch, a: dict, b: dict) -> float:
+    """|a - b| / |b| over every tensor of two gradient (or update) dicts."""
+    d2 = sum(float((a[k].double() - b[k].double()).pow(2).sum()) for k in b)
+    n2 = sum(float(b[k].double().pow(2).sum()) for k in b)
+    return math.sqrt(d2 / max(n2, 1e-300))
+
+
+def batch_loss_and_grads(torch, trainer, model, loss_fn, batch, mode: str):
+    """Loss and parameter gradients of a batch of events through the
+    trainer's `model_apply` (`mode`: "vmap" event by event, "flat" one
+    forward), dropout off."""
+    model.zero_grad(set_to_none=True)
+    out = trainer.model_apply(model, batch, None, mode)
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"{mode} output not finite")
+    loss = loss_fn(out, batch)
+    loss.backward()
+    return float(loss.detach()), {k: p.grad.detach().clone() for k, p in
+                                  model.named_parameters() if p.grad is not None}
+
+
+def make_batch2(points: int, seeds, block_size: int):
+    """Synthetic events of `points` points from each seed, packed as one
+    batch (as `make_batch` packs one)."""
+    import numpy as np
+
+    from hept_tpu_torch.data.batching import pack_events, slab_friendly_n
+    from hept_tpu_torch.data.synthetic import synthetic_tracking_event
+
+    evs = [synthetic_tracking_event(np.random.default_rng(s), n_points=points,
+                                    avg_track_size=8, pairs_per_point=16) for s in seeds]
+    return evs, pack_events(evs, block_size=block_size,
+                            n_max=slab_friendly_n(points, block_size), window_pairs=128)
+
+
+def phase_flat(torch, trainer, batch2_np, steps: int, seed: int, zero_counts,
+               read_counts) -> dict:
+    """Flat batching (23): the hept_acc model on two 60k events as ONE
+    forward of 2 x 60416 points (the batch index in the AND codes), and
+    stacked (`sort_events` 2: each event its own row of the plan and the
+    kernels). The first step, dropout off: flat against the event loop, flat
+    with kernels against `plain_reference()`, stacked against the loop, at
+    the bf16 levels (loss 1e-3, gradients 1e-2 relative L2). Then `steps`
+    flat Adam steps at lr 1e-2 with dropout, launches counted (K1 / K2 4
+    each a step on the tensor cores for the whole batch, K5 8, the loss's K3
+    / K4 per event), one more under torch.profiler (device busy ms), peak
+    GiB; beside them the same for the event loop (two single-event passes a
+    step) and a one-event step."""
+    from hept_tpu_torch.ops.dispatch import plain_reference
+    from hept_tpu_torch.train.config import profile_config
+    from hept_tpu_torch.utils.profiling import profile_device
+
+    cfg = profile_config("hept_acc", device=DEVICE, num_epochs=1, batch_mode="flat")
+    batch = trainer.batch_to_device(batch2_np, DEVICE)
+    in_dim, cd = batch2_np["x"].shape[2], batch2_np["coords"].shape[2]
+    model = trainer.build_model(cfg, in_dim, cd, torch.Generator(device=DEVICE).manual_seed(seed),
+                                DEVICE)
+    init_state = copy.deepcopy(model.state_dict())
+    loss_fn = trainer.make_loss_fn(cfg)
+    zero_counts()
+    loss_f, grads_f = batch_loss_and_grads(torch, trainer, model, loss_fn, batch, "flat")
+    first = read_counts()
+    want = {"bucket_attn_fwd_tc": 4, "bucket_attn_bwd_tc": 4, "bucket_attn_fwd": 0,
+            "bucket_attn_bwd": 0, **NO_K6_K7, "row_gather": 8,
+            **{k: 2 * v for k, v in PAIR_LAUNCHES_STEP.items()}}
+    bad = {k: (first[k], v) for k, v in want.items() if first[k] != v}
+    if bad:
+        raise AssertionError(f"flat: launches (got, want) {bad} in one step")
+    loss_l, grads_l = batch_loss_and_grads(torch, trainer, model, loss_fn, batch, "vmap")
+    with plain_reference():
+        loss_p, grads_p = batch_loss_and_grads(torch, trainer, model, loss_fn, batch, "flat")
+    log(f"phase flat: B=2 events of {batch2_np['valid'].sum(1).tolist()} points, n = 2 x "
+        f"{batch2_np['x'].shape[1]}; first step loss flat {loss_f:.6f} loop {loss_l:.6f} "
+        f"flat plain {loss_p:.6f}")
+    check("flat vs loop loss |d|", abs(loss_f - loss_l), 1e-3 * abs(loss_l))
+    check("flat vs loop gradient, relative L2", rel_l2(torch, grads_f, grads_l), 1e-2)
+    check("flat kernels vs plain loss |d|", abs(loss_f - loss_p), 1e-3 * abs(loss_p))
+    check("flat kernels vs plain gradient, relative L2", rel_l2(torch, grads_f, grads_p), 1e-2)
+    del grads_p
+    # stacked: the same model read as two plan rows
+    cfg_s = profile_config("hept_acc", device=DEVICE, num_epochs=1, batch_mode="flat")
+    cfg_s.model_kwargs["sort_events"] = 2
+    stacked = trainer.build_model(cfg_s, in_dim, cd, None, DEVICE)
+    stacked.load_state_dict(init_state)
+    zero_counts()
+    loss_s, grads_s = batch_loss_and_grads(torch, trainer, stacked, loss_fn, batch, "flat")
+    st_launches = read_counts()
+    for k in ("bucket_attn_fwd_tc", "bucket_attn_bwd_tc"):
+        if st_launches[k] != 4:
+            raise AssertionError(f"stacked: {k} launched {st_launches[k]}x, want 4")
+    log(f"  stacked (sort_events 2) first step loss {loss_s:.6f}")
+    check("stacked vs loop loss |d|", abs(loss_s - loss_l), 1e-3 * abs(loss_l))
+    check("stacked vs loop gradient, relative L2", rel_l2(torch, grads_s, grads_l), 1e-2)
+    del grads_s, grads_f, grads_l
+
+    res = {"first_launches": first, "stacked_launches": st_launches}
+    one_np = {k: v[:1] for k, v in batch2_np.items()}
+    for label, mode, b, model in (
+            ("flat", "flat", batch, model), ("stacked", "flat", batch, stacked),
+            ("loop", "vmap", batch, model),
+            ("one event", "vmap", trainer.batch_to_device(one_np, DEVICE), model)):
+        model.load_state_dict(init_state)
+        opt = trainer.make_optimizer(model.parameters(), cfg.optimizer_name,
+                                     cfg.optimizer_kwargs["lr"])
+        gen = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+        step_ms, losses, launches, peak = timed_steps(
+            torch, trainer, model, opt, loss_fn, b, gen, steps, f"{label} B={b['x'].shape[0]}",
+            zero_counts, read_counts, batch_mode=mode)
+        prof_ms, kernel_us, _ = profile_device(
+            lambda: trainer.train_step(model, opt, loss_fn, b, gen, batch_mode=mode), 1)
+        res[label] = {"step_ms": step_ms, "steady_ms": statistics.median(step_ms[1:]),
+                      "busy_ms": sum(kernel_us.values()) / 1e3, "profiled_ms": prof_ms,
+                      "peak_gib": peak, "launches": launches, "losses": losses}
+        del opt
+    per = {"flat": 1, "stacked": 1, "loop": 2, "one event": 1}
+    for label, r in res.items():
+        if label not in per:
+            continue
+        want = {"bucket_attn_fwd_tc": 4 * per[label] * steps,
+                "bucket_attn_bwd_tc": 4 * per[label] * steps, "row_gather": 8 * per[label] * steps}
+        bad = {k: (r["launches"][k], v) for k, v in want.items() if r["launches"][k] != v}
+        if bad:
+            raise AssertionError(f"{label}: launches (got, want) {bad} in {steps} steps")
+    log("phase flat: hept_acc, " + "; ".join(
+        f"{label}: step ms median {r['steady_ms']:.1f} (of {r['step_ms']}), device busy "
+        f"{r['busy_ms']:.2f} ms (profiled step {r['profiled_ms']:.1f} ms), peak "
+        f"{r['peak_gib']:.2f} GiB, losses {r['losses']}"
+        for label, r in res.items() if label in per)
+        + f"; flat launches {res['flat']['launches']}")
+    del model, stacked, init_state, batch
+    torch.cuda.empty_cache()
+    return res
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_dp_nccl(torch, trainer, batch_np, seed: int, steps: int = 3) -> dict:
+    """DP at world 1 over NCCL (24): a one-rank process group on the card;
+    `steps` hept_acc Adam steps (dropout on, the same generator seeds)
+    through the trainer's `train_step` plain and with the data group, on
+    two copies of one model: loss, gradient norm and every parameter after
+    each step the same bits (the one-rank all-reduce returns its input).
+    Step ms of each, interleaved."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from hept_tpu_torch.parallel.mesh import make_mesh
+    from hept_tpu_torch.train.config import profile_config
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_mesh(1, ("data",), device=DEVICE)
+        cfg = profile_config("hept_acc", device=DEVICE, num_epochs=1)
+        batch = trainer.batch_to_device(batch_np, DEVICE)
+        loss_fn = trainer.make_loss_fn(cfg)
+        models, opts, gens = [], [], []
+        for _ in range(2):
+            models.append(trainer.build_model(
+                cfg, batch_np["x"].shape[2], batch_np["coords"].shape[2],
+                torch.Generator(device=DEVICE).manual_seed(seed), DEVICE))
+            opts.append(trainer.make_optimizer(models[-1].parameters(), cfg.optimizer_name,
+                                               cfg.optimizer_kwargs["lr"]))
+            gens.append(torch.Generator(device=DEVICE).manual_seed(seed + 1))
+        ms = {"plain": [], "dp": []}
+        for s in range(steps):
+            ms_s, ms_out = {}, {}
+            for label, i, group in (("plain", 0, None), ("dp", 1, mesh.group("data"))):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m = trainer.train_step(models[i], opts[i], loss_fn, batch, gens[i],
+                                       data_group=group)
+                ms_out[label] = (float(m["loss"]), float(m["grad_norm"]))
+                torch.cuda.synchronize()
+                ms_s[label] = (time.perf_counter() - t0) * 1e3
+                ms[label].append(ms_s[label])
+            if ms_out["plain"] != ms_out["dp"]:
+                raise AssertionError(f"step {s}: DP (loss, grad_norm) {ms_out['dp']} != plain "
+                                     f"{ms_out['plain']}")
+            differ = [k for (k, a), b in zip(models[0].state_dict().items(),
+                                             models[1].state_dict().values())
+                      if not torch.equal(a, b)]
+            if differ:
+                raise AssertionError(f"step {s}: parameters differ after the DP step: {differ}")
+            log(f"  step {s}: loss {ms_out['dp'][0]:.6f} the same bits; plain "
+                f"{ms_s['plain']:.1f} ms, NCCL DP {ms_s['dp']:.1f} ms")
+        res = {k: {"step_ms": v, "steady_ms": statistics.median(v[1:])} for k, v in ms.items()}
+        log(f"phase dp nccl: world 1 over {mesh.backend}, {steps} hept_acc steps bit-equal to "
+            f"the plain step (loss, grad_norm, every parameter); step ms median after the "
+            f"first: plain {res['plain']['steady_ms']:.1f}, DP {res['dp']['steady_ms']:.1f}")
+        del models, opts, batch
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return res
+
+
+RANK_TIMEOUT_S = 600
+
+
+def spawn_ranks(world: int, inputs: dict) -> list:
+    """`world` processes of this script (`--rank-worker`) sharing the card
+    in a gloo group (NCCL refuses two ranks on one device), each running
+    the two-rank phases on `inputs`; their outputs by rank. A rank that
+    fails or does not end within RANK_TIMEOUT_S fails the phase (the others
+    are killed)."""
+    import torch
+
+    d = Path(tempfile.mkdtemp(prefix="chip_smoke_ranks_"))
+    torch.save(inputs, d / "inputs.pt")
+    logs = [open(d / f"log_{r}.txt", "w") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--rank-worker",
+                               str(d), "--rank", str(r), "--world", str(world)],
+                              stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(world)]
+    deadline = time.monotonic() + RANK_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(0.1, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"a rank did not end within {RANK_TIMEOUT_S} s") from None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+        for r in range(world):
+            for line in (d / f"log_{r}.txt").read_text().splitlines():
+                log(f"  [rank {r}] {line}")
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        raise AssertionError(f"ranks {bad} failed (exit codes "
+                             f"{[procs[r].returncode for r in bad]})")
+    return [torch.load(d / f"out_{r}.pt", weights_only=False) for r in range(world)]
+
+
+def rank_worker(torch, args) -> int:
+    """One rank of the two-rank phases (`spawn_ranks`): DP (an event a rank,
+    hept_acc), head-TP (the parity profile, its heads split over the ranks)
+    and the head-sharded core (K10). Each task runs twice: the first call's
+    launches and results go to the main process to check, and both calls'
+    ms (the first in a fresh process includes library and communicator
+    set-up)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from hept_tpu_torch.ops import bucket_attn_cuda, pair_ops, row_gather
+    from hept_tpu_torch.parallel import tp
+    from hept_tpu_torch.parallel.dp import shard_batch, train_step
+    from hept_tpu_torch.parallel.mesh import AXES, make_mesh
+    from hept_tpu_torch.parallel.sp import head_sharded_attention
+    from hept_tpu_torch.train import trainer
+    from hept_tpu_torch.train.config import profile_config
+
+    d, rank, world = Path(args.rank_worker), args.rank, args.world
+    dist.init_process_group("gloo", init_method=f"file://{d / 'rendezvous'}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=300))
+    inp = torch.load(d / "inputs.pt", weights_only=False)
+    counters = (bucket_attn_cuda.LAUNCHES, pair_ops.LAUNCHES, row_gather.LAUNCHES)
+
+    def counted(label: str, fn, read) -> dict:
+        ms = []
+        for i in range(2):
+            torch.cuda.synchronize()
+            dist.barrier()
+            for c in counters:
+                for k in c:
+                    c[k] = 0
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                first = {**read(res), "launches": {k: v for c in counters
+                                                   for k, v in c.items() if v}}
+        print(f"{label}: ms first / warm {ms[0]:.1f} / {ms[1]:.1f}, launches "
+              f"{first['launches']}", flush=True)
+        return {**first, "ms": ms}
+
+    def cpu(tensors: dict) -> dict:
+        return {k: v.detach().cpu().clone() for k, v in tensors.items()}
+
+    out = {}
+    # DP: an event a rank, Adam steps, dropout off
+    cfg = profile_config("hept_acc", device=DEVICE, num_epochs=1)
+    mesh = make_mesh(world, ("data",), device=DEVICE)
+    b = trainer.batch_to_device(shard_batch(inp["dp_batch"], rank, world), DEVICE)
+    model = trainer.build_model(cfg, b["x"].shape[2], b["coords"].shape[2], None, DEVICE)
+    model.load_state_dict(inp["dp_state"])
+    opt = trainer.make_optimizer(model.parameters(), cfg.optimizer_name,
+                                 cfg.optimizer_kwargs["lr"])
+    loss_fn = trainer.make_loss_fn(cfg)
+    out["dp"] = counted(
+        "dp", lambda: trainer.train_step(model, opt, loss_fn, b, None,
+                                         data_group=mesh.group("data")),
+        lambda m: {"loss": float(m["loss"]),
+                   "grads": cpu({k: p.grad for k, p in model.named_parameters()}),
+                   "params": cpu(model.state_dict())})
+    del model, opt, b
+    # TP: the parity profile, heads over the ranks, on the reference's
+    # permutations (this rank's heads), Adam steps through dp.train_step
+    cfg = profile_config("hept", device=DEVICE, num_epochs=1, shard_heads=world)
+    mesh = make_mesh(world, AXES, (1, 1, world), device=DEVICE)
+    b = trainer.batch_to_device(inp["tp_batch"], DEVICE)
+    model = tp.make_tp_model(cfg.model_config(b["x"].shape[2], b["coords"].shape[2]), mesh,
+                             None, DEVICE, state_dict=inp["tp_state"])
+    w = model.cfg.num_heads
+    perms = [tuple(p[:, rank * w:(rank + 1) * w].to(DEVICE) for p in pr)
+             for pr in inp["tp_perms"]]
+    opt = trainer.make_optimizer(model.parameters(), cfg.optimizer_name,
+                                 cfg.optimizer_kwargs["lr"])
+
+    def apply(m_, b_, g_):
+        return m_(b_["x"][0], b_["coords"][0], b_["valid"][0], g_, perms=perms)[None]
+
+    out["tp"] = counted(
+        "tp", lambda: train_step(model, opt, trainer.make_loss_fn(cfg), apply, b,
+                                 mesh.group("data"), None,
+                                 sharded_norm=tp.sharded_global_norm(mesh)),
+        lambda m: {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                   "grads": cpu(tp.gather_state_dict(
+                       {k: p.grad for k, p in model.named_parameters()}, mesh))})
+    del model, opt, b
+    # SP: the head-sharded core on the reference's permutations
+    mesh = make_mesh(world, ("heads",), device=DEVICE)
+    sp = {k: v.to(DEVICE) if torch.is_tensor(v) else v for k, v in inp["sp"].items()}
+    ins = [sp[k].requires_grad_(True) for k in ("q", "k", "v")]
+
+    def sp_run():
+        o = head_sharded_attention(*ins, sp["alpha"], sp["codes"], sp["invalid"],
+                                   mesh.group("heads"), block_size=sp["block_size"],
+                                   perms=tuple(p.to(DEVICE) for p in sp["perms"]))
+        return o, torch.autograd.grad((o * sp["cot"]).sum(), ins)
+
+    out["sp"] = counted("sp", sp_run, lambda r: {"out": r[0].detach().cpu(),
+                                                 "grads": [g.cpu() for g in r[1]]})
+    torch.save(out, d / f"out_{rank}.pt")
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_two_ranks(torch, trainer, batch2_np, batch100_np, seed: int) -> dict:
+    """The two-rank phases (25-27) on one card: the references here, the
+    ranks in `spawn_ranks`. 25 DP: hept_acc, an event a rank, one Adam step
+    (dropout off) against the single-process step of both events: loss
+    1e-3, the averaged gradient 1e-2 relative L2 (bf16 levels), the updated
+    parameters 1e-2 relative L2 of the update; K1 / K2 4 each a rank. 26 TP:
+    the parity profile with shard_heads 2 (4 heads a rank) on the bs-100
+    event, the reference's permutations: loss 1e-4, each parameter's
+    gradient 1e-3 of its scale (floored at 1e-3 of the largest, as phase 4);
+    K6 f32 and K7 v1 4 each a rank. 27 SP: `head_sharded_attention` at the
+    parity width on 14400 buckets of 100 against the unsharded core (K10)
+    on the same permutations: output 1e-5, input gradients 1e-4 of scale;
+    K10 one each way a rank."""
+    from hept_tpu_torch.models.transformer import prepare_event
+    from hept_tpu_torch.ops.bucket_attn import hept_attention_core
+    from hept_tpu_torch.train.config import profile_config
+
+    inputs, ref = {}, {}
+    # 25. DP reference: both events, one Adam step, dropout off
+    cfg = profile_config("hept_acc", device=DEVICE, num_epochs=1)
+    batch = trainer.batch_to_device(batch2_np, DEVICE)
+    model = trainer.build_model(cfg, batch2_np["x"].shape[2], batch2_np["coords"].shape[2],
+                                torch.Generator(device=DEVICE).manual_seed(seed), DEVICE)
+    inputs["dp_state"] = {k: v.cpu().clone() for k, v in model.state_dict().items()}
+    inputs["dp_batch"] = batch2_np
+    before = copy.deepcopy(model.state_dict())
+    opt = trainer.make_optimizer(model.parameters(), cfg.optimizer_name,
+                                 cfg.optimizer_kwargs["lr"])
+    m = trainer.train_step(model, opt, trainer.make_loss_fn(cfg), batch, None)
+    ref["dp"] = {"loss": float(m["loss"]),
+                 "grads": {k: p.grad.detach().clone() for k, p in model.named_parameters()},
+                 "update": {k: v - before[k] for k, v in model.state_dict().items()}}
+    del model, opt, batch
+    # 26. TP reference: the parity step on one event, its permutations recorded
+    cfg = profile_config("hept", device=DEVICE, num_epochs=1)
+    batch = trainer.batch_to_device(batch100_np, DEVICE)
+    model = trainer.build_model(cfg, batch100_np["x"].shape[2], batch100_np["coords"].shape[2],
+                                torch.Generator(device=DEVICE).manual_seed(seed), DEVICE)
+    inputs["tp_state"] = {k: v.cpu().clone() for k, v in model.state_dict().items()}
+    inputs["tp_batch"] = batch100_np
+    perms = []
+    loss, grads = loss_and_grads(torch, model, trainer.make_loss_fn(cfg), batch,
+                                 record_perms=perms)
+    inputs["tp_perms"] = [tuple(p.cpu() for p in pr) for pr in perms]
+    ref["tp"] = {"loss": loss, "grads": grads}
+    # 27. SP reference: layer 0's q_hat / k_hat / v of that model, as phase 9
+    blk, bs = model.blocks[0], cfg.model_kwargs["block_size"]
+    with torch.no_grad():
+        x, coords, codes, invalid = prepare_event(batch["x"][0], batch["coords"][0],
+                                                  batch["valid"][0], model.regions, bs)
+        xn = blk.norm1(model.feat_enc_1(torch.relu(model.feat_enc_0(x))))
+        cols = blk.attn.prep_qkv(blk.w_q(xn), blk.w_k(xn), blk.w_v(xn), coords, invalid,
+                                 blk.w_rpe)
+    ins = [c_.transpose(1, 2).contiguous().requires_grad_(True) for c_ in cols]
+    alpha = blk.attn.e2lsh_alpha.detach()
+    cot = torch.randn(ins[2].shape, generator=torch.Generator(device=DEVICE).manual_seed(seed),
+                      device=DEVICE)
+    sperms = []
+    out = hept_attention_core(*ins, alpha, codes, invalid, block_size=bs, impl="pallas",
+                              record_perms=sperms)
+    sgrads = torch.autograd.grad((out * cot).sum(), ins)
+    ref["sp"] = {"out": out.detach(), "grads": sgrads}
+    inputs["sp"] = {"q": ins[0].detach().cpu(), "k": ins[1].detach().cpu(),
+                    "v": ins[2].detach().cpu(), "alpha": alpha.cpu(), "codes": codes.cpu(),
+                    "invalid": invalid.cpu(), "cot": cot.cpu(), "block_size": bs,
+                    "perms": tuple(p.cpu() for p in sperms[0])}
+    n_buckets = sperms[0][0].shape[0] * ins[0].shape[0] * (ins[0].shape[1] // bs)
+    del model, batch, x, xn, cols, ins, out
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    outs = spawn_ranks(2, inputs)
+    log(f"phase two ranks: 2 processes on the card (gloo), {time.perf_counter() - t0:.1f} s "
+        "wall including their start")
+    # 25. DP
+    r = ref["dp"]
+    for rank, o in enumerate(outs):
+        dp = o["dp"]
+        want = {"bucket_attn_fwd_tc": 4, "bucket_attn_bwd_tc": 4, "row_gather": 8}
+        bad = {k: (dp["launches"].get(k, 0), v) for k, v in want.items()
+               if dp["launches"].get(k, 0) != v}
+        if bad or dp["launches"].get("cols_fwd") or dp["launches"].get("bucket_attn_fwd"):
+            raise AssertionError(f"dp rank {rank}: launches {dp['launches']}, want {want}")
+        check(f"dp rank {rank} loss vs the single-process two-event step |d|",
+              abs(dp["loss"] - r["loss"]), 1e-3 * abs(r["loss"]))
+        g = {k: v.to(DEVICE) for k, v in dp["grads"].items()}
+        check(f"dp rank {rank} averaged gradient, relative L2", rel_l2(torch, g, r["grads"]),
+              1e-2)
+        upd = {k: dp["params"][k].to(DEVICE) - inputs["dp_state"][k].to(DEVICE)
+               for k in r["update"]}
+        check(f"dp rank {rank} parameter update, relative L2", rel_l2(torch, upd, r["update"]),
+              1e-2)
+    log(f"phase dp two ranks: hept_acc, an event a rank, one Adam step; ms by rank (first, "
+        f"warm) {[[round(x, 1) for x in o['dp']['ms']] for o in outs]}; launches a rank "
+        f"{outs[0]['dp']['launches']}")
+    # 26. TP
+    r = ref["tp"]
+    t = outs[0]["tp"]
+    for rank, o in enumerate(outs):
+        ln = o["tp"]["launches"]
+        if ln.get("cols_fwd") != 4 or ln.get("cols_bwd") != 4 or ln.get("cols_fwd_tc") \
+                or ln.get("bucket_attn_fwd_tc") or ln.get("rows_fwd"):
+            raise AssertionError(f"tp rank {rank}: launches {ln}, want cols_fwd 4, cols_bwd 4")
+    check("tp loss vs the single-process step |d|", abs(t["loss"] - r["loss"]),
+          1e-4 * abs(r["loss"]))
+    floor = 1e-3 * max(scale(gg) for gg in r["grads"].values())
+    ratios = {k: max_err(t["grads"][k].to(DEVICE), r["grads"][k]) / max(scale(r["grads"][k]),
+                                                                       floor)
+              for k in r["grads"]}
+    worst = max(ratios, key=ratios.get)
+    check(f"tp all {len(ratios)} parameter gradients vs single-process, worst {worst}",
+          ratios[worst], 1e-3)
+    log(f"phase tp two ranks: parity hept, shard_heads 2 (4 heads a rank); ms by rank (first, "
+        f"warm) {[[round(x, 1) for x in o['tp']['ms']] for o in outs]}; launches a rank "
+        f"{t['launches']}")
+    # 27. SP
+    r = ref["sp"]
+    for rank, o in enumerate(outs):
+        sp = o["sp"]
+        if sp["launches"].get("rows_fwd") != 1 or sp["launches"].get("rows_bwd") != 1:
+            raise AssertionError(f"sp rank {rank}: launches {sp['launches']}, want K10 1 + 1")
+        check(f"sp rank {rank} output max|d|", max_err(sp["out"].to(DEVICE), r["out"]),
+              1e-5 * scale(r["out"]))
+        for nm, a, b in zip(("q_hat", "k_hat", "v"), sp["grads"], r["grads"]):
+            check(f"sp rank {rank} d{nm} max|d|", max_err(a.to(DEVICE), b), 1e-4 * scale(b))
+    log(f"phase sp two ranks: head_sharded_attention, {n_buckets} buckets of 100 (f32), 4 "
+        f"heads a rank; ms by rank (first, warm) "
+        f"{[[round(x, 1) for x in o['sp']['ms']] for o in outs]}; launches a rank "
+        f"{outs[0]['sp']['launches']}")
+    return {k: [o[k]["launches"] for o in outs] for k in ("dp", "tp", "sp")} | {
+        "ms": {k: [o[k]["ms"] for o in outs] for k in ("dp", "tp", "sp")}}
+
+
 def hept_tpu_torch_root() -> str:
     import hept_tpu_torch
 
@@ -1987,6 +2498,10 @@ def main(argv=None) -> int:
     ap.add_argument("--package-root", default=None,
                     help="import hept_tpu_torch from this directory instead (a parent tree "
                          "for an A/B of the yardsticks)")
+    ap.add_argument("--rank-worker", default=None, metavar="DIR",
+                    help="(internal) run one rank of the two-rank phases on DIR's inputs")
+    ap.add_argument("--rank", type=int, default=0)
+    ap.add_argument("--world", type=int, default=2)
     args = ap.parse_args(argv)
     if args.steps < 3 or args.profile_steps < 2:
         ap.error("--steps must be at least 3 and --profile-steps at least 2")
@@ -2006,6 +2521,8 @@ def main(argv=None) -> int:
         return 2
     if args.yardsticks_only:
         return yardsticks_only(torch, args)
+    if args.rank_worker is not None:
+        return rank_worker(torch, args)
     from hept_tpu_torch.data.datasets import SplitDataset
     from hept_tpu_torch.ops import bucket_attn_cuda, cuda_lib, pair_ops, row_gather, sort
     from hept_tpu_torch.ops.dispatch import plain_reference
@@ -2303,6 +2820,36 @@ def main(argv=None) -> int:
     rows["K4"]["launches_note"] = ("launches: all widths (phase 3); baseline_launches, "
                                    "gnn_launches and option_launches: at d = 12; d1_launches: "
                                    "at d = 1")
+    # 23. flat batching of two events; 24. DP at world 1 over NCCL; 25.-27.
+    # DP, head-TP and the head-sharded core over two ranks sharing the card
+    t0 = time.perf_counter()
+    _, batch2 = make_batch2(args.points, (args.seed, args.seed + 1), block_size)
+    log(f"phase data: two synthetic events (seeds {args.seed}, {args.seed + 1}) packed as one "
+        f"batch ({time.perf_counter() - t0:.1f} s)")
+    flat = phase_flat(torch, trainer, batch2, args.profile_steps, args.seed, zero_counts,
+                      read_counts)
+    dp1 = phase_dp_nccl(torch, trainer, batch_np, args.seed)
+    two = phase_two_ranks(torch, trainer, batch2, batch100, args.seed)
+    for key, name in (("K1", "bucket_attn_fwd_tc"), ("K2", "bucket_attn_bwd_tc")):
+        rows[key]["flat_launches"] = flat["flat"]["launches"][name]
+        rows[key]["flat_launches_in"] = (f"phase 23, {args.profile_steps} flat hept_acc steps "
+                                         "of 2 events")
+        rows[key]["dp_launches"] = [ln.get(name, 0) for ln in two["dp"]]
+        rows[key]["dp_launches_in"] = "phase 25, one DP step, by rank (an event a rank)"
+    for key, name in (("K6", "cols_fwd"), ("K7", "cols_bwd")):
+        rows[key]["tp_launches"] = [ln.get(name, 0) for ln in two["tp"]]
+        rows[key]["tp_launches_in"] = "phase 26, one parity step with shard_heads 2, by rank"
+    for key, name in (("K10f", "rows_fwd"), ("K10b", "rows_bwd")):
+        rows[key]["sp_launches"] = [ln.get(name, 0) for ln in two["sp"]]
+        rows[key]["sp_launches_in"] = ("phase 27, head_sharded_attention forward + backward, "
+                                       "by rank")
+    log(f"phase parallel ({smi}): flat B=2 step {flat['flat']['steady_ms']:.1f} ms (busy "
+        f"{flat['flat']['busy_ms']:.2f}) vs loop {flat['loop']['steady_ms']:.1f} ms (busy "
+        f"{flat['loop']['busy_ms']:.2f}) vs one event {flat['one event']['steady_ms']:.1f} ms "
+        f"(busy {flat['one event']['busy_ms']:.2f}); NCCL world-1 DP step "
+        f"{dp1['dp']['steady_ms']:.1f} ms vs plain {dp1['plain']['steady_ms']:.1f} ms; two "
+        f"ranks on one card (correctness, not scaling): ms by rank (first, warm) {two['ms']}")
+
     # K11 (row_gather_vreg) has K5's contract and runs on K5's kernel
     rows["K11"] = dict(rows["K5"], name="K11 row_gather_vreg", ported_by="K5",
                        replaces="hept_tpu/ops/gather_pallas.py:124")

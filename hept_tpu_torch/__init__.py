@@ -7,7 +7,9 @@ utils/) and holds the training steps of the `hept_acc`, `hept_fast` and
 windowed InfoNCE loss and Adam, and their evaluation path (kNN retrieval
 metrics, the best-by-valid run with checkpoints); the row-major
 reference-pipeline core `ops/bucket_attn.py:hept_attention_core` and the
-per-row sort `ops/sort.py:bitonic_sort_rows`. Every TPU kernel of the JAX
+per-row sort `ops/sort.py:bitonic_sort_rows`; batches of events as one
+flat forward and the parallel modes (`parallel/`: data parallelism and
+head / hash tensor parallelism on `torch.distributed`). Every TPU kernel of the JAX
 package has a hand-written CUDA counterpart (`csrc/`), built with `nvcc` on
 first use and loaded with ctypes; on CPU tensors every kernel wrapper runs
 its plain PyTorch version instead.

@@ -22,17 +22,22 @@ class SplitDataset:
     def iter_batches(self, split: str, batch_size: int, block_size: int,
                      n_max: int | None = None,
                      shuffle_rng: np.random.Generator | None = None,
-                     aug_pair_p: float = 0.0, window_pairs: int = 0):
-        """Yield packed batches. Training (shuffle_rng set) drops a trailing
-        partial batch and draws the pair augmentation from `shuffle_rng`.
-        Events keep their processed base pairs between calls (`cache`)."""
+                     aug_pair_p: float = 0.0, window_pairs: int = 0,
+                     drop_last: bool | None = None):
+        """Yield packed batches. A trailing partial batch is dropped when
+        `drop_last` (None: when training, i.e. `shuffle_rng` is set, which
+        keeps the batch divisible over data-parallel ranks); eval keeps it.
+        Training draws the pair augmentation from `shuffle_rng`. Events keep
+        their processed base pairs between calls (`cache`)."""
+        if drop_last is None:
+            drop_last = shuffle_rng is not None
         events = getattr(self, split)
         order = np.arange(len(events))
         if shuffle_rng is not None:
             shuffle_rng.shuffle(order)
         for i in range(0, len(order), batch_size):
             chunk = order[i : i + batch_size]
-            if len(chunk) < batch_size and shuffle_rng is not None:
+            if len(chunk) < batch_size and drop_last:
                 break
             yield pack_events(
                 [events[j] for j in chunk], block_size, n_max=n_max,

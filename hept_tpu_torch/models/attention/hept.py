@@ -9,6 +9,7 @@ from torch import nn
 
 from ...core.hashing import e2lsh_init
 from ...ops.bucket_attn import hept_attention_core_cols, hept_attention_core_xcols
+from ...parallel.collectives import all_gather, copy_to_group
 from ..mlp import TorchLinear
 
 
@@ -31,13 +32,23 @@ class HeptAttention(nn.Module):
     plan does not read `e2lsh_alpha` (1 head), which is kept so weights carry
     across unchanged. Pre-sort (dynamic keys): the caller passes the q/k/v
     projections, and `e2lsh_alpha` (h, d + cd, n_hashes) hashes each head.
+
+    Under tensor parallelism (dynamic keys; `groups` {"heads", "hashes"})
+    the module holds its rank's heads and OR rounds: q_hat / k_hat / v enter
+    the core through `copy_to_group` over hashes (their gradient sums the
+    rounds' shards), the core sums the OR-combine over hashes, and the
+    (n, h_local * d) output is all-gathered over heads into `out_linear`,
+    which stays whole (JAX: `hept_tpu/models/attention/hept.py:264-267`).
     """
 
-    def __init__(self, cfg, generator=None, device=None):
+    def __init__(self, cfg, generator=None, device=None, groups: dict | None = None):
         super().__init__()
         self.cfg = cfg
+        groups = groups or {}
+        self.head_group, self.hash_group = groups.get("heads"), groups.get("hashes")
         h, d = cfg.num_heads, cfg.h_dim
-        self.out_linear = TorchLinear(h * d, d, generator=generator, device=device)
+        self.out_linear = TorchLinear(h * cfg.head_shards * d, d, generator=generator,
+                                      device=device)
         self.register_buffer(
             "e2lsh_alpha",
             e2lsh_init(generator, 1 if cfg.share_heads else h, d + cfg.coords_dim,
@@ -57,7 +68,7 @@ class HeptAttention(nn.Module):
             x_normed.t(), coords.t(), wq, wk, wv, self._sqrt_w(w_rpe), invalid, plan,
             block_size=cfg.block_size, impl=cfg.attn_impl, sort_pack=cfg.sort_pack,
             unsort_pack=cfg.unsort_pack, kernel_bf16=cfg.kernel_bf16,
-            kernel_center=cfg.kernel_center,
+            kernel_center=cfg.kernel_center, sort_events=cfg.sort_events,
         )  # (n, h * d) rows
         return self.out_linear(out)
 
@@ -84,10 +95,11 @@ class HeptAttention(nn.Module):
         (c, h, n) AND codes. `perms` / `record_perms`: see
         `hept_attention_core_cols`. Returns (n, d)."""
         cfg = self.cfg
-        q_hat, k_hat, v_cols = self.prep_qkv(query, key, value, coords, invalid, w_rpe)
+        q_hat, k_hat, v_cols = (copy_to_group(t, self.hash_group) for t in
+                                self.prep_qkv(query, key, value, coords, invalid, w_rpe))
         out = hept_attention_core_cols(
             q_hat, k_hat, v_cols, self.e2lsh_alpha, codes, invalid,
             block_size=cfg.block_size, impl=cfg.attn_impl, unsort_pack=cfg.unsort_pack,
-            perms=perms, record_perms=record_perms,
+            perms=perms, record_perms=record_perms, hash_group=self.hash_group,
         )  # (n, h * d) rows
-        return self.out_linear(out)
+        return self.out_linear(all_gather(out, 1, self.head_group))

@@ -24,7 +24,18 @@ time device with the same math).
 
 The model is defined on ONE event: x (N, in_dim), coords (N, coords_dim),
 valid (N,) with N a multiple of block_size; it returns (N, h_dim // 2)
-embeddings (tracking) or (N, num_classes) probabilities (pileup).
+embeddings (tracking) or (N, num_classes) probabilities (pileup). A batch
+of events runs one at a time (`make_batched_apply`) or as one flat forward
+(`make_flat_batched_apply`: each event prepared on its own, then the batch
+index packed into the AND codes so that no bucket crosses two events, or,
+with `sort_events`, every event its own sort row of the static plan).
+
+Head / hash tensor parallelism (`parallel/tp.py`): a model built with
+`groups` ({"heads": group, "hashes": group}) and the local config
+(`num_heads` / `n_hashes` of its shard, `head_shards` / `hash_shards` the
+shard counts) runs its attention heads and OR rounds on this rank's
+slice; the attention output is all-gathered over heads before
+`out_linear`, and the OR-combine's sums are summed over hashes.
 """
 
 from __future__ import annotations
@@ -37,6 +48,7 @@ import torch
 from torch import nn
 
 from ..core.buckets import bit_shift
+from ..parallel.collectives import broadcast, copy_to_group
 from ..core.hashing import e2lsh_init
 from ..core.padding import replication_pad_plan
 from ..core.regions import get_regions, region_codes
@@ -119,6 +131,15 @@ class TransformerConfig:
     knn_k: int = 16  # pct's kNN graph degree
     b_grid: int = 1000  # flatformer's bins per axis
     num_slices_per_axis: int = 30  # flatformer's windows per axis
+    # stacked flat batching on the static plan: the flat point axis holds
+    # this many equal-size events, each bucket-sorted as its own row
+    # (`make_flat_batched_apply` with a model built for B = sort_events)
+    sort_events: int = 1
+    # head / hash tensor parallelism (`parallel/tp.py`): the number of
+    # shards the heads and the OR rounds are split into; the config then
+    # holds one shard's num_heads and n_hashes
+    head_shards: int = 1
+    hash_shards: int = 1
 
     def check_supported(self) -> None:
         need = {
@@ -128,7 +149,11 @@ class TransformerConfig:
             "dropout masks and rotations from the step's generator; it needs its own design, "
             "ROADMAP.md queue 1, item 2b)": not self.use_ckpt,
         }
+        tp = self.head_shards > 1 or self.hash_shards > 1
         if self.attn_type != "hept":
+            need["head / hash sharding targets HEPT (hept_tpu/parallel/tp.py:125)"] = not tp
+            need["sort_events == 1 (stacked batching is the static plan's)"] = \
+                self.sort_events == 1
             self._refuse(need)
             return
         need.update({
@@ -145,6 +170,13 @@ class TransformerConfig:
         })
         if self.static_keys:
             need.update({
+                "static plan: no head sharding (share_heads leaves e2lsh_alpha one head wide "
+                "and hept_tpu/parallel/tp.py:70-72 shards it over heads: JAX's shard_map "
+                "refuses it)": self.head_shards == 1,
+                "static plan: no hash sharding (JAX's make_tp_train_step runs it, but each "
+                "hash shard keeps the whole replicated static_alpha while its AND codes "
+                "shard, hept_tpu/parallel/tp.py:34-78, so a layer's rounds are not the "
+                "single-device model's)": self.hash_shards == 1,
                 "static_keys in (True, 'x0')": self.static_keys in (True, "x0"),
                 "static plan: qkv_post_sort": bool(self.qkv_post_sort),
                 "static plan: share_heads": bool(self.share_heads),
@@ -163,6 +195,9 @@ class TransformerConfig:
                 f"dynamic keys: no sort_pack ({_ROADMAP})": not self.sort_pack,
                 f"dynamic keys: no kernel_bf16 / kernel_center ({_ROADMAP})":
                     not (self.kernel_bf16 or self.kernel_center),
+                "dynamic keys: sort_events == 1 (the dynamic-key core sorts the whole flat "
+                "row; hept_tpu/ops/bucket_attn.py:hept_attention_core_cols takes no "
+                "sort_events)": self.sort_events == 1,
             })
         self._refuse(need)
 
@@ -176,10 +211,15 @@ class TransformerConfig:
             )
 
 
-def prepare_event(x, coords, valid, regions, block_size: int):
+def prepare_event(x, coords, valid, regions, block_size: int, groups: dict | None = None):
     """Per-event precompute, replicate padding mode: AND codes from quantile
     regions of the event's real points, then trailing-bucket pad slots copy
     real rows by sorted code rank and slots beyond ceil(n/B)*B become inert.
+
+    Under head / hash sharding (`groups`) the pad plan is taken from global
+    hash 0 / head 0's codes, broadcast from rank 0 of the heads group and
+    then of the hashes group, so that every shard pads alike (JAX:
+    `hept_tpu/models/transformer.py:843-846`).
 
     Returns (x, coords, codes (c, h, N) int32, inert (N,) bool).
     """
@@ -188,7 +228,10 @@ def prepare_event(x, coords, valid, regions, block_size: int):
     packed = bit_shift(region_eta.to(torch.int32), region_phi.to(torch.int32))
     c, _, h = regions.shape
     codes = packed.reshape(c, h, -1)
-    code00 = torch.where(valid, codes[0, 0], torch.iinfo(torch.int32).max)
+    code00 = codes[0, 0]
+    if groups:
+        code00 = broadcast(broadcast(code00, groups.get("heads")), groups.get("hashes"))
+    code00 = torch.where(valid, code00, torch.iinfo(torch.int32).max)
     sorted_code_idx = torch.argsort(code00, stable=True)
     gather, _, inert = replication_pad_plan(n_valid, x.shape[0], block_size, sorted_code_idx)
     x = torch.where(inert[:, None], torch.zeros_like(x), x[gather])
@@ -249,12 +292,14 @@ class PESinusoidal(nn.Module):
         return pe
 
 
-def make_attention(cfg: TransformerConfig, generator=None, device=None) -> nn.Module:
-    """The attention module of `cfg.attn_type`."""
+def make_attention(cfg: TransformerConfig, generator=None, device=None,
+                   groups: dict | None = None) -> nn.Module:
+    """The attention module of `cfg.attn_type` (`groups`: hept's shard
+    groups under tensor parallelism)."""
     common = dict(h_dim=cfg.h_dim, num_heads=cfg.num_heads, generator=generator, device=device)
     t = cfg.attn_type
     if t == "hept":
-        return HeptAttention(cfg, generator, device)
+        return HeptAttention(cfg, generator, device, groups)
     if t == "performer":
         return PerformerAttention(nb_features=cfg.nb_features, num_w_per_dist=cfg.num_w_per_dist,
                                   coords_dim=cfg.coords_dim, pe_type=cfg.pe_type, **common)
@@ -292,9 +337,11 @@ class AttnBlock(nn.Module):
     - flatformer: four post-norm group layers replace the whole block, which
       returns (x, [their four outputs])."""
 
-    def __init__(self, cfg: TransformerConfig, generator=None, device=None):
+    def __init__(self, cfg: TransformerConfig, generator=None, device=None,
+                 groups: dict | None = None):
         super().__init__()
         self.cfg = cfg
+        self.head_group = (groups or {}).get("heads")
         h, d = cfg.num_heads, cfg.h_dim
         rpe_in = cfg.num_w_per_dist * (cfg.coords_dim - 1)
         self.w_rpe = nn.Parameter(torch.empty((h * d, rpe_in), device=device))
@@ -313,7 +360,7 @@ class AttnBlock(nn.Module):
         if cfg.attn_type != "pct":
             self.w_k = TorchLinear(d, h * d, bias=False, generator=generator, device=device)
             self.w_v = TorchLinear(d, h * d, bias=False, generator=generator, device=device)
-        self.attn = make_attention(cfg, generator, device)
+        self.attn = make_attention(cfg, generator, device, groups)
         self.norm2 = layer_norm(d, device)
         self.ff = FeedForward(d, generator, device)
 
@@ -342,6 +389,9 @@ class AttnBlock(nn.Module):
                                                 self._heads(self.w_q), self._heads(self.w_k),
                                                 self._heads(self.w_v))
             elif t == "hept":
+                # the replicated normed state feeds this rank's heads: its
+                # gradient is summed over the head shards
+                xn = copy_to_group(xn, self.head_group)
                 aggr = self.attn.forward_dynamic(self.w_q(xn), self.w_k(xn), self.w_v(xn),
                                                  coords, codes, invalid, self.w_rpe, perms,
                                                  record_perms)
@@ -372,10 +422,11 @@ class HeptTransformer(nn.Module):
     """
 
     def __init__(self, cfg: TransformerConfig, generator: torch.Generator | None = None,
-                 device=None):
+                 device=None, groups: dict | None = None):
         super().__init__()
         cfg.check_supported()
         self.cfg = cfg
+        self.groups = groups
         self.total_rounds = cfg.static_rounds or cfg.n_hashes
         if cfg.attn_type == "hept":
             self.register_buffer("regions", get_regions(
@@ -398,7 +449,7 @@ class HeptTransformer(nn.Module):
             self.register_buffer("static_alpha", e2lsh_init(
                 generator, 1, cfg.h_dim + cfg.coords_dim, self.total_rounds, device=device))
         self.blocks = nn.ModuleList(
-            AttnBlock(cfg, generator, device) for _ in range(cfg.n_layers)
+            AttnBlock(cfg, generator, device, groups) for _ in range(cfg.n_layers)
         )
         # flatformer's blocks each give four outputs to the head
         per_block = 4 if cfg.attn_type == "flatformer" else 1
@@ -424,7 +475,8 @@ class HeptTransformer(nn.Module):
         rows = [t % cfg.n_hashes for t in range(self.total_rounds)]
         codes0 = codes[:, 0][torch.as_tensor(rows, device=codes.device)]
         return static_bucket_plan(hashed, codes0, invalid, coords.t(),
-                                  sort_pack=cfg.sort_pack, coords_f32=cfg.kernel_center)
+                                  sort_events=cfg.sort_events, sort_pack=cfg.sort_pack,
+                                  coords_f32=cfg.kernel_center)
 
     def layer_plan(self, plan, layer: int):
         nh = self.cfg.n_hashes
@@ -434,7 +486,7 @@ class HeptTransformer(nn.Module):
 
     def forward(self, x, coords, valid, generator: torch.Generator | None = None,
                 plan=None, perms=None, record_perms: list | None = None,
-                rotations: list | None = None):
+                rotations: list | None = None, prepared=None):
         """`generator` draws the dropout masks (no generator: no dropout)
         and the LSH baselines' random rotations (no generator: a fixed
         draw). Static plan: `plan` overrides the step's bucket plan (src,
@@ -444,14 +496,18 @@ class HeptTransformer(nn.Module):
         per layer. Reformer / smyrf / sb: `rotations` overrides each layer's
         random draws (a list, one entry per layer), and `perms` /
         `record_perms` do the same for their sort orders (reformer's
-        bucket order, smyrf's and sb's (q, k) orders)."""
+        bucket order, smyrf's and sb's (q, k) orders). `prepared`: hept's
+        (x, coords, codes, invalid) from outside (`make_flat_batched_apply`),
+        which skips `prepare_event`."""
         cfg = self.cfg
-        if x.shape[0] % cfg.block_size:
-            raise ValueError("N must be a multiple of block_size")
+        if x.shape[0] % (cfg.block_size * cfg.sort_events):
+            raise ValueError("N must be a multiple of block_size (times sort_events)")
         codes = edges = edge_mask = None
-        if cfg.attn_type == "hept":
+        if prepared is not None:
+            x, coords, codes, invalid = prepared
+        elif cfg.attn_type == "hept":
             x, coords, codes, invalid = prepare_event(x, coords, valid, self.regions,
-                                                      cfg.block_size)
+                                                      cfg.block_size, self.groups)
         else:
             coords, invalid, edges, edge_mask = prepare_baseline(coords, valid, cfg)
         if cfg.task == "pileup":
@@ -480,3 +536,60 @@ class HeptTransformer(nn.Module):
         if cfg.task == "pileup":
             out = torch.sigmoid(self.out_proj(out))
         return out
+
+
+def make_batched_apply(model: nn.Module):
+    """A batch of events one at a time (the JAX package vmaps the
+    single-event model; an eager loop runs the same math), for any
+    single-event model taking (x, coords, valid, generator), the GNNs too:
+    apply(x (B, N, F), coords (B, N, C), valid (B, N), generator) ->
+    (B, N, out). The generator's draws follow event order."""
+
+    def apply(x, coords, valid, generator=None):
+        return torch.stack([model(x[i], coords[i], valid[i], generator)
+                            for i in range(x.shape[0])])
+
+    return apply
+
+
+def make_flat_batched_apply(model: HeptTransformer):
+    """Flat batching for HEPT (`hept_tpu/models/transformer.py:882-955`):
+    each event is prepared on its own (its quantile regions and replication
+    pads), then the B events run as ONE forward of B * N points.
+
+    Without `sort_events` the batch index is packed above each AND code
+    (`bit_shift`), so buckets never cross events: an event's real rows and
+    replication pads fill whole buckets and its inert slots sort to the end
+    (the reference example's batched design). With `cfg.sort_events == B`
+    (static plan only) each event is its own sort row of the plan and the
+    codes stay as they are. Replicate padding only: a zero-mode pad would
+    sort to the global end and leave an event's span unaligned to buckets.
+
+    Returns apply(x (B, N, F), coords (B, N, C), valid (B, N), generator) ->
+    (B, N, out); one generator draws the flat forward's dropout.
+    """
+    cfg = model.cfg
+    if cfg.attn_type != "hept":
+        raise ValueError("flat batching targets the HEPT path")
+    if cfg.padding_mode != "replicate":
+        raise ValueError("flat batching requires padding_mode='replicate'")
+
+    def apply(x, coords, valid, generator=None):
+        b, n = x.shape[:2]
+        if cfg.sort_events > 1 and cfg.sort_events != b:
+            raise ValueError(f"model built for sort_events={cfg.sort_events}, got B={b}")
+        preps = [prepare_event(x[i], coords[i], valid[i], model.regions, cfg.block_size,
+                               model.groups) for i in range(b)]
+        xp = torch.cat([p[0] for p in preps])
+        cp = torch.cat([p[1] for p in preps])
+        codes = torch.stack([p[2] for p in preps])  # (B, c, h, n)
+        c, h = codes.shape[1:3]
+        codes = codes.permute(1, 2, 0, 3).reshape(c * h, b * n)
+        if cfg.sort_events == 1:
+            batch_idx = torch.arange(b, dtype=torch.int32, device=x.device).repeat_interleave(n)
+            codes = bit_shift(codes, batch_idx.expand(c * h, b * n))
+        prepared = (xp, cp, codes.reshape(c, h, b * n), torch.cat([p[3] for p in preps]))
+        out = model(xp, cp, valid.reshape(b * n), generator, prepared=prepared)
+        return out.reshape(b, n, -1)
+
+    return apply

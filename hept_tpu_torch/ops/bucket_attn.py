@@ -30,6 +30,7 @@ from ..core.buckets import (
     unsort_carry,
 )
 from ..core.hashing import lsh_mapping
+from ..parallel.collectives import all_reduce_fwd
 from .bucket_attn_cuda import (
     DENOM_EPS,
     bucket_rbf_attention_cols,
@@ -101,8 +102,9 @@ def static_hash(x0_cols: torch.Tensor, coords_cols: torch.Tensor, alpha: torch.T
 
 def static_bucket_plan(hashed: torch.Tensor, codes0: torch.Tensor,
                        invalid: torch.Tensor | None, coords_cols: torch.Tensor,
-                       sort_pack: bool = False, coords_f32: bool = False):
-    """The once-per-step bucket plan of the static-keys mode (one event).
+                       sort_events: int = 1, sort_pack: bool = False,
+                       coords_f32: bool = False):
+    """The once-per-step bucket plan of the static-keys mode.
 
     key = hash + code * span(hash) per round; invalid rows key to +BIG so
     they fill trailing buckets. One sort gives every round's permutation;
@@ -114,12 +116,15 @@ def static_bucket_plan(hashed: torch.Tensor, codes0: torch.Tensor,
       codes0: (n,) or (c, n) AND codes.
       invalid: optional (n,) bool.
       coords_cols: (cd, n).
+      sort_events: stacked flat batching: the n points are this many
+        equal-size events, each sorted as its own row (JAX's `sort_events`;
+        the span is still taken over all n).
       sort_pack: round the sorted coords through bf16 (returned as bf16)
         unless `coords_f32`.
       coords_f32: carry the sorted coords exactly (kernel_center).
-    Returns: (src, inv, scoords): (c, 1, n) int64 permutations (sorted slot
-      s holds row src[s]; row j sits at slot inv[j]) and (c, 1, cd, n)
-      sorted coords.
+    Returns: (src, inv, scoords): (c, n_ev, ne) int64 permutations within
+      each event row (sorted slot s holds row src[s]; row j sits at slot
+      inv[j]) and (c, n_ev, cd, ne) sorted coords, ne = n / sort_events.
 
     Ties occur only between rows with identical payloads (replication pads
     copy a real row exactly; inert pads share +BIG), so the sorted coords do
@@ -127,6 +132,9 @@ def static_bucket_plan(hashed: torch.Tensor, codes0: torch.Tensor,
     is stable.
     """
     with torch.no_grad():
+        c, n = hashed.shape
+        n_ev = sort_events
+        ne = n // n_ev
         hash_shift = hashed.amax(dim=1, keepdim=True) - hashed.amin(dim=1, keepdim=True)
         codes_s = codes0.to(torch.float32)
         if codes_s.dim() == 1:
@@ -134,12 +142,15 @@ def static_bucket_plan(hashed: torch.Tensor, codes0: torch.Tensor,
         key = hashed + codes_s * hash_shift
         if invalid is not None:
             key = torch.where(invalid[None, :], torch.full_like(key, _BIG_KEY), key)
-        src = torch.argsort(key, dim=-1, stable=True)  # (c, n)
+        src = torch.argsort(key.reshape(c, n_ev, ne), dim=-1, stable=True)  # (c, n_ev, ne)
         inv = torch.argsort(src, dim=-1)
         pack = sort_pack and not coords_f32
         coords = coords_cols.to(torch.bfloat16) if pack else coords_cols.to(torch.float32)
-        scoords = coords[:, src].permute(1, 0, 2)  # (c, cd, n)
-        return src[:, None], inv[:, None], scoords[:, None].contiguous()
+        rows = coords.reshape(-1, n_ev, ne).permute(1, 0, 2)  # (n_ev, cd, ne)
+        cd = rows.shape[1]
+        scoords = torch.gather(rows[None].expand(c, n_ev, cd, ne), 3,
+                               src[:, :, None, :].expand(c, n_ev, cd, ne))
+        return src, inv, scoords.contiguous()
 
 
 def hept_attention_core_xcols(
@@ -158,10 +169,12 @@ def hept_attention_core_xcols(
     unsort_pack: bool = False,
     kernel_bf16: bool = False,
     kernel_center: bool = False,
+    sort_events: int = 1,
 ) -> torch.Tensor:
     """Post-sort-projection HEPT attention on a static plan, all heads
     sharing one bucket grid per round (the `hept_acc` path: share_heads,
-    unsort_rows, one event).
+    unsort_rows; one event, or `sort_events` stacked events of n /
+    sort_events points, each its own row of the plan and the kernels).
 
     Args:
       x_cols: (d_model, n) normed hidden state as columns.
@@ -177,6 +190,8 @@ def hept_attention_core_xcols(
       kernel_center: subtract a per-bucket mean from the RPE columns of q
         and k before any bf16 cast (exact in f32: the RBF logits are
         -|q - k|^2/2, shift-invariant).
+      sort_events: the plan's event rows (n must divide by sort_events *
+        block_size).
     Returns: (n, h * d) attention output rows.
     """
     h, d_model, d = wq.shape
@@ -184,21 +199,26 @@ def hept_attention_core_xcols(
     dv = wv.shape[-1]
     src, inv, scoords = plan
     c = src.shape[0]
+    n_ev = sort_events
+    ne = n // n_ev
+    if n % (n_ev * block_size):
+        raise ValueError(f"n={n} is not a multiple of sort_events * block_size")
     if invalid is not None:
         keep = torch.logical_not(invalid)[None, :]
         x_cols = torch.where(keep, x_cols, torch.zeros_like(x_cols))
     ptype = torch.bfloat16 if kernel_bf16 else torch.float32
 
-    sxs = permute_gather(x_cols[None], src, inv, pack=sort_pack,
-                         out_bf16=sort_pack)  # (c, 1, d_model, n)
+    x_rows = x_cols.reshape(d_model, n_ev, ne).permute(1, 0, 2)  # (n_ev, d_model, ne)
+    sxs = permute_gather(x_rows, src, inv, pack=sort_pack,
+                         out_bf16=sort_pack)  # (c, n_ev, d_model, ne)
     # the rpe columns are the same for q and k (both sqrt_w * coords of the
     # same sorted copy): compute and centre once
     rpe = sqrt_w[None, None, :, :, None] * scoords[:, :, None].to(torch.float32)
     if kernel_center:
-        b = rpe.reshape(*rpe.shape[:-1], n // block_size, block_size)
+        b = rpe.reshape(*rpe.shape[:-1], ne // block_size, block_size)
         b = b - b.mean(dim=-1, keepdim=True).detach()
         rpe = b.reshape(rpe.shape)
-    rpe = rpe.to(ptype)  # (c, 1, h, cd, n)
+    rpe = rpe.to(ptype)  # (c, n_ev, h, cd, ne)
 
     def project(w):
         # products of the transported values summed in f32, one rounding to
@@ -207,9 +227,9 @@ def hept_attention_core_xcols(
                             sxs.to(torch.float32))
         return proj.to(ptype)
 
-    sq = torch.cat([project(wq), rpe], dim=3).reshape(c * h, d + rpe.shape[3], n)
-    sk = torch.cat([project(wk), rpe], dim=3).reshape(c * h, d + rpe.shape[3], n)
-    sv = project(wv).reshape(c * h, dv, n)
+    sq = torch.cat([project(wq), rpe], dim=3).reshape(c * n_ev * h, d + rpe.shape[3], ne)
+    sk = torch.cat([project(wk), rpe], dim=3).reshape(c * n_ev * h, d + rpe.shape[3], ne)
+    sv = project(wv).reshape(c * n_ev * h, dv, ne)
 
     denom, so = bucket_rbf_attention_cols(sq.contiguous(), sk.contiguous(),
                                           sv.contiguous(), block_size, impl)
@@ -217,10 +237,11 @@ def hept_attention_core_xcols(
     # row-major unsort: one transpose makes every head's [num|denom] a
     # contiguous (h*(dv+1))-feature row, then natural position j takes round
     # r's sorted slot inv[r, j] (backward gathers by src)
-    od = torch.cat([so, denom], dim=1).reshape(c, h, dv + 1, n)
-    rows = od.permute(0, 3, 1, 2).reshape(c, n, h * (dv + 1))
-    rows = permute_gather_rows(rows, inv.reshape(c, n), src.reshape(c, n), pack=unsort_pack)
-    combined = rows.sum(dim=0).reshape(n, h, dv + 1)
+    od = torch.cat([so, denom], dim=1).reshape(c, n_ev, h, dv + 1, ne)
+    rows = od.permute(0, 1, 4, 2, 3).reshape(c * n_ev, ne, h * (dv + 1))
+    rows = permute_gather_rows(rows, inv.reshape(c * n_ev, ne), src.reshape(c * n_ev, ne),
+                               pack=unsort_pack)
+    combined = rows.reshape(c, n, h * (dv + 1)).sum(dim=0).reshape(n, h, dv + 1)
     out = stable_ratio(combined[..., :dv], combined[..., dv:])
     return out.reshape(n, h * dv)
 
@@ -238,6 +259,7 @@ def hept_attention_core_cols(
     unsort_pack: bool = False,
     perms=None,
     record_perms: list | None = None,
+    hash_group=None,
 ) -> torch.Tensor:
     """Dynamic-key HEPT attention, one event (the reference-parity path).
 
@@ -258,6 +280,10 @@ def hept_attention_core_cols(
       perms: optional (q_src, k_src), each (c, h, n) int64, applied instead
         of sorting by the keys (to hold two runs on the same permutations).
       record_perms: optional list; (q_src, k_src) is appended to it.
+      hash_group: under hash sharding, the process group of the OR rounds'
+        shards: [num|denom] summed over this rank's rounds is summed over the
+        group before the ratio (JAX: a psum over `hash_axis`,
+        `hept_tpu/ops/bucket_attn.py:299-303`).
     Returns: (n, h * dv) attention output rows.
 
     The hash span is taken before invalid rows are pushed to +BIG. Stable
@@ -292,7 +318,7 @@ def hept_attention_core_cols(
                                           sv.reshape(c * h, dv, n), block_size, impl)
     rows = torch.cat([so, denom], dim=1).reshape(c, h, dv + 1, n).transpose(2, 3)
     rows = unsort_carry(q_src, rows.contiguous(), pack=unsort_pack)  # (c, h, n, dv + 1)
-    combined = rows.sum(dim=0)  # (h, n, dv + 1)
+    combined = all_reduce_fwd(rows.sum(dim=0), hash_group)  # (h, n, dv + 1)
     out = stable_ratio(combined[..., :dv], combined[..., dv:])
     return out.permute(1, 0, 2).reshape(n, h * dv)
 

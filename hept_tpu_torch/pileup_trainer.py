@@ -10,6 +10,8 @@ flatformer); `-c configs/pileup/pileup_gnn_<conv>.yaml` runs a GNN
 baseline (gatedgnn, gcn, dgcnn, gravnet). The run trains the focal
 loss with best-by-valid AP and prints the best checkpoint's test AP ("auc"),
 ROC-AUC, F1 and loss. The run is on the GPU unless `--device cpu` is given.
+`--batch-size`, `--batch-mode`, `--n-devices`, `--shard-heads`,
+`--shard-hashes` and `torchrun` work as in `tracking_trainer`.
 """
 
 from __future__ import annotations

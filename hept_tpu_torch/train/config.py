@@ -66,6 +66,23 @@ class ExperimentConfig:
     # positive / negative masks in the step
     windowed_pairs: bool = True
 
+    # multi-process training (`parallel/`), the JAX package's names and
+    # defaults: the number of ranks (None: the world size of the process
+    # group, 1 without one); heads and OR rounds sharded over this many
+    # ranks each (tensor parallelism, HEPT dynamic keys, batch_mode vmap);
+    # the ranks left over take slices of the event batch (data parallelism)
+    n_devices: Optional[int] = None
+    shard_heads: int = 1
+    shard_hashes: int = 1
+    # "vmap": the events of a batch one forward each; "flat": one forward of
+    # the concatenated batch with the batch index in the AND codes (HEPT
+    # only: `models/transformer.py:make_flat_batched_apply`)
+    batch_mode: str = "vmap"
+
+    def __post_init__(self):
+        if self.batch_mode not in ("vmap", "flat"):
+            raise ValueError(f"batch_mode {self.batch_mode!r}: 'vmap' or 'flat'")
+
     def model_config(self, in_dim: int, coords_dim: int) -> TransformerConfig:
         kw = dict(self.model_kwargs)
         if self.model_name.startswith("trans_"):

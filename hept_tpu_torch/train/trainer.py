@@ -14,29 +14,46 @@ AdamW (decoupled decay), optionally with global-norm gradient clipping;
 the schedule "step" (per epoch), "cosine" (warm-up then cosine, per
 optimizer step) or "impatient" (plateau). The model is a HEPT transformer
 (`trans_*`) or a GNN baseline (`gnn_*`, `models/gnns.py`).
+
+Several ranks (`n_devices`, `shard_heads`, `shard_hashes`; a process group
+from `torchrun` or the caller): `run_one_seed` picks the step as JAX's
+trainer does (`hept_tpu/train/trainer.py:466-509`): one process; data
+parallelism (`parallel/dp.py`: each data rank takes its slice of the
+batch, gradients averaged); or DP x hash-TP x head-TP (`parallel/tp.py`).
+Every rank evaluates every split (model ranks must, as the sharded model's
+collectives need them; data ranks repeat the same work), the eval decisions
+(best, plateau) are checked to agree across ranks, and only rank 0 logs
+and writes checkpoints (of the whole model: TP shards are gathered first).
+Batches are packed ahead on a background thread (`data/prefetch.py`).
 """
 
 from __future__ import annotations
 
+import functools
 import math
+import os
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.batching import pack_events, slab_friendly_n
 from ..data.datasets import SplitDataset, get_dataset
+from ..data.prefetch import prefetch
 from ..models.gnns import GNNStack
-from ..models.transformer import HeptTransformer
+from ..models.transformer import HeptTransformer, make_batched_apply, make_flat_batched_apply
+from ..parallel import dp, tp
+from ..parallel.collectives import all_reduce_
+from ..parallel.mesh import AXES, make_mesh
 from ..utils.device import resolve_device
 from ..utils.flops import forward_flops, param_count
 from ..utils.logging import ScalarLogger, log
 from .config import ExperimentConfig
 from .losses import focal_loss, infonce_loss, infonce_loss_pairs, triplet_margin_loss
 from .metrics import THRESHOLDS, binary_classification_metrics, tracking_metrics_batch
-from .optim import (PER_STEP_SCHEDULES, clip_by_global_norm_, global_norm, make_lr_scheduler,
-                    make_optimizer)
+from .optim import PER_STEP_SCHEDULES, make_lr_scheduler, make_optimizer
 from .state import CheckpointManager
 
 _DTYPES = {"x": torch.float32, "coords": torch.float32, "valid": torch.bool,
@@ -47,9 +64,17 @@ _DTYPES = {"x": torch.float32, "coords": torch.float32, "valid": torch.bool,
 
 
 def batch_to_device(batch: dict, device) -> dict:
-    """Packed numpy batch (data/batching.py) -> tensors on `device`."""
-    return {k: torch.as_tensor(v).to(device=device, dtype=_DTYPES.get(k))
+    """Packed numpy batch (data/batching.py), or `host_batch`'s tensors ->
+    tensors on `device` (non_blocking: asynchronous from pinned memory)."""
+    return {k: torch.as_tensor(v).to(device=device, dtype=_DTYPES.get(k), non_blocking=True)
             for k, v in batch.items()}
+
+
+def host_batch(batch: dict, pin: bool = False) -> dict:
+    """Packed numpy batch -> CPU tensors of the step's dtypes, in pinned
+    memory when `pin` (the prefetch thread's side of the copy)."""
+    out = {k: torch.as_tensor(v).to(dtype=_DTYPES.get(k)) for k, v in batch.items()}
+    return {k: v.pin_memory() for k, v in out.items()} if pin else out
 
 
 def build_model(cfg: ExperimentConfig, in_dim: int, coords_dim: int,
@@ -111,29 +136,31 @@ def make_loss_fn(cfg: ExperimentConfig):
 
 
 def model_apply(model: HeptTransformer | GNNStack, batch: dict,
-                generator: torch.Generator | None = None) -> torch.Tensor:
-    """(B, N, out) outputs, one event at a time."""
-    return torch.stack([
-        model(batch["x"][i], batch["coords"][i], batch["valid"][i], generator)
-        for i in range(batch["x"].shape[0])
-    ])
+                generator: torch.Generator | None = None,
+                batch_mode: str = "vmap") -> torch.Tensor:
+    """(B, N, out) outputs: one event at a time ("vmap"), or for HEPT with
+    batch_mode "flat" one forward of the whole batch (JAX's
+    `make_model_apply`, `hept_tpu/train/trainer.py:113-130`: the GNNs and
+    the baselines always go event by event)."""
+    flat = batch_mode == "flat" and isinstance(model, HeptTransformer) \
+        and model.cfg.attn_type == "hept"
+    apply = make_flat_batched_apply(model) if flat else make_batched_apply(model)
+    return apply(batch["x"], batch["coords"], batch["valid"], generator)
 
 
 def train_step(model, optimizer, loss_fn, batch, generator: torch.Generator | None = None,
-               clip_norm: float = 0.0):
+               clip_norm: float = 0.0, batch_mode: str = "vmap", data_group=None,
+               sharded_norm=None):
     """One step: loss, gradients, the optimizer's update (the gradients
     clipped first by their global norm where clip_norm > 0). `generator`
-    draws dropout (none: no dropout). Returns detached {"loss", "grad_norm"}
-    tensors, the norm before any clipping; no host synchronisation."""
-    optimizer.zero_grad(set_to_none=True)
-    loss = loss_fn(model_apply(model, batch, generator), batch)
-    loss.backward()
-    grads = [p.grad for p in model.parameters() if p.grad is not None]
-    grad_norm = global_norm(grads)
-    if clip_norm:
-        clip_by_global_norm_(grads, grad_norm, clip_norm)
-    optimizer.step()
-    return {"loss": loss.detach(), "grad_norm": grad_norm.detach()}
+    draws dropout (none: no dropout). With `data_group` this rank's events
+    are its slice of the batch and the gradients are averaged over the
+    group (`parallel/dp.py:train_step`; `sharded_norm` for a TP model).
+    Returns detached {"loss", "grad_norm"} tensors, the norm before any
+    clipping; no host synchronisation."""
+    return dp.train_step(model, optimizer, loss_fn,
+                         functools.partial(model_apply, batch_mode=batch_mode), batch,
+                         data_group, generator, clip_norm, sharded_norm)
 
 
 def make_eval_step(cfg: ExperimentConfig):
@@ -149,13 +176,13 @@ def make_eval_step(cfg: ExperimentConfig):
     loss_fn = make_loss_fn(cfg)
     if cfg.task == "pileup":
         def pileup_step(model, batch):
-            out = model_apply(model, batch)
+            out = model_apply(model, batch, batch_mode=cfg.batch_mode)
             return loss_fn(out, batch), out[..., 0]
 
         return pileup_step
 
     def eval_step(model, batch):
-        out = model_apply(model, batch)
+        out = model_apply(model, batch, batch_mode=cfg.batch_mode)
         tm = tracking_metrics_batch(out, batch["cluster_ids"], batch["recons"], batch["pts"],
                                     batch["valid"])
         return loss_fn(out, batch), tm
@@ -242,10 +269,100 @@ def evaluate(cfg: ExperimentConfig, model: HeptTransformer | GNNStack, dataset: 
     return res
 
 
-def _checkpoint(model, optimizer, scheduler, epoch: int, step: int, gen, data_rng) -> dict:
-    return {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
-            "scheduler": scheduler.state_dict(), "epoch": epoch, "step": step,
-            "dropout_rng": gen.get_state(), "data_rng": data_rng.bit_generator.state}
+class _Parallel:
+    """This rank's part in a multi-process run: the mesh (None: one
+    process), its data group and rank, and whether it logs."""
+
+    def __init__(self, cfg: ExperimentConfig, device: torch.device):
+        heads, hashes = max(1, int(cfg.shard_heads)), max(1, int(cfg.shard_hashes))
+        sh = heads * hashes
+        world = dist.get_world_size() if dist.is_initialized() \
+            else int(os.environ.get("WORLD_SIZE", "1"))
+        n_dev = world if cfg.n_devices is None else int(cfg.n_devices)
+        if sh > 1:
+            # JAX's checks (hept_tpu/train/trainer.py:489-490, parallel/tp.py:125)
+            if n_dev % sh:
+                raise ValueError(f"n_devices {n_dev} not divisible by model shards {sh} "
+                                 "(hept_tpu/train/trainer.py:489)")
+            if cfg.batch_mode != "vmap":
+                raise ValueError("shard_heads/hashes require batch_mode='vmap' "
+                                 "(hept_tpu/train/trainer.py:490)")
+            if not cfg.model_name.startswith("trans_"):
+                raise ValueError("head/hash sharding targets HEPT (hept_tpu/parallel/tp.py:125)")
+        self.mesh, self.device, self.tp = None, device, sh > 1
+        self.data_group, self.data_rank, self.rank = None, 0, 0
+        if n_dev == 1 and sh == 1:
+            return
+        self.mesh = make_mesh(n_dev, AXES, (n_dev // sh, hashes, heads), device=device)
+        self.device = self.mesh.device
+        self.data_group, self.data_rank = self.mesh.group("data"), self.mesh.rank("data")
+        self.rank = dist.get_rank()
+        if cfg.batch_size % self.mesh.size("data"):
+            raise ValueError(f"batch_size {cfg.batch_size} does not divide over "
+                             f"{self.mesh.size('data')} data ranks")
+
+    @property
+    def lead(self) -> bool:
+        return self.rank == 0
+
+    def shard(self, batch: dict) -> dict:
+        if self.mesh is None:
+            return batch
+        return dp.shard_batch(batch, self.data_rank, self.mesh.size("data"))
+
+    def build(self, cfg: ExperimentConfig, in_dim: int, coords_dim: int, generator,
+              state_dict: dict | None = None):
+        """The model (this rank's shard under TP), from `generator` or a
+        whole `state_dict`."""
+        if self.tp:
+            return tp.make_tp_model(cfg.model_config(in_dim, coords_dim), self.mesh, generator,
+                                    self.device, state_dict)
+        model = build_model(cfg, in_dim, coords_dim, generator, self.device)
+        if state_dict is not None:
+            model.load_state_dict(state_dict)
+        return model
+
+    def same_on_ranks(self, values: list) -> None:
+        """Raise unless every rank holds the same `values` (eval decisions)."""
+        if self.mesh is None:
+            return
+        hi = torch.tensor(values, dtype=torch.float64, device=self.device)
+        lo = -hi
+        all_reduce_(hi, dist.group.WORLD, dist.ReduceOp.MAX)
+        all_reduce_(lo, dist.group.WORLD, dist.ReduceOp.MAX)
+        if not torch.equal(hi, -lo):
+            raise RuntimeError(f"eval decisions differ across ranks: max {hi.tolist()} "
+                               f"min {(-lo).tolist()}")
+
+    def broadcast_str(self, text: str) -> str:
+        if self.mesh is None:
+            return text
+        obj = [text]
+        dist.broadcast_object_list(obj, src=0)
+        return obj[0]
+
+    def barrier(self) -> None:
+        if self.mesh is not None:
+            dist.barrier()
+
+
+def _checkpoint(model, optimizer, scheduler, epoch: int, step: int, gen, data_rng,
+                par: _Parallel) -> dict:
+    """The run's state, the whole model's on every rank (TP shards gathered;
+    every rank must call it). `dropout_rng`: under several ranks the list
+    of every rank's generator state, by global rank."""
+    msd, osd = model.state_dict(), optimizer.state_dict()
+    rng = gen.get_state()
+    if par.tp:
+        msd = tp.gather_state_dict(msd, par.mesh)
+        osd = tp.gather_optimizer_state(osd, model, par.mesh)
+    if par.mesh is not None:
+        rngs = [None] * dist.get_world_size()
+        dist.all_gather_object(rngs, rng)
+        rng = rngs
+    return {"model": msd, "optimizer": osd, "scheduler": scheduler.state_dict(),
+            "epoch": epoch, "step": step, "dropout_rng": rng,
+            "data_rng": data_rng.bit_generator.state}
 
 
 def _run_dir(cfg: ExperimentConfig) -> Path:
@@ -260,6 +377,16 @@ def _run_dir(cfg: ExperimentConfig) -> Path:
     return run_dir
 
 
+class _Silent:
+    """The logger of the ranks that do not log."""
+
+    def write(self, *args, **kwargs):
+        pass
+
+    def close(self):
+        pass
+
+
 def run_one_seed(cfg: ExperimentConfig, dataset: SplitDataset | None = None,
                  log=log) -> dict:
     """Train one seed with best-by-valid selection; returns the test metrics
@@ -272,7 +399,8 @@ def run_one_seed(cfg: ExperimentConfig, dataset: SplitDataset | None = None,
     new time-stamped dir in `log_dir`. `only_flops` returns {"params",
     "flops"} (one forward of the first train event) without training.
     `ckpt_every` is read by neither trainer: checkpoints are written at each
-    new best only.
+    new best only. Several ranks: see the module's docstring; every rank
+    returns the same metrics.
     """
     device = resolve_device(cfg.device)
     if dataset is None:
@@ -284,17 +412,27 @@ def run_one_seed(cfg: ExperimentConfig, dataset: SplitDataset | None = None,
     # dataset, because jit needs static shapes. The eager port packs each
     # batch at its own E; the extra padded pairs there are masked, so the
     # loss is the same.
-    gen = torch.Generator(device=device).manual_seed(cfg.seed)
-    init_gen = torch.Generator(device=device).manual_seed(cfg.seed + 1)
-    model = build_model(cfg, dataset.in_dim, dataset.coords_dim, init_gen, device)
-    n_params = param_count(model)
-    log(f"model {cfg.model_name}: {n_params:,} params on {device}")
     if cfg.only_flops:
+        model = build_model(cfg, dataset.in_dim, dataset.coords_dim,
+                            torch.Generator(device=device).manual_seed(cfg.seed + 1), device)
+        n_params = param_count(model)
+        log(f"model {cfg.model_name}: {n_params:,} params on {device}")
         b0 = batch_to_device(pack_events([dataset.train[0]], block_size, n_max=n_max), device)
-        flops = forward_flops(lambda: model_apply(model, b0))
+        flops = forward_flops(lambda: model_apply(model, b0, batch_mode=cfg.batch_mode))
         log(f"forward FLOPs (matmuls and convolutions, torch's FlopCounterMode; not XLA's "
             f"cost analysis): {flops:,}")
         return {"params": n_params, "flops": flops}
+    par = _Parallel(cfg, device)
+    device = par.device
+    if not par.lead:
+        log = lambda *args: None  # noqa: E731 -- only rank 0 logs
+    gen = tp.dropout_generator(cfg.seed, par.data_rank, device)
+    init_gen = torch.Generator(device=device).manual_seed(cfg.seed + 1)
+    model = par.build(cfg, dataset.in_dim, dataset.coords_dim, init_gen)
+    n_params = param_count(model)
+    log(f"model {cfg.model_name}: {n_params:,} params on {device}"
+        + (f", mesh {par.mesh.sizes} ({par.mesh.backend})" if par.mesh else "")
+        + (" (this rank's shard)" if par.tp else ""))
     okw = cfg.optimizer_kwargs
     optimizer = make_optimizer(model.parameters(), cfg.optimizer_name, okw.get("lr", 1e-3),
                                weight_decay=okw.get("weight_decay", 0.0))
@@ -308,18 +446,24 @@ def run_one_seed(cfg: ExperimentConfig, dataset: SplitDataset | None = None,
     plateau = isinstance(scheduler, torch.optim.lr_scheduler.ReduceLROnPlateau)
     per_step = cfg.lr_scheduler_name in PER_STEP_SCHEDULES
     loss_fn = make_loss_fn(cfg)
+    sharded_norm = tp.sharded_global_norm(par.mesh) if par.tp else None
     data_rng = np.random.default_rng(cfg.seed)
 
-    run_dir = _run_dir(cfg)
-    logger = ScalarLogger(run_dir)
-    ckpt = CheckpointManager(run_dir / "ckpt")
+    run_dir = Path(par.broadcast_str(str(_run_dir(cfg)) if par.lead else ""))
+    logger = ScalarLogger(run_dir) if par.lead else _Silent()
+    ckpt = CheckpointManager(run_dir / "ckpt") if par.lead else None
     start_epoch, step = 0, 0
     if cfg.resume:
         state = CheckpointManager(Path(cfg.resume) / "ckpt").restore()
-        model.load_state_dict(state["model"])
-        optimizer.load_state_dict(state["optimizer"])
+        msd, osd = state["model"], state["optimizer"]
+        if par.tp:
+            msd = tp.shard_state_dict(msd, par.mesh.sizes, par.mesh.coords)
+            osd = tp.shard_optimizer_state(osd, model, par.mesh)
+        model.load_state_dict(msd)
+        optimizer.load_state_dict(osd)
         scheduler.load_state_dict(state["scheduler"])
-        gen.set_state(state["dropout_rng"])
+        rng = state["dropout_rng"]
+        gen.set_state(rng[par.rank] if isinstance(rng, list) else rng)
         data_rng.bit_generator.state = state["data_rng"]
         start_epoch, step = state["epoch"] + 1, state["step"]
         log(f"resumed from {cfg.resume} after epoch {state['epoch']} (step {step})")
@@ -333,6 +477,7 @@ def run_one_seed(cfg: ExperimentConfig, dataset: SplitDataset | None = None,
         logger.close()
         return test
 
+    pin = device.type == "cuda"
     sign = 1.0 if cfg.mode == "max" else -1.0
     best = -sign * math.inf
     best_test: dict = {}
@@ -340,12 +485,14 @@ def run_one_seed(cfg: ExperimentConfig, dataset: SplitDataset | None = None,
         t0 = time.perf_counter()
         model.train()
         losses = []
-        for b in dataset.iter_batches("train", cfg.batch_size, block_size, n_max=n_max,
-                                      shuffle_rng=data_rng,
-                                      aug_pair_p=cfg.pair_aug_p if cfg.task == "tracking" else 0.0,
-                                      window_pairs=_window_pairs(cfg)):
+        batches = dataset.iter_batches(
+            "train", cfg.batch_size, block_size, n_max=n_max, shuffle_rng=data_rng,
+            aug_pair_p=cfg.pair_aug_p if cfg.task == "tracking" else 0.0,
+            window_pairs=_window_pairs(cfg), drop_last=True)
+        for b in prefetch(batches, transfer=lambda b: host_batch(par.shard(b), pin)):
             losses.append(train_step(model, optimizer, loss_fn, batch_to_device(b, device),
-                                     gen, clip_norm)["loss"])
+                                     gen, clip_norm, cfg.batch_mode, par.data_group,
+                                     sharded_norm)["loss"])
             step += 1
             if per_step:
                 scheduler.step()
@@ -356,19 +503,22 @@ def run_one_seed(cfg: ExperimentConfig, dataset: SplitDataset | None = None,
         valid = evaluate(cfg, model, dataset, "valid", block_size, n_max)
         logger.write(epoch, {"loss": train_loss, "epoch_sec": t_train}, prefix="train/")
         logger.write(epoch, valid, prefix="valid/")
-        if plateau:
-            # "loss" is the epoch's train loss, as in the JAX trainer
-            key = cfg.lr_scheduler_metric or "loss"
-            scheduler.step(train_loss if key == "loss" else valid.get(key, train_loss))
+        # "loss" is the epoch's train loss, as in the JAX trainer
+        key = cfg.lr_scheduler_metric or "loss"
+        plateau_metric = train_loss if key == "loss" else valid.get(key, train_loss)
         score = valid.get(cfg.main_metric, valid["loss"])
         if math.isnan(score):
             score = -sign * math.inf
+        par.same_on_ranks([score, plateau_metric if plateau else 0.0])
+        if plateau:
+            scheduler.step(plateau_metric)
         if sign * score > sign * best:
             best = score
             best_test = test_eval(model)
             logger.write(epoch, best_test, prefix="test/")
-            ckpt.save(step, _checkpoint(model, optimizer, scheduler, epoch, step, gen,
-                                        data_rng), metrics={cfg.main_metric: score})
+            state = _checkpoint(model, optimizer, scheduler, epoch, step, gen, data_rng, par)
+            if par.lead:
+                ckpt.save(step, state, metrics={cfg.main_metric: score})
         log(f"epoch {epoch}: train_loss={train_loss:.4f} valid[{cfg.main_metric}]={score:.4f} "
             f"best={best:.4f}" + (f" lr={optimizer.param_groups[0]['lr']:g}" if plateau else "")
             + f" (train {t_train:.1f} s, "
@@ -376,8 +526,9 @@ def run_one_seed(cfg: ExperimentConfig, dataset: SplitDataset | None = None,
 
     if best_test:
         # the reference's flow: reload the best model from disk, then test
-        restored = build_model(cfg, dataset.in_dim, dataset.coords_dim, None, device)
-        restored.load_state_dict(ckpt.restore()["model"])
+        par.barrier()
+        restored = par.build(cfg, dataset.in_dim, dataset.coords_dim, None,
+                             CheckpointManager(run_dir / "ckpt").restore()["model"])
         final = test_eval(restored)
         key = cfg.main_metric
         if key in final and not math.isclose(final[key], best_test[key], rel_tol=0,

@@ -46,9 +46,17 @@ def _layers(tree, n_layers: int | None = None) -> list:
     return [tree[k] for k in keys]
 
 
-def from_jax_variables(variables) -> dict[str, torch.Tensor]:
+def from_jax_variables(variables, sizes: dict | None = None,
+                       coords: dict | None = None) -> dict[str, torch.Tensor]:
     """flax variables -> torch state dict (TorchLinear kernels (in, out)
-    become nn.Linear weights (out, in); LayerNorm scale -> weight)."""
+    become nn.Linear weights (out, in); LayerNorm scale -> weight). With a
+    mesh's `sizes` and this rank's `coords` (`parallel/mesh.py:Mesh`), the
+    rank's slice for a head / hash sharded model
+    (`parallel/tp.py:shard_state_dict`)."""
+    if sizes is not None:
+        from ..parallel.tp import shard_state_dict
+
+        return shard_state_dict(from_jax_variables(variables), sizes, coords)
     params = variables["params"]
     if "pre_ff_0" in params:
         return _gnn_state_dict(params)

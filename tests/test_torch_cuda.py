@@ -715,3 +715,59 @@ def test_segment_sum_same_bits_on_the_card(dev):
     cot = torch.randn((5000, 24), generator=g, device=dev)
     (first * cot).sum().backward()
     assert torch.equal(vals.grad, cot[ids])
+
+
+def test_collectives_autograd_on_cuda(dev, tmp_path):
+    """The collectives' forward and gradients on CUDA tensors, two ranks
+    sharing the card in a gloo group (`test_torch_parallel.py`)."""
+    from test_torch_parallel import check_collectives
+
+    check_collectives(tmp_path, "cuda")
+
+
+def test_dp_world1_nccl_step_is_the_plain_step(dev):
+    """A one-rank NCCL group: the DP train step (gradients through the
+    group's all-reduce) equals the plain step bit for bit, three steps of
+    a small hept_acc-like model (static plan, bf16 kernels K1 / K2)."""
+    import copy
+    import datetime
+    import socket
+
+    import torch.distributed as dist
+
+    from hept_tpu_torch.data.batching import pack_events
+    from hept_tpu_torch.data.synthetic import synthetic_tracking_event
+    from hept_tpu_torch.parallel.mesh import make_mesh
+    from hept_tpu_torch.train import trainer
+    from hept_tpu_torch.train.config import ExperimentConfig
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=60))
+    try:
+        group = make_mesh(1, ("data",), device="cuda").group("data")
+        ev = synthetic_tracking_event(np.random.default_rng(1), n_points=1000,
+                                      pairs_per_point=8)
+        batch = trainer.batch_to_device(pack_events([ev], block_size=128, window_pairs=128),
+                                        dev)
+        cfg = ExperimentConfig(device="cuda", model_kwargs=dict(
+            h_dim=24, num_heads=8, n_layers=2, block_size=128, n_hashes=2, static_rounds=4,
+            qkv_post_sort=True, shared_sort=True, share_heads=True, static_keys="x0",
+            unsort_rows=True, sort_pack=True, unsort_pack=True, kernel_bf16=True,
+            kernel_center=True), optimizer_kwargs=dict(lr=1e-2))
+        m0 = trainer.build_model(cfg, 10, 6, torch.Generator(device=dev).manual_seed(0), dev)
+        m1 = copy.deepcopy(m0)
+        opts = [trainer.make_optimizer(m.parameters(), lr=1e-2) for m in (m0, m1)]
+        gens = [torch.Generator(device=dev).manual_seed(1) for _ in range(2)]
+        loss_fn = trainer.make_loss_fn(cfg)
+        for _ in range(3):
+            a = trainer.train_step(m0, opts[0], loss_fn, batch, gens[0])
+            b = trainer.train_step(m1, opts[1], loss_fn, batch, gens[1], data_group=group)
+            assert torch.equal(a["loss"], b["loss"]) and torch.equal(a["grad_norm"],
+                                                                      b["grad_norm"])
+            for (k, p), q in zip(m0.state_dict().items(), m1.state_dict().values()):
+                assert torch.equal(p, q), k
+    finally:
+        dist.destroy_process_group()

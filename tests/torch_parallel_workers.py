@@ -1,0 +1,129 @@
+"""Rank processes of `test_torch_parallel.py` (imports torch and the port,
+never JAX): `python tests/torch_parallel_workers.py TASK RANK WORLD DIR`.
+
+Each rank joins a gloo group through `DIR/rendezvous` (a file, so that test
+processes running side by side never race for a port), reads the test's
+inputs from `DIR/inputs.pt`, runs TASK and writes `DIR/out_<rank>.pt`.
+"""
+
+import datetime
+import sys
+from pathlib import Path
+
+import torch
+import torch.distributed as dist
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+from hept_tpu_torch.parallel import tp  # noqa: E402
+from hept_tpu_torch.parallel.dp import shard_batch  # noqa: E402
+from hept_tpu_torch.parallel.mesh import AXES, make_mesh  # noqa: E402
+from hept_tpu_torch.parallel.sp import head_sharded_attention  # noqa: E402
+from hept_tpu_torch.train import trainer  # noqa: E402
+from hept_tpu_torch.train.config import ExperimentConfig  # noqa: E402
+
+
+def _step(inp, mesh, model, optimizer):
+    cfg = ExperimentConfig(**inp["exp"])
+    b = shard_batch(inp["batch"], mesh.rank("data"), mesh.size("data"))
+    return trainer.train_step(model, optimizer, trainer.make_loss_fn(cfg),
+                              trainer.batch_to_device(b, "cpu"), None, 0.0, cfg.batch_mode,
+                              mesh.group("data"),
+                              tp.sharded_global_norm(mesh) if "sizes" in inp else None)
+
+
+def dp_task(inp, rank):
+    """One data-parallel Adam step; every rank's result."""
+    mesh = make_mesh(None, ("data",), device="cpu")
+    cfg = ExperimentConfig(**inp["exp"])
+    model = trainer.build_model(cfg, inp["in_dim"], inp["coords_dim"], None, "cpu")
+    model.load_state_dict(inp["state_dict"])
+    opt = trainer.make_optimizer(model.parameters(), lr=inp["lr"])
+    m = _step(inp, mesh, model, opt)
+    return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "state_dict": model.state_dict(),
+            "exp_avg": {n: opt.state[p]["exp_avg"] for n, p in model.named_parameters()}}
+
+
+def tp_task(inp, rank):
+    """One DP x hash-TP x head-TP SGD step; the whole model after it. Rank
+    0 also takes the single-process step on the whole batch (`single`)."""
+    cfg = ExperimentConfig(**inp["exp"])
+    single = None
+    if rank == 0:
+        ref = trainer.build_model(cfg, inp["in_dim"], inp["coords_dim"], None, "cpu")
+        ref.load_state_dict(inp["state_dict"])
+        m = trainer.train_step(ref, torch.optim.SGD(ref.parameters(), lr=inp["lr"]),
+                               trainer.make_loss_fn(cfg),
+                               trainer.batch_to_device(inp["batch"], "cpu"))
+        single = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                  "state_dict": ref.state_dict()}
+    mesh = make_mesh(None, AXES, inp["sizes"], device="cpu")
+    model = tp.make_tp_model(cfg.model_config(inp["in_dim"], inp["coords_dim"]), mesh, None,
+                             "cpu", state_dict=inp["state_dict"])
+    opt = torch.optim.SGD(model.parameters(), lr=inp["lr"])
+    m = _step(inp, mesh, model, opt)
+    return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "state_dict": tp.gather_state_dict(model.state_dict(), mesh), "single": single}
+
+
+def sp_task(inp, rank):
+    """head_sharded_attention forward and input gradients."""
+    mesh = make_mesh(None, ("heads",), device="cpu")
+    q, k, v = (inp[n].clone().requires_grad_(True) for n in ("q", "k", "v"))
+    out = head_sharded_attention(q, k, v, inp["alpha"], inp["codes"], inp["invalid"],
+                                 mesh.group("heads"), block_size=inp["block_size"])
+    torch.sum(out * inp["cot"]).backward()
+    return {"out": out.detach(), "dq": q.grad, "dk": k.grad, "dv": v.grad}
+
+
+def run_task(inp, rank):
+    """A one-epoch run_one_seed over the group."""
+    from hept_tpu_torch.data.datasets import make_synthetic_tracking
+
+    ds = make_synthetic_tracking(**inp["dataset"])
+    return {"res": trainer.run_one_seed(ExperimentConfig(**inp["exp"]), ds)}
+
+
+def collectives_task(inp, rank):
+    """Each collective's forward and gradient on `inp["device"]` tensors
+    (a gloo group: two ranks may share one card)."""
+    from hept_tpu_torch.parallel.collectives import (all_gather, all_reduce_fwd, broadcast,
+                                                     copy_to_group)
+
+    dev = torch.device(inp["device"])
+    group = make_mesh(None, ("heads",), device=dev).group("heads")
+    w = torch.arange(12.0, device=dev).reshape(4, 3)
+    x = (torch.arange(6.0, device=dev).reshape(2, 3) + 10 * rank).requires_grad_(True)
+    gathered = all_gather(x, 0, group)
+    (gathered * w).sum().backward()
+    z = torch.full((2, 3), rank + 1.0, device=dev, requires_grad=True)
+    summed = all_reduce_fwd(z, group)
+    (summed * w[:2]).sum().backward()
+    u = torch.ones(2, 3, device=dev, requires_grad=True)
+    (copy_to_group(u, group) * (rank + 1)).sum().backward()
+    b = broadcast(torch.full((3,), 5.0 + rank, device=dev), group)
+    return {k: v.detach().cpu() for k, v in dict(
+        gathered=gathered, dx=x.grad, summed=summed, dz=z.grad, du=u.grad, b=b,
+        on_device=torch.tensor([t.device.type == dev.type
+                                for t in (gathered, summed, b, x.grad, u.grad)
+                                ])).items()}
+
+
+TASKS = {"dp": dp_task, "tp": tp_task, "sp": sp_task, "run": run_task,
+         "collectives": collectives_task}
+
+
+def main():
+    task, rank, world, d = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4])
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{d / 'rendezvous'}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=90))
+    inp = torch.load(d / "inputs.pt", weights_only=False)
+    out = TASKS[task](inp, rank)
+    torch.save(out, d / f"out_{rank}.pt")
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()
