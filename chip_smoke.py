@@ -154,13 +154,34 @@ Phases, one line each (plus per-kernel lines):
      100, f32) against the unsharded core on the card (output 1e-5,
      input gradients 1e-4 of scale; K10 one each way a rank). The two-rank
      phases are correctness evidence: two ranks sharing one card measure
-     no scaling.
+     no scaling;
+ 28. the dynamic-key share_heads model (the parity YAML + qkv_post_sort,
+     shared_sort, share_heads; f32) on the bs-100 event: `--profile-steps`
+     Adam steps with dropout (K6 f32 / K7 v1 4 each and K5 8 a step), one
+     more under torch.profiler (device busy ms), the first step with
+     kernels against plain on the kernel run's sort orders (loss 1e-4,
+     gradients 1e-3 of scale);
+ 29. its bucket train step (`parallel/bp.py:make_bucket_train_step`) at
+     world 1 over NCCL, each transport, from phase 28's weights and dropout
+     seed: every step's (loss, grad_norm) and every parameter after the last
+     the same bits as phase 28's (K5 8 a step replicated, none distributed);
+ 30. (in the two-rank spawn of 25-27) bucket shards 2: the bucket-sharded
+     core (300 buckets of 100 a round and head a rank) forward and backward
+     each transport against the single-process core (output 1e-5, input
+     gradients 1e-4 of scale; K6 / K7 one each a rank), the overflow case
+     (cap_factor 1e-6) NaN, and one `make_bucket_train_step` step a
+     transport against the single process (loss 1e-5 relative, gradients
+     1e-4 of scale; K6 / K7 4 each a rank), a rank's ms;
+ 31. a reference-layout `data.pt` written on the host and read through
+     `get_dataset`, one parity step on the card on an event of it, and
+     `scripts/hept_example.py` at 2000 points on the card.
 Before the last line: one JSON line of per-kernel numbers (K5 once per row
 shape, K3 at d = 1 as K3d1, K4 with its yardsticks as extra keys; K3 / K4
 with the baselines', the GNNs' and the loss options' launches at d = 12,
 K3d1 and K4's `d1_launches` with theirs at d = 1; K1 / K2 with the flat
 and DP phases' launches, K6 / K7 with the TP ranks', K10 with the SP
-ranks'), and the
+ranks'; K6 / K7 / K5p with the share_heads steps', the world-1 bucket
+steps' and the bucket ranks'), and the
 `nvidia-smi` name/power-limit line. `--yardsticks-only [--package-root
 DIR]` builds the kernels of the package in DIR (a parent tree, for an A/B
 in one call), prints K3's, K4's and K5's yardsticks, K2's, K6's, K7's,
@@ -2199,6 +2220,156 @@ def phase_dp_nccl(torch, trainer, batch_np, seed: int, steps: int = 3) -> dict:
     return res
 
 
+# the dynamic-key share_heads model: the parity profile with the post-sort
+# projections and one bucket grid per round shared by the heads, f32
+SHARE_HEADS = {"qkv_post_sort": True, "shared_sort": True, "share_heads": True}
+BUCKET_TRANSPORTS = ("replicated", "distributed")
+
+
+def share_heads_config(**overrides):
+    """The parity YAML with SHARE_HEADS (K6 f32 / K7 v1 at bs 100)."""
+    from hept_tpu_torch.train.config import profile_config
+
+    cfg = profile_config("hept", device=DEVICE, num_epochs=1, **overrides)
+    cfg.model_kwargs.update(SHARE_HEADS)
+    return cfg
+
+
+def cols_f32_launches(steps: int, k5: int = 8) -> dict:
+    """The launches of `steps` tracking steps of a 4-layer dynamic-key f32
+    model at bs 100 (parity, share_heads): K6 f32 and K7 v1 4 each a step
+    (one a layer), K5 `k5` a step (the unsort forward and backward a
+    layer), the loss's K3 / K4."""
+    return {**NO_K1_K2, "cols_fwd": 4 * steps, "cols_bwd": 4 * steps, "cols_fwd_tc": 0,
+            "cols_bwd_tc": 0, "rows_fwd": 0, "rows_bwd": 0, "row_gather": k5 * steps,
+            **{k: v * steps for k, v in PAIR_LAUNCHES_STEP.items()}}
+
+
+def check_launches(label: str, got: dict, want: dict) -> None:
+    bad = {k: (got.get(k, 0), v) for k, v in want.items() if got.get(k, 0) != v}
+    if bad:
+        raise AssertionError(f"{label}: launches (got, want) {bad}")
+
+
+def phase_share_heads(torch, trainer, batch_np, steps: int, seed: int, zero_counts,
+                      read_counts) -> dict:
+    """28. The dynamic-key share_heads model at full width (the parity YAML +
+    qkv_post_sort, shared_sort, share_heads; f32) on the bs-100 event:
+    `steps` Adam steps with dropout, each step's (loss, grad_norm) kept for
+    phase 29, launches counted (`cols_f32_launches`); one more step under
+    torch.profiler (device busy ms); then the first step, dropout off, with
+    kernels against `plain_reference()` on the kernel run's sort orders
+    (`compare_first_step`'s f32 levels)."""
+    from hept_tpu_torch.utils.profiling import profile_device
+
+    cfg = share_heads_config()
+    batch = trainer.batch_to_device(batch_np, DEVICE)
+    model = trainer.build_model(cfg, batch_np["x"].shape[2], batch_np["coords"].shape[2],
+                                torch.Generator(device=DEVICE).manual_seed(seed), DEVICE)
+    init_state = copy.deepcopy(model.state_dict())
+    opt = trainer.make_optimizer(model.parameters(), cfg.optimizer_name,
+                                 cfg.optimizer_kwargs["lr"])
+    loss_fn = trainer.make_loss_fn(cfg)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    step_ms, metrics = [], []
+    for s in range(steps):
+        t0 = time.perf_counter()
+        m = trainer.train_step(model, opt, loss_fn, batch, gen)
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        log(f"  share_heads step {s}: loss={metrics[-1][0]:.6f} "
+            f"grad_norm={metrics[-1][1]:.4f} {step_ms[-1]:.1f} ms")
+    launches = read_counts()
+    check_launches("share_heads", launches, cols_f32_launches(steps))
+    if not all(math.isfinite(x) for pair in metrics for x in pair):
+        raise AssertionError(f"share_heads: non-finite step metrics {metrics}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    final_state = copy.deepcopy(model.state_dict())
+    prof_ms, kernel_us, _ = profile_device(
+        lambda: trainer.train_step(model, opt, loss_fn, batch, gen), 1)
+    busy = sum(kernel_us.values()) / 1e3
+    log(f"phase share_heads: {steps} steps (parity widths + qkv_post_sort / shared_sort / "
+        f"share_heads, bs 100, 3 hashes, f32), step ms {step_ms}, median after the first "
+        f"{statistics.median(step_ms[1:]):.1f} ms; profiled step {prof_ms:.1f} ms, device busy "
+        f"{busy:.2f} ms; launches {launches}; peak {peak:.2f} GiB")
+    del opt
+    model.load_state_dict(init_state)
+    compare_first_step(torch, "share_heads", cfg, model, loss_fn, batch)
+    del model
+    torch.cuda.empty_cache()
+    return {"init_state": init_state, "final_state": final_state, "metrics": metrics,
+            "launches": launches, "step_ms": step_ms,
+            "steady_ms": statistics.median(step_ms[1:]), "busy_ms": busy,
+            "profiled_ms": prof_ms, "peak_gib": peak}
+
+
+def phase_bucket_nccl(torch, trainer, batch_np, seed: int, ref: dict, zero_counts,
+                      read_counts) -> dict:
+    """29. The bucket train step at world 1 over NCCL (a one-rank ("data",
+    "buckets") mesh), each transport: phase 28's steps from its initial
+    weights and dropout seed through `make_bucket_train_step`; every step's
+    (loss, grad_norm) and every parameter after the last step the same bits
+    as phase 28's kernel steps (routing only moves values). Launches a step:
+    K6 / K7 4 each; K5 8 with the replicated transport (the unsort), none
+    with the distributed one (the payload moves by the route's indexing)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from hept_tpu_torch.parallel.bp import make_bucket_model, make_bucket_train_step
+    from hept_tpu_torch.parallel.mesh import make_mesh
+
+    steps = len(ref["metrics"])
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=120))
+    res = {}
+    try:
+        mesh = make_mesh(1, ("data", "buckets"), (1, 1), device=DEVICE)
+        cfg = share_heads_config()
+        tcfg = cfg.model_config(batch_np["x"].shape[2], batch_np["coords"].shape[2])
+        batch = trainer.batch_to_device(batch_np, DEVICE)
+        loss_fn = trainer.make_loss_fn(cfg)
+        for transport in BUCKET_TRANSPORTS:
+            model = make_bucket_model(tcfg, mesh, None, DEVICE, ref["init_state"], transport)
+            opt = trainer.make_optimizer(model.parameters(), cfg.optimizer_name,
+                                         cfg.optimizer_kwargs["lr"])
+            step = make_bucket_train_step(model, opt, loss_fn, mesh, seed=seed + 1)
+            torch.cuda.synchronize()
+            zero_counts()
+            step_ms, metrics = [], []
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                m = step(batch)
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            launches = read_counts()
+            check_launches(f"bucket {transport}", launches, cols_f32_launches(
+                steps, 8 if transport == "replicated" else 0))
+            if metrics != ref["metrics"]:
+                raise AssertionError(f"bucket {transport}: (loss, grad_norm) by step {metrics} "
+                                     f"!= phase 28's {ref['metrics']}")
+            differ = [k for k, v in model.state_dict().items()
+                      if not torch.equal(v, ref["final_state"][k])]
+            if differ:
+                raise AssertionError(f"bucket {transport}: parameters differ from phase 28's "
+                                     f"after {steps} steps: {differ}")
+            res[transport] = {"step_ms": step_ms, "launches": launches,
+                              "steady_ms": statistics.median(step_ms[1:])}
+            log(f"phase bucket nccl {transport}: world 1 over {mesh.backend}, {steps} steps "
+                f"bit-equal to phase 28 (loss, grad_norm each step, every parameter); step ms "
+                f"{step_ms}; launches {launches}")
+            del model, opt, step
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return res
+
+
 RANK_TIMEOUT_S = 600
 
 
@@ -2254,7 +2425,7 @@ def rank_worker(torch, args) -> int:
     from hept_tpu_torch.ops import bucket_attn_cuda, pair_ops, row_gather
     from hept_tpu_torch.parallel import tp
     from hept_tpu_torch.parallel.dp import shard_batch, train_step
-    from hept_tpu_torch.parallel.mesh import AXES, make_mesh
+    from hept_tpu_torch.parallel.mesh import TP_AXES, make_mesh
     from hept_tpu_torch.parallel.sp import head_sharded_attention
     from hept_tpu_torch.train import trainer
     from hept_tpu_torch.train.config import profile_config
@@ -2307,7 +2478,7 @@ def rank_worker(torch, args) -> int:
     # TP: the parity profile, heads over the ranks, on the reference's
     # permutations (this rank's heads), Adam steps through dp.train_step
     cfg = profile_config("hept", device=DEVICE, num_epochs=1, shard_heads=world)
-    mesh = make_mesh(world, AXES, (1, 1, world), device=DEVICE)
+    mesh = make_mesh(world, TP_AXES, (1, 1, world), device=DEVICE)
     b = trainer.batch_to_device(inp["tp_batch"], DEVICE)
     model = tp.make_tp_model(cfg.model_config(b["x"].shape[2], b["coords"].shape[2]), mesh,
                              None, DEVICE, state_dict=inp["tp_state"])
@@ -2341,12 +2512,170 @@ def rank_worker(torch, args) -> int:
 
     out["sp"] = counted("sp", sp_run, lambda r: {"out": r[0].detach().cpu(),
                                                  "grads": [g.cpu() for g in r[1]]})
+    del ins, sp
+    out.update(rank_bucket(torch, trainer, inp["bucket"], world, counted, cpu))
     torch.save(out, d / f"out_{rank}.pt")
     dist.destroy_process_group()
     return 0
 
 
-def phase_two_ranks(torch, trainer, batch2_np, batch100_np, seed: int) -> dict:
+def rank_bucket(torch, trainer, inp: dict, world: int, counted, cpu) -> dict:
+    """30 on one rank of `rank_worker`: the bucket-sharded core over the
+    ranks, each transport (forward, the six input gradients, the sort
+    orders it took), the overflow case (cap_factor 1e-6), then one
+    `make_bucket_train_step` step per transport of the share_heads model on
+    a ("data", "buckets") = (1, world) mesh, dropout off, on the
+    single-process run's sort orders."""
+    from hept_tpu_torch.parallel.bp import (
+        bucket_sharded_core,
+        make_bucket_model,
+        make_bucket_train_step,
+    )
+    from hept_tpu_torch.parallel.mesh import make_mesh
+
+    out = {}
+    core = {k: v.to(DEVICE) if torch.is_tensor(v) else v for k, v in inp["core"].items()}
+    group = make_mesh(world, ("buckets",), device=DEVICE).group("buckets")
+    names = ("x", "coords", "wq", "wk", "wv", "sqrt_w")
+    for label, transport, cap in (("replicated", "replicated", 2.0),
+                                  ("distributed", "distributed", 2.0),
+                                  ("overflow", "distributed", 1e-6)):
+        ins = [core[k].clone().requires_grad_(True) for k in names]
+
+        def run():
+            seen = []
+            o = bucket_sharded_core(*ins, core["alpha"], core["codes"], core["invalid"], group,
+                                    block_size=core["block_size"], transport=transport,
+                                    cap_factor=cap, record_perms=seen)
+            return o, torch.autograd.grad((o * core["cot"]).sum(), ins), seen[0]
+
+        out[f"bucket_core_{label}"] = counted(
+            f"bucket core {label}", run,
+            lambda r: {"out": r[0].detach().cpu(), "grads": [g.cpu() for g in r[1]],
+                       "src": r[2].cpu()})
+    mesh = make_mesh(world, ("data", "buckets"), (1, world), device=DEVICE)
+    cfg = share_heads_config()
+    b = trainer.batch_to_device(inp["batch"], DEVICE)
+    tcfg = cfg.model_config(b["x"].shape[2], b["coords"].shape[2])
+    perms = [p_.to(DEVICE) for p_ in inp["perms"]]
+
+    def apply(m_, b_, g_):
+        return m_(b_["x"][0], b_["coords"][0], b_["valid"][0], g_, perms=perms)[None]
+
+    for transport in BUCKET_TRANSPORTS:
+        model = make_bucket_model(tcfg, mesh, None, DEVICE, inp["state"], transport)
+        opt = trainer.make_optimizer(model.parameters(), cfg.optimizer_name,
+                                     cfg.optimizer_kwargs["lr"])
+        step = make_bucket_train_step(model, opt, trainer.make_loss_fn(cfg), mesh,
+                                      apply_fn=apply)
+        out[f"bucket_step_{transport}"] = counted(
+            f"bucket step {transport}", lambda: step(b),
+            lambda m: {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                       "grads": cpu({k: p.grad for k, p in model.named_parameters()})})
+        del model, opt, step
+    return out
+
+
+def bucket_reference(torch, trainer, batch_np, seed: int, state: dict) -> tuple[dict, dict]:
+    """30's single-process references and the ranks' inputs: layer 0's
+    operands of the share_heads model (phase 28's initial weights) through
+    `hept_attention_core_xcols` without a plan (forward, the gradients of
+    x, coords, wq, wk, wv, sqrt_w through a fixed random cotangent, the sort
+    orders), and the model's loss and gradients, dropout off, with each
+    layer's sort orders recorded."""
+    from hept_tpu_torch.models.transformer import prepare_event
+    from hept_tpu_torch.ops.bucket_attn import hept_attention_core_xcols
+
+    cfg = share_heads_config()
+    bs = cfg.model_kwargs["block_size"]
+    batch = trainer.batch_to_device(batch_np, DEVICE)
+    model = trainer.build_model(cfg, batch_np["x"].shape[2], batch_np["coords"].shape[2], None,
+                                DEVICE)
+    model.load_state_dict(state)
+    blk = model.blocks[0]
+    with torch.no_grad():
+        x, coords, codes, invalid = prepare_event(batch["x"][0], batch["coords"][0],
+                                                  batch["valid"][0], model.regions, bs)
+        xn = blk.norm1(model.feat_enc_1(torch.relu(model.feat_enc_0(x))))
+        core = {"x": xn.t().contiguous(), "coords": coords.t().contiguous(),
+                "wq": blk._heads(blk.w_q), "wk": blk._heads(blk.w_k), "wv": blk._heads(blk.w_v),
+                "sqrt_w": blk.attn._sqrt_w(blk.w_rpe)}
+        core = {k: v.detach().contiguous() for k, v in core.items()}
+    ins = [v.clone().requires_grad_(True) for v in core.values()]
+    h, _, d = core["wq"].shape
+    cot = torch.randn((x.shape[0], h * d), device=DEVICE,
+                      generator=torch.Generator(device=DEVICE).manual_seed(seed))
+    alpha = blk.attn.e2lsh_alpha.detach()
+    seen = []
+    out = hept_attention_core_xcols(*ins, alpha, codes, invalid, None, block_size=bs,
+                                    impl="pallas", unsort_rows=False, record_perms=seen)
+    grads = torch.autograd.grad((out * cot).sum(), ins)
+    ref = {"core": {"out": out.detach(), "grads": grads, "src": seen[0]}}
+    perms = []
+    loss, mgrads = loss_and_grads(torch, model, trainer.make_loss_fn(cfg), batch,
+                                  record_perms=perms)
+    ref["step"] = {"loss": loss, "grads": mgrads}
+    inputs = {"core": {**{k: v.cpu() for k, v in core.items()}, "alpha": alpha.cpu(),
+                       "codes": codes.cpu(), "invalid": invalid.cpu(), "cot": cot.cpu(),
+                       "block_size": bs},
+              "state": state, "batch": batch_np, "perms": [p_.cpu() for p_ in perms],
+              "buckets_per_rank": x.shape[0] // bs // 2}
+    del model, batch, out, ins
+    torch.cuda.empty_cache()
+    return inputs, ref
+
+
+def check_bucket_ranks(torch, outs: list, ref: dict, n_buckets: int) -> None:
+    """30's checks on the ranks' results: each transport's core output to
+    1e-5 and input gradients to 1e-4 of scale against the single process,
+    on the same sort orders (the ranks' own keys must give them); the
+    overflow case NaN everywhere; each transport's train step: loss rtol
+    1e-5, every parameter gradient 1e-4 of its scale (floored at 1e-3 of the
+    largest) against the single process; K6 f32 / K7 v1 one launch a layer
+    a rank (one each a core call, 4 each a step), K5 only with the
+    replicated transport."""
+    r = ref["core"]
+    for rank, o in enumerate(outs):
+        for label in BUCKET_TRANSPORTS:
+            res = o[f"bucket_core_{label}"]
+            check_launches(f"bucket core {label} rank {rank}", res["launches"],
+                           {"cols_fwd": 1, "cols_bwd": 1, "row_gather":
+                            2 if label == "replicated" else 0})
+            if not torch.equal(res["src"].to(DEVICE), r["src"]):
+                raise AssertionError(f"bucket core {label} rank {rank}: its keys sorted "
+                                     "otherwise than the single process's")
+            check(f"bucket core {label} rank {rank} output max|d|",
+                  max_err(res["out"].to(DEVICE), r["out"]), 1e-5 * scale(r["out"]))
+            for nm, a, b in zip(("x", "coords", "wq", "wk", "wv", "sqrt_w"), res["grads"],
+                                r["grads"]):
+                check(f"bucket core {label} rank {rank} d{nm} max|d|", max_err(a.to(DEVICE), b),
+                      1e-4 * scale(b))
+        if not torch.isnan(o["bucket_core_overflow"]["out"]).all():
+            raise AssertionError(f"bucket core overflow rank {rank}: output not all NaN")
+    r = ref["step"]
+    floor = 1e-3 * max(scale(g) for g in r["grads"].values())
+    for rank, o in enumerate(outs):
+        for transport in BUCKET_TRANSPORTS:
+            res = o[f"bucket_step_{transport}"]
+            check_launches(f"bucket step {transport} rank {rank}", res["launches"],
+                           {"cols_fwd": 4, "cols_bwd": 4, "cols_fwd_tc": 0, "cols_bwd_tc": 0,
+                            "row_gather": 8 if transport == "replicated" else 0})
+            check(f"bucket step {transport} rank {rank} loss |d| / |loss|",
+                  abs(res["loss"] - r["loss"]) / abs(r["loss"]), 1e-5)
+            ratios = {k: max_err(res["grads"][k].to(DEVICE), g) / max(scale(g), floor)
+                      for k, g in r["grads"].items()}
+            worst = max(ratios, key=ratios.get)
+            check(f"bucket step {transport} rank {rank}: all {len(ratios)} parameter gradients, "
+                  f"worst {worst}", ratios[worst], 1e-4)
+    log(f"phase bucket two ranks: share_heads, bucket shards 2 ({n_buckets} buckets of 100 a "
+        "round and head a rank); ms by rank (first, warm): " + "; ".join(
+            f"{k[7:]} {[[round(x, 1) for x in o[k]['ms']] for o in outs]}"
+            for k in outs[0] if k.startswith("bucket_"))
+        + f"; step launches a rank {outs[0]['bucket_step_replicated']['launches']} "
+          f"(replicated), {outs[0]['bucket_step_distributed']['launches']} (distributed)")
+
+
+def phase_two_ranks(torch, trainer, batch2_np, batch100_np, seed: int, share: dict) -> dict:
     """The two-rank phases (25-27) on one card: the references here, the
     ranks in `spawn_ranks`. 25 DP: hept_acc, an event a rank, one Adam step
     (dropout off) against the single-process step of both events: loss
@@ -2415,6 +2744,8 @@ def phase_two_ranks(torch, trainer, batch2_np, batch100_np, seed: int) -> dict:
     n_buckets = sperms[0][0].shape[0] * ins[0].shape[0] * (ins[0].shape[1] // bs)
     del model, batch, x, xn, cols, ins, out
     torch.cuda.empty_cache()
+    inputs["bucket"], ref["bucket"] = bucket_reference(torch, trainer, batch100_np, seed,
+                                                       share["init_state"])
 
     t0 = time.perf_counter()
     outs = spawn_ranks(2, inputs)
@@ -2475,8 +2806,95 @@ def phase_two_ranks(torch, trainer, batch2_np, batch100_np, seed: int) -> dict:
         f"heads a rank; ms by rank (first, warm) "
         f"{[[round(x, 1) for x in o['sp']['ms']] for o in outs]}; launches a rank "
         f"{outs[0]['sp']['launches']}")
-    return {k: [o[k]["launches"] for o in outs] for k in ("dp", "tp", "sp")} | {
-        "ms": {k: [o[k]["ms"] for o in outs] for k in ("dp", "tp", "sp")}}
+    # 30. the bucket-axis SP
+    check_bucket_ranks(torch, outs, ref["bucket"], inputs["bucket"]["buckets_per_rank"])
+    keys = [k for k in outs[0] if k not in ("dp", "tp", "sp")] + ["dp", "tp", "sp"]
+    return {k: [o[k]["launches"] for o in outs] for k in keys} | {
+        "ms": {k: [o[k]["ms"] for o in outs] for k in keys}}
+
+
+def reference_graph(rng, n: int, evtid: int) -> dict:
+    """One tracking event in the reference's processed (PyG) layout: 14
+    features, (eta, phi), layer, particle id (noise 0), reconstructability,
+    pt, evtid and the supervision pairs within each particle."""
+    import numpy as np
+
+    pid = rng.integers(0, max(2, n // 6), n)
+    pid[:n // 20] = 0
+    src, dst = [], []
+    for p_ in np.unique(pid[pid > 0]):
+        idx = np.nonzero(pid == p_)[0]
+        a, b = np.meshgrid(idx, idx)
+        keep = a != b
+        src.append(a[keep])
+        dst.append(b[keep])
+    return dict(x=rng.standard_normal((n, 14)).astype(np.float32),
+                pos=rng.standard_normal((n, 2)).astype(np.float32),
+                layer=rng.integers(0, 10, n), particle_id=pid,
+                reconstructable=rng.integers(0, 2, n), pt=rng.uniform(0.1, 3.0, n),
+                evtid=np.array([evtid]),
+                point_pairs_index_rad=np.stack([np.concatenate(src), np.concatenate(dst)]))
+
+
+def phase_reference_data(torch, trainer, seed: int, zero_counts, read_counts) -> dict:
+    """31. A reference-layout `data.pt` (10 events of 2000 points, pickled as
+    PyG's `Data`) written on the host and read back through `get_dataset`
+    (`data/loaders.py`): the reference's split and every event's pairs in
+    range; one parity step (dropout off) on the card on its first test event, K6 / K7
+    v1 4 each and K5 8, a finite loss. Then `scripts/hept_example.py` at a
+    small size on the card (2000 points, 3 events, 2 epochs): finite losses
+    and retrieval metrics in [0, 1]."""
+    import numpy as np
+
+    from hept_tpu_torch.data.batching import pack_events
+    from hept_tpu_torch.data.datasets import get_dataset
+    from hept_tpu_torch.data.loaders import save_reference_dataset
+    from hept_tpu_torch.scripts import hept_example
+    from hept_tpu_torch.train.config import profile_config
+
+    rng = np.random.default_rng(seed)
+    d = tempfile.mkdtemp(prefix="chip_smoke_ref_")
+    t0 = time.perf_counter()
+    save_reference_dataset([reference_graph(rng, 2000, 100 + i) for i in range(10)],
+                           "tracking-6k", d, ("point_pairs_index_rad",))
+    ds = get_dataset("tracking-6k", data_dir=d)
+    load_s = time.perf_counter() - t0
+    events = ds.train + ds.valid + ds.test
+    # the reference's split of 10 events: 80 % rounded down to a multiple of
+    # 10 trains (none), 10 % validates, the rest tests
+    if (len(ds.train), len(ds.valid), len(ds.test)) != (0, 1, 9) or (ds.in_dim, ds.coords_dim) \
+            != (15, 6) or not all(0 <= ev.pairs.min() and ev.pairs.max() < ev.n for ev in events):
+        raise AssertionError(f"reference archive read back wrong: splits {len(ds.train)} / "
+                             f"{len(ds.valid)} / {len(ds.test)}, dims {ds.in_dim} / "
+                             f"{ds.coords_dim}")
+    cfg = profile_config("hept", device=DEVICE, num_epochs=1)
+    batch = trainer.batch_to_device(pack_events(ds.test[:1], block_size=100,
+                                                window_pairs=128), DEVICE)
+    model = trainer.build_model(cfg, ds.in_dim, ds.coords_dim,
+                                torch.Generator(device=DEVICE).manual_seed(seed), DEVICE)
+    opt = trainer.make_optimizer(model.parameters(), cfg.optimizer_name,
+                                 cfg.optimizer_kwargs["lr"])
+    zero_counts()
+    loss = float(trainer.train_step(model, opt, trainer.make_loss_fn(cfg), batch)["loss"])
+    launches = read_counts()
+    check_launches("reference-data parity step", launches, cols_f32_launches(1))
+    if not math.isfinite(loss):
+        raise AssertionError(f"reference-data parity step: loss {loss}")
+    log(f"phase reference data: 10 events of 2000 points written in the reference's layout "
+        f"and read through get_dataset in {load_s:.2f} s; one parity step on the test event "
+        f"(n = {batch['x'].shape[1]}): loss {loss:.6f}, launches {launches}")
+    del model, opt, batch
+    t0 = time.perf_counter()
+    res = hept_example.main(["--device", DEVICE, "--points", "2000", "--events", "3",
+                             "--epochs", "2"])
+    if not (all(math.isfinite(x) for x in res["losses"])
+            and all(0.0 <= res[k] <= 1.0 for k in ("accuracy", "precision", "recall"))):
+        raise AssertionError(f"hept_example: {res}")
+    log(f"phase example: hept_example at 2000 points, 3 events, 2 epochs on the card in "
+        f"{time.perf_counter() - t0:.1f} s: losses {res['losses']}, accuracy@0.9 "
+        f"{res['accuracy']:.4f}, inference {res['inference_ms']:.2f} ms / event")
+    torch.cuda.empty_cache()
+    return {"launches": launches, "example": res}
 
 
 def hept_tpu_torch_root() -> str:
@@ -2829,7 +3247,14 @@ def main(argv=None) -> int:
     flat = phase_flat(torch, trainer, batch2, args.profile_steps, args.seed, zero_counts,
                       read_counts)
     dp1 = phase_dp_nccl(torch, trainer, batch_np, args.seed)
-    two = phase_two_ranks(torch, trainer, batch2, batch100, args.seed)
+    # 28. the dynamic-key share_heads model; 29. its bucket train step at
+    # world 1 over NCCL, both transports; 30. (in the two-rank spawn) the
+    # bucket-sharded core and step over two ranks sharing the card
+    share = phase_share_heads(torch, trainer, batch100, args.profile_steps, args.seed,
+                              zero_counts, read_counts)
+    bucket1 = phase_bucket_nccl(torch, trainer, batch100, args.seed, share, zero_counts,
+                                read_counts)
+    two = phase_two_ranks(torch, trainer, batch2, batch100, args.seed, share)
     for key, name in (("K1", "bucket_attn_fwd_tc"), ("K2", "bucket_attn_bwd_tc")):
         rows[key]["flat_launches"] = flat["flat"]["launches"][name]
         rows[key]["flat_launches_in"] = (f"phase 23, {args.profile_steps} flat hept_acc steps "
@@ -2843,12 +3268,31 @@ def main(argv=None) -> int:
         rows[key]["sp_launches"] = [ln.get(name, 0) for ln in two["sp"]]
         rows[key]["sp_launches_in"] = ("phase 27, head_sharded_attention forward + backward, "
                                        "by rank")
+    for key, name in (("K6", "cols_fwd"), ("K7", "cols_bwd"), ("K5p", "row_gather")):
+        rows[key]["share_heads_launches"] = share["launches"][name]
+        rows[key]["share_heads_launches_in"] = (f"phase 28, {args.profile_steps} share_heads "
+                                                "steps")
+        rows[key]["bucket_nccl_launches"] = {t: r["launches"][name] for t, r in bucket1.items()}
+        rows[key]["bucket_nccl_launches_in"] = (f"phase 29, {args.profile_steps} bucket steps "
+                                                "at world 1, by transport")
+        rows[key]["bucket_rank_launches"] = {t: [ln.get(name, 0)
+                                                 for ln in two[f"bucket_step_{t}"]]
+                                             for t in BUCKET_TRANSPORTS}
+        rows[key]["bucket_rank_launches_in"] = ("phase 30, one bucket step with 2 bucket "
+                                                "shards, by transport and rank")
     log(f"phase parallel ({smi}): flat B=2 step {flat['flat']['steady_ms']:.1f} ms (busy "
         f"{flat['flat']['busy_ms']:.2f}) vs loop {flat['loop']['steady_ms']:.1f} ms (busy "
         f"{flat['loop']['busy_ms']:.2f}) vs one event {flat['one event']['steady_ms']:.1f} ms "
         f"(busy {flat['one event']['busy_ms']:.2f}); NCCL world-1 DP step "
-        f"{dp1['dp']['steady_ms']:.1f} ms vs plain {dp1['plain']['steady_ms']:.1f} ms; two "
-        f"ranks on one card (correctness, not scaling): ms by rank (first, warm) {two['ms']}")
+        f"{dp1['dp']['steady_ms']:.1f} ms vs plain {dp1['plain']['steady_ms']:.1f} ms; "
+        f"share_heads step {share['steady_ms']:.1f} ms (busy {share['busy_ms']:.2f}); NCCL "
+        f"world-1 bucket step " + ", ".join(f"{t} {r['steady_ms']:.1f} ms"
+                                            for t, r in bucket1.items())
+        + f"; two ranks on one card (correctness, not scaling): ms by rank (first, warm) "
+          f"{two['ms']}")
+
+    # 31. a reference-layout archive through get_dataset, and the example
+    phase_reference_data(torch, trainer, args.seed, zero_counts, read_counts)
 
     # K11 (row_gather_vreg) has K5's contract and runs on K5's kernel
     rows["K11"] = dict(rows["K5"], name="K11 row_gather_vreg", ported_by="K5",

@@ -1,5 +1,6 @@
 """Synthetic tracking and pileup datasets with the reference's 80/10/10
-split (own copy of the synthetic part of `hept_tpu/data/datasets.py`)."""
+split (own copy of `hept_tpu/data/datasets.py`), and the dispatch of the
+reference's processed archives to `loaders.py`."""
 
 from __future__ import annotations
 
@@ -75,11 +76,17 @@ def make_synthetic_pileup(n_events: int = 20, n_points: int = 1000,
 def get_dataset(name: str, seed: int = 0, **kwargs) -> SplitDataset:
     """`synthetic-tracking-<n>[k]` datasets, e.g. synthetic-tracking-60k, and
     `synthetic-pileup` (events of up to 1000 points; as in the JAX package,
-    the name takes no size)."""
+    the name takes no size); the reference's processed `tracking-*` and
+    `pileup` archives (`loaders.load_reference_dataset`, keyword
+    `data_dir`)."""
     if name.startswith("synthetic-pileup"):
         return make_synthetic_pileup(seed=seed, **kwargs)
+    if name.startswith("tracking-") or name == "pileup":
+        from .loaders import load_reference_dataset
+
+        return load_reference_dataset(name, **kwargs)
     if not name.startswith("synthetic-tracking"):
-        raise NotImplementedError(f"{name}: only the synthetic datasets are ported")
+        raise NotImplementedError(name)
     tail = name.rsplit("-", 1)[-1]
     n_points = int(tail.replace("k", "000")) if tail[-1] in "k0123456789" \
         and tail[0].isdigit() else 1000

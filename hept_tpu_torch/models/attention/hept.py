@@ -1,5 +1,6 @@
 """HEPT attention module (port of `hept_tpu/models/attention/hept.py`): the
-post-sort branch on a static bucket plan and the pre-sort branch with
+post-sort branch (on a static bucket plan, or with per-layer dynamic keys
+shared by the heads, optionally bucket-sharded) and the pre-sort branch with
 per-layer, per-head dynamic keys."""
 
 from __future__ import annotations
@@ -27,11 +28,13 @@ def rpe_scales(w_rpe: torch.Tensor, num_heads: int, h_dim: int, coords_dim: int,
 class HeptAttention(nn.Module):
     """LSH-bucketed block-local RBF attention for one event.
 
-    Post-sort (static plan): the caller passes the shared normed hidden state
-    and the per-head q/k/v kernels, applied after the plan's gather; the
-    plan does not read `e2lsh_alpha` (1 head), which is kept so weights carry
-    across unchanged. Pre-sort (dynamic keys): the caller passes the q/k/v
-    projections, and `e2lsh_alpha` (h, d + cd, n_hashes) hashes each head.
+    Post-sort (qkv_post_sort + share_heads): the caller passes the shared
+    normed hidden state and the per-head q/k/v kernels, applied after the
+    sort. A static plan does not read `e2lsh_alpha` (1 head), which is kept
+    so weights carry across unchanged; with dynamic keys it hashes
+    [x | coords] once per round for every head. Pre-sort (dynamic keys): the
+    caller passes the q/k/v projections, and `e2lsh_alpha` (h, d + cd,
+    n_hashes) hashes each head.
 
     Under tensor parallelism (dynamic keys; `groups` {"heads", "hashes"})
     the module holds its rank's heads and OR rounds: q_hat / k_hat / v enter
@@ -46,6 +49,7 @@ class HeptAttention(nn.Module):
         self.cfg = cfg
         groups = groups or {}
         self.head_group, self.hash_group = groups.get("heads"), groups.get("hashes")
+        self.bucket_group = groups.get("buckets")
         h, d = cfg.num_heads, cfg.h_dim
         self.out_linear = TorchLinear(h * cfg.head_shards * d, d, generator=generator,
                                       device=device)
@@ -59,17 +63,35 @@ class HeptAttention(nn.Module):
         cfg = self.cfg
         return rpe_scales(w_rpe, cfg.num_heads, cfg.h_dim, cfg.coords_dim, cfg.num_w_per_dist)
 
-    def forward_static(self, x_normed, coords, invalid, plan, w_rpe, wq, wk, wv):
-        """Post-sort path. x_normed: (n, d) normed hidden state; wq/wk/wv:
-        (h, d, d) head-major kernels, applied after the plan's gather.
-        Returns (n, d)."""
+    def forward_post_sort(self, x_normed, coords, codes, invalid, plan, w_rpe, wq, wk, wv,
+                          perms=None, record_perms=None):
+        """Post-sort path, all heads on one bucket grid per round. x_normed:
+        (n, d) normed hidden state; wq/wk/wv: (h, d, d) head-major kernels,
+        applied after the sort. On the static plan (`plan`) the plan orders
+        the points; with dynamic keys `e2lsh_alpha` (1, d + cd, n_hashes)
+        hashes [x | coords] with head 0's AND codes (`codes` (c, h, n)), and
+        `perms` / `record_perms` impose / record the (c, n) sort orders.
+        Under bucket sharding (`groups["buckets"]`) the dynamic-key layer
+        runs `parallel/bp.py:bucket_sharded_core` over the group. Returns
+        (n, d)."""
         cfg = self.cfg
-        out = hept_attention_core_xcols(
-            x_normed.t(), coords.t(), wq, wk, wv, self._sqrt_w(w_rpe), invalid, plan,
-            block_size=cfg.block_size, impl=cfg.attn_impl, sort_pack=cfg.sort_pack,
-            unsort_pack=cfg.unsort_pack, kernel_bf16=cfg.kernel_bf16,
-            kernel_center=cfg.kernel_center, sort_events=cfg.sort_events,
-        )  # (n, h * d) rows
+        sqrt_w = self._sqrt_w(w_rpe)
+        if self.bucket_group is not None:
+            from ...parallel.bp import bucket_sharded_core
+
+            out = bucket_sharded_core(
+                x_normed.t(), coords.t(), wq, wk, wv, sqrt_w, self.e2lsh_alpha, codes, invalid,
+                self.bucket_group, block_size=cfg.block_size, impl=cfg.attn_impl,
+                transport=cfg.bucket_transport, cap_factor=cfg.bucket_cap_factor,
+                unsort_rows=cfg.unsort_rows, src=perms, record_perms=record_perms)
+        else:
+            out = hept_attention_core_xcols(
+                x_normed.t(), coords.t(), wq, wk, wv, sqrt_w, self.e2lsh_alpha, codes, invalid,
+                plan, block_size=cfg.block_size, impl=cfg.attn_impl, sort_pack=cfg.sort_pack,
+                unsort_pack=cfg.unsort_pack, kernel_bf16=cfg.kernel_bf16,
+                kernel_center=cfg.kernel_center, sort_events=cfg.sort_events,
+                unsort_rows=cfg.unsort_rows, src=perms, record_perms=record_perms,
+            )  # (n, h * d) rows
         return self.out_linear(out)
 
     def prep_qkv(self, query, key, value, coords, invalid, w_rpe):

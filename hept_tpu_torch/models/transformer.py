@@ -4,14 +4,17 @@ ported profiles and the seven baseline attentions).
 Feature-MLP encoder -> N pre-LN attention blocks with residual + FF ->
 concat of all layer outputs -> bias-free `W` -> 5-layer tanh/LayerNorm MLP
 residual head. The pileup task embeds the PID in the last feature column
-before the encoder and ends in a sigmoid classifier. Two ways to bucket the points:
+before the encoder and ends in a sigmoid classifier. Three ways to bucket the points:
 - static plan (hept_acc, hept_fast, hept_turbo): keys are hashed once per
   step from the encoder output and coords (`static_hash`); one plan of
   `static_rounds` rounds is built, and layer l uses rounds
   [(l * n_hashes + j) % static_rounds for j < n_hashes];
 - dynamic keys (the reference-parity `hept`): each layer projects q/k/v
   before the sort and hashes every head on its own, with the per-head AND
-  codes of `prepare_event`.
+  codes of `prepare_event`;
+- dynamic keys shared by the heads (qkv_post_sort + share_heads, f32):
+  each layer hashes its normed state and coords once per OR round, sorts
+  them, and projects per head after the sort.
 The baselines (`attn_type` performer, flt, reformer, smyrf, sb, pct,
 flatformer; `models/attention/`) take the same encoder and head: pre-LN
 q/k/v projections of x + pe (a learned or sinusoidal positional embedding
@@ -36,6 +39,9 @@ Head / hash tensor parallelism (`parallel/tp.py`): a model built with
 shard counts) runs its attention heads and OR rounds on this rank's
 slice; the attention output is all-gathered over heads before
 `out_linear`, and the OR-combine's sums are summed over hashes.
+Bucket-axis SP (`parallel/bp.py`): a model built with {"buckets": group}
+runs each layer's dynamic-key share_heads attention with its bucket grid
+split over the group; everything else is computed alike on every rank.
 """
 
 from __future__ import annotations
@@ -76,10 +82,12 @@ NUM_PIDS, PID_DIM = 7, 10
 class TransformerConfig:
     """Model hyperparameters, with the JAX TransformerConfig's names.
 
-    The port implements two paths of attn_type "hept" with replicate
+    The port implements three paths of attn_type "hept" with replicate
     padding (`check_supported`): the static plan (qkv_post_sort +
-    share_heads + static_keys + unsort_rows) and dynamic per-layer keys
-    (all four off); and the seven baseline attentions (`BASELINES`), which
+    share_heads + static_keys + unsort_rows), dynamic per-layer keys per
+    head (all four off) and dynamic per-layer keys shared by the heads
+    (qkv_post_sort + share_heads, f32; the path the bucket-axis SP runs);
+    and the seven baseline attentions (`BASELINES`), which
     read the baseline fields at the end and none of hept's modes.
     `attn_impl` selects the bucket kernels
     (`ops/bucket_attn_cuda.py:cols_routes`): every mode of the JAX package
@@ -140,6 +148,13 @@ class TransformerConfig:
     # holds one shard's num_heads and n_hashes
     head_shards: int = 1
     hash_shards: int = 1
+    # bucket-axis sequence parallelism (`parallel/bp.py`): each layer's
+    # sorted bucket grid splits over this many ranks, the payload moved by
+    # a replicated sort ("replicated") or capped all-to-alls
+    # ("distributed", cells of ceil(bucket_cap_factor * n / P^2) points)
+    bucket_shards: int = 1
+    bucket_transport: str = "replicated"
+    bucket_cap_factor: float = 2.0
 
     def check_supported(self) -> None:
         need = {
@@ -150,13 +165,19 @@ class TransformerConfig:
             "ROADMAP.md queue 1, item 2b)": not self.use_ckpt,
         }
         tp = self.head_shards > 1 or self.hash_shards > 1
+        bucket = self.bucket_shards > 1 or self.bucket_transport != "replicated"
         if self.attn_type != "hept":
             need["head / hash sharding targets HEPT (hept_tpu/parallel/tp.py:125)"] = not tp
+            need["bucket sharding targets HEPT (hept_tpu/parallel/bp.py:305)"] = not bucket
             need["sort_events == 1 (stacked batching is the static plan's)"] = \
                 self.sort_events == 1
             self._refuse(need)
             return
         need.update({
+            # JAX's "fp8" unsort (e4m3 ratio transport) is not ported; a
+            # truthy string must not run as the bf16 transport
+            f"sort_pack and unsort_pack are bools ('fp8': {_ROADMAP})":
+                isinstance(self.sort_pack, bool) and isinstance(self.unsort_pack, bool),
             f"padding_mode == 'replicate' (zero padding: {_ROADMAP})":
                 self.padding_mode == "replicate",
             "num_and_hashes == 2": self.num_and_hashes == 2,
@@ -185,19 +206,43 @@ class TransformerConfig:
                     (self.static_rounds or self.n_hashes) % self.n_hashes == 0,
             })
         else:
-            # dynamic keys: the reference-parity path; post-sort projections,
-            # shared sorts and the bf16 modes without a static plan are not
-            # ported
+            # dynamic keys: the reference-parity path (per-head keys, q/k/v
+            # projected before the sort) and the post-sort share_heads path
+            # (one key row per OR round in [x | coords] space) in f32; the
+            # other post-sort modes and the bf16 modes are not ported
+            post = bool(self.qkv_post_sort)
             need.update({
-                f"dynamic keys: no qkv_post_sort ({_ROADMAP})": not self.qkv_post_sort,
-                f"dynamic keys: no shared_sort / share_heads ({_ROADMAP})":
-                    not (self.shared_sort or self.share_heads),
+                f"dynamic keys: qkv_post_sort together with share_heads, and neither "
+                f"shared_sort nor share_heads without it ({_ROADMAP})":
+                    post == bool(self.share_heads) and (post or not self.shared_sort),
                 f"dynamic keys: no sort_pack ({_ROADMAP})": not self.sort_pack,
+                f"dynamic keys with share_heads: no unsort_pack ({_ROADMAP})":
+                    not (post and self.unsort_pack),
+                "dynamic keys with share_heads: no head / hash sharding (e2lsh_alpha is one "
+                "head wide, as on the static plan)": not (post and tp),
                 f"dynamic keys: no kernel_bf16 / kernel_center ({_ROADMAP})":
                     not (self.kernel_bf16 or self.kernel_center),
                 "dynamic keys: sort_events == 1 (the dynamic-key core sorts the whole flat "
                 "row; hept_tpu/ops/bucket_attn.py:hept_attention_core_cols takes no "
                 "sort_events)": self.sort_events == 1,
+            })
+        if bucket:
+            # hept_tpu/models/attention/hept.py:174-179, and what the port
+            # refuses besides: JAX's bucket step has no TP, and its bucket
+            # core runs f32 whatever the kernel flags say
+            need.update({
+                "bucket shards: the dynamic-key share_heads path (qkv_post_sort + share_heads, "
+                "no static plan)": bool(self.share_heads) and not self.static_keys,
+                "bucket shards: f32 transport (no sort_pack / unsort_pack)":
+                    not (self.sort_pack or self.unsort_pack),
+                "bucket shards: f32 kernels (no kernel_bf16 / kernel_center: JAX's bucket core "
+                "ignores them and runs f32)": not (self.kernel_bf16 or self.kernel_center),
+                "bucket shards: sort_events == 1 (the bucket SP shards one event)":
+                    self.sort_events == 1,
+                "bucket shards: no head / hash sharding (hept_tpu/parallel/bp.py:"
+                "make_bucket_train_step has no TP)": not tp,
+                "bucket_transport in ('replicated', 'distributed')":
+                    self.bucket_transport in ("replicated", "distributed"),
             })
         self._refuse(need)
 
@@ -295,7 +340,7 @@ class PESinusoidal(nn.Module):
 def make_attention(cfg: TransformerConfig, generator=None, device=None,
                    groups: dict | None = None) -> nn.Module:
     """The attention module of `cfg.attn_type` (`groups`: hept's shard
-    groups under tensor parallelism)."""
+    groups under tensor or bucket-axis parallelism)."""
     common = dict(h_dim=cfg.h_dim, num_heads=cfg.num_heads, generator=generator, device=device)
     t = cfg.attn_type
     if t == "hept":
@@ -385,9 +430,9 @@ class AttnBlock(nn.Module):
         else:
             xn = self.norm1(x if pe is None else x + pe)
             if t == "hept" and self.cfg.qkv_post_sort:
-                aggr = self.attn.forward_static(xn, coords, invalid, plan, self.w_rpe,
-                                                self._heads(self.w_q), self._heads(self.w_k),
-                                                self._heads(self.w_v))
+                aggr = self.attn.forward_post_sort(xn, coords, codes, invalid, plan, self.w_rpe,
+                                                   self._heads(self.w_q), self._heads(self.w_k),
+                                                   self._heads(self.w_v), perms, record_perms)
             elif t == "hept":
                 # the replicated normed state feeds this rank's heads: its
                 # gradient is summed over the head shards
@@ -493,7 +538,8 @@ class HeptTransformer(nn.Module):
         inv, scoords) of `total_rounds` rounds, as built by `build_plan`.
         Dynamic keys: `perms` overrides each layer's (q_src, k_src)
         permutations, and `record_perms` (a list) receives them, one pair
-        per layer. Reformer / smyrf / sb: `rotations` overrides each layer's
+        per layer (shared by the heads: one (c, n) src a layer). Reformer /
+        smyrf / sb: `rotations` overrides each layer's
         random draws (a list, one entry per layer), and `perms` /
         `record_perms` do the same for their sort orders (reformer's
         bucket order, smyrf's and sb's (q, k) orders). `prepared`: hept's

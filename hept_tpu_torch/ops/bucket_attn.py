@@ -4,12 +4,17 @@
 Per bucket of `block_size` sorted points the core computes the unnormalised
 RBF kernel exp(min(q.k - |q|^2/2 - |k|^2/2, 0)), its row sums (denominator)
 and the value sums (numerator), then OR-combines the rounds as
-sum num / sum denom. Two paths:
+sum num / sum denom. The paths:
 - the static plan (hept_acc, hept_fast, hept_turbo): keys are hashed once
   per step (`static_hash`), one sort builds every round's permutation
   (`static_bucket_plan`), and each layer gathers its x columns by the plan,
   projects them after the gather, runs the bucket kernel and unsorts
   [num|denom] with a row gather (`hept_attention_core_xcols`);
+- dynamic keys shared by the heads (qkv_post_sort + share_heads, f32): each
+  layer hashes [x | coords] once per round and sorts it, then the same
+  projections, kernel and unsort (`hept_attention_core_xcols` without a
+  plan; its pieces are what the bucket-axis SP, `parallel/bp.py`, splits
+  over ranks);
 - dynamic keys (the reference-parity `hept` profile): each layer hashes its
   own projected q and k per head, sorts them by their own keys and unsorts
   by the q permutation (`hept_attention_core_cols`);
@@ -23,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from ..core.buckets import (
+    invert_permutation,
     permute_gather,
     permute_gather_rows,
     sort_carry,
@@ -41,7 +47,8 @@ from .bucket_attn_cuda import (
 __all__ = [
     "DENOM_EPS", "stable_ratio", "bucket_rbf_attention_cols", "bucket_rbf_attention_rows",
     "dense_rbf_attention", "static_hash", "static_bucket_plan", "hept_attention_core",
-    "hept_attention_core_xcols", "hept_attention_core_cols",
+    "hept_attention_core_xcols", "hept_attention_core_cols", "share_heads_keys",
+    "project_attend", "combine_rounds", "unsort_combine",
 ]
 
 # sort key of rows forced into trailing buckets
@@ -153,6 +160,92 @@ def static_bucket_plan(hashed: torch.Tensor, codes0: torch.Tensor,
         return src, inv, scoords.contiguous()
 
 
+def share_heads_keys(x_cols: torch.Tensor, coords_cols: torch.Tensor, sqrt_w: torch.Tensor,
+                     alpha: torch.Tensor, codes: torch.Tensor,
+                     invalid: torch.Tensor | None) -> torch.Tensor:
+    """The dynamic-key share_heads sort keys: one E2LSH key row per OR round
+    in [x | coords] space, shared by every head.
+
+    hash = a1 . x + (mean_h(sqrt_w) * a2) . coords with alpha = [a1; a2];
+    key = hash + codes[:, 0] * span(hash) per round (head 0's AND codes);
+    invalid rows key to +BIG. Detached.
+
+    Args: x_cols (d_model, n) and coords_cols (cd, n), invalid rows zeroed;
+      sqrt_w (h, cd); alpha (1, d_model + cd, c); codes (c, h, n);
+      invalid optional (n,) bool.
+    Returns: (c, n) float32 keys.
+    """
+    with torch.no_grad():
+        d_model = x_cols.shape[0]
+        a1, a2 = alpha[0, :d_model, :], alpha[0, d_model:, :]
+        gamma = sqrt_w.mean(dim=0)[:, None] * a2  # (cd, c)
+        hashed = (torch.einsum("ec,en->cn", a1, x_cols)
+                  + torch.einsum("rc,rn->cn", gamma, coords_cols))
+        hash_shift = hashed.amax(dim=1, keepdim=True) - hashed.amin(dim=1, keepdim=True)
+        key = hashed + codes[:, 0].to(torch.float32) * hash_shift
+        if invalid is not None:
+            key = torch.where(invalid[None, :], torch.full_like(key, _BIG_KEY), key)
+        return key
+
+
+def project_attend(sxc: torch.Tensor, sqrt_w: torch.Tensor, wq: torch.Tensor,
+                   wk: torch.Tensor, wv: torch.Tensor, *, block_size: int,
+                   impl: str) -> torch.Tensor:
+    """Project sorted [x | coords] columns per head and run the bucket
+    kernel (f32), the share_heads path's work between its sort and unsort.
+
+    Args: sxc (c, d_model + cd, m) sorted columns of c rounds, m a multiple
+      of block_size (whole buckets); sqrt_w (h, cd); wq, wk, wv (h, d_model,
+      d) kernels (x @ w); impl the bucket kernels' `attn_impl`.
+    Returns: (c, h, dv + 1, m) [numerator | denominator] per round and head.
+    """
+    h, d_model, d = wq.shape
+    dv = wv.shape[-1]
+    c, _, m = sxc.shape
+    sxs, scs = sxc[:, :d_model], sxc[:, d_model:]
+    rpe = sqrt_w[None, :, :, None] * scs[:, None]  # (c, h, cd, m)
+
+    def project(w):
+        return torch.einsum("hed,cen->chdn", w, sxs)
+
+    sq = torch.cat([project(wq), rpe], dim=2).reshape(c * h, d + rpe.shape[2], m)
+    sk = torch.cat([project(wk), rpe], dim=2).reshape(c * h, d + rpe.shape[2], m)
+    sv = project(wv).reshape(c * h, dv, m)
+    denom, so = bucket_rbf_attention_cols(sq.contiguous(), sk.contiguous(), sv.contiguous(),
+                                          block_size, impl)
+    return torch.cat([so, denom], dim=1).reshape(c, h, dv + 1, m)
+
+
+def combine_rounds(rows: torch.Tensor) -> torch.Tensor:
+    """OR-combine unsorted (c, h, m, dv + 1) [num | denom] rows: sum over
+    the rounds, then num / denom (`stable_ratio`). Returns (h, m, dv)."""
+    combined = rows.contiguous().sum(dim=0)
+    dv = combined.shape[-1] - 1
+    return stable_ratio(combined[..., :dv], combined[..., dv:])
+
+
+def unsort_combine(od: torch.Tensor, src: torch.Tensor, unsort_rows: bool = False) -> torch.Tensor:
+    """Unsort the share_heads path's (c, h, dv + 1, n) [num | denom] by the
+    rounds' permutations src (c, n) and OR-combine them; both unsorts are
+    exact row gathers (K5 on CUDA tensors).
+
+    unsort_rows: one gather of each round's merged (n, h * (dv + 1)) rows
+    (JAX's `hept_tpu/ops/bucket_attn.py:1054-1066`); else the permutation
+    broadcast to every head, a gather of (n, dv + 1) rows per (round, head)
+    (JAX's head-broadcast carry, `:1145-1155`).
+    Returns: (n, h * dv) output rows.
+    """
+    c, h, w, n = od.shape
+    dv = w - 1
+    if unsort_rows:
+        rows = od.permute(0, 3, 1, 2).reshape(c, n, h * w)
+        rows = permute_gather_rows(rows, invert_permutation(src), src)  # (c, n, h * w)
+        combined = rows.sum(dim=0).reshape(n, h, w)
+        return stable_ratio(combined[..., :dv], combined[..., dv:]).reshape(n, h * dv)
+    rows = unsort_carry(src[:, None].expand(c, h, n), od.transpose(2, 3).contiguous())
+    return combine_rounds(rows).permute(1, 0, 2).reshape(n, h * dv)
+
+
 def hept_attention_core_xcols(
     x_cols: torch.Tensor,
     coords_cols: torch.Tensor,
@@ -160,8 +253,10 @@ def hept_attention_core_xcols(
     wk: torch.Tensor,
     wv: torch.Tensor,
     sqrt_w: torch.Tensor,
-    invalid: torch.Tensor | None,
-    plan,
+    alpha: torch.Tensor | None,
+    codes: torch.Tensor | None,
+    invalid: torch.Tensor | None = None,
+    plan=None,
     *,
     block_size: int,
     impl: str = "slab2",
@@ -170,33 +265,69 @@ def hept_attention_core_xcols(
     kernel_bf16: bool = False,
     kernel_center: bool = False,
     sort_events: int = 1,
+    unsort_rows: bool = False,
+    src: torch.Tensor | None = None,
+    record_perms: list | None = None,
 ) -> torch.Tensor:
-    """Post-sort-projection HEPT attention on a static plan, all heads
-    sharing one bucket grid per round (the `hept_acc` path: share_heads,
-    unsort_rows; one event, or `sort_events` stacked events of n /
-    sort_events points, each its own row of the plan and the kernels).
+    """Post-sort-projection HEPT attention, all heads sharing one bucket grid
+    per round (share_heads): [x | coords] is sorted, then projected per head.
+
+    Two ways to the grid:
+    - a static plan (`plan`; the `hept_acc` path, unsort_rows; one event, or
+      `sort_events` stacked events of n / sort_events points, each its own
+      row of the plan and the kernels);
+    - dynamic keys (`plan` None; f32 only): each call hashes [x | coords]
+      with `alpha` (`share_heads_keys`), sorts it once per round, projects,
+      runs the bucket kernel and unsorts [num | denom] (`unsort_combine`,
+      by `unsort_rows`).
 
     Args:
       x_cols: (d_model, n) normed hidden state as columns.
       coords_cols: (cd, n).
       wq, wk, wv: (h, d_model, d) per-head projection kernels (x @ w).
       sqrt_w: (h, cd) RPE column scales.
-      invalid: optional (n,) bool rows (zeroed).
+      alpha: (1, d_model + cd, c) E2LSH directions (dynamic keys; the plan
+        does not read it).
+      codes: (c, h, n) AND codes (dynamic keys).
+      invalid: optional (n,) bool rows (zeroed; dynamic keys sort them last).
       plan: (src, inv, scoords) from `static_bucket_plan`, c rounds.
       impl: the bucket kernels' `attn_impl` mode (`bucket_rbf_attention_cols`).
-      sort_pack: gather x through bf16 and project in bf16.
-      unsort_pack: move the [num|denom] rows through bf16 in the unsort.
-      kernel_bf16: feed the bucket kernels bf16 operands.
+      sort_pack: gather x through bf16 and project in bf16 (static plan).
+      unsort_pack: move the [num|denom] rows through bf16 in the unsort
+        (static plan).
+      kernel_bf16: feed the bucket kernels bf16 operands (static plan).
       kernel_center: subtract a per-bucket mean from the RPE columns of q
         and k before any bf16 cast (exact in f32: the RBF logits are
-        -|q - k|^2/2, shift-invariant).
+        -|q - k|^2/2, shift-invariant; static plan).
       sort_events: the plan's event rows (n must divide by sort_events *
         block_size).
+      unsort_rows: dynamic keys: the merged-row unsort, else the
+        head-broadcast one (the static plan always unsorts by rows).
+      src: dynamic keys: (c, n) permutations applied instead of sorting by
+        the keys (to hold two runs on the same permutations).
+      record_perms: dynamic keys: optional list; src is appended to it.
     Returns: (n, h * d) attention output rows.
     """
     h, d_model, d = wq.shape
     n = x_cols.shape[-1]
     dv = wv.shape[-1]
+    if plan is None:
+        if n % block_size:
+            raise ValueError(f"n={n} is not a multiple of block_size={block_size}")
+        if invalid is not None:
+            keep = torch.logical_not(invalid)[None, :]
+            x_cols = torch.where(keep, x_cols, torch.zeros_like(x_cols))
+            coords_cols = torch.where(keep, coords_cols, torch.zeros_like(coords_cols))
+        if src is None:
+            key = share_heads_keys(x_cols, coords_cols, sqrt_w, alpha, codes, invalid)
+            src = torch.argsort(key, dim=-1, stable=True)
+        if record_perms is not None:
+            record_perms.append(src)
+        c = src.shape[0]
+        sxc, _ = sort_carry(None, torch.cat([x_cols, coords_cols], dim=0),
+                            src=src[:, None])  # (c, 1, d_xc, n)
+        od = project_attend(sxc[:, 0], sqrt_w, wq, wk, wv, block_size=block_size, impl=impl)
+        return unsort_combine(od, src, unsort_rows)
     src, inv, scoords = plan
     c = src.shape[0]
     n_ev = sort_events

@@ -1,4 +1,4 @@
 """Multi-process training (port of `hept_tpu/parallel/`: the mesh, DP, head /
-hash TP and the head-sharded attention) on `torch.distributed` process
-groups: NCCL for CUDA tensors, gloo for CPU tensors. The bucket-axis SP
-(`bp.py`, `dsort.py`) is not ported yet."""
+hash TP, the head-sharded attention and the bucket-axis SP with its
+distributed sort) on `torch.distributed` process groups: NCCL for CUDA
+tensors, gloo for CPU tensors."""

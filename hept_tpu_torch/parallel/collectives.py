@@ -17,6 +17,12 @@ of the group computes identically from replicated values:
   backward: a replicated input feeding rank-local work (Megatron's f,
   whose pair g is `all_gather` / `all_reduce_fwd`).
 - `broadcast(x, group)`: group rank 0's value on every rank, no gradient.
+- `all_to_all(x, group)`: x holds one cell per rank along dim 0 (P, ...);
+  forward sends cell j to rank j and returns the cells received, cell i
+  from rank i. The exchange is its own transpose (rank i's cell j becomes
+  rank j's cell i, and back), so backward is the same exchange of the
+  cotangent. Unlike the others it carries no replication assumption: each
+  cell's cotangent goes back to the rank that sent it.
 
 `torch.distributed.nn.functional.all_reduce` is not used: its backward sums
 the cotangents too, so with every rank back-propagating the same replicated
@@ -24,8 +30,9 @@ loss a ones input comes back with gradient `world` (2.0 at two ranks).
 
 Two ranks sharing one card must use gloo (NCCL refuses two ranks on one
 device). Gloo in torch 2.11 + CUDA 12.8 takes CUDA tensors for every
-collective called here (all_reduce, all_gather, broadcast; probed on the
-H100 machine), so nothing is staged through host memory.
+collective called here (all_reduce, all_gather, broadcast and
+all_to_all_single; probed on the H100 machine), so nothing is staged
+through host memory by this module.
 """
 
 from __future__ import annotations
@@ -59,6 +66,21 @@ def gather_tensor(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     parts = [torch.empty_like(x) for _ in range(n)]
     dist.all_gather(parts, x, group=group)
     return torch.cat(parts, dim=dim)
+
+
+def exchange(x: torch.Tensor, group) -> torch.Tensor:
+    """All-to-all of the (P, ...) cells along dim 0 over `group` (no
+    autograd): cell j goes to group rank j; the result's cell i came from
+    group rank i."""
+    n = group_size(group)
+    if n == 1:
+        return x
+    if x.shape[0] != n:
+        raise ValueError(f"all_to_all: {x.shape[0]} cells for a group of {n}")
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    return out
 
 
 def _broadcast(x: torch.Tensor, group) -> torch.Tensor:
@@ -100,6 +122,23 @@ class _CopyToGroup(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return all_reduce_(g.clone(), ctx.group), None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return exchange(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return exchange(g, ctx.group), None
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """Exchange the (P, ...) cells along dim 0: cell j to group rank j;
+    backward: the same exchange of the cotangent."""
+    return x if group_size(group) == 1 else _AllToAll.apply(x, group)
 
 
 def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:

@@ -1,10 +1,13 @@
 """A mesh of named axes over `torch.distributed` ranks (port of
 `hept_tpu/parallel/mesh.py`).
 
-The JAX package reshapes its devices into ("data", "hashes", "heads") and
-lets `shard_map` name the axes. Here every rank is one process: rank r sits
-at mesh coordinate (d, hh, h) with r = (d * hashes + hh) * heads + h (the
-row-major order of JAX's `np.reshape` of the device list), and each axis
+The JAX package reshapes its devices into ("data", "hashes", "heads") (its
+TP step) or ("data", "buckets") (its bucket-axis SP step) and lets
+`shard_map` name the axes. Here every rank is one process: rank r sits at
+mesh coordinate (d, hh, h, b) with r = ((d * hashes + hh) * heads + h) *
+buckets + b (the row-major order of JAX's `np.reshape` of the device list;
+a mesh of ("data", "buckets") alone puts rank d * buckets + b where JAX's
+puts device d * buckets + b), and each axis
 has one process group per line of the mesh along it, made with `new_group`
 on every rank in the same order (torch.distributed's rule). A group of one
 rank is made too, so that a one-rank run goes through the same
@@ -25,7 +28,9 @@ import os
 import torch
 import torch.distributed as dist
 
-AXES = ("data", "hashes", "heads")
+AXES = ("data", "hashes", "heads", "buckets")
+# the TP step's mesh (`parallel/tp.py`)
+TP_AXES = ("data", "hashes", "heads")
 DEFAULT_TIMEOUT_S = 300
 
 
@@ -96,7 +101,7 @@ def make_mesh(n_devices: int | None = None, axis_names: tuple = ("data",),
     it is not up: `init_distributed`'s keywords).
 
     1-D over "data" by default; `axis_sizes` gives a multi-axis mesh over
-    any of ("data", "hashes", "heads") (an axis left out has size 1). The
+    any of `AXES` (an axis left out has size 1). The
     product of the sizes must equal `n_devices` (None: the world size),
     which must equal the world size: each rank is one device.
     """

@@ -46,7 +46,7 @@ from ..models.gnns import GNNStack
 from ..models.transformer import HeptTransformer, make_batched_apply, make_flat_batched_apply
 from ..parallel import dp, tp
 from ..parallel.collectives import all_reduce_
-from ..parallel.mesh import AXES, make_mesh
+from ..parallel.mesh import TP_AXES, make_mesh
 from ..utils.device import resolve_device
 from ..utils.flops import forward_flops, param_count
 from ..utils.logging import ScalarLogger, log
@@ -293,7 +293,7 @@ class _Parallel:
         self.data_group, self.data_rank, self.rank = None, 0, 0
         if n_dev == 1 and sh == 1:
             return
-        self.mesh = make_mesh(n_dev, AXES, (n_dev // sh, hashes, heads), device=device)
+        self.mesh = make_mesh(n_dev, TP_AXES, (n_dev // sh, hashes, heads), device=device)
         self.device = self.mesh.device
         self.data_group, self.data_rank = self.mesh.group("data"), self.mesh.rank("data")
         self.rank = dist.get_rank()
@@ -404,7 +404,9 @@ def run_one_seed(cfg: ExperimentConfig, dataset: SplitDataset | None = None,
     """
     device = resolve_device(cfg.device)
     if dataset is None:
-        dataset = get_dataset(cfg.dataset_name, seed=cfg.seed)
+        ref = cfg.dataset_name.startswith(("tracking-", "pileup"))
+        dataset = get_dataset(cfg.dataset_name, seed=cfg.seed,
+                              **({"data_dir": cfg.data_dir} if ref else {}))
     block_size = cfg.model_kwargs.get("block_size", 100)
     n_max = slab_friendly_n(max(ev.n for s in ("train", "valid", "test")
                                 for ev in getattr(dataset, s)), block_size)

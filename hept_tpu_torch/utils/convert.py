@@ -1,4 +1,5 @@
-"""Carry weights across from the JAX package.
+"""Carry weights across from the JAX package, and from the reference's
+checkpoints (`convert_reference_hept`, `load_reference_checkpoint`).
 
 `from_jax_variables` turns the flax `{"params", "constants"}` tree of a
 `hept_tpu` HeptTransformer (static-plan or dynamic-key path; scan or loop
@@ -16,6 +17,9 @@ copied, not redrawn: `jax.random` cannot be reproduced in torch.
 """
 
 from __future__ import annotations
+
+import re
+from typing import Mapping
 
 import numpy as np
 import torch
@@ -163,3 +167,49 @@ def _gnn_state_dict(params) -> dict[str, torch.Tensor]:
         else:
             node(key, params[key])
     return sd
+
+
+# the reference's example-variant Transformer state_dict names -> the port's
+# (`hept_tpu/utils/convert.py:convert_reference_hept` maps the same layout)
+_REFERENCE_NAMES = (
+    (r"feat_encoder\.0\.", "feat_enc_0."),
+    (r"feat_encoder\.2\.", "feat_enc_1."),
+    (r"attns\.(\d+)\.ff\.0\.", r"blocks.\1.ff.fc1."),
+    (r"attns\.(\d+)\.ff\.2\.", r"blocks.\1.ff.fc2."),
+    (r"attns\.(\d+)\.w_rpe\.weight$", r"blocks.\1.w_rpe"),
+    (r"attns\.(\d+)\.attn\.e2lsh\.alpha$", r"blocks.\1.attn.e2lsh_alpha"),
+    (r"attns\.(\d+)\.", r"blocks.\1."),
+)
+
+
+def convert_reference_hept(state_dict: Mapping, n_layers: int = 4) -> dict[str, torch.Tensor]:
+    """The reference's HEPT Transformer state_dict (its example variant, as
+    the shipped `example/ckpt/tracking-60k-model.pt`) as a state dict of the
+    port's dynamic-key `HeptTransformer`: almost the identity, both sides
+    keep torch's (out, in) Linear layout and the raw `w_rpe` weight; only
+    names move (`feat_encoder.0` -> `feat_enc_0`, `attns.i` -> `blocks.i`,
+    `ff.0` / `ff.2` -> `ff.fc1` / `ff.fc2`, `w_rpe.weight` -> `w_rpe`,
+    `attn.e2lsh.alpha` -> `attn.e2lsh_alpha`). Layers from `n_layers` on are
+    dropped, as JAX's converter reads layers 0..n_layers-1 only."""
+    out: dict[str, torch.Tensor] = {}
+    for name, value in state_dict.items():
+        layer = re.match(r"attns\.(\d+)\.", name)
+        if layer and int(layer.group(1)) >= n_layers:
+            continue
+        for pat, rep in _REFERENCE_NAMES:
+            new, hits = re.subn(pat, rep, name)
+            if hits:
+                name = new
+                break
+        out[name] = value.detach().clone() if torch.is_tensor(value) \
+            else torch.as_tensor(np.asarray(value))
+    return out
+
+
+def load_reference_checkpoint(path: str, n_layers: int = 4) -> dict[str, torch.Tensor]:
+    """`convert_reference_hept` of a reference `.pt` checkpoint (a state
+    dict, or a dict holding one under "state_dict")."""
+    sd = torch.load(path, map_location="cpu", weights_only=False)
+    if "state_dict" in sd:
+        sd = sd["state_dict"]
+    return convert_reference_hept(sd, n_layers=n_layers)

@@ -89,7 +89,7 @@ def test_slab_friendly_n():
     assert tb.slab_friendly_n(60000, 512) == 60416
 
 
-def test_radius_pairs_and_dataset():
+def test_radius_pairs_and_dataset(tmp_path):
     eta = np.asarray([0.0, 0.1, 0.2, 3.0], np.float32)
     phi = np.zeros(4, np.float32)
     pairs = radius_pairs(eta, phi, 0.15, 2)
@@ -97,5 +97,9 @@ def test_radius_pairs_and_dataset():
     ds = get_dataset("synthetic-tracking-300", seed=0, n_events=5)
     assert len(ds.train) == 4 and ds.in_dim == 10 and ds.coords_dim == 6
     assert max(ev.n for ev in ds.train) <= 300
+    # reference names go to the reference-archive loader (data/loaders.py);
+    # other names are refused
+    with pytest.raises(FileNotFoundError):
+        get_dataset("tracking-60k", data_dir=str(tmp_path))
     with pytest.raises(NotImplementedError):
-        get_dataset("tracking-60k")
+        get_dataset("no-such-dataset")

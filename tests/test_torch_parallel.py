@@ -13,12 +13,6 @@ updates and attention outputs 1e-4 of their scale; Adam's update, lr *
 sign(g) wherever g is clear of zero, 1e-6.
 """
 
-import os
-import subprocess
-import sys
-import time
-from pathlib import Path
-
 import numpy as np
 import pytest
 
@@ -27,47 +21,14 @@ torch = pytest.importorskip("torch")
 from hept_tpu_torch.data.batching import pack_events  # noqa: E402
 from hept_tpu_torch.data.synthetic import synthetic_tracking_event  # noqa: E402
 from hept_tpu_torch.utils.convert import from_jax_variables  # noqa: E402
+from torch_ranks import spawn as _spawn  # noqa: E402
 
-REPO = Path(__file__).resolve().parent.parent
-WORKER = Path(__file__).resolve().parent / "torch_parallel_workers.py"
-JOIN_TIMEOUT_S = 120
 STATIC_MK = dict(h_dim=8, num_heads=2, n_layers=2, block_size=16, n_hashes=2, static_rounds=4,
                  num_regions=16, num_w_per_dist=10, qkv_post_sort=True, shared_sort=True,
                  share_heads=True, static_keys="x0", unsort_rows=True, dropout=0.0)
 DYNAMIC_MK = dict(h_dim=8, num_heads=4, n_layers=2, block_size=16, n_hashes=2, num_regions=9,
                   num_w_per_dist=3, dropout=0.0)
 LOSS = dict(tau=0.05, dist_metric="l2_rbf")
-
-
-def _spawn(task: str, world: int, d: Path, inputs: dict) -> list:
-    """Run `task` on `world` worker ranks; their outputs by rank."""
-    d.mkdir(parents=True, exist_ok=True)
-    torch.save(inputs, d / "inputs.pt")
-    env = {k: v for k, v in os.environ.items()
-           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
-    env.update(OMP_NUM_THREADS="1", PYTHONPATH=str(REPO))
-    logs = [open(d / f"log_{r}.txt", "w") for r in range(world)]
-    procs = [subprocess.Popen([sys.executable, str(WORKER), task, str(r), str(world), str(d)],
-                             stdout=logs[r], stderr=subprocess.STDOUT, env=env, cwd=d)
-             for r in range(world)]
-    deadline = time.monotonic() + JOIN_TIMEOUT_S
-    try:
-        for p in procs:
-            p.wait(timeout=max(0.1, deadline - time.monotonic()))
-    except subprocess.TimeoutExpired:
-        pytest.fail(f"{task}: a rank did not finish within {JOIN_TIMEOUT_S} s")
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        for f in logs:
-            f.close()
-    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
-    if bad:
-        tails = "\n".join(f"rank {r}: " + (d / f"log_{r}.txt").read_text()[-2000:] for r in bad)
-        pytest.fail(f"{task}: ranks {bad} failed\n{tails}")
-    return [torch.load(d / f"out_{r}.pt", weights_only=False) for r in range(world)]
 
 
 def _batch(sizes=(96, 80), seed=5):
@@ -321,7 +282,8 @@ def check_collectives(tmp_path, device: str) -> None:
     """Two ranks: all_gather's forward and its backward (this rank's slice
     of the cotangent), all_reduce_fwd's sum and identity backward,
     copy_to_group's identity and summed backward, broadcast from group rank
-    0, every result on `device`; exact (small integers)."""
+    0, all_to_all's exchange of cells and its backward (the same exchange
+    of the cotangent), every result on `device`; exact (small integers)."""
     outs = _spawn("collectives", 2, tmp_path, dict(device=device))
     w = torch.arange(12.0).reshape(4, 3)
     whole = torch.cat([torch.arange(6.0).reshape(2, 3) + 10 * r for r in range(2)])
@@ -333,6 +295,11 @@ def check_collectives(tmp_path, device: str) -> None:
         assert torch.equal(o["dz"], w[:2])
         assert torch.equal(o["du"], torch.full((2, 3), 3.0))
         assert torch.equal(o["b"], torch.full((3,), 5.0))
+        # cell i of rank r's result is rank i's cell r; the gradient of rank
+        # r's cell j is rank j's weight row r
+        cells = torch.arange(6.0).reshape(2, 3)
+        assert torch.equal(o["swapped"], cells[rank] + 10 * torch.arange(2.0)[:, None])
+        assert torch.equal(o["da"], cells[rank] + 100 * torch.arange(2.0)[:, None])
 
 
 def test_collectives_autograd(tmp_path):

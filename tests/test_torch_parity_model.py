@@ -344,7 +344,7 @@ def test_parity_train_step_matches_jax():
 
 @pytest.mark.parametrize("bad", [
     dict(shared_sort=True),  # shared_sort without share_heads
-    dict(qkv_post_sort=True, shared_sort=True, share_heads=True),  # post-sort dynamic keys
+    dict(qkv_post_sort=True, shared_sort=True),  # post-sort dynamic keys without share_heads
     dict(gather_sort=True),
     dict(canon_residual=True),
     dict(transport_groups=4),

@@ -1,5 +1,6 @@
-"""Rank processes of `test_torch_parallel.py` (imports torch and the port,
-never JAX): `python tests/torch_parallel_workers.py TASK RANK WORLD DIR`.
+"""Rank processes of `test_torch_parallel.py`, `test_torch_dsort.py` and
+`test_torch_bucket_sp.py` (imports torch and the port, never JAX):
+`python tests/torch_parallel_workers.py TASK RANK WORLD DIR`.
 
 Each rank joins a gloo group through `DIR/rendezvous` (a file, so that test
 processes running side by side never race for a port), reads the test's
@@ -17,7 +18,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from hept_tpu_torch.parallel import tp  # noqa: E402
 from hept_tpu_torch.parallel.dp import shard_batch  # noqa: E402
-from hept_tpu_torch.parallel.mesh import AXES, make_mesh  # noqa: E402
+from hept_tpu_torch.parallel.mesh import TP_AXES, make_mesh  # noqa: E402
 from hept_tpu_torch.parallel.sp import head_sharded_attention  # noqa: E402
 from hept_tpu_torch.train import trainer  # noqa: E402
 from hept_tpu_torch.train.config import ExperimentConfig  # noqa: E402
@@ -58,7 +59,7 @@ def tp_task(inp, rank):
                                trainer.batch_to_device(inp["batch"], "cpu"))
         single = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
                   "state_dict": ref.state_dict()}
-    mesh = make_mesh(None, AXES, inp["sizes"], device="cpu")
+    mesh = make_mesh(None, TP_AXES, inp["sizes"], device="cpu")
     model = tp.make_tp_model(cfg.model_config(inp["in_dim"], inp["coords_dim"]), mesh, None,
                              "cpu", state_dict=inp["state_dict"])
     opt = torch.optim.SGD(model.parameters(), lr=inp["lr"])
@@ -88,8 +89,8 @@ def run_task(inp, rank):
 def collectives_task(inp, rank):
     """Each collective's forward and gradient on `inp["device"]` tensors
     (a gloo group: two ranks may share one card)."""
-    from hept_tpu_torch.parallel.collectives import (all_gather, all_reduce_fwd, broadcast,
-                                                     copy_to_group)
+    from hept_tpu_torch.parallel.collectives import (all_gather, all_reduce_fwd, all_to_all,
+                                                     broadcast, copy_to_group)
 
     dev = torch.device(inp["device"])
     group = make_mesh(None, ("heads",), device=dev).group("heads")
@@ -103,15 +104,86 @@ def collectives_task(inp, rank):
     u = torch.ones(2, 3, device=dev, requires_grad=True)
     (copy_to_group(u, group) * (rank + 1)).sum().backward()
     b = broadcast(torch.full((3,), 5.0 + rank, device=dev), group)
+    a = (torch.arange(6.0, device=dev).reshape(2, 3) + 10 * rank).requires_grad_(True)
+    swapped = all_to_all(a, group)
+    (swapped * (torch.arange(6.0, device=dev).reshape(2, 3) + 100 * rank)).sum().backward()
     return {k: v.detach().cpu() for k, v in dict(
         gathered=gathered, dx=x.grad, summed=summed, dz=z.grad, du=u.grad, b=b,
+        swapped=swapped, da=a.grad,
         on_device=torch.tensor([t.device.type == dev.type
-                                for t in (gathered, summed, b, x.grad, u.grad)
+                                for t in (gathered, summed, b, x.grad, u.grad, swapped, a.grad)
                                 ])).items()}
 
 
+def dsort_task(inp, rank):
+    """route_local of each case's permutation: this rank's slab forward,
+    the payload slab's gradient of sum(out * cot), and the round trip back
+    through the inverse permutation."""
+    from hept_tpu_torch.parallel.dsort import invert_perm, route_local
+
+    group = make_mesh(None, ("buckets",), device="cpu").group("buckets")
+    world = dist.get_world_size()
+    res = []
+    for case in inp["cases"]:
+        perm, payload, cot = case["perm"], case["payload"], case["cot"]
+        ne = perm.shape[-1] // world
+        sl = slice(rank * ne, (rank + 1) * ne)
+        x = payload[..., sl].clone().requires_grad_(True)
+        out = route_local(perm, x, group, case["cap"])
+        (out * cot[..., sl]).sum().backward()
+        back = route_local(invert_perm(perm), out.detach(), group, case["cap"])
+        res.append({"out": out.detach(), "grad": x.grad, "back": back})
+    return res
+
+
+def _bucket_core(inp, group):
+    """bucket_sharded_core in each mode of inp["modes"] (transport, cap
+    factor): the output and the gradients of sum(out * cot) by the six float
+    inputs (none where the output is not finite: the overflow case)."""
+    from hept_tpu_torch.parallel.bp import make_bucket_sharded_attention
+
+    res = {}
+    for name, kw in inp["modes"].items():
+        fn = make_bucket_sharded_attention(group, block_size=inp["block_size"], **kw)
+        ins = [inp[k].clone().requires_grad_(True)
+               for k in ("x", "coords", "wq", "wk", "wv", "sqrt_w")]
+        out = fn(*ins, inp["alpha"], inp["codes"], inp["invalid"])
+        grads = torch.autograd.grad((out * inp["cot"]).sum(), ins) \
+            if torch.isfinite(out).all() else None
+        res[name] = {"out": out.detach(), "grads": grads}
+    return res
+
+
+def _bucket_step(inp, mesh):
+    """One DP x bucket-SP Adam step per transport: loss, grad norm and the
+    gradients."""
+    from hept_tpu_torch.parallel.bp import make_bucket_model, make_bucket_train_step
+
+    cfg = ExperimentConfig(**inp["exp"])
+    res = {}
+    for transport in ("replicated", "distributed"):
+        model = make_bucket_model(cfg.model_config(inp["in_dim"], inp["coords_dim"]), mesh,
+                                  None, "cpu", inp["state_dict"], transport, 4.0)
+        opt = trainer.make_optimizer(model.parameters(), lr=inp["lr"])
+        step = make_bucket_train_step(model, opt, trainer.make_loss_fn(cfg), mesh)
+        m = step(trainer.batch_to_device(inp["batch"], "cpu"))
+        res[transport] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                          "grads": {k: p.grad.clone() for k, p in model.named_parameters()}}
+    return res
+
+
+def bucket_sp_task(inp, rank):
+    """The bucket-axis SP: the layer-level core over all the ranks
+    (inp["core"]), then the train step on a ("data", "buckets") mesh of
+    inp["step"]["sizes"]."""
+    mesh = make_mesh(None, ("buckets",), device="cpu")
+    core = _bucket_core(inp["core"], mesh.group("buckets"))
+    step_mesh = make_mesh(None, ("data", "buckets"), inp["step"]["sizes"], device="cpu")
+    return {"core": core, "step": _bucket_step(inp["step"], step_mesh)}
+
+
 TASKS = {"dp": dp_task, "tp": tp_task, "sp": sp_task, "run": run_task,
-         "collectives": collectives_task}
+         "collectives": collectives_task, "dsort": dsort_task, "bucket_sp": bucket_sp_task}
 
 
 def main():
