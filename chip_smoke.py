@@ -26,7 +26,7 @@ Phases, one line each (plus per-kernel lines):
      CSR build, the loss's three calls against three `index_add_`); K5 (the
      unsort row gather) exactly, on bf16 and f32 rows, the forward's and the
      backward's index, a broadcast source and a ragged n, then at the five
-     row shapes the paths move (K5_SHAPES), exactly and timed against
+     row shapes the paths move (K5_SHAPES, seven), exactly and timed against
      `index_select`; kernel times both by CUDA events around calls in a row
      and by CUDA graph replay (device time); K6 / K7 (the small-bucket
      column kernels) at the parity profile's shapes in f32 and hept_fast's
@@ -174,14 +174,35 @@ Phases, one line each (plus per-kernel lines):
      1e-4 of scale; K6 / K7 4 each a rank), a rank's ms;
  31. a reference-layout `data.pt` written on the host and read through
      `get_dataset`, one parity step on the card on an event of it, and
-     `scripts/hept_example.py` at 2000 points on the card.
+     `scripts/hept_example.py` at 2000 points on the card;
+ 32. zero padding (the reference's src variant) on the bs-100 event: the
+     parity YAML with padding_mode zero, `--profile-steps` steps (K6 f32 /
+     K7 v1 4 each, K5 8 a step), one profiled step (busy ms), the first
+     step against plain at phase 7's gates; one zero-padded hept_acc step
+     on the bs-512 event (K1 / K2 4 each on the tensor cores) against
+     plain at phase 4's bf16 gates;
+ 33. dynamic keys after the sort, f32: per-head keys (the parity YAML +
+     qkv_post_sort) and shared_sort, each as phase 32's parity; the
+     gather_sort twin of each and of phase 28's share_heads model the same
+     bits as its sort-carry run (K5 24, 16 and 16 a step); phase 28's model
+     with fold_unsort (which runs the head-broadcast carry) phase 28's bits;
+ 34. hept_fast's modes on dynamic keys (phase 28's model + sort_pack,
+     unsort_pack, kernel_bf16, kernel_center; attn_impl hybrid2): steps
+     with K6 bf16 / K7 v2 on the tensor cores, busy ms, the first step
+     against plain at phase 8's bf16 gates, its gather_sort twin (bf16 60 B
+     rows) the same bits, and the model-level bf16-gradient check (the
+     gradient against autograd of the same bf16 forward);
+ 35. use_ckpt: one step each of hept_acc, parity and reformer without and
+     with it, the same bits and the generator's state, and the peak memory
+     of each.
 Before the last line: one JSON line of per-kernel numbers (K5 once per row
 shape, K3 at d = 1 as K3d1, K4 with its yardsticks as extra keys; K3 / K4
 with the baselines', the GNNs' and the loss options' launches at d = 12,
 K3d1 and K4's `d1_launches` with theirs at d = 1; K1 / K2 with the flat
 and DP phases' launches, K6 / K7 with the TP ranks', K10 with the SP
 ranks'; K6 / K7 / K5p with the share_heads steps', the world-1 bucket
-steps' and the bucket ranks'), and the
+steps' and the bucket ranks', and the dynamic-key runs' of phases 32-34;
+K5g / K5gb, gather_sort's 120 B and 60 B rows, with its runs'), and the
 `nvidia-smi` name/power-limit line. `--yardsticks-only [--package-root
 DIR]` builds the kernels of the package in DIR (a parent tree, for an A/B
 in one call), prints K3's, K4's and K5's yardsticks, K2's, K6's, K7's,
@@ -724,6 +745,10 @@ K5_SHAPES = (
     ("f32 100 B", "float32", 24, 24, 60000, 25, "parity step's unsort"),
     ("f32 120 B", "float32", 24, 8, 60000, 30, "hept_attention_core's q/k transport"),
     ("f32 96 B", "float32", 24, 8, 60000, 24, "hept_attention_core's v transport"),
+    ("f32 120 B gather_sort", "float32", 24, 1, 60000, 30,
+     "gather_sort's [x | coords] copies, per-head keys (a broadcast source)"),
+    ("bf16 60 B gather_sort", "bfloat16", 24, 1, 60000, 30,
+     "gather_sort's [x | coords] copies under sort_pack"),
 )
 
 
@@ -770,7 +795,8 @@ def phase_row_gather(torch, n: int, seed: int) -> dict:
     """K5 against its plain version exactly: on the main path's rows (bf16 and
     f32, the forward's and the backward's index, a broadcast source, a
     ragged n), then at every shape of K5_SHAPES, timed. One kernel row per
-    shape, keyed K5 (the main path's bf16 rows), K5f32, K5p, K5q, K5v."""
+    shape, keyed K5 (the main path's bf16 rows), K5f32, K5p, K5q, K5v, K5g,
+    K5gb."""
     from hept_tpu_torch.ops import row_gather as rg
 
     dev = torch.device(DEVICE)
@@ -805,7 +831,8 @@ def phase_row_gather(torch, n: int, seed: int) -> dict:
     del src32, src16, plan_src, plan_inv, rag16, cases
     torch.cuda.empty_cache()
     rows = {}
-    for key, row in zip(("K5", "K5f32", "K5p", "K5q", "K5v"), k5_yardsticks(torch, rg, gen)):
+    for key, row in zip(("K5", "K5f32", "K5p", "K5q", "K5v", "K5g", "K5gb"),
+                        k5_yardsticks(torch, rg, gen)):
         rows[key] = dict(row, name=f"K5 row_gather ({row.pop('label')} rows)", route="cuda",
                          source="hept_tpu_torch/csrc/row_gather.cu",
                          replaces="hept_tpu/ops/gather_pallas.py:208")
@@ -2235,13 +2262,14 @@ def share_heads_config(**overrides):
     return cfg
 
 
-def cols_f32_launches(steps: int, k5: int = 8) -> dict:
-    """The launches of `steps` tracking steps of a 4-layer dynamic-key f32
-    model at bs 100 (parity, share_heads): K6 f32 and K7 v1 4 each a step
-    (one a layer), K5 `k5` a step (the unsort forward and backward a
-    layer), the loss's K3 / K4."""
-    return {**NO_K1_K2, "cols_fwd": 4 * steps, "cols_bwd": 4 * steps, "cols_fwd_tc": 0,
-            "cols_bwd_tc": 0, "rows_fwd": 0, "rows_bwd": 0, "row_gather": k5 * steps,
+def cols_launches(steps: int, k5: int = 8, fwd: str = "cols_fwd", bwd: str = "cols_bwd") -> dict:
+    """The launches of `steps` tracking steps of a 4-layer dynamic-key model
+    at bs 100 (parity, share_heads, the post-sort paths): K6 and K7 4 each a
+    step (one a layer) on the counters `fwd` / `bwd` (f32 K6 and K7 v1 by
+    default) and none on the other route, K5 `k5` a step (by default the
+    unsort forward and backward a layer), the loss's K3 / K4."""
+    return {**NO_K6_K7, **NO_K1_K2, fwd: 4 * steps, bwd: 4 * steps, "rows_fwd": 0,
+            "rows_bwd": 0, "row_gather": k5 * steps,
             **{k: v * steps for k, v in PAIR_LAUNCHES_STEP.items()}}
 
 
@@ -2256,55 +2284,16 @@ def phase_share_heads(torch, trainer, batch_np, steps: int, seed: int, zero_coun
     """28. The dynamic-key share_heads model at full width (the parity YAML +
     qkv_post_sort, shared_sort, share_heads; f32) on the bs-100 event:
     `steps` Adam steps with dropout, each step's (loss, grad_norm) kept for
-    phase 29, launches counted (`cols_f32_launches`); one more step under
+    phase 29, launches counted (`cols_launches`); one more step under
     torch.profiler (device busy ms); then the first step, dropout off, with
     kernels against `plain_reference()` on the kernel run's sort orders
     (`compare_first_step`'s f32 levels)."""
-    from hept_tpu_torch.utils.profiling import profile_device
-
-    cfg = share_heads_config()
-    batch = trainer.batch_to_device(batch_np, DEVICE)
-    model = trainer.build_model(cfg, batch_np["x"].shape[2], batch_np["coords"].shape[2],
-                                torch.Generator(device=DEVICE).manual_seed(seed), DEVICE)
-    init_state = copy.deepcopy(model.state_dict())
-    opt = trainer.make_optimizer(model.parameters(), cfg.optimizer_name,
-                                 cfg.optimizer_kwargs["lr"])
-    loss_fn = trainer.make_loss_fn(cfg)
-    gen = torch.Generator(device=DEVICE).manual_seed(seed + 1)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    zero_counts()
-    step_ms, metrics = [], []
-    for s in range(steps):
-        t0 = time.perf_counter()
-        m = trainer.train_step(model, opt, loss_fn, batch, gen)
-        metrics.append((float(m["loss"]), float(m["grad_norm"])))
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        log(f"  share_heads step {s}: loss={metrics[-1][0]:.6f} "
-            f"grad_norm={metrics[-1][1]:.4f} {step_ms[-1]:.1f} ms")
-    launches = read_counts()
-    check_launches("share_heads", launches, cols_f32_launches(steps))
-    if not all(math.isfinite(x) for pair in metrics for x in pair):
-        raise AssertionError(f"share_heads: non-finite step metrics {metrics}")
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    final_state = copy.deepcopy(model.state_dict())
-    prof_ms, kernel_us, _ = profile_device(
-        lambda: trainer.train_step(model, opt, loss_fn, batch, gen), 1)
-    busy = sum(kernel_us.values()) / 1e3
+    run = dynamic_steps(torch, trainer, share_heads_config(), batch_np, steps, seed, zero_counts,
+                        read_counts, "share_heads", cols_launches(steps))
     log(f"phase share_heads: {steps} steps (parity widths + qkv_post_sort / shared_sort / "
-        f"share_heads, bs 100, 3 hashes, f32), step ms {step_ms}, median after the first "
-        f"{statistics.median(step_ms[1:]):.1f} ms; profiled step {prof_ms:.1f} ms, device busy "
-        f"{busy:.2f} ms; launches {launches}; peak {peak:.2f} GiB")
-    del opt
-    model.load_state_dict(init_state)
-    compare_first_step(torch, "share_heads", cfg, model, loss_fn, batch)
-    del model
-    torch.cuda.empty_cache()
-    return {"init_state": init_state, "final_state": final_state, "metrics": metrics,
-            "launches": launches, "step_ms": step_ms,
-            "steady_ms": statistics.median(step_ms[1:]), "busy_ms": busy,
-            "profiled_ms": prof_ms, "peak_gib": peak}
+        f"share_heads, bs 100, 3 hashes, f32), median after the first {run['steady_ms']:.1f} "
+        f"ms; profiled step {run['profiled_ms']:.1f} ms, device busy {run['busy_ms']:.2f} ms")
+    return run
 
 
 def phase_bucket_nccl(torch, trainer, batch_np, seed: int, ref: dict, zero_counts,
@@ -2348,7 +2337,7 @@ def phase_bucket_nccl(torch, trainer, batch_np, seed: int, ref: dict, zero_count
                 torch.cuda.synchronize()
                 step_ms.append((time.perf_counter() - t0) * 1e3)
             launches = read_counts()
-            check_launches(f"bucket {transport}", launches, cols_f32_launches(
+            check_launches(f"bucket {transport}", launches, cols_launches(
                 steps, 8 if transport == "replicated" else 0))
             if metrics != ref["metrics"]:
                 raise AssertionError(f"bucket {transport}: (loss, grad_norm) by step {metrics} "
@@ -2877,7 +2866,7 @@ def phase_reference_data(torch, trainer, seed: int, zero_counts, read_counts) ->
     zero_counts()
     loss = float(trainer.train_step(model, opt, trainer.make_loss_fn(cfg), batch)["loss"])
     launches = read_counts()
-    check_launches("reference-data parity step", launches, cols_f32_launches(1))
+    check_launches("reference-data parity step", launches, cols_launches(1))
     if not math.isfinite(loss):
         raise AssertionError(f"reference-data parity step: loss {loss}")
     log(f"phase reference data: 10 events of 2000 points written in the reference's layout "
@@ -2895,6 +2884,258 @@ def phase_reference_data(torch, trainer, seed: int, zero_counts, read_counts) ->
         f"{res['accuracy']:.4f}, inference {res['inference_ms']:.2f} ms / event")
     torch.cuda.empty_cache()
     return {"launches": launches, "example": res}
+
+
+def dynamic_config(profile: str = "hept", overrides: dict | None = None, **model_kwargs):
+    """A shipped profile (default the parity YAML: bs 100, f32) with
+    `model_kwargs` over its model kwargs and `overrides` over its top-level
+    keys (padding_mode)."""
+    from hept_tpu_torch.train.config import profile_config
+
+    cfg = profile_config(profile, device=DEVICE, num_epochs=1, **(overrides or {}))
+    cfg.model_kwargs.update(model_kwargs)
+    return cfg
+
+
+def dynamic_steps(torch, trainer, cfg, batch_np, steps: int, seed: int, zero_counts,
+                  read_counts, label: str, want: dict, profile: bool = True,
+                  compare: bool = True) -> dict:
+    """`steps` Adam steps with dropout of the model of `cfg` (weights and
+    dropout from the seed), each step's (loss, grad_norm) and the
+    parameters after them kept for bit comparisons, launches counted (each
+    counter of `want` must read its value); optionally one more step under
+    torch.profiler (device busy ms) and the first step with kernels against
+    `plain_reference()` on the kernel run's sort orders
+    (`compare_first_step`). Returns the initial and final parameters too."""
+    from hept_tpu_torch.utils.profiling import profile_device
+
+    batch = trainer.batch_to_device(batch_np, DEVICE)
+    model = trainer.build_model(cfg, batch_np["x"].shape[2], batch_np["coords"].shape[2],
+                                torch.Generator(device=DEVICE).manual_seed(seed), DEVICE)
+    init_state = copy.deepcopy(model.state_dict())
+    opt = trainer.make_optimizer(model.parameters(), cfg.optimizer_name,
+                                 cfg.optimizer_kwargs["lr"])
+    loss_fn = trainer.make_loss_fn(cfg)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    step_ms, metrics = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        m = trainer.train_step(model, opt, loss_fn, batch, gen)
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = read_counts()
+    check_launches(label, launches, want)
+    if not all(math.isfinite(x) for pair in metrics for x in pair):
+        raise AssertionError(f"{label}: non-finite step metrics {metrics}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    final_state = copy.deepcopy(model.state_dict())
+    busy = prof_ms = None
+    if profile:
+        prof_ms, kernel_us, _ = profile_device(
+            lambda: trainer.train_step(model, opt, loss_fn, batch, gen), 1)
+        busy = sum(kernel_us.values()) / 1e3
+    steady = statistics.median(step_ms[1:]) if steps > 1 else step_ms[0]
+    log(f"  {label}: {steps} steps, (loss, grad_norm) {metrics}; step ms {step_ms}, median "
+        f"after the first {steady:.1f}" + ("" if busy is None else
+                                          f"; profiled step {prof_ms:.1f} ms, busy {busy:.2f}")
+        + f"; launches {{{', '.join(f'{k}: {launches[k]}' for k in want if want[k])}}}; "
+        f"peak {peak:.2f} GiB")
+    del opt
+    if compare:
+        model.load_state_dict(init_state)
+        compare_first_step(torch, label, cfg, model, loss_fn, batch)
+    del model
+    torch.cuda.empty_cache()
+    return {"init_state": init_state, "metrics": metrics, "final_state": final_state,
+            "launches": launches, "step_ms": step_ms, "steady_ms": steady, "busy_ms": busy,
+            "profiled_ms": prof_ms, "peak_gib": peak}
+
+
+def same_run(torch, label: str, a: dict, b: dict) -> None:
+    """Two runs of `dynamic_steps` gave the same bits: every step's loss
+    and gradient norm, every parameter after the last step."""
+    if a["metrics"] != b["metrics"]:
+        raise AssertionError(f"{label}: step metrics {b['metrics']} != {a['metrics']}")
+    bad = [k for k, v in a["final_state"].items() if not torch.equal(v, b["final_state"][k])]
+    if bad:
+        raise AssertionError(f"{label}: parameters differ after the steps: {bad[:5]}")
+    log(f"  {label}: the same bits (loss, grad_norm of each step, every parameter)")
+
+
+def phase_zero_padding(torch, trainer, batch100_np, batch512_np, steps: int, seed: int,
+                       zero_counts, read_counts) -> dict:
+    """32. Zero padding (the reference's src variant): the parity YAML with
+    padding_mode zero, `steps` steps at full width (K6 f32 / K7 v1 4 each,
+    K5 8 a step), busy ms, the first step with kernels against plain at
+    phase 7's f32 gates; then one hept_acc step (bs 512, static plan) with
+    padding_mode zero (K1 / K2 on the tensor cores 4 each, K5 8) and its
+    first step against plain at phase 4's bf16 gates."""
+    zero = {"padding_mode": "zero"}
+    parity = dynamic_steps(torch, trainer, dynamic_config(overrides=zero), batch100_np, steps,
+                           seed, zero_counts, read_counts, "zero-padded parity",
+                           cols_launches(steps, 8))
+    acc_want = {"bucket_attn_fwd_tc": 4, "bucket_attn_bwd_tc": 4, "bucket_attn_fwd": 0,
+                "bucket_attn_bwd": 0, **NO_K6_K7, "row_gather": 8,
+                **PAIR_LAUNCHES_STEP}
+    acc = dynamic_steps(torch, trainer, dynamic_config("hept_acc", overrides=zero),
+                        batch512_np, 1, seed, zero_counts, read_counts, "zero-padded hept_acc",
+                        acc_want, profile=False)
+    return {"parity": parity, "hept_acc": acc}
+
+
+def phase_post_sort(torch, trainer, batch100_np, steps: int, seed: int, zero_counts,
+                    read_counts, share: dict) -> dict:
+    """33. Per-head dynamic keys after the sort (the parity YAML +
+    qkv_post_sort) and with shared_sort, f32: `steps` steps each (K6 / K7
+    v1 4 each, K5 8 a step), busy ms, the first step against plain at phase
+    7's gates. The gather_sort twin of each and of phase 28's share_heads
+    model: the same bits as its sort-carry run, K5 a step 24 (per-head:
+    q's and k's [x | coords] gathers forward and backward, and the unsort's,
+    each layer), 16 (shared_sort, share_heads). Phase 28's model with
+    fold_unsort, which runs the head-broadcast carry: phase 28's bits (K5 8
+    a step)."""
+    out = {}
+    for label, kw, k5 in (("per-head post-sort", {"qkv_post_sort": True}, 24),
+                          ("shared_sort", {"qkv_post_sort": True, "shared_sort": True}, 16)):
+        out[label] = dynamic_steps(torch, trainer, dynamic_config(**kw), batch100_np, steps,
+                                   seed, zero_counts, read_counts, label,
+                                   cols_launches(steps, 8))
+        out[label + " gather_sort"] = dynamic_steps(
+            torch, trainer, dynamic_config(**kw, gather_sort=True), batch100_np, steps, seed,
+            zero_counts, read_counts, label + " gather_sort", cols_launches(steps, k5),
+            profile=False, compare=False)
+        same_run(torch, f"{label} gather_sort vs sort-carry", out[label],
+                 out[label + " gather_sort"])
+    ref = {"metrics": share["metrics"], "final_state": share["final_state"]}
+    for label, kw, k5 in (("share_heads gather_sort", {"gather_sort": True}, 16),
+                          ("share_heads fold_unsort", {"fold_unsort": True}, 8)):
+        out[label] = dynamic_steps(torch, trainer, dynamic_config(**SHARE_HEADS, **kw),
+                                   batch100_np, steps,
+                                   seed, zero_counts, read_counts, label,
+                                   cols_launches(steps, k5), profile=False, compare=False)
+        same_run(torch, f"{label} vs phase 28", ref, out[label])
+    return out
+
+
+def bf16_gradient_check(torch, trainer, cfg, batch_np, seed: int) -> dict:
+    """The bf16-gradient contract at the model level: the model's
+    gradients (K6 bf16 forward, K7 v2 backward) against the same model whose
+    bucket attention keeps K6's forward values but takes autograd's gradient
+    of the f32 forward at the same bf16 operands (plain PyTorch on the
+    card), on the same sort orders: the whole gradient to 1e-2 relative L2
+    (the level of phase 8's bf16 gradient against plain; the CPU test,
+    `tests/test_torch_dynamic_bf16.py`, holds the same at 2 layers, 2 heads
+    and each tensor besides). The worst tensor's max|d| over its scale
+    floored at 2e-2 of the largest is logged, not gated: at full width the
+    q projection weights' small gradients sum K7 v2's bf16-rounded g_so
+    over the event (blocks.0.w_q: 2.0e-2 of the floored scale on an H100,
+    the whole 1.5e-3)."""
+    import hept_tpu_torch.ops.bucket_attn as ba
+    from hept_tpu_torch.ops.bucket_attn_cuda import cols_fwd_plain
+
+    batch = trainer.batch_to_device(batch_np, DEVICE)
+    model = trainer.build_model(cfg, batch_np["x"].shape[2], batch_np["coords"].shape[2],
+                                torch.Generator(device=DEVICE).manual_seed(seed), DEVICE)
+    loss_fn = trainer.make_loss_fn(cfg)
+    perms = []
+    _, kernel = loss_and_grads(torch, model, loss_fn, batch, record_perms=perms)
+    kernels = ba.bucket_rbf_attention_cols
+
+    def ad_backward(sq, sk, sv, block_size, mode):
+        with torch.no_grad():
+            den_k, so_k = kernels(sq, sk, sv, block_size, mode)
+        den, so = cols_fwd_plain(sq.float(), sk.float(), sv.float(), block_size)
+        return den + (den_k - den).detach(), so + (so_k - so).detach()
+
+    ba.bucket_rbf_attention_cols = ad_backward
+    try:
+        _, ad = loss_and_grads(torch, model, loss_fn, batch, perms=perms)
+    finally:
+        ba.bucket_rbf_attention_cols = kernels
+    floor = 2e-2 * max(scale(g) for g in ad.values())
+    ratios = {k: max_err(kernel[k], ad[k]) / max(scale(ad[k]), floor) for k in ad}
+    worst = max(ratios, key=ratios.get)
+    diff2 = sum(float((kernel[k] - ad[k]).double().pow(2).sum()) for k in ad)
+    norm2 = sum(float(ad[k].double().pow(2).sum()) for k in ad)
+    whole = math.sqrt(diff2 / norm2)
+    check("bf16 model gradient vs autograd of its forward, relative L2", whole, 1e-2)
+    log(f"  worst tensor {worst}: max|d| / max(scale, 2e-2 largest) {ratios[worst]:.3e}")
+    del model
+    torch.cuda.empty_cache()
+    return {"whole_rel_l2": whole, "worst": worst, "worst_ratio": ratios[worst]}
+
+
+def phase_dynamic_bf16(torch, trainer, batch100_np, steps: int, seed: int, zero_counts,
+                       read_counts) -> dict:
+    """34. hept_fast's modes on dynamic keys: phase 28's share_heads model +
+    sort_pack, unsort_pack, kernel_bf16 and kernel_center, attn_impl
+    hybrid2: `steps` steps (K6 bf16 and K7 v2 on the tensor cores 4 each,
+    K5 8 a step), busy ms, the first step against plain at phase 8's bf16
+    gates; its gather_sort twin (bf16 60 B row gathers, K5 16 a step) with
+    the same bits; then the model-level bf16-gradient check."""
+    cfg = dynamic_config(**SHARE_HEADS, sort_pack=True, unsort_pack=True, kernel_bf16=True,
+                         kernel_center=True)
+    cfg.attn_impl = "hybrid2"
+    launches = cols_launches(steps, 8, "cols_fwd_tc", "cols_bwd_tc")
+    run = dynamic_steps(torch, trainer, cfg, batch100_np, steps, seed, zero_counts, read_counts,
+                        "share_heads bf16", launches)
+    twin = copy.deepcopy(cfg)
+    twin.model_kwargs["gather_sort"] = True
+    run["gather_sort"] = dynamic_steps(torch, trainer, twin, batch100_np, steps, seed,
+                                       zero_counts, read_counts, "share_heads bf16 gather_sort",
+                                       dict(launches, row_gather=16 * steps), profile=False,
+                                       compare=False)
+    same_run(torch, "share_heads bf16 gather_sort vs sort-carry", run, run["gather_sort"])
+    run["gradient"] = bf16_gradient_check(torch, trainer, cfg, batch100_np, seed)
+    return run
+
+
+def phase_ckpt(torch, trainer, batch512_np, batch100_np, seed: int) -> dict:
+    """35. use_ckpt: one Adam step with dropout of hept_acc (bs 512), the
+    parity model and reformer (bs 100), each without and with use_ckpt from
+    the same weights and generator: the same bits (loss, grad_norm, every
+    parameter, the generator's state after the step), and the peak memory
+    of each step (`torch.cuda.max_memory_allocated`)."""
+    out = {}
+    for profile, batch_np in (("hept_acc", batch512_np), ("hept", batch100_np),
+                              ("reformer", batch100_np)):
+        batch = trainer.batch_to_device(batch_np, DEVICE)
+        runs = {}
+        for ckpt in (False, True):
+            cfg = dynamic_config(profile, use_ckpt=ckpt)
+            model = trainer.build_model(cfg, batch_np["x"].shape[2],
+                                        batch_np["coords"].shape[2],
+                                        torch.Generator(device=DEVICE).manual_seed(seed), DEVICE)
+            opt = trainer.make_optimizer(model.parameters(), cfg.optimizer_name,
+                                         cfg.optimizer_kwargs["lr"])
+            gen = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+            loss_fn = trainer.make_loss_fn(cfg)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            m = trainer.train_step(model, opt, loss_fn, batch, gen)
+            metrics = (float(m["loss"]), float(m["grad_norm"]))
+            torch.cuda.synchronize()
+            runs[ckpt] = {"metrics": [metrics], "final_state": copy.deepcopy(model.state_dict()),
+                          "gen": gen.get_state(), "ms": (time.perf_counter() - t0) * 1e3,
+                          "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+            del model, opt
+        same_run(torch, f"{profile} use_ckpt vs plain", runs[False], runs[True])
+        if not torch.equal(runs[False]["gen"], runs[True]["gen"]):
+            raise AssertionError(f"{profile}: use_ckpt left the generator elsewhere")
+        out[profile] = {"peak_gib": runs[False]["peak_gib"], "ckpt_peak_gib": runs[True]["peak_gib"],
+                        "ms": runs[False]["ms"], "ckpt_ms": runs[True]["ms"]}
+        log(f"  {profile}: peak {runs[False]['peak_gib']:.2f} GiB plain, "
+            f"{runs[True]['peak_gib']:.2f} GiB use_ckpt; step {runs[False]['ms']:.1f} / "
+            f"{runs[True]['ms']:.1f} ms (first step of a fresh model)")
+        del runs, batch
+        torch.cuda.empty_cache()
+    return out
 
 
 def hept_tpu_torch_root() -> str:
@@ -3294,6 +3535,55 @@ def main(argv=None) -> int:
     # 31. a reference-layout archive through get_dataset, and the example
     phase_reference_data(torch, trainer, args.seed, zero_counts, read_counts)
 
+    # 32.-35. the dynamic-key modes: zero padding, per-head keys after the
+    # sort, shared_sort, gather_sort, fold_unsort, bf16 on dynamic keys,
+    # use_ckpt
+    log("phase 32 zero padding:")
+    zero = phase_zero_padding(torch, trainer, batch100, batch_np, args.profile_steps, args.seed,
+                              zero_counts, read_counts)
+    log("phase 33 post-sort dynamic keys:")
+    post = phase_post_sort(torch, trainer, batch100, args.profile_steps, args.seed, zero_counts,
+                           read_counts, share)
+    log("phase 34 bf16 on dynamic keys:")
+    dyn16 = phase_dynamic_bf16(torch, trainer, batch100, args.profile_steps, args.seed,
+                               zero_counts, read_counts)
+    log("phase 35 use_ckpt:")
+    ckpt = phase_ckpt(torch, trainer, batch_np, batch100, args.seed)
+    runs32_34 = {"32 zero-padded parity": zero["parity"], **{f"33 {k}": v for k, v in post.items()},
+                 "34 share_heads bf16": dyn16, "34 share_heads bf16 gather_sort":
+                 dyn16["gather_sort"]}
+    for key, names in (("K6", ("cols_fwd", "cols_fwd_tc")), ("K7", ("cols_bwd", "cols_bwd_tc"))):
+        rows[key]["dynamic_launches"] = {k: {n: r["launches"][n] for n in names}
+                                         for k, r in runs32_34.items()}
+        rows[key]["dynamic_launches_in"] = (f"phases 32-34, {args.profile_steps} steps a run, "
+                                            "by route counter")
+    for key, name in (("K1", "bucket_attn_fwd_tc"), ("K2", "bucket_attn_bwd_tc")):
+        rows[key]["zero_padding_launches"] = zero["hept_acc"]["launches"][name]
+        rows[key]["zero_padding_launches_in"] = "phase 32, one zero-padded hept_acc step"
+    for key, run in (("K5g", "33 per-head post-sort gather_sort"),
+                     ("K5gb", "34 share_heads bf16 gather_sort")):
+        rows[key]["launches"] = runs32_34[run]["launches"]["row_gather"]
+        rows[key]["launches_in"] = (f"phase {run}, {args.profile_steps} steps (the [x | coords] "
+                                    "gathers and the unsort's, forward and backward)")
+    rows["K5p"]["dynamic_launches"] = {k: r["launches"]["row_gather"] for k, r in
+                                       runs32_34.items()}
+    rows["K5p"]["dynamic_launches_in"] = f"phases 32-34, {args.profile_steps} steps a run"
+    log(f"phase dynamic keys ({smi}): run | step ms (median after the first) | busy ms | "
+        "peak GiB | K5 a step")
+    for k, r in runs32_34.items():
+        busy = "not profiled" if r["busy_ms"] is None else f"{r['busy_ms']:.2f}"
+        log(f"  {k} | {r['steady_ms']:.1f} | {busy} | {r['peak_gib']:.2f} | "
+            f"{r['launches']['row_gather'] // args.profile_steps}")
+    log(f"  32 zero-padded hept_acc | {zero['hept_acc']['steady_ms']:.1f} (one step) | not "
+        f"profiled | {zero['hept_acc']['peak_gib']:.2f} | {zero['hept_acc']['launches']['row_gather']}")
+    log(f"  34 bf16 gradient vs autograd: relative L2 {dyn16['gradient']['whole_rel_l2']:.3e}, "
+        f"worst tensor {dyn16['gradient']['worst']} {dyn16['gradient']['worst_ratio']:.3e}")
+    log(f"phase use_ckpt ({smi}): profile | peak GiB plain / use_ckpt | first step ms plain / "
+        "use_ckpt")
+    for k, r in ckpt.items():
+        log(f"  {k} | {r['peak_gib']:.3f} / {r['ckpt_peak_gib']:.3f} | {r['ms']:.1f} / "
+            f"{r['ckpt_ms']:.1f}")
+
     # K11 (row_gather_vreg) has K5's contract and runs on K5's kernel
     rows["K11"] = dict(rows["K5"], name="K11 row_gather_vreg", ported_by="K5",
                        replaces="hept_tpu/ops/gather_pallas.py:124")
@@ -3301,8 +3591,9 @@ def main(argv=None) -> int:
     log(json.dumps({"kernels": [
         {**{k: rows[key][k] for k in KERNEL_KEYS},
          **{k: v for k, v in rows[key].items() if k not in KERNEL_KEYS}}
-        for key in ("K1", "K2", "K3", "K3d1", "K4", "K5", "K5f32", "K5p", "K5q", "K5v", "K6", "K7",
-                    "K6d28", "K7d28", "K8", "K9", "K10f", "K10b", "K11", "K12")]}))
+        for key in ("K1", "K2", "K3", "K3d1", "K4", "K5", "K5f32", "K5p", "K5q", "K5v", "K5g",
+                    "K5gb", "K6", "K7", "K6d28", "K7d28", "K8", "K9", "K10f", "K10b", "K11",
+                    "K12")]}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -3,7 +3,8 @@ ported profiles run).
 
 `permute_gather` and `permute_gather_rows` apply KNOWN per-round permutations
 (from `ops.bucket_attn.static_bucket_plan`) with index gathers, and their
-backward gathers the cotangent by the inverse permutation. `sort_carry` and
+backward gathers the cotangent by the inverse permutation; `gather_copies`
+moves permuted copies of a column payload as row gathers (gather_sort). `sort_carry` and
 `unsort_carry` are the dynamic-key transport on top of them: a stable
 argsort of each key row, then the same gathers (`sort_carry_rows` moves row
 payloads, for the row-major `hept_attention_core`). The row gather,
@@ -136,8 +137,49 @@ def permute_gather_rows(rows: torch.Tensor, idx: torch.Tensor, inv: torch.Tensor
     return _PermuteGatherRows.apply(rows, idx, inv, bool(pack))
 
 
+class _GatherCopies(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, cols, src, inv, pack, out_bf16):
+        ctx.save_for_backward(inv)
+        ctx.pack = pack
+        ctx.in_dtype = cols.dtype
+        rows = row_gather(_transport(cols, pack).t().contiguous()[None], src)  # (R, n, d)
+        out = rows.transpose(1, 2).contiguous()
+        return out if (pack and out_bf16) else out.to(torch.float32)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (inv,) = ctx.saved_tensors
+        rows = row_gather(_transport(ct, ctx.pack).transpose(1, 2).contiguous(), inv)
+        # the copies' cotangents summed in the column layout, as
+        # permute_gather's backward sums them: a sum's order follows the
+        # layout, on the CPU and on the card
+        g = rows.to(torch.float32).transpose(1, 2).contiguous().sum(dim=0)
+        return g.to(ctx.in_dtype), None, None, None, None
+
+
+def gather_copies(cols: torch.Tensor, src: torch.Tensor, inv: torch.Tensor,
+                  pack: bool = False, out_bf16: bool = False) -> torch.Tensor:
+    """Permuted copies of one column payload, moved as rows: the payload's
+    (n, d) rows are gathered once per permutation (one broadcast-source row
+    gather, kernel K5 on CUDA tensors) and laid out as columns again; the
+    backward is a row gather of the cotangents by `inv`, summed over the
+    copies. The same values and gradient, bit for bit, as the column gather
+    `permute_gather(cols[None], src[:, None], inv[:, None])`.
+
+    Args:
+      cols: (d, n) column payload.
+      src: (R, n) int64 permutations: copy r's slot s holds column src[r, s].
+      inv: (R, n) their inverses.
+      pack: round values (and cotangents) through bfloat16.
+      out_bf16: with pack, return bfloat16 instead of float32.
+    Returns: (R, d, n).
+    """
+    return _GatherCopies.apply(cols, src, inv, bool(pack), bool(out_bf16))
+
+
 def sort_carry(keys: torch.Tensor | None, payload: torch.Tensor,
-               src: torch.Tensor | None = None):
+               src: torch.Tensor | None = None, pack: bool = False, out_bf16: bool = False):
     """Sort column payloads by per-(round, head) keys (the column layout of
     JAX's `grouped_sort_carry`, one group per call).
 
@@ -147,8 +189,10 @@ def sort_carry(keys: torch.Tensor | None, payload: torch.Tensor,
       payload: (h, d, n) (broadcast over rounds), (d, n) (broadcast over
         rounds and heads) or (c, h, d, n) columns.
       src: optional (c, h, n) int64 permutations to apply instead of sorting.
-    Returns: (sorted (c, h, d, n) float32, src (c, h, n)): sorted slot s
-      holds column src[..., s]. The backward gathers the cotangent by the
+      pack: round values (and, in the backward, cotangents) through bfloat16.
+      out_bf16: with pack, return bfloat16 instead of float32.
+    Returns: (sorted (c, h, d, n), src (c, h, n)): sorted slot s holds
+      column src[..., s]. The backward gathers the cotangent by the
       inverse permutation and sums it over the broadcast axes.
 
     JAX sorts unstably and carries the payload through one sort call for
@@ -158,15 +202,16 @@ def sort_carry(keys: torch.Tensor | None, payload: torch.Tensor,
     if src is None:
         src = torch.argsort(keys, dim=-1, stable=True)
     c, h, n = src.shape
+    kw = dict(pack=pack, out_bf16=out_bf16)
     if payload.dim() == 4:  # one source row per (round, head)
         flat = payload.reshape(c * h, -1, n)
         out = permute_gather(flat, src.reshape(1, c * h, n),
-                             invert_permutation(src).reshape(1, c * h, n))
+                             invert_permutation(src).reshape(1, c * h, n), **kw)
     elif payload.dim() == 3:  # (h, d, n): one source row per head
-        out = permute_gather(payload, src, invert_permutation(src))
+        out = permute_gather(payload, src, invert_permutation(src), **kw)
     else:  # (d, n): one source row
         out = permute_gather(payload[None], src.reshape(c * h, 1, n),
-                             invert_permutation(src).reshape(c * h, 1, n))
+                             invert_permutation(src).reshape(c * h, 1, n), **kw)
     return out.reshape(c, h, -1, n), src
 
 
@@ -196,19 +241,21 @@ def sort_carry_rows(keys: torch.Tensor | None, payload: torch.Tensor, pack: bool
     return out.reshape(c, h, n, d), src
 
 
-def unsort_carry(src: torch.Tensor, rows: torch.Tensor, pack: bool = False) -> torch.Tensor:
+def unsort_carry(src: torch.Tensor, rows: torch.Tensor, pack: bool = False,
+                 inv: torch.Tensor | None = None) -> torch.Tensor:
     """Inverse of `sort_carry` for ROW payloads (JAX's `unsort_carry`).
 
     Args:
       src: (c, h, n) permutations of the sort (sorted slot s holds row src[s]).
       rows: (c, h, n, w) rows in sorted order.
       pack: round values (and cotangents) through bfloat16.
+      inv: optional (c, h, n) inverse of `src`, when the caller has it.
     Returns: (c, h, n, w) float32 rows in the original order: row j is
       sorted slot inv[j]. One row gather (kernel K5 on CUDA tensors); the
       backward gathers by `src`.
     """
     c, h, n, w = rows.shape
     src2 = src.reshape(c * h, n)
-    out = permute_gather_rows(rows.reshape(c * h, n, w), invert_permutation(src2), src2,
-                              pack=pack)
+    inv2 = invert_permutation(src2) if inv is None else inv.reshape(c * h, n)
+    out = permute_gather_rows(rows.reshape(c * h, n, w), inv2, src2, pack=pack)
     return out.reshape(c, h, n, w)

@@ -2,7 +2,9 @@
 
 Each (OR-hash, head) pair draws region counts for eta and phi; points are
 ranked along each coordinate and rank // region_size gives an integer region
-index, later packed into one AND code per point.
+index, later packed into one AND code per point: bit-packed integers in the
+replicate padding mode (`core/buckets.py:bit_shift`), a mixed-radix float in
+the zero mode (`geo_code`).
 """
 
 from __future__ import annotations
@@ -41,6 +43,10 @@ def quantile_partition(sorted_indices: torch.Tensor, num_regions: torch.Tensor,
     Returns: (R, n) float32 region ids.
     """
     total = sorted_indices.shape[-1] if n_points is None else n_points
+    # a true division, as JAX's: torch computes `int / tensor` as the
+    # reciprocal times the int, which can land above an exact quotient
+    # (200 / 3.3333333 -> 60.000004) and round the region size up
+    total = torch.as_tensor(total, dtype=torch.float32, device=num_regions.device)
     region_size = torch.ceil(total / num_regions)
     ranks = invert_permutation(sorted_indices).to(torch.float32)
     return torch.floor(ranks[None, :] / region_size) + 1.0
@@ -65,3 +71,15 @@ def region_codes(coords: torch.Tensor, regions: torch.Tensor,
     regions_h = regions.permute(1, 0, 2).reshape(2, c * h)
     return (quantile_partition(sorted_eta, regions_h[0][:, None], n_points),
             quantile_partition(sorted_phi, regions_h[1][:, None], n_points))
+
+
+def geo_code(region_eta: torch.Tensor, region_phi: torch.Tensor,
+             regions: torch.Tensor) -> torch.Tensor:
+    """One scalar AND code per point from its eta / phi region indices (the
+    zero padding mode's codes, the reference's src variant): the mixed-radix
+    `region_eta + region_phi * (ceil(eta regions) + 1)`, eta the fast axis.
+    Returns (c, h, n) float32."""
+    c, _, h = regions.shape
+    regions_h = regions.permute(1, 0, 2).reshape(2, c * h)
+    multiplier = torch.ceil(regions_h[0])[:, None] + 1.0  # (c * h, 1)
+    return (region_eta + region_phi * multiplier).reshape(c, h, -1)

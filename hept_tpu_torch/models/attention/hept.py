@@ -1,7 +1,7 @@
 """HEPT attention module (port of `hept_tpu/models/attention/hept.py`): the
-post-sort branch (on a static bucket plan, or with per-layer dynamic keys
-shared by the heads, optionally bucket-sharded) and the pre-sort branch with
-per-layer, per-head dynamic keys."""
+post-sort branch (on a static bucket plan, or with per-layer dynamic keys,
+shared by the heads (optionally bucket-sharded) or per head) and the
+pre-sort branch with per-layer, per-head dynamic keys."""
 
 from __future__ import annotations
 
@@ -28,13 +28,14 @@ def rpe_scales(w_rpe: torch.Tensor, num_heads: int, h_dim: int, coords_dim: int,
 class HeptAttention(nn.Module):
     """LSH-bucketed block-local RBF attention for one event.
 
-    Post-sort (qkv_post_sort + share_heads): the caller passes the shared
-    normed hidden state and the per-head q/k/v kernels, applied after the
-    sort. A static plan does not read `e2lsh_alpha` (1 head), which is kept
-    so weights carry across unchanged; with dynamic keys it hashes
-    [x | coords] once per round for every head. Pre-sort (dynamic keys): the
-    caller passes the q/k/v projections, and `e2lsh_alpha` (h, d + cd,
-    n_hashes) hashes each head.
+    Post-sort (qkv_post_sort): the caller passes the shared normed hidden
+    state and the per-head q/k/v kernels, applied after the sort. A static
+    plan does not read `e2lsh_alpha` (1 head), which is kept so weights
+    carry across unchanged; with dynamic keys and share_heads it hashes
+    [x | coords] once per round for every head, without share_heads it is
+    h wide and hashes each head through the projections. Pre-sort (dynamic
+    keys): the caller passes the q/k/v projections, and `e2lsh_alpha` (h,
+    d + cd, n_hashes) hashes each head.
 
     Under tensor parallelism (dynamic keys; `groups` {"heads", "hashes"})
     the module holds its rank's heads and OR rounds: q_hat / k_hat / v enter
@@ -65,12 +66,14 @@ class HeptAttention(nn.Module):
 
     def forward_post_sort(self, x_normed, coords, codes, invalid, plan, w_rpe, wq, wk, wv,
                           perms=None, record_perms=None):
-        """Post-sort path, all heads on one bucket grid per round. x_normed:
-        (n, d) normed hidden state; wq/wk/wv: (h, d, d) head-major kernels,
-        applied after the sort. On the static plan (`plan`) the plan orders
-        the points; with dynamic keys `e2lsh_alpha` (1, d + cd, n_hashes)
-        hashes [x | coords] with head 0's AND codes (`codes` (c, h, n)), and
-        `perms` / `record_perms` impose / record the (c, n) sort orders.
+        """Post-sort path. x_normed: (n, d) normed hidden state; wq/wk/wv:
+        (h, d, d) head-major kernels, applied after the sort. On the static
+        plan (`plan`) the plan orders the points; with dynamic keys and
+        share_heads `e2lsh_alpha` (1, d + cd, n_hashes) hashes [x | coords]
+        with head 0's AND codes (`codes` (c, h, n)), and `perms` /
+        `record_perms` impose / record the (c, n) sort orders; without
+        share_heads `e2lsh_alpha` is (h, d + cd, n_hashes) and the orders are
+        (q_src, k_src) pairs of (c, h, n).
         Under bucket sharding (`groups["buckets"]`) the dynamic-key layer
         runs `parallel/bp.py:bucket_sharded_core` over the group. Returns
         (n, d)."""
@@ -90,7 +93,9 @@ class HeptAttention(nn.Module):
                 plan, block_size=cfg.block_size, impl=cfg.attn_impl, sort_pack=cfg.sort_pack,
                 unsort_pack=cfg.unsort_pack, kernel_bf16=cfg.kernel_bf16,
                 kernel_center=cfg.kernel_center, sort_events=cfg.sort_events,
-                unsort_rows=cfg.unsort_rows, src=perms, record_perms=record_perms,
+                unsort_rows=cfg.unsort_rows, share_heads=cfg.share_heads,
+                shared_sort=cfg.shared_sort, gather_sort=cfg.gather_sort, src=perms,
+                record_perms=record_perms,
             )  # (n, h * d) rows
         return self.out_linear(out)
 
@@ -121,7 +126,8 @@ class HeptAttention(nn.Module):
                                 self.prep_qkv(query, key, value, coords, invalid, w_rpe))
         out = hept_attention_core_cols(
             q_hat, k_hat, v_cols, self.e2lsh_alpha, codes, invalid,
-            block_size=cfg.block_size, impl=cfg.attn_impl, unsort_pack=cfg.unsort_pack,
-            perms=perms, record_perms=record_perms, hash_group=self.hash_group,
+            block_size=cfg.block_size, impl=cfg.attn_impl, sort_pack=cfg.sort_pack,
+            unsort_pack=cfg.unsort_pack, perms=perms, record_perms=record_perms,
+            hash_group=self.hash_group,
         )  # (n, h * d) rows
         return self.out_linear(all_gather(out, 1, self.head_group))

@@ -12,9 +12,12 @@ before the encoder and ends in a sigmoid classifier. Three ways to bucket the po
 - dynamic keys (the reference-parity `hept`): each layer projects q/k/v
   before the sort and hashes every head on its own, with the per-head AND
   codes of `prepare_event`;
-- dynamic keys shared by the heads (qkv_post_sort + share_heads, f32):
-  each layer hashes its normed state and coords once per OR round, sorts
-  them, and projects per head after the sort.
+- dynamic keys after the sort (qkv_post_sort): each layer hashes its
+  normed state and coords once per OR round for every head (share_heads)
+  or per (round, head) through the projections, sorts them, and projects
+  per head after the sort.
+Padding: replicate (pads copy real rows, integer AND codes) or zero (the
+reference's src variant: pads invalid, float `geo_code` codes).
 The baselines (`attn_type` performer, flt, reformer, smyrf, sb, pct,
 flatformer; `models/attention/`) take the same encoder and head: pre-LN
 q/k/v projections of x + pe (a learned or sinusoidal positional embedding
@@ -23,7 +26,8 @@ w_q alone) and flatformer (four post-norm group layers replace the whole
 block, and the head concatenates all four of each block's outputs). They
 need no padding plan: invalid coords are zeroed and the pads are masked.
 Layers run as a Python loop (the JAX package's `scan_layers` is a compile-
-time device with the same math).
+time device with the same math); under `use_ckpt` each block is recomputed
+in the backward with the same draws (`HeptTransformer._block`).
 
 The model is defined on ONE event: x (N, in_dim), coords (N, coords_dim),
 valid (N,) with N a multiple of block_size; it returns (N, h_dim // 2)
@@ -52,12 +56,13 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.buckets import bit_shift
 from ..parallel.collectives import broadcast, copy_to_group
 from ..core.hashing import e2lsh_init
 from ..core.padding import replication_pad_plan
-from ..core.regions import get_regions, region_codes
+from ..core.regions import geo_code, get_regions, region_codes
 from ..ops.bucket_attn import static_bucket_plan, static_hash
 from ..ops.bucket_attn_cuda import ATTN_IMPLS
 from .attention.flatformer import FlatformerAttention, discretize_coords
@@ -82,12 +87,21 @@ NUM_PIDS, PID_DIM = 7, 10
 class TransformerConfig:
     """Model hyperparameters, with the JAX TransformerConfig's names.
 
-    The port implements three paths of attn_type "hept" with replicate
-    padding (`check_supported`): the static plan (qkv_post_sort +
-    share_heads + static_keys + unsort_rows), dynamic per-layer keys per
-    head (all four off) and dynamic per-layer keys shared by the heads
-    (qkv_post_sort + share_heads, f32; the path the bucket-axis SP runs);
-    and the seven baseline attentions (`BASELINES`), which
+    The port implements these paths of attn_type "hept", with replicate or
+    zero padding (`check_supported`): the static plan (qkv_post_sort +
+    share_heads + static_keys + unsort_rows); dynamic per-layer keys per
+    head with q/k/v projected before the sort (the reference-parity path:
+    all four off); and dynamic per-layer keys after the sort
+    (qkv_post_sort), shared by the heads (share_heads; the path the
+    bucket-axis SP runs) or per head, with q and k sorted apart or by the k
+    keys (shared_sort), the sorted copies moved by the sort-carry or by row
+    gathers (gather_sort, a no-op on the static plan as in JAX), and
+    share_heads' unsort by merged rows (unsort_rows) or per head; per head
+    is also JAX's fold_unsort result, so that flag selects nothing more.
+    The bf16 modes
+    (sort_pack, unsort_pack, kernel_bf16, kernel_center) run wherever JAX
+    runs them. `use_ckpt` recomputes each block in the backward, on every
+    attn_type. The seven baseline attentions (`BASELINES`)
     read the baseline fields at the end and none of hept's modes.
     `attn_impl` selects the bucket kernels
     (`ops/bucket_attn_cuda.py:cols_routes`): every mode of the JAX package
@@ -125,8 +139,10 @@ class TransformerConfig:
     static_rounds: int = 0
     unsort_rows: bool = False
     gather_sort: bool = False
+    fold_unsort: bool = False
     canon_residual: bool = False
     transport_groups: int = 1
+    static_and_bins: int = 0
     scan_layers: bool = False
     # the baseline attentions' knobs, with the JAX package's defaults
     pe_type: str = "none"  # none | learned | fixed (| rpe: performer, smyrf, flatformer)
@@ -160,12 +176,11 @@ class TransformerConfig:
         need = {
             "task in ('tracking', 'pileup')": self.task in ("tracking", "pileup"),
             f"attn_type in {('hept',) + BASELINES}": self.attn_type in ("hept",) + BASELINES,
-            "no use_ckpt (recomputing a block under torch.utils.checkpoint would redraw its "
-            "dropout masks and rotations from the step's generator; it needs its own design, "
-            "ROADMAP.md queue 1, item 2b)": not self.use_ckpt,
         }
         tp = self.head_shards > 1 or self.hash_shards > 1
         bucket = self.bucket_shards > 1 or self.bucket_transport != "replicated"
+        need["use_ckpt without head / hash / bucket sharding (not held against JAX's sharded "
+             f"steps: {_ROADMAP})"] = not (self.use_ckpt and (tp or bucket))
         if self.attn_type != "hept":
             need["head / hash sharding targets HEPT (hept_tpu/parallel/tp.py:125)"] = not tp
             need["bucket sharding targets HEPT (hept_tpu/parallel/bp.py:305)"] = not bucket
@@ -178,16 +193,17 @@ class TransformerConfig:
             # truthy string must not run as the bf16 transport
             f"sort_pack and unsort_pack are bools ('fp8': {_ROADMAP})":
                 isinstance(self.sort_pack, bool) and isinstance(self.unsort_pack, bool),
-            f"padding_mode == 'replicate' (zero padding: {_ROADMAP})":
-                self.padding_mode == "replicate",
-            "num_and_hashes == 2": self.num_and_hashes == 2,
+            "padding_mode in ('replicate', 'zero')": self.padding_mode in ("replicate", "zero"),
+            "num_and_hashes == 2 (JAX's region_codes reshapes the regions to (2, c * h), "
+            "hept_tpu/core/regions.py:106, so its model cannot be built with another value "
+            "and there is nothing to hold a port against)": self.num_and_hashes == 2,
             f"attn_impl in {ATTN_IMPLS} ('xla' is the JAX package's kernel-free einsum + "
             "autodiff path, not run by the port: on the card every bucket call launches a "
             "kernel, and its autodiff backward of a bf16 forward breaks the gradient contract "
             "of ROADMAP.md's North star)": self.attn_impl in ATTN_IMPLS,
-            f"no gather_sort ({_ROADMAP})": not self.gather_sort,
             f"no canon_residual ({_ROADMAP})": not self.canon_residual,
             f"transport_groups == 1 ({_ROADMAP})": self.transport_groups == 1,
+            f"static_and_bins == 0 ({_ROADMAP})": self.static_and_bins == 0,
         })
         if self.static_keys:
             need.update({
@@ -198,30 +214,38 @@ class TransformerConfig:
                 "hash shard keeps the whole replicated static_alpha while its AND codes "
                 "shard, hept_tpu/parallel/tp.py:34-78, so a layer's rounds are not the "
                 "single-device model's)": self.hash_shards == 1,
-                "static_keys in (True, 'x0')": self.static_keys in (True, "x0"),
+                f"static_keys in (True, 'x0') ('coords': {_ROADMAP})":
+                    self.static_keys in (True, "x0"),
                 "static plan: qkv_post_sort": bool(self.qkv_post_sort),
                 "static plan: share_heads": bool(self.share_heads),
-                "static plan: unsort_rows": bool(self.unsort_rows),
+                f"static plan: unsort_rows (a plan without it: {_ROADMAP})":
+                    bool(self.unsort_rows),
+                f"static plan: no fold_unsort ({_ROADMAP})": not self.fold_unsort,
                 "static_rounds a multiple of n_hashes":
                     (self.static_rounds or self.n_hashes) % self.n_hashes == 0,
             })
         else:
             # dynamic keys: the reference-parity path (per-head keys, q/k/v
-            # projected before the sort) and the post-sort share_heads path
-            # (one key row per OR round in [x | coords] space) in f32; the
-            # other post-sort modes and the bf16 modes are not ported
+            # projected before the sort) and the post-sort paths (keys in
+            # [x | coords] space, shared by the heads or per head)
             post = bool(self.qkv_post_sort)
+            shared = bool(self.share_heads or self.shared_sort)
             need.update({
-                f"dynamic keys: qkv_post_sort together with share_heads, and neither "
-                f"shared_sort nor share_heads without it ({_ROADMAP})":
-                    post == bool(self.share_heads) and (post or not self.shared_sort),
-                f"dynamic keys: no sort_pack ({_ROADMAP})": not self.sort_pack,
-                f"dynamic keys with share_heads: no unsort_pack ({_ROADMAP})":
-                    not (post and self.unsort_pack),
-                "dynamic keys with share_heads: no head / hash sharding (e2lsh_alpha is one "
-                "head wide, as on the static plan)": not (post and tp),
-                f"dynamic keys: no kernel_bf16 / kernel_center ({_ROADMAP})":
-                    not (self.kernel_bf16 or self.kernel_center),
+                "dynamic keys: share_heads needs qkv_post_sort (the pre-sort path hashes each "
+                "head)": post or not self.share_heads,
+                "pre-sort dynamic keys (qkv_post_sort off): no shared_sort, gather_sort, "
+                "fold_unsort, kernel_bf16 or kernel_center (JAX's pre-sort core takes none of "
+                "them and runs as if they were off, hept_tpu/models/attention/hept.py:249-262; "
+                "ROADMAP.md, queue 1, 'Not queued')":
+                    post or not (self.shared_sort or self.gather_sort or self.fold_unsort
+                                 or self.kernel_bf16 or self.kernel_center),
+                "kernel_center needs a shared q/k bucket grid (share_heads or shared_sort; "
+                "hept_tpu/ops/bucket_attn.py:881-883)": not self.kernel_center or shared,
+                "fold_unsort folds the heads of one shared grid: it needs share_heads (JAX's "
+                "per-head path ignores it)": not self.fold_unsort or bool(self.share_heads),
+                "post-sort dynamic keys: no head / hash sharding (share_heads: e2lsh_alpha is "
+                "one head wide, as on the static plan; per-head keys: not held against JAX's "
+                f"TP step, {_ROADMAP})": not (post and tp),
                 "dynamic keys: sort_events == 1 (the dynamic-key core sorts the whole flat "
                 "row; hept_tpu/ops/bucket_attn.py:hept_attention_core_cols takes no "
                 "sort_events)": self.sort_events == 1,
@@ -237,8 +261,13 @@ class TransformerConfig:
                     not (self.sort_pack or self.unsort_pack),
                 "bucket shards: f32 kernels (no kernel_bf16 / kernel_center: JAX's bucket core "
                 "ignores them and runs f32)": not (self.kernel_bf16 or self.kernel_center),
+                "bucket shards: no gather_sort / fold_unsort (JAX's bucket core, "
+                "hept_tpu/parallel/bp.py:bucket_sharded_core, takes neither)":
+                    not (self.gather_sort or self.fold_unsort),
                 "bucket shards: sort_events == 1 (the bucket SP shards one event)":
                     self.sort_events == 1,
+                "bucket shards: replicate padding (zero padding is not held against JAX's "
+                f"make_bucket_train_step; {_ROADMAP})": self.padding_mode == "replicate",
                 "bucket shards: no head / hash sharding (hept_tpu/parallel/bp.py:"
                 "make_bucket_train_step has no TP)": not tp,
                 "bucket_transport in ('replicated', 'distributed')":
@@ -256,18 +285,30 @@ class TransformerConfig:
             )
 
 
-def prepare_event(x, coords, valid, regions, block_size: int, groups: dict | None = None):
-    """Per-event precompute, replicate padding mode: AND codes from quantile
+def prepare_event(x, coords, valid, regions, block_size: int, groups: dict | None = None,
+                  padding_mode: str = "replicate"):
+    """Per-event precompute of the AND codes and the padding plan.
+
+    replicate (the reference example's mode): AND codes from quantile
     regions of the event's real points, then trailing-bucket pad slots copy
     real rows by sorted code rank and slots beyond ceil(n/B)*B become inert.
-
     Under head / hash sharding (`groups`) the pad plan is taken from global
     hash 0 / head 0's codes, broadcast from rank 0 of the heads group and
     then of the hashes group, so that every shard pads alike (JAX:
     `hept_tpu/models/transformer.py:843-846`).
 
-    Returns (x, coords, codes (c, h, N) int32, inert (N,) bool).
+    zero (the reference's src variant, `hept_tpu/models/transformer.py:
+    821-826`): the regions rank over the padded length with the pads last,
+    the codes are `geo_code`'s floats, every pad is invalid and its coords
+    are zeroed; nothing is gathered, so a shard needs nothing of another.
+
+    Returns (x, coords, codes (c, h, N) int32 or float32, invalid (N,) bool).
     """
+    if padding_mode == "zero":
+        region_eta, region_phi = region_codes(coords, regions, valid_mask=valid)
+        codes = geo_code(region_eta, region_phi, regions)
+        coords = torch.where(valid[:, None], coords, torch.zeros_like(coords))
+        return x, coords, codes, torch.logical_not(valid)
     n_valid = valid.sum()
     region_eta, region_phi = region_codes(coords, regions, valid_mask=valid, n_points=n_valid)
     packed = bit_shift(region_eta.to(torch.int32), region_phi.to(torch.int32))
@@ -529,6 +570,38 @@ class HeptTransformer(nn.Module):
                               device=plan[0].device)
         return tuple(a[idx] for a in plan)
 
+    def _block(self, block: AttnBlock, h, generator, perms, record_perms, **kw):
+        """One block. Under `use_ckpt` with autograd on, the block runs under
+        `torch.utils.checkpoint` and is recomputed in the backward (JAX's
+        `_remat_block`, the reference's use_ckpt). The checkpoint replays
+        only the global RNGs, so both runs draw their dropout masks and LSH
+        draws from a generator set to a snapshot of `generator` taken before
+        the block, and `generator` is then left where the block left it, as
+        a plain forward leaves it. The sort orders the first run records
+        are imposed on the recompute, and recorded once."""
+        if not (self.cfg.use_ckpt and torch.is_grad_enabled()):
+            return block(h, generator=generator, perms=perms, record_perms=record_perms, **kw)
+        state = None if generator is None else generator.get_state()
+        seen, first = [], []
+
+        def run(h_):
+            gen = None
+            if state is not None:
+                gen = torch.Generator(device=generator.device)
+                gen.set_state(state)
+            if not first:  # the forward
+                out = block(h_, generator=gen, perms=perms, record_perms=seen, **kw)
+                first.append(gen)
+                return out
+            return block(h_, generator=gen, perms=seen[0] if seen else perms, **kw)
+
+        out = checkpoint(run, h, use_reentrant=False)
+        if record_perms is not None:
+            record_perms.extend(seen)
+        if generator is not None:
+            generator.set_state(first[0].get_state())
+        return out
+
     def forward(self, x, coords, valid, generator: torch.Generator | None = None,
                 plan=None, perms=None, record_perms: list | None = None,
                 rotations: list | None = None, prepared=None):
@@ -553,7 +626,8 @@ class HeptTransformer(nn.Module):
             x, coords, codes, invalid = prepared
         elif cfg.attn_type == "hept":
             x, coords, codes, invalid = prepare_event(x, coords, valid, self.regions,
-                                                      cfg.block_size, self.groups)
+                                                      cfg.block_size, self.groups,
+                                                      cfg.padding_mode)
         else:
             coords, invalid, edges, edge_mask = prepare_baseline(coords, valid, cfg)
         if cfg.task == "pileup":
@@ -567,10 +641,11 @@ class HeptTransformer(nn.Module):
             plan = self.build_plan(h, coords, codes, invalid)
         layers = [h]
         for i, block in enumerate(self.blocks):
-            out = block(h, coords, codes, invalid, self.layer_plan(plan, i) if static else None,
-                        generator, perms=None if perms is None else perms[i],
-                        record_perms=record_perms, valid=valid, edges=edges,
-                        edge_mask=edge_mask, rotations=None if rotations is None else rotations[i])
+            out = self._block(block, h, generator, perms=None if perms is None else perms[i],
+                              record_perms=record_perms, coords=coords, codes=codes,
+                              invalid=invalid, plan=self.layer_plan(plan, i) if static else None,
+                              valid=valid, edges=edges, edge_mask=edge_mask,
+                              rotations=None if rotations is None else rotations[i])
             if cfg.attn_type == "flatformer":
                 h, inner = out
                 layers.extend(inner)

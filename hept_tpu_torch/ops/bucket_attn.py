@@ -10,14 +10,19 @@ sum num / sum denom. The paths:
   (`static_bucket_plan`), and each layer gathers its x columns by the plan,
   projects them after the gather, runs the bucket kernel and unsorts
   [num|denom] with a row gather (`hept_attention_core_xcols`);
-- dynamic keys shared by the heads (qkv_post_sort + share_heads, f32): each
-  layer hashes [x | coords] once per round and sorts it, then the same
+- dynamic keys after the sort (qkv_post_sort): each layer hashes [x |
+  coords] once per round for every head (share_heads) or per (round, head)
+  with the hashes composed through the projections, sorts it (for q and k
+  apart, or once by the k keys under shared_sort), then the same
   projections, kernel and unsort (`hept_attention_core_xcols` without a
-  plan; its pieces are what the bucket-axis SP, `parallel/bp.py`, splits
-  over ranks);
+  plan; the share_heads pieces are what the bucket-axis SP,
+  `parallel/bp.py`, splits over ranks); `gather_sort` moves the sorted
+  copies by row gathers, with the sort-carry's bits;
 - dynamic keys (the reference-parity `hept` profile): each layer hashes its
   own projected q and k per head, sorts them by their own keys and unsorts
   by the q permutation (`hept_attention_core_cols`);
+The bf16 modes (sort_pack, unsort_pack, kernel_bf16, kernel_center) run on
+every path that JAX runs them on.
 - the same pipeline on row-major (h, n, d) operands, the one the JAX package
   exports and shards over heads (`hept_attention_core`, kernel K10).
 The column kernel is chosen by `attn_impl` (`bucket_attn_cuda`).
@@ -28,6 +33,7 @@ from __future__ import annotations
 import torch
 
 from ..core.buckets import (
+    gather_copies,
     invert_permutation,
     permute_gather,
     permute_gather_rows,
@@ -48,7 +54,8 @@ __all__ = [
     "DENOM_EPS", "stable_ratio", "bucket_rbf_attention_cols", "bucket_rbf_attention_rows",
     "dense_rbf_attention", "static_hash", "static_bucket_plan", "hept_attention_core",
     "hept_attention_core_xcols", "hept_attention_core_cols", "share_heads_keys",
-    "project_attend", "combine_rounds", "unsort_combine",
+    "post_sort_keys", "argsort_keys", "sort_payload", "project_attend", "combine_rounds",
+    "unsort_heads", "unsort_combine",
 ]
 
 # sort key of rows forced into trailing buckets
@@ -188,29 +195,139 @@ def share_heads_keys(x_cols: torch.Tensor, coords_cols: torch.Tensor, sqrt_w: to
         return key
 
 
-def project_attend(sxc: torch.Tensor, sqrt_w: torch.Tensor, wq: torch.Tensor,
-                   wk: torch.Tensor, wv: torch.Tensor, *, block_size: int,
-                   impl: str) -> torch.Tensor:
-    """Project sorted [x | coords] columns per head and run the bucket
-    kernel (f32), the share_heads path's work between its sort and unsort.
+def post_sort_keys(x_cols: torch.Tensor, coords_cols: torch.Tensor, wq: torch.Tensor,
+                   wk: torch.Tensor, sqrt_w: torch.Tensor, alpha: torch.Tensor,
+                   codes: torch.Tensor, invalid: torch.Tensor | None):
+    """The per-head dynamic keys of the post-sort path without share_heads:
+    the E2LSH hashes of q_hat and k_hat composed through the bias-free
+    projections, hash_q = (wq a1) . x + (sqrt_w * a2) . coords with alpha =
+    [a1; a2] per head, and the same for k; the span is taken over q and k
+    per (round, head); key = hash + code * span, invalid rows to +BIG.
+    Detached.
 
-    Args: sxc (c, d_model + cd, m) sorted columns of c rounds, m a multiple
-      of block_size (whole buckets); sqrt_w (h, cd); wq, wk, wv (h, d_model,
+    Args: x_cols (d_model, n) and coords_cols (cd, n), invalid rows zeroed;
+      wq, wk (h, d_model, d); sqrt_w (h, cd); alpha (h, d + cd, c); codes
+      (c, h, n); invalid optional (n,) bool.
+    Returns: (q_key, k_key), each (c, h, n) float32.
+    """
+    with torch.no_grad():
+        d = wq.shape[-1]
+        a1, a2 = alpha[:, :d, :], alpha[:, d:, :]
+        beta_q = torch.einsum("hed,hdc->hec", wq, a1)  # (h, d_model, c)
+        beta_k = torch.einsum("hed,hdc->hec", wk, a1)
+        gamma = sqrt_w[:, :, None] * a2  # (h, cd, c)
+        coord_hash = torch.einsum("hrc,rn->chn", gamma, coords_cols)
+        both = torch.stack([torch.einsum("hec,en->chn", beta_q, x_cols) + coord_hash,
+                            torch.einsum("hec,en->chn", beta_k, x_cols) + coord_hash])
+        hash_shift = (both.amax(dim=(0, 3), keepdim=True)
+                      - both.amin(dim=(0, 3), keepdim=True))[0]  # (c, h, 1)
+        shift = codes.to(torch.float32) * hash_shift
+        q_key, k_key = both[0] + shift, both[1] + shift
+        if invalid is not None:
+            q_key = torch.where(invalid, _BIG_KEY, q_key)
+            k_key = torch.where(invalid, _BIG_KEY, k_key)
+        return q_key, k_key
+
+
+def argsort_keys(keys: torch.Tensor):
+    """A stable argsort of each key row and its inverse: (src, inv), sorted
+    slot s holds row src[s] and row j sits at slot inv[j] (JAX's
+    `_argsort_keys`, which sorts unstably)."""
+    src = torch.argsort(keys, dim=-1, stable=True)
+    return src, invert_permutation(src)
+
+
+def sort_payload(xc: torch.Tensor, src: torch.Tensor, *, pack: bool = False,
+                 gather_sort: bool = False, inv: torch.Tensor | None = None) -> torch.Tensor:
+    """Sorted copies of the [x | coords] columns, one per row of `src`.
+
+    Args:
+      xc: (d_xc, n) columns.
+      src: (c, h, n) permutations (h = 1 for share_heads).
+      pack: move the values (and the cotangents) through bfloat16, and
+        return bfloat16 (the sort_pack transport).
+      gather_sort: move them as one broadcast-source row gather of the
+        (n, d_xc) rows (kernel K5 on CUDA tensors; `gather_copies`) instead
+        of the column gather of the sort-carry; its backward is a row
+        gather by `inv`. The copies are laid out as columns again and their
+        cotangents summed in that layout, so both ways give the same
+        tensor, and the same gradient, bit for bit.
+      inv: gather_sort: `src`'s inverse, when the caller has it.
+    Returns: (c, h, d_xc, n).
+    """
+    c, h, n = src.shape
+    if not gather_sort:
+        return sort_carry(None, xc, src=src, pack=pack, out_bf16=pack)[0]
+    src2 = src.reshape(c * h, n)
+    inv2 = invert_permutation(src2) if inv is None else inv.reshape(c * h, n)
+    return gather_copies(xc, src2, inv2, pack=pack, out_bf16=pack).reshape(c, h, -1, n)
+
+
+def head_projection(w: torch.Tensor, sx: torch.Tensor, block_size: int) -> torch.Tensor:
+    """Per-head projections of per-head sorted copies: w (h, e, d), sx (c,
+    h, e, n) -> (c, h, d, n), proj[c, h] = w[h]^T sx[c, h] (n a multiple of
+    `block_size`).
+
+    w enters once per block of `block_size` points (an expanded view), so
+    autograd's weight gradient is a batch of GEMMs over the c * block_size
+    points of each (head, block), summed over the blocks by the expand's
+    backward: as one GEMM per head of 24 x 24 outputs over all c * n points
+    it runs on a handful of thread blocks (68.5 of a 118 ms parity-width
+    step on an H100)."""
+    c, h, e, n = sx.shape
+    nb = n // block_size
+    wb = w[:, None].expand(h, nb, e, w.shape[-1])
+    out = torch.einsum("hged,chegb->chdgb", wb, sx.reshape(c, h, e, nb, block_size))
+    return out.reshape(c, h, -1, n)
+
+
+def project_attend(sxq: torch.Tensor, sqrt_w: torch.Tensor, wq: torch.Tensor,
+                   wk: torch.Tensor, wv: torch.Tensor, *, block_size: int, impl: str,
+                   sxk: torch.Tensor | None = None, kernel_bf16: bool = False,
+                   kernel_center: bool = False) -> torch.Tensor:
+    """Project sorted [x | coords] columns per head and run the bucket
+    kernel, the dynamic-key post-sort paths' work between sort and unsort.
+
+    Args: sxq (c, d_model + cd, m), one sorted copy per round shared by the
+      heads (share_heads), or (c, h, d_model + cd, m), one per (round, head);
+      m a multiple of block_size (whole buckets); sxk the copy k and v are
+      projected from (default: sxq); sqrt_w (h, cd); wq, wk, wv (h, d_model,
       d) kernels (x @ w); impl the bucket kernels' `attn_impl`.
+      kernel_bf16: feed the kernels bf16 operands, each projection's
+      products summed in f32 and rounded once. kernel_center: subtract each
+      bucket's mean from the RPE columns before any bf16 cast (exact in f32:
+      the RBF logits are -|q - k|^2/2, shift-invariant), where q and k ride
+      one sorted copy. bf16 copies (sort_pack) are projected with bf16
+      weights, as on the static plan.
     Returns: (c, h, dv + 1, m) [numerator | denominator] per round and head.
     """
     h, d_model, d = wq.shape
     dv = wv.shape[-1]
-    c, _, m = sxc.shape
-    sxs, scs = sxc[:, :d_model], sxc[:, d_model:]
-    rpe = sqrt_w[None, :, :, None] * scs[:, None]  # (c, h, cd, m)
+    c, m = sxq.shape[0], sxq.shape[-1]
+    ptype = torch.bfloat16 if kernel_bf16 else torch.float32
+    spec = "hed,cen->chdn"  # one copy shared by the heads
 
-    def project(w):
-        return torch.einsum("hed,cen->chdn", w, sxs)
+    def rpe(sx):  # (c, h, cd, m)
+        scs = sx[..., d_model:, :]
+        r = sqrt_w[None, :, :, None] * (scs[:, None] if sx.dim() == 3 else scs).to(torch.float32)
+        if kernel_center:
+            b = r.reshape(*r.shape[:-1], m // block_size, block_size)
+            r = (b - b.mean(dim=-1, keepdim=True).detach()).reshape(r.shape)
+        return r.to(ptype)
 
-    sq = torch.cat([project(wq), rpe], dim=2).reshape(c * h, d + rpe.shape[2], m)
-    sk = torch.cat([project(wk), rpe], dim=2).reshape(c * h, d + rpe.shape[2], m)
-    sv = project(wv).reshape(c * h, dv, m)
+    def project(sx, w):
+        w32, x32 = w.to(sx.dtype).to(torch.float32), sx[..., :d_model, :].to(torch.float32)
+        if sx.dim() == 3:
+            return torch.einsum(spec, w32, x32).to(ptype)
+        return head_projection(w32, x32, block_size).to(ptype)
+
+    sxk = sxq if sxk is None else sxk
+    rq = rpe(sxq)
+    rk = rq if sxk is sxq else rpe(sxk)
+    cd = rq.shape[2]
+    sq = torch.cat([project(sxq, wq), rq], dim=2).reshape(c * h, d + cd, m)
+    sk = torch.cat([project(sxk, wk), rk], dim=2).reshape(c * h, d + cd, m)
+    sv = project(sxk, wv).reshape(c * h, dv, m)
     denom, so = bucket_rbf_attention_cols(sq.contiguous(), sk.contiguous(), sv.contiguous(),
                                           block_size, impl)
     return torch.cat([so, denom], dim=1).reshape(c, h, dv + 1, m)
@@ -224,25 +341,54 @@ def combine_rounds(rows: torch.Tensor) -> torch.Tensor:
     return stable_ratio(combined[..., :dv], combined[..., dv:])
 
 
-def unsort_combine(od: torch.Tensor, src: torch.Tensor, unsort_rows: bool = False) -> torch.Tensor:
+def unsort_heads(od: torch.Tensor, q_src: torch.Tensor, pack: bool = False,
+                 inv: torch.Tensor | None = None, hash_group=None) -> torch.Tensor:
+    """Unsort per-head [num | denom] by each (round, head)'s q permutation
+    and OR-combine them (the per-head dynamic-key paths).
+
+    Args: od (c, h, dv + 1, n) in sorted order; q_src (c, h, n); pack: move
+      the rows through bf16; inv: q_src's inverse, when the caller has it;
+      hash_group: under hash sharding, the sums over this rank's rounds are
+      summed over the group before the ratio (JAX: a psum over `hash_axis`,
+      `hept_tpu/ops/bucket_attn.py:299-303`).
+    Returns: (n, h * dv) output rows. One row gather of (n, dv + 1) rows per
+    (round, head) (K5 on CUDA tensors), which is also JAX's unsort_rows
+    gather of this path (`:1026-1050`).
+    """
+    c, h, w, n = od.shape
+    dv = w - 1
+    rows = unsort_carry(q_src, od.transpose(2, 3).contiguous(), pack=pack, inv=inv)
+    combined = all_reduce_fwd(rows.sum(dim=0), hash_group)  # (h, n, dv + 1)
+    out = stable_ratio(combined[..., :dv], combined[..., dv:])
+    return out.permute(1, 0, 2).reshape(n, h * dv)
+
+
+def unsort_combine(od: torch.Tensor, src: torch.Tensor, unsort_rows: bool = False,
+                   pack: bool = False, inv: torch.Tensor | None = None) -> torch.Tensor:
     """Unsort the share_heads path's (c, h, dv + 1, n) [num | denom] by the
-    rounds' permutations src (c, n) and OR-combine them; both unsorts are
-    exact row gathers (K5 on CUDA tensors).
+    rounds' permutations src (c, n) and OR-combine them; every unsort is an
+    exact row gather (K5 on CUDA tensors).
 
     unsort_rows: one gather of each round's merged (n, h * (dv + 1)) rows
-    (JAX's `hept_tpu/ops/bucket_attn.py:1054-1066`); else the permutation
-    broadcast to every head, a gather of (n, dv + 1) rows per (round, head)
-    (JAX's head-broadcast carry, `:1145-1155`).
+    (JAX's `hept_tpu/ops/bucket_attn.py:1054-1066`), combined on those rows;
+    else the permutation broadcast to every head, a gather of (n, dv + 1)
+    rows per (round, head) (JAX's head-broadcast carry, `:1145-1155`). The
+    row gather moves each value exactly, so this is also JAX's
+    `fold_unsort` result (one merged-row unsort per round, `:1134-1144`),
+    rounded once a value under `pack` and combined in the same order. pack:
+    move the rows through bf16; inv: src's inverse, when the caller has it.
     Returns: (n, h * dv) output rows.
     """
     c, h, w, n = od.shape
     dv = w - 1
+    inv = invert_permutation(src) if inv is None else inv
     if unsort_rows:
         rows = od.permute(0, 3, 1, 2).reshape(c, n, h * w)
-        rows = permute_gather_rows(rows, invert_permutation(src), src)  # (c, n, h * w)
+        rows = permute_gather_rows(rows, inv, src, pack=pack)  # (c, n, h * w)
         combined = rows.sum(dim=0).reshape(n, h, w)
         return stable_ratio(combined[..., :dv], combined[..., dv:]).reshape(n, h * dv)
-    rows = unsort_carry(src[:, None].expand(c, h, n), od.transpose(2, 3).contiguous())
+    rows = unsort_carry(src[:, None].expand(c, h, n), od.transpose(2, 3).contiguous(),
+                        pack=pack, inv=inv[:, None].expand(c, h, n))
     return combine_rounds(rows).permute(1, 0, 2).reshape(n, h * dv)
 
 
@@ -266,45 +412,61 @@ def hept_attention_core_xcols(
     kernel_center: bool = False,
     sort_events: int = 1,
     unsort_rows: bool = False,
-    src: torch.Tensor | None = None,
+    share_heads: bool = True,
+    shared_sort: bool = False,
+    gather_sort: bool = False,
+    src=None,
     record_perms: list | None = None,
 ) -> torch.Tensor:
-    """Post-sort-projection HEPT attention, all heads sharing one bucket grid
-    per round (share_heads): [x | coords] is sorted, then projected per head.
+    """Post-sort-projection HEPT attention: [x | coords] is sorted, then
+    projected per head (the q/k/v projections are bias-free, so the hashes
+    of q_hat and k_hat compose through them).
 
-    Two ways to the grid:
-    - a static plan (`plan`; the `hept_acc` path, unsort_rows; one event, or
-      `sort_events` stacked events of n / sort_events points, each its own
-      row of the plan and the kernels);
-    - dynamic keys (`plan` None; f32 only): each call hashes [x | coords]
-      with `alpha` (`share_heads_keys`), sorts it once per round, projects,
-      runs the bucket kernel and unsorts [num | denom] (`unsort_combine`,
-      by `unsort_rows`).
+    The ways to the bucket grid:
+    - a static plan (`plan`; the `hept_acc` path, share_heads, unsort_rows;
+      one event, or `sort_events` stacked events of n / sort_events
+      points, each its own row of the plan and the kernels);
+    - dynamic keys shared by the heads (`plan` None, share_heads): each call
+      hashes [x | coords] with the one-head `alpha` (`share_heads_keys`),
+      sorts it once per round, projects, runs the bucket kernel and unsorts
+      [num | denom] (`unsort_combine`, by rows or per head);
+    - dynamic per-head keys (`plan` None, share_heads off): per (round,
+      head) the keys of q and k (`post_sort_keys`); q's copy of [x | coords]
+      sorted by its keys and k's by its own, or both by the k keys
+      (`shared_sort`: one sorted copy serves q, k and v); per-head
+      projections, the kernel, and the unsort by the q permutation
+      (`unsort_heads`, which is the row gather either way of `unsort_rows`).
+    On the dynamic paths `gather_sort` moves the sorted copies by row gathers
+    (`sort_payload`) with the same bits as the sort-carry.
 
     Args:
       x_cols: (d_model, n) normed hidden state as columns.
       coords_cols: (cd, n).
       wq, wk, wv: (h, d_model, d) per-head projection kernels (x @ w).
       sqrt_w: (h, cd) RPE column scales.
-      alpha: (1, d_model + cd, c) E2LSH directions (dynamic keys; the plan
-        does not read it).
+      alpha: (1, d_model + cd, c) E2LSH directions with share_heads, (h,
+        d + cd, c) without (dynamic keys; the plan does not read it).
       codes: (c, h, n) AND codes (dynamic keys).
       invalid: optional (n,) bool rows (zeroed; dynamic keys sort them last).
       plan: (src, inv, scoords) from `static_bucket_plan`, c rounds.
       impl: the bucket kernels' `attn_impl` mode (`bucket_rbf_attention_cols`).
-      sort_pack: gather x through bf16 and project in bf16 (static plan).
-      unsort_pack: move the [num|denom] rows through bf16 in the unsort
-        (static plan).
-      kernel_bf16: feed the bucket kernels bf16 operands (static plan).
+      sort_pack: move x (with dynamic keys [x | coords]) through bf16 and
+        project in bf16.
+      unsort_pack: move the [num|denom] rows through bf16 in the unsort.
+      kernel_bf16: feed the bucket kernels bf16 operands.
       kernel_center: subtract a per-bucket mean from the RPE columns of q
         and k before any bf16 cast (exact in f32: the RBF logits are
-        -|q - k|^2/2, shift-invariant; static plan).
+        -|q - k|^2/2, shift-invariant); q and k must ride one sorted copy
+        (the plan, share_heads or shared_sort).
       sort_events: the plan's event rows (n must divide by sort_events *
         block_size).
-      unsort_rows: dynamic keys: the merged-row unsort, else the
+      unsort_rows: share_heads dynamic keys: the merged-row unsort, else the
         head-broadcast one (the static plan always unsorts by rows).
-      src: dynamic keys: (c, n) permutations applied instead of sorting by
-        the keys (to hold two runs on the same permutations).
+      share_heads / shared_sort: dynamic keys: see above.
+      gather_sort: dynamic keys: row gathers instead of the sort-carry.
+      src: dynamic keys: permutations applied instead of sorting by the keys
+        (to hold two runs on the same permutations): (c, n) with
+        share_heads, else (q_src, k_src), each (c, h, n).
       record_perms: dynamic keys: optional list; src is appended to it.
     Returns: (n, h * d) attention output rows.
     """
@@ -314,20 +476,48 @@ def hept_attention_core_xcols(
     if plan is None:
         if n % block_size:
             raise ValueError(f"n={n} is not a multiple of block_size={block_size}")
+        if kernel_center and not (share_heads or shared_sort):
+            raise ValueError("kernel_center needs a shared q/k bucket grid (share_heads or "
+                             "shared_sort; hept_tpu/ops/bucket_attn.py:881-883)")
         if invalid is not None:
             keep = torch.logical_not(invalid)[None, :]
             x_cols = torch.where(keep, x_cols, torch.zeros_like(x_cols))
             coords_cols = torch.where(keep, coords_cols, torch.zeros_like(coords_cols))
-        if src is None:
-            key = share_heads_keys(x_cols, coords_cols, sqrt_w, alpha, codes, invalid)
-            src = torch.argsort(key, dim=-1, stable=True)
+        # the q-side inverse permutation serves gather_sort's row gather and
+        # the unsort
+        q_inv = None
+        if share_heads:
+            if src is None:
+                src, q_inv = argsort_keys(share_heads_keys(x_cols, coords_cols, sqrt_w, alpha,
+                                                           codes, invalid))
+            q_src = k_src = src[:, None]  # (c, 1, n)
+        else:
+            if src is None:
+                q_key, k_key = post_sort_keys(x_cols, coords_cols, wq, wk, sqrt_w, alpha, codes,
+                                              invalid)
+                k_src = torch.argsort(k_key, dim=-1, stable=True)
+                if not shared_sort:
+                    q_src, q_inv = argsort_keys(q_key)
+            else:
+                q_src, k_src = src
+            if shared_sort:
+                q_src = k_src  # queries bucketed by the key order
+            src = (q_src, k_src)
         if record_perms is not None:
             record_perms.append(src)
-        c = src.shape[0]
-        sxc, _ = sort_carry(None, torch.cat([x_cols, coords_cols], dim=0),
-                            src=src[:, None])  # (c, 1, d_xc, n)
-        od = project_attend(sxc[:, 0], sqrt_w, wq, wk, wv, block_size=block_size, impl=impl)
-        return unsort_combine(od, src, unsort_rows)
+        q_inv = invert_permutation(q_src) if q_inv is None else q_inv.reshape(q_src.shape)
+        xc = torch.cat([x_cols, coords_cols], dim=0)  # (d_xc, n)
+        kw = dict(pack=sort_pack, gather_sort=gather_sort)
+        sxq = sort_payload(xc, q_src, inv=q_inv, **kw)  # (c, h or 1, d_xc, n)
+        sxk = sxq if k_src is q_src else sort_payload(xc, k_src, **kw)
+        if share_heads:
+            sxq = sxk = sxq[:, 0]
+        od = project_attend(sxq, sqrt_w, wq, wk, wv, block_size=block_size, impl=impl, sxk=sxk,
+                            kernel_bf16=kernel_bf16, kernel_center=kernel_center)
+        if share_heads:
+            return unsort_combine(od, q_src[:, 0], unsort_rows, pack=unsort_pack,
+                                  inv=q_inv[:, 0])
+        return unsort_heads(od, q_src, pack=unsort_pack, inv=q_inv)
     src, inv, scoords = plan
     c = src.shape[0]
     n_ev = sort_events
@@ -387,6 +577,7 @@ def hept_attention_core_cols(
     *,
     block_size: int,
     impl: str = "pallas",
+    sort_pack: bool = False,
     unsort_pack: bool = False,
     perms=None,
     record_perms: list | None = None,
@@ -407,6 +598,8 @@ def hept_attention_core_cols(
       codes: (c, h, n) integer AND codes.
       invalid: optional (n,) bool rows sorted into trailing buckets.
       impl: the bucket kernels' `attn_impl` mode (`bucket_rbf_attention_cols`).
+      sort_pack: move the sorted q_hat / k_hat / v (and, in the backward,
+        their cotangents) through bf16; the kernels still take f32.
       unsort_pack: move the [num|denom] rows through bf16 in the unsort.
       perms: optional (q_src, k_src), each (c, h, n) int64, applied instead
         of sorting by the keys (to hold two runs on the same permutations).
@@ -434,24 +627,21 @@ def hept_attention_core_cols(
             k_key = torch.where(invalid, _BIG_KEY, k_key)
     else:
         q_src, k_src = perms
-    sq, q_src = sort_carry(q_key, q_hat, src=q_src)  # (c, h, d, n)
+    sq, q_src = sort_carry(q_key, q_hat, src=q_src, pack=sort_pack)  # (c, h, d, n)
     # k and v go through two gathers on one permutation, not one gather of
     # [k_hat | v]: the kernels take contiguous sk and sv, and splitting a
     # joint payload costs two copies forward and a zero-fill and two adds
     # backward, more than the second gather saves (+4.3 ms of a 50 ms parity
     # step on an H100, utils/profiling.py)
-    sk, k_src = sort_carry(k_key, k_hat, src=k_src)
-    sv, _ = sort_carry(None, v, src=k_src)
+    sk, k_src = sort_carry(k_key, k_hat, src=k_src, pack=sort_pack)
+    sv, _ = sort_carry(None, v, src=k_src, pack=sort_pack)
     if record_perms is not None:
         record_perms.append((q_src, k_src))
     c = q_src.shape[0]
     denom, so = bucket_rbf_attention_cols(sq.reshape(c * h, d, n), sk.reshape(c * h, d, n),
                                           sv.reshape(c * h, dv, n), block_size, impl)
-    rows = torch.cat([so, denom], dim=1).reshape(c, h, dv + 1, n).transpose(2, 3)
-    rows = unsort_carry(q_src, rows.contiguous(), pack=unsort_pack)  # (c, h, n, dv + 1)
-    combined = all_reduce_fwd(rows.sum(dim=0), hash_group)  # (h, n, dv + 1)
-    out = stable_ratio(combined[..., :dv], combined[..., dv:])
-    return out.permute(1, 0, 2).reshape(n, h * dv)
+    od = torch.cat([so, denom], dim=1).reshape(c, h, dv + 1, n)
+    return unsort_heads(od, q_src, pack=unsort_pack, hash_group=hash_group)
 
 
 def dense_rbf_attention(q_hat: torch.Tensor, k_hat: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

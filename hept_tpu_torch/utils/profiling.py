@@ -2,10 +2,12 @@
 
     python -m hept_tpu_torch.utils.profiling [--task tracking|pileup]
         [--profile hept_acc] [--points 60000] [--steps 3] [--out torch_step_profile]
+        [--model-kwargs '{"qkv_post_sort": true}']
 
 Builds the step chip_smoke.py drives (one synthetic event of the task:
 tracking with 16 pairs per point, or pileup; the profile's model at full
-width, dropout on), warms up two steps,
+width, dropout on; `--model-kwargs` over the profile's model kwargs),
+warms up two steps,
 times `--steps` steps without the profiler, then records `--steps` steps
 with torch.profiler. Prints the step's wall time (both ways), the device's
 busy and idle shares (kernel time over the profiled wall time), the
@@ -109,10 +111,13 @@ def main(argv=None) -> dict:
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="torch_step_profile")
+    ap.add_argument("--model-kwargs", default="{}",
+                    help='JSON over the profile\'s model_kwargs, e.g. \'{"qkv_post_sort": true}\'')
     args = ap.parse_args(argv)
     device = resolve_device("cuda")
 
     cfg = profile_config(args.profile, task=args.task, device="cuda")
+    cfg.model_kwargs.update(json.loads(args.model_kwargs))
     bs = cfg.model_kwargs.get("block_size", 100)
     rng = np.random.default_rng(args.seed)
     if args.task == "pileup":
@@ -149,6 +154,7 @@ def main(argv=None) -> dict:
     summary = {
         "task": args.task,
         "profile": args.profile,
+        "model_kwargs": cfg.model_kwargs,
         "device": torch.cuda.get_device_name(0),
         "peak_memory_gib": peak_gib,
         "step_wall_ms_unprofiled": plain_wall_ms,

@@ -588,11 +588,14 @@ def test_baseline_yaml_equals_jax(attn_type, task):
 
 
 def test_check_supported_accepts_the_baselines_and_refuses_use_ckpt():
+    """Every attn_type runs, with use_ckpt too (`test_torch_ckpt.py`);
+    use_ckpt stays refused under sharding, naming ROADMAP.md."""
     for t in ("hept",) + BASELINES:
         TransformerConfig(in_dim=5, coords_dim=4, attn_type=t).check_supported()
+        TransformerConfig(in_dim=5, coords_dim=4, attn_type=t, use_ckpt=True).check_supported()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TransformerConfig(in_dim=5, coords_dim=4, attn_type="smyrf",
-                          use_ckpt=True).check_supported()
+        TransformerConfig(in_dim=5, coords_dim=4, attn_type="hept", use_ckpt=True,
+                          head_shards=2).check_supported()
     with pytest.raises(NotImplementedError, match="attn_type"):
         TransformerConfig(in_dim=5, coords_dim=4, attn_type="gcn").check_supported()
     # the hept modes are checked for hept only

@@ -107,8 +107,12 @@ def test_dp_world2_matches_jax(tmp_path):
         np.testing.assert_allclose(d_port[clear], d_jax[clear], rtol=0, atol=1e-6, err_msg=name)
 
 
-@pytest.mark.parametrize("sizes", [(1, 2, 2), (2, 1, 2)], ids=["hashes2xheads2", "data2xheads2"])
-def test_tp_world4_matches_jax(tmp_path, sizes):
+@pytest.mark.parametrize("sizes,padding", [
+    pytest.param((1, 2, 2), "replicate", id="hashes2xheads2"),
+    pytest.param((2, 1, 2), "replicate", id="data2xheads2"),
+    pytest.param((2, 1, 2), "zero", id="data2xheads2_zero"),
+])
+def test_tp_world4_matches_jax(tmp_path, sizes, padding):
     """DP x hash-TP x head-TP over ("data", "hashes", "heads") at world 4,
     the dynamic-key path (4 heads, 2 OR rounds; events of 90 and 75 points,
     so the replication pads follow global hash 0 / head 0), one SGD step
@@ -121,7 +125,9 @@ def test_tp_world4_matches_jax(tmp_path, sizes):
     dynamic-key step on one device (7.3e-4 of scale on w_rpe here, JAX's
     single-device step against the port's; `test_torch_parity_model.py`
     holds gradients at 1e-3 too). Each with a 1e-7 floor: the output bias's
-    gradient is zero up to rounding (~1e-8)."""
+    gradient is zero up to rounding (~1e-8). With zero padding (the
+    reference's src variant) each shard computes its own heads' float codes
+    and no pad plan is shared."""
     import jax
     import jax.numpy as jnp
     import optax
@@ -133,7 +139,8 @@ def test_tp_world4_matches_jax(tmp_path, sizes):
     from hept_tpu.train.trainer import make_loss_fn
 
     batch = _batch((90, 75), seed=0)
-    exp = dict(model_kwargs=DYNAMIC_MK, attn_impl="pallas", loss_kwargs=LOSS, batch_size=2)
+    exp = dict(model_kwargs=DYNAMIC_MK, attn_impl="pallas", loss_kwargs=LOSS, batch_size=2,
+               padding_mode=padding)
     jcfg, jmodel, variables = _jax_init(exp, batch)
     tx = optax.sgd(1.0)
     mesh = make_mesh(4, ("data", "hashes", "heads"), sizes)

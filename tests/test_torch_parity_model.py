@@ -343,14 +343,15 @@ def test_parity_train_step_matches_jax():
 
 
 @pytest.mark.parametrize("bad", [
-    dict(shared_sort=True),  # shared_sort without share_heads
-    dict(qkv_post_sort=True, shared_sort=True),  # post-sort dynamic keys without share_heads
-    dict(gather_sort=True),
+    dict(shared_sort=True),  # shared_sort without the post-sort projections
+    # a static plan without unsort_rows (2b's static-plan family)
+    dict(qkv_post_sort=True, shared_sort=True, share_heads=True, static_keys="x0"),
+    dict(gather_sort=True),  # JAX's pre-sort core takes no gather_sort
     dict(canon_residual=True),
     dict(transport_groups=4),
-    dict(padding_mode="zero"),
-    dict(sort_pack=True),  # on the dynamic path
-    dict(kernel_bf16=True),
+    dict(static_and_bins=4),
+    dict(sort_pack="fp8"),  # F1: the fp8 transport
+    dict(kernel_bf16=True),  # JAX's pre-sort core takes no kernel_bf16
 ])
 def test_unported_modes_name_the_roadmap(bad):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -1,8 +1,8 @@
 """The port's dynamic-key share_heads path (qkv_post_sort + shared_sort +
 share_heads without a static plan, f32: the path the bucket-axis SP runs)
 against the JAX package's, and the refusals around it (fault F1: a
-non-bool `sort_pack` / `unsort_pack`, e.g. "fp8", is refused on both
-paths).
+non-bool `sort_pack` / `unsort_pack`, e.g. "fp8", is refused on every
+path).
 
 JAX runs `hept_attention_core_xcols` on its f32 einsum (`attn_impl: "xla"`,
 the kernel `parallel/bp.py`'s core runs), the port K6 / K7 v1's plain
@@ -237,21 +237,25 @@ def test_fp8_transport_is_refused(path, flag):
 
 
 @pytest.mark.parametrize("bad", [
-    dict(SHARED, kernel_bf16=True),
-    dict(SHARED, kernel_center=True),
-    dict(SHARED, sort_pack=True),
-    dict(SHARED, unsort_pack=True),
-    dict(qkv_post_sort=True, shared_sort=True),  # post-sort without share_heads
-    dict(qkv_post_sort=True),
+    dict(SHARED, kernel_bf16=True, bucket_shards=2),
+    dict(qkv_post_sort=True, kernel_center=True),  # no shared q/k copy
+    dict(SHARED, sort_pack=True, bucket_shards=2),
+    dict(SHARED, unsort_pack=True, bucket_shards=2),
+    dict(qkv_post_sort=True, shared_sort=True, head_shards=2),  # post-sort without share_heads
+    dict(qkv_post_sort=True, hash_shards=2),
     dict(share_heads=True),  # share_heads needs the post-sort projections
-    dict(SHARED, gather_sort=True),
+    dict(SHARED, gather_sort=True, bucket_shards=2),
     dict(SHARED, head_shards=2),
 ], ids=["kernel_bf16", "kernel_center", "sort_pack", "unsort_pack", "no_share_heads",
         "post_sort_alone", "pre_sort_share_heads", "gather_sort", "head_shards"])
 def test_dynamic_share_heads_refusals(bad):
-    """Only the f32 dynamic-key share_heads path is ported: its bf16 modes,
-    post-sort projections without share_heads and head sharding are
-    refused."""
+    """What stays refused around the dynamic-key post-sort paths: the bf16
+    modes and gather_sort under bucket shards (JAX's bucket core runs f32
+    and takes no gather_sort), kernel_center without a shared q/k copy,
+    head / hash sharding of the post-sort paths, share_heads without the
+    post-sort projections. (The bf16 modes, gather_sort and the paths
+    without share_heads themselves run: `test_torch_post_sort.py`,
+    `test_torch_gather_sort.py`, `test_torch_dynamic_bf16.py`.)"""
     with pytest.raises(NotImplementedError):
         TransformerConfig(in_dim=10, coords_dim=6, **dict(BASE, **bad)).check_supported()
 
