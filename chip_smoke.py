@@ -5,7 +5,9 @@
 
 Phases, one line each (plus per-kernel lines):
   1. build the CUDA kernels from `hept_tpu_torch/csrc` (four sources, one
-     nvcc each, in parallel) and print the card's name and power limit;
+     nvcc each, in parallel) and the native host library
+     (`hept_tpu_torch/native`, g++; the synthetic pairs' backend), and
+     print the card's name and power limit;
   2. hold every kernel of the ported paths (K1-K7) against its plain PyTorch
      version at the paths' shapes, with the tolerance printed beside
      the error, and time kernel, plain version and, where one exists, the
@@ -194,7 +196,24 @@ Phases, one line each (plus per-kernel lines):
      gradient against autograd of the same bf16 forward);
  35. use_ckpt: one step each of hept_acc, parity and reformer without and
      with it, the same bits and the generator's state, and the peak memory
-     of each.
+     of each;
+ 36. the static-plan family, at the JAX demo's arms
+     (`scripts/train_60k_demo.py:arm_config`): static, full (canon_residual),
+     fullb4, coordsb4 (static_and_bins, the "coords" hash), full +
+     unsort_rows, static + fold_unsort, the fp8 unsort on the
+     `validate_fp8_unsort` model (dynamic keys) and on static, on the bs-100
+     event (attn_impl hybrid: K6 bf16 on the tensor cores and K7 v1, 4 each
+     a step), and nh2r8bs512cv2rg2 / rg4 (transport groups) on the bs-512
+     event (K1 / K2 4 each on the tensor cores): `--profile-steps` steps
+     each with launches counted (K5 8 a step, 12 with the canonical or
+     sigma entry and exit), busy ms of one profiled step, peak GiB, the
+     first step against plain at the bf16 gates; the fp8 runs' transported
+     values counted for non-finite ones (0 wanted); the fp8 transport
+     and its K5 gather on the card bit for bit against the plain version on
+     the CPU, values past 464 and +-inf included; the twins' forward bits:
+     static + fold_unsort and static + unsort_rows against static, canon
+     against the plain plan with packing and the bf16 kernels off (and
+     that pair's gradients at the f32 gates).
 Before the last line: one JSON line of per-kernel numbers (K5 once per row
 shape, K3 at d = 1 as K3d1, K4 with its yardsticks as extra keys; K3 / K4
 with the baselines', the GNNs' and the loss options' launches at d = 12,
@@ -202,7 +221,9 @@ K3d1 and K4's `d1_launches` with theirs at d = 1; K1 / K2 with the flat
 and DP phases' launches, K6 / K7 with the TP ranks', K10 with the SP
 ranks'; K6 / K7 / K5p with the share_heads steps', the world-1 bucket
 steps' and the bucket ranks', and the dynamic-key runs' of phases 32-34;
-K5g / K5gb, gather_sort's 120 B and 60 B rows, with its runs'), and the
+K5g / K5gb, gather_sort's 120 B and 60 B rows, with its runs'; K5h50,
+K5g2r, K5g4r and K5e96, the static family's 50 B head-broadcast, 800 /
+1600 B group and 96 B entry rows, with phase 36's runs'), and the
 `nvidia-smi` name/power-limit line. `--yardsticks-only [--package-root
 DIR]` builds the kernels of the package in DIR (a parent tree, for an A/B
 in one call), prints K3's, K4's and K5's yardsticks, K2's, K6's, K7's,
@@ -749,6 +770,14 @@ K5_SHAPES = (
      "gather_sort's [x | coords] copies, per-head keys (a broadcast source)"),
     ("bf16 60 B gather_sort", "bfloat16", 24, 1, 60000, 30,
      "gather_sort's [x | coords] copies under sort_pack"),
+    ("bf16 50 B head-broadcast", "bfloat16", 24, 24, 60000, 25,
+     "the static family's head-broadcast unsort under unsort_pack or fp8 (bs 100)"),
+    ("bf16 800 B groups g=2", "bfloat16", 2, 2, 30208, 400,
+     "transport groups' unsort, g = 2 (nh2r8bs512cv2rg2)"),
+    ("bf16 1600 B groups g=4", "bfloat16", 2, 2, 15104, 800,
+     "transport groups' unsort, g = 4 (nh2r8bs512cv2rg4)"),
+    ("f32 96 B entry", "float32", 1, 1, 60000, 24,
+     "the canonical / sigma entry of the residual stream"),
 )
 
 
@@ -796,7 +825,7 @@ def phase_row_gather(torch, n: int, seed: int) -> dict:
     f32, the forward's and the backward's index, a broadcast source, a
     ragged n), then at every shape of K5_SHAPES, timed. One kernel row per
     shape, keyed K5 (the main path's bf16 rows), K5f32, K5p, K5q, K5v, K5g,
-    K5gb."""
+    K5gb, K5h50, K5g2r, K5g4r, K5e96."""
     from hept_tpu_torch.ops import row_gather as rg
 
     dev = torch.device(DEVICE)
@@ -831,7 +860,8 @@ def phase_row_gather(torch, n: int, seed: int) -> dict:
     del src32, src16, plan_src, plan_inv, rag16, cases
     torch.cuda.empty_cache()
     rows = {}
-    for key, row in zip(("K5", "K5f32", "K5p", "K5q", "K5v", "K5g", "K5gb"),
+    for key, row in zip(("K5", "K5f32", "K5p", "K5q", "K5v", "K5g", "K5gb", "K5h50", "K5g2r",
+                         "K5g4r", "K5e96"),
                         k5_yardsticks(torch, rg, gen)):
         rows[key] = dict(row, name=f"K5 row_gather ({row.pop('label')} rows)", route="cuda",
                          source="hept_tpu_torch/csrc/row_gather.cu",
@@ -2934,6 +2964,7 @@ def dynamic_steps(torch, trainer, cfg, batch_np, steps: int, seed: int, zero_cou
     peak = torch.cuda.max_memory_allocated() / 2**30
     final_state = copy.deepcopy(model.state_dict())
     busy = prof_ms = None
+    kernel_us = {}
     if profile:
         prof_ms, kernel_us, _ = profile_device(
             lambda: trainer.train_step(model, opt, loss_fn, batch, gen), 1)
@@ -2952,7 +2983,7 @@ def dynamic_steps(torch, trainer, cfg, batch_np, steps: int, seed: int, zero_cou
     torch.cuda.empty_cache()
     return {"init_state": init_state, "metrics": metrics, "final_state": final_state,
             "launches": launches, "step_ms": step_ms, "steady_ms": steady, "busy_ms": busy,
-            "profiled_ms": prof_ms, "peak_gib": peak}
+            "profiled_ms": prof_ms, "peak_gib": peak, "kernel_us": kernel_us}
 
 
 def same_run(torch, label: str, a: dict, b: dict) -> None:
@@ -3138,6 +3169,188 @@ def phase_ckpt(torch, trainer, batch512_np, batch100_np, seed: int) -> dict:
     return out
 
 
+def arm_config(arm: str, **model_kwargs):
+    """The JAX demo's arm `arm` as the port's demo builds it
+    (`scripts/train_60k_demo.py:arm_config`: lr 1e-2), with `model_kwargs`
+    over its model kwargs."""
+    from hept_tpu_torch.scripts.train_60k_demo import arm_config as demo_arm
+
+    cfg = demo_arm(arm, 1e-2, 0, 1, tempfile.gettempdir(), DEVICE)
+    cfg.model_kwargs.update(model_kwargs)
+    return cfg
+
+
+def fp8_model_config():
+    """`scripts/validate_fp8_unsort.py`'s model: dynamic keys shared by the
+    heads (share_heads), sort_pack, kernel_bf16, the fp8 unsort; bs 100, 3
+    hashes, attn_impl hybrid, lr 1e-3."""
+    from hept_tpu_torch.scripts.train_60k_demo import ARM_BASE
+    from hept_tpu_torch.train.config import ExperimentConfig
+
+    return ExperimentConfig(task="tracking", model_kwargs=dict(ARM_BASE, shared_sort=False,
+                                                               unsort_pack="fp8"),
+                            optimizer_kwargs={"lr": 1e-3}, num_epochs=1, batch_size=1,
+                            batch_mode="flat", n_devices=1, attn_impl="hybrid", device=DEVICE)
+
+
+def forward_out(torch, trainer, cfg, state, batch_np):
+    """The model of `cfg` with parameters `state`: its output on the batch's
+    event, dropout off, no gradient."""
+    batch = trainer.batch_to_device(batch_np, DEVICE)
+    model = trainer.build_model(cfg, batch_np["x"].shape[2], batch_np["coords"].shape[2],
+                                torch.Generator(device=DEVICE).manual_seed(0), DEVICE)
+    model.load_state_dict(state)
+    with torch.no_grad():
+        out = model(batch["x"][0], batch["coords"][0], batch["valid"][0])
+    del model
+    return out
+
+
+def fp8_transport_check(torch, seed: int) -> dict:
+    """The fp8 unsort's transport on the card: the e4m3 / bf16 rounding of
+    `core/buckets.py:_transport` and its K5 gather of the 50 B rows, bit
+    for bit against the same on the CPU (the plain versions; NaN where the
+    CPU has NaN, whatever its payload), on values past
+    e4m3's range (464.1, 465, 480, 1e6, +-inf: NaN), at its limit (464:
+    448), subnormal and in range; R 24 rows of (60000, 25)."""
+    from hept_tpu_torch.core import buckets
+    from hept_tpu_torch.ops import row_gather as rg
+
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((24, 60000, 25), generator=gen) * 100.0
+    special = torch.tensor([463.9, 464.0, 464.1, 465.0, 480.0, 500.0, 448.0, 1e6, float("inf"),
+                            -float("inf"), -464.5, -470.0, float("nan"), 1e-30, 2.0 ** -9,
+                            2.0 ** -10, 3e-3, -0.0, 1e-20])
+    x[0, :special.numel(), 0] = special
+    x[1, :special.numel(), 24] = special  # the denominator column: bf16
+    idx = torch.stack([torch.randperm(60000, generator=gen) for _ in range(24)])
+    want = rg.row_gather_plain(buckets._transport(x, "fp8"), idx)
+    xd, idxd = x.to(DEVICE), idx.to(DEVICE)
+    rounded = buckets._transport(xd, "fp8")
+    got = rg.row_gather_cuda(rounded, idxd)
+    torch.cuda.synchronize()
+    for label, a, b in (("rounding", rounded.cpu(), buckets._transport(x, "fp8")),
+                        ("rounding + K5", got.cpu(), want)):
+        # a NaN is a NaN: the card's conversions write another NaN payload
+        nan_a, nan_b = a.isnan(), b.isnan()
+        diff = (a.view(torch.int16) != b.view(torch.int16)) & ~nan_b
+        if not torch.equal(nan_a, nan_b) or diff.any():
+            raise AssertionError(f"fp8 transport {label}: card and CPU differ in "
+                                 f"{int(diff.sum())} values and {int((nan_a != nan_b).sum())} "
+                                 "NaN positions")
+    nan = int(want.isnan().sum())
+    head = buckets._transport(special[:, None].expand(-1, 2).contiguous(), "fp8")[:, 0]
+    log(f"  fp8 transport: rounding and K5 gather bit-equal card vs CPU on 24 x 60000 x 25 "
+        f"values ({nan} NaN out, at the CPU's NaN); e4m3 of {special.tolist()} -> "
+        f"{head.float().tolist()}")
+    return {"nan_out": nan}
+
+
+def phase_static_family(torch, trainer, batch100_np, batch512_np, steps: int, seed: int,
+                        zero_counts, read_counts) -> dict:
+    """36. The static-plan family (module docstring): each run through
+    `dynamic_steps` (steps, launches, busy ms, peak GiB, the first step
+    against plain at the bf16 gates), the fp8 runs with their fp8
+    transports' non-finite values counted, the fp8 transport on the card
+    against the CPU, and
+    the twins' forward bits."""
+    from hept_tpu_torch.core import buckets
+
+    hybrid = {**NO_K1_K2, "cols_fwd_tc": 4 * steps, "cols_fwd": 0, "cols_bwd": 4 * steps,
+              "cols_bwd_tc": 0, "rows_fwd": 0, "rows_bwd": 0,
+              **{k: v * steps for k, v in PAIR_LAUNCHES_STEP.items()}}
+    slab = {**NO_K6_K7, "bucket_attn_fwd_tc": 4 * steps, "bucket_attn_bwd_tc": 4 * steps,
+            "bucket_attn_fwd": 0, "bucket_attn_bwd": 0, "rows_fwd": 0, "rows_bwd": 0,
+            **{k: v * steps for k, v in PAIR_LAUNCHES_STEP.items()}}
+    # (label, config, batch, launches): K5 8 a step (the unsort, forward and
+    # backward, a layer), 12 with the canonical / sigma entry and exit
+    runs = [
+        ("static", arm_config("static"), batch100_np, dict(hybrid, row_gather=8 * steps)),
+        ("full", arm_config("full"), batch100_np, dict(hybrid, row_gather=12 * steps)),
+        ("fullb4", arm_config("fullb4"), batch100_np, dict(hybrid, row_gather=12 * steps)),
+        ("coordsb4", arm_config("coordsb4"), batch100_np, dict(hybrid, row_gather=12 * steps)),
+        ("full + unsort_rows", arm_config("full", unsort_rows=True), batch100_np,
+         dict(hybrid, row_gather=12 * steps)),
+        ("static + fold_unsort", arm_config("static", fold_unsort=True), batch100_np,
+         dict(hybrid, row_gather=8 * steps)),
+        ("fp8 validate_fp8_unsort", fp8_model_config(), batch100_np,
+         dict(hybrid, row_gather=8 * steps)),
+        ("static + fp8", arm_config("static", unsort_pack="fp8"), batch100_np,
+         dict(hybrid, row_gather=8 * steps)),
+        ("nh2r8bs512cv2rg2", arm_config("nh2r8bs512cv2rg2"), batch512_np,
+         dict(slab, row_gather=12 * steps)),
+        ("nh2r8bs512cv2rg4", arm_config("nh2r8bs512cv2rg4"), batch512_np,
+         dict(slab, row_gather=12 * steps)),
+    ]
+    out, cfgs = {}, {}
+    transport = buckets._transport
+    for label, cfg, batch_np, want in runs:
+        bad = []
+
+        def counting(x, pack, _transport=transport, _bad=bad):
+            y = _transport(x, pack)
+            if pack == "fp8":
+                _bad.append((~torch.isfinite(y)).sum())
+            return y
+
+        if cfg.model_kwargs.get("unsort_pack") == "fp8":
+            buckets._transport = counting
+        try:
+            out[label] = dynamic_steps(torch, trainer, cfg, batch_np, steps, seed, zero_counts,
+                                       read_counts, label, want)
+        finally:
+            buckets._transport = transport
+        if cfg.model_kwargs.get("unsort_pack") == "fp8":
+            nonfinite = int(sum(int(b) for b in bad))
+            out[label]["fp8_transports"], out[label]["fp8_nonfinite"] = len(bad), nonfinite
+            log(f"  {label}: {len(bad)} fp8 transports (forward and backward), {nonfinite} "
+                "non-finite values")
+            if not bad or nonfinite:
+                raise AssertionError(f"{label}: {nonfinite} non-finite fp8 values in "
+                                     f"{len(bad)} transports")
+        cfgs[label] = cfg
+        top = sorted(out[label]["kernel_us"].items(), key=lambda kv: -kv[1])[:6]
+        log(f"  {label}: the profiled step's top device kernels (ms): "
+            + "; ".join(f"{k[:80]} {v / 1e3:.2f}" for k, v in top))
+    out["fp8_transport"] = fp8_transport_check(torch, seed)
+    # the twins' forward bits, on the static run's initial weights
+    state = out["static"]["init_state"]
+    ref = forward_out(torch, trainer, cfgs["static"], state, batch100_np)
+    for label, cfg in (("static + fold_unsort", cfgs["static + fold_unsort"]),
+                       ("static + unsort_rows", arm_config("static", unsort_rows=True))):
+        got = forward_out(torch, trainer, cfg, state, batch100_np)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"{label}: forward differs from static's in "
+                                 f"{int((got != ref).sum())} elements, max|d| {max_err(got, ref)}")
+        log(f"  {label}: static's forward bits")
+    f32 = dict(sort_pack=False, unsort_pack=False, kernel_bf16=False)
+    plain32, canon32 = arm_config("static", **f32), arm_config("full", **f32)
+    a = forward_out(torch, trainer, plain32, state, batch100_np)
+    b = forward_out(torch, trainer, canon32, state, batch100_np)
+    if not torch.equal(a, b):
+        raise AssertionError(f"canon vs the plain plan, packing off: forward differs in "
+                             f"{int((a != b).sum())} elements, max|d| {max_err(a, b)}")
+    log("  canon (full, packing and bf16 kernels off): the plain plan's forward bits")
+    batch = trainer.batch_to_device(batch100_np, DEVICE)
+    grads = {}
+    for label, cfg in (("plain", plain32), ("canon", canon32)):
+        model = trainer.build_model(cfg, batch100_np["x"].shape[2],
+                                    batch100_np["coords"].shape[2],
+                                    torch.Generator(device=DEVICE).manual_seed(0), DEVICE)
+        model.load_state_dict(state)
+        grads[label] = loss_and_grads(torch, model, trainer.make_loss_fn(cfg), batch)
+        del model
+    (loss_a, ga), (loss_b, gb) = grads["plain"], grads["canon"]
+    check("canon vs plain plan loss |d| / |loss|", abs(loss_a - loss_b) / abs(loss_a), 1e-4)
+    floor = 1e-3 * max(scale(g) for g in ga.values())
+    worst = max(max_err(gb[k], ga[k]) / max(scale(ga[k]), floor) for k in ga)
+    check("canon vs plain plan: every parameter gradient / max(scale, 1e-3 largest)", worst,
+          1e-3)
+    out["canon_twin"] = {"loss_rel": abs(loss_a - loss_b) / abs(loss_a), "grad_ratio": worst}
+    torch.cuda.empty_cache()
+    return out
+
+
 def hept_tpu_torch_root() -> str:
     import hept_tpu_torch
 
@@ -3198,6 +3411,16 @@ def main(argv=None) -> int:
         for line in cuda_lib.build_log[nm].splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {nm}: {line.strip()}")
+    from hept_tpu_torch import native
+    from hept_tpu_torch.data.synthetic import pairs_backend
+
+    if native._LIB.exists():
+        native._LIB.unlink()  # built from this checkout's source, now
+    t0 = time.perf_counter()
+    if not native.native_available():
+        raise AssertionError("the native host library (hept_tpu_torch/native) did not build")
+    log(f"phase build: native host library (g++) {time.perf_counter() - t0:.1f} s; synthetic "
+        f"pairs backend: {pairs_backend()}")
 
     cfg = profile_config("hept_acc", device=DEVICE, num_epochs=1)
     block_size = cfg.model_kwargs["block_size"]
@@ -3549,6 +3772,9 @@ def main(argv=None) -> int:
                                zero_counts, read_counts)
     log("phase 35 use_ckpt:")
     ckpt = phase_ckpt(torch, trainer, batch_np, batch100, args.seed)
+    log("phase 36 the static-plan family:")
+    fam = phase_static_family(torch, trainer, batch100, batch_np, args.profile_steps, args.seed,
+                              zero_counts, read_counts)
     runs32_34 = {"32 zero-padded parity": zero["parity"], **{f"33 {k}": v for k, v in post.items()},
                  "34 share_heads bf16": dyn16, "34 share_heads bf16 gather_sort":
                  dyn16["gather_sort"]}
@@ -3584,6 +3810,28 @@ def main(argv=None) -> int:
         log(f"  {k} | {r['peak_gib']:.3f} / {r['ckpt_peak_gib']:.3f} | {r['ms']:.1f} / "
             f"{r['ckpt_ms']:.1f}")
 
+    fam_runs = [k for k in fam if "launches" in fam[k]]
+    for key, names in (("K6", ("cols_fwd_tc",)), ("K7", ("cols_bwd",)),
+                       ("K1", ("bucket_attn_fwd_tc",)), ("K2", ("bucket_attn_bwd_tc",))):
+        rows[key]["static_family_launches"] = {
+            k: {n: fam[k]["launches"][n] for n in names} for k in fam_runs
+            if fam[k]["launches"].get(names[0])}
+        rows[key]["static_family_launches_in"] = (f"phase 36, {args.profile_steps} steps a "
+                                                  "run")
+    for key, run in (("K5h50", "static"), ("K5g2r", "nh2r8bs512cv2rg2"),
+                     ("K5g4r", "nh2r8bs512cv2rg4"), ("K5e96", "full")):
+        rows[key]["launches"] = fam[run]["launches"]["row_gather"]
+        rows[key]["launches_in"] = (f"phase 36, {args.profile_steps} {run} steps (all of the "
+                                    "run's row gathers, every width)")
+    rows["K5p"]["static_family_launches"] = {k: fam[k]["launches"]["row_gather"]
+                                             for k in fam_runs}
+    log(f"phase static family ({smi}): run | step ms (median after the first) | busy ms | "
+        "peak GiB | K5 a step")
+    for k in fam_runs:
+        r = fam[k]
+        log(f"  {k} | {r['steady_ms']:.1f} | {r['busy_ms']:.2f} | {r['peak_gib']:.2f} | "
+            f"{r['launches']['row_gather'] // args.profile_steps}")
+
     # K11 (row_gather_vreg) has K5's contract and runs on K5's kernel
     rows["K11"] = dict(rows["K5"], name="K11 row_gather_vreg", ported_by="K5",
                        replaces="hept_tpu/ops/gather_pallas.py:124")
@@ -3592,8 +3840,8 @@ def main(argv=None) -> int:
         {**{k: rows[key][k] for k in KERNEL_KEYS},
          **{k: v for k, v in rows[key].items() if k not in KERNEL_KEYS}}
         for key in ("K1", "K2", "K3", "K3d1", "K4", "K5", "K5f32", "K5p", "K5q", "K5v", "K5g",
-                    "K5gb", "K6", "K7", "K6d28", "K7d28", "K8", "K9", "K10f", "K10b", "K11",
-                    "K12")]}))
+                    "K5gb", "K5h50", "K5g2r", "K5g4r", "K5e96", "K6", "K7", "K6d28", "K7d28",
+                    "K8", "K9", "K10f", "K10b", "K11", "K12")]}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -13,7 +13,11 @@ forward and backward, is kernel K5 (`ops/row_gather.py`,
 the JAX package's transport rounding: values (and, in the backward,
 cotangents) pass through bfloat16. The JAX side moved them as bf16 pairs
 bit-packed into u32 words, which was a TPU transport trick; only the rounding
-is carried over.
+is carried over. `pack="fp8"` (row payloads only: the [num | denom] unsort)
+rounds every column but the last to float8_e4m3fn and the last to bfloat16,
+JAX's e4m3-quad encoding (`hept_tpu/core/buckets.py:_cols_to_u32`); the
+rounded values ride as bfloat16 rows, which hold every e4m3fn value and NaN
+exactly.
 """
 
 from __future__ import annotations
@@ -56,7 +60,33 @@ def gather_rows(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
     return flat[(perm + offs).reshape(-1)].reshape(c, h, n, d)
 
 
-def _transport(x: torch.Tensor, pack: bool) -> torch.Tensor:
+# |x| above this rounds past e4m3fn's largest finite value (448; 464 is the
+# tie between 448 and the NaN encoding above it, and rounds to even, 448)
+E4M3_OVERFLOW = 464.0
+
+
+def e4m3_round(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to float8_e4m3fn and back to float32, with JAX's overflow:
+    |x| > 464 and +-inf give NaN, as `astype(jnp.float8_e4m3fn)` does. The
+    torch cast saturates them to +-448 instead, so the NaN is put back here;
+    inside the range the two roundings agree bit for bit."""
+    y = x.to(torch.float8_e4m3fn).to(torch.float32)
+    return y.masked_fill_(x.abs() > E4M3_OVERFLOW, float("nan"))
+
+
+def pack_mode(pack):
+    """A transport flag as `_transport` takes it: False, True or "fp8"."""
+    return pack if pack == "fp8" else bool(pack)
+
+
+def _transport(x: torch.Tensor, pack) -> torch.Tensor:
+    if pack == "fp8":
+        # JAX's [num | denom] encoding: e4m3 for all but the last column,
+        # bf16 for the last (e4m3 would flush the 1e-20 denominator floor)
+        x = x.to(torch.float32)
+        y = e4m3_round(x)
+        y[..., -1] = x[..., -1]
+        return y.to(torch.bfloat16)
     return x.to(torch.bfloat16) if pack else x.to(torch.float32)
 
 
@@ -131,10 +161,11 @@ def permute_gather_rows(rows: torch.Tensor, idx: torch.Tensor, inv: torch.Tensor
       rows: (S, ne, W) row payload; S may divide R (broadcast source).
       idx: (R, ne) -- out[r, p, :] = rows[r % S, idx[r, p], :].
       inv: (R, ne) idx's inverse permutation (for the backward).
-      pack: round values (and cotangents) through bfloat16.
+      pack: round values (and cotangents) through bfloat16; "fp8": the
+        last of the W columns through bfloat16, the others through e4m3.
     Returns: (R, ne, W) float32.
     """
-    return _PermuteGatherRows.apply(rows, idx, inv, bool(pack))
+    return _PermuteGatherRows.apply(rows, idx, inv, pack_mode(pack))
 
 
 class _GatherCopies(torch.autograd.Function):
@@ -248,7 +279,8 @@ def unsort_carry(src: torch.Tensor, rows: torch.Tensor, pack: bool = False,
     Args:
       src: (c, h, n) permutations of the sort (sorted slot s holds row src[s]).
       rows: (c, h, n, w) rows in sorted order.
-      pack: round values (and cotangents) through bfloat16.
+      pack: round values (and cotangents) through bfloat16 (or "fp8", see
+        `permute_gather_rows`).
       inv: optional (c, h, n) inverse of `src`, when the caller has it.
     Returns: (c, h, n, w) float32 rows in the original order: row j is
       sorted slot inv[j]. One row gather (kernel K5 on CUDA tensors); the

@@ -5,18 +5,24 @@ Tracks are clusters of hits around an (eta, phi) centre whose features
 correlate with the track, so contrastive embedding learning is possible.
 coords = [eta, phi, x[:, :4]] -> coords_dim = 6.
 
-Supervision pairs always come from scipy's cKDTree (up to k neighbours within
-a radius). The JAX package may build them with its native grid-hash library
-instead, which returns a different pair set; the two generators draw the same
-points from the same seed, and only the pairs can differ.
+Supervision pairs follow the JAX package's rule: the native grid-hash
+library (`native/`, built with g++ at first use) wherever it builds, else
+scipy's cKDTree, which returns a different pair set (kNN-capped); the backend
+is logged once (`pairs_backend`). The two generators draw the same points
+from the same seed, so on one host the whole set is the JAX package's.
 """
 
 from __future__ import annotations
 
+import logging
+
 import numpy as np
 from scipy.spatial import cKDTree
 
+from .. import native
 from .batching import Event
+
+_BACKEND_LOGGED = False
 
 
 def synthetic_tracking_event(
@@ -81,9 +87,28 @@ def synthetic_tracking_event(
     )
 
 
+def pairs_backend() -> str:
+    """The backend `radius_pairs` uses on this host: "native-grid-hash" where
+    the native library builds, else "cKDTree-knn-capped" (the JAX package's
+    names)."""
+    return "native-grid-hash" if native.native_available() else "cKDTree-knn-capped"
+
+
 def radius_pairs(eta, phi, radius, k):
-    """Supervision pairs: up to k nearest neighbours within `radius` per
-    point, (2, E) int32 with the anchor in row 0."""
+    """Supervision pairs: up to k neighbours within `radius` per point,
+    (2, E) int32 with the anchor in row 0 (the role of the reference's
+    radius-graph pairs, src/datasets/tracking.py:204-209). The native
+    grid-hash library returns every in-radius pair up to the k nearest;
+    without it, cKDTree's k nearest that lie within the radius (JAX:
+    `hept_tpu/data/synthetic.py:96-131`)."""
+    global _BACKEND_LOGGED
+    backend = pairs_backend()
+    if not _BACKEND_LOGGED:
+        logging.getLogger(__name__).info("synthetic supervision pairs backend: %s", backend)
+        _BACKEND_LOGGED = True
+    if backend == "native-grid-hash":
+        return native.radius_pairs(np.asarray(eta, np.float32), np.asarray(phi, np.float32),
+                                   radius, k).astype(np.int32)
     n = len(eta)
     pos = np.stack([eta, phi], axis=1).astype(np.float64)
     tree = cKDTree(pos)

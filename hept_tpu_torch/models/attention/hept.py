@@ -93,7 +93,9 @@ class HeptAttention(nn.Module):
                 plan, block_size=cfg.block_size, impl=cfg.attn_impl, sort_pack=cfg.sort_pack,
                 unsort_pack=cfg.unsort_pack, kernel_bf16=cfg.kernel_bf16,
                 kernel_center=cfg.kernel_center, sort_events=cfg.sort_events,
-                unsort_rows=cfg.unsort_rows, share_heads=cfg.share_heads,
+                unsort_rows=cfg.unsort_rows, fold_unsort=cfg.fold_unsort,
+                canon=cfg.canon_residual, plan_groups=cfg.transport_groups,
+                share_heads=cfg.share_heads,
                 shared_sort=cfg.shared_sort, gather_sort=cfg.gather_sort, src=perms,
                 record_perms=record_perms,
             )  # (n, h * d) rows

@@ -6,9 +6,13 @@ concat of all layer outputs -> bias-free `W` -> 5-layer tanh/LayerNorm MLP
 residual head. The pileup task embeds the PID in the last feature column
 before the encoder and ends in a sigmoid classifier. Three ways to bucket the points:
 - static plan (hept_acc, hept_fast, hept_turbo): keys are hashed once per
-  step from the encoder output and coords (`static_hash`); one plan of
-  `static_rounds` rounds is built, and layer l uses rounds
-  [(l * n_hashes + j) % static_rounds for j < n_hashes];
+  step from the encoder output and coords, or the coords alone
+  (`static_hash`); one plan of `static_rounds` rounds is built, and layer l
+  uses rounds [(l * n_hashes + j) % static_rounds for j < n_hashes] (under
+  canon_residual round 0 and n_hashes - 1 rounds cycled over the rest);
+  under canon_residual the residual stream rides in round 0's sorted order,
+  with transport groups in a (AND cell, Morton) order, from the encoder to
+  the head (`permute_rows`);
 - dynamic keys (the reference-parity `hept`): each layer projects q/k/v
   before the sort and hashes every head on its own, with the per-head AND
   codes of `prepare_event`;
@@ -58,7 +62,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..core.buckets import bit_shift
+from ..core.buckets import bit_shift, permute_gather_rows
 from ..parallel.collectives import broadcast, copy_to_group
 from ..core.hashing import e2lsh_init
 from ..core.padding import replication_pad_plan
@@ -89,7 +93,9 @@ class TransformerConfig:
 
     The port implements these paths of attn_type "hept", with replicate or
     zero padding (`check_supported`): the static plan (qkv_post_sort +
-    share_heads + static_keys + unsort_rows); dynamic per-layer keys per
+    share_heads + static_keys "x0" or "coords", with static_and_bins,
+    unsort_rows or the head-broadcast unsort, fold_unsort, canon_residual or
+    transport_groups); dynamic per-layer keys per
     head with q/k/v projected before the sort (the reference-parity path:
     all four off); and dynamic per-layer keys after the sort
     (qkv_post_sort), shared by the heads (share_heads; the path the
@@ -99,9 +105,10 @@ class TransformerConfig:
     share_heads' unsort by merged rows (unsort_rows) or per head; per head
     is also JAX's fold_unsort result, so that flag selects nothing more.
     The bf16 modes
-    (sort_pack, unsort_pack, kernel_bf16, kernel_center) run wherever JAX
-    runs them. `use_ckpt` recomputes each block in the backward, on every
-    attn_type. The seven baseline attentions (`BASELINES`)
+    (sort_pack, unsort_pack, kernel_bf16, kernel_center) and the fp8 unsort
+    (unsort_pack "fp8") run wherever JAX runs them. `use_ckpt` recomputes
+    each block in the backward, on every attn_type. The seven baseline
+    attentions (`BASELINES`)
     read the baseline fields at the end and none of hept's modes.
     `attn_impl` selects the bucket kernels
     (`ops/bucket_attn_cuda.py:cols_routes`): every mode of the JAX package
@@ -188,11 +195,16 @@ class TransformerConfig:
                 self.sort_events == 1
             self._refuse(need)
             return
+        fp8 = self.unsort_pack == "fp8"
         need.update({
-            # JAX's "fp8" unsort (e4m3 ratio transport) is not ported; a
-            # truthy string must not run as the bf16 transport
-            f"sort_pack and unsort_pack are bools ('fp8': {_ROADMAP})":
-                isinstance(self.sort_pack, bool) and isinstance(self.unsort_pack, bool),
+            "sort_pack is a bool and unsort_pack a bool or 'fp8' (a sort_pack 'fp8' or another "
+            "value must not run as the bf16 transport; JAX documents the e4m3 encoding for the "
+            "[num|denom] unsort only; ROADMAP.md, queue 1, 'Not queued')":
+                isinstance(self.sort_pack, bool)
+                and (isinstance(self.unsort_pack, bool) or fp8),
+            "unsort_pack 'fp8' not with the merged-row unsorts: unsort_rows after the sort "
+            "(hept_tpu/ops/bucket_attn.py:1011) or fold_unsort (:989)":
+                not (fp8 and (self.fold_unsort or (self.unsort_rows and self.qkv_post_sort))),
             "padding_mode in ('replicate', 'zero')": self.padding_mode in ("replicate", "zero"),
             "num_and_hashes == 2 (JAX's region_codes reshapes the regions to (2, c * h), "
             "hept_tpu/core/regions.py:106, so its model cannot be built with another value "
@@ -201,11 +213,17 @@ class TransformerConfig:
             "autodiff path, not run by the port: on the card every bucket call launches a "
             "kernel, and its autodiff backward of a bf16 forward breaks the gradient contract "
             "of ROADMAP.md's North star)": self.attn_impl in ATTN_IMPLS,
-            f"no canon_residual ({_ROADMAP})": not self.canon_residual,
-            f"transport_groups == 1 ({_ROADMAP})": self.transport_groups == 1,
-            f"static_and_bins == 0 ({_ROADMAP})": self.static_and_bins == 0,
         })
+        if self.canon_residual and not self.static_keys:
+            # hept_tpu/models/transformer.py:707-708
+            raise ValueError("canon_residual requires static_keys")
         if self.static_keys:
+            rounds = self.static_rounds or self.n_hashes
+            g = self.transport_groups
+            if self.canon_residual and rounds != self.n_hashes and (
+                    self.n_hashes < 2 or (rounds - 1) % (self.n_hashes - 1)):
+                # hept_tpu/models/transformer.py:615-623
+                raise ValueError("with canon_residual, static_rounds must be 1 + k*(n_hashes-1)")
             need.update({
                 "static plan: no head sharding (share_heads leaves e2lsh_alpha one head wide "
                 "and hept_tpu/parallel/tp.py:70-72 shards it over heads: JAX's shard_map "
@@ -214,17 +232,27 @@ class TransformerConfig:
                 "hash shard keeps the whole replicated static_alpha while its AND codes "
                 "shard, hept_tpu/parallel/tp.py:34-78, so a layer's rounds are not the "
                 "single-device model's)": self.hash_shards == 1,
-                f"static_keys in (True, 'x0') ('coords': {_ROADMAP})":
-                    self.static_keys in (True, "x0"),
+                "static_keys in (True, 'x0', 'coords')": self.static_keys in (True, "x0", "coords"),
                 "static plan: qkv_post_sort": bool(self.qkv_post_sort),
                 "static plan: share_heads": bool(self.share_heads),
-                f"static plan: unsort_rows (a plan without it: {_ROADMAP})":
-                    bool(self.unsort_rows),
-                f"static plan: no fold_unsort ({_ROADMAP})": not self.fold_unsort,
-                "static_rounds a multiple of n_hashes":
-                    (self.static_rounds or self.n_hashes) % self.n_hashes == 0,
+                "static_rounds a multiple of n_hashes (canon_residual: 1 + k * (n_hashes - 1))":
+                    self.canon_residual or rounds % self.n_hashes == 0,
+                "static_and_bins >= 0": self.static_and_bins >= 0,
+                "transport_groups >= 1": g >= 1,
+                # hept_tpu/models/transformer.py:652-656
+                "transport_groups not with canon_residual (sigma is the groups' own storage "
+                "order)": g == 1 or not self.canon_residual,
+                "transport_groups needs unsort_rows": g == 1 or bool(self.unsort_rows),
+                "transport_groups divides block_size": self.block_size % g == 0,
             })
         else:
+            need.update({
+                # JAX reads neither without a plan (hept_tpu/models/transformer.py:600-708)
+                "transport_groups == 1 without static_keys (JAX ignores it there; ROADMAP.md, "
+                "queue 1, 'Not queued')": self.transport_groups == 1,
+                "static_and_bins == 0 without static_keys (JAX ignores it there; ROADMAP.md, "
+                "queue 1, 'Not queued')": self.static_and_bins == 0,
+            })
             # dynamic keys: the reference-parity path (per-head keys, q/k/v
             # projected before the sort) and the post-sort paths (keys in
             # [x | coords] space, shared by the heads or per head)
@@ -283,6 +311,19 @@ class TransformerConfig:
                 "the port runs the static-plan and the dynamic-key HEPT paths and the seven "
                 "baseline attentions only; unsupported: " + ", ".join(missing)
             )
+
+
+def permute_rows(arr: torch.Tensor, src1: torch.Tensor, inv1: torch.Tensor,
+                 n_ev: int) -> torch.Tensor:
+    """out[j] = arr[src1[j]] within each of n_ev event rows, differentiable
+    (the backward gathers by inv1): the canon_residual / transport-groups
+    entry and exit (JAX's `_permute_rows`, `hept_tpu/models/transformer.py:
+    223-234`), one row gather (K5 on CUDA tensors). arr (n, d); src1, inv1
+    (1, n_ev, n / n_ev)."""
+    n, d = arr.shape
+    out = permute_gather_rows(arr.reshape(n_ev, n // n_ev, d), src1.reshape(n_ev, -1),
+                              inv1.reshape(n_ev, -1))
+    return out.reshape(n, d)
 
 
 def prepare_event(x, coords, valid, regions, block_size: int, groups: dict | None = None,
@@ -532,8 +573,10 @@ class HeptTransformer(nn.Module):
         self.feat_enc_0 = TorchLinear(in_dim, cfg.h_dim, generator=generator, device=device)
         self.feat_enc_1 = TorchLinear(cfg.h_dim, cfg.h_dim, generator=generator, device=device)
         if cfg.attn_type == "hept" and cfg.static_keys:
+            # a second row of directions for static_and_bins' AND bin
             self.register_buffer("static_alpha", e2lsh_init(
-                generator, 1, cfg.h_dim + cfg.coords_dim, self.total_rounds, device=device))
+                generator, 2 if cfg.static_and_bins else 1, cfg.h_dim + cfg.coords_dim,
+                self.total_rounds, device=device))
         self.blocks = nn.ModuleList(
             AttnBlock(cfg, generator, device, groups) for _ in range(cfg.n_layers)
         )
@@ -553,21 +596,39 @@ class HeptTransformer(nn.Module):
         return self.cfg.num_classes if self.cfg.task == "pileup" else self.cfg.h_dim // 2
 
     def build_plan(self, h, coords, codes, invalid):
-        """The once-per-step plan of `total_rounds` rounds (static_hash of the
-        encoder output + coords, AND codes of head 0 cycled over rounds)."""
+        """The once-per-step plan of `total_rounds` rounds (`static_hash` of
+        the encoder output and coords, or of the coords alone; AND codes of
+        head 0, cycled over the rounds, or under canon_residual's pinned
+        scheme round 0's row and then rows 1.. cycled), the tuple of
+        `static_bucket_plan`: 3 arrays, 5 under canon_residual, 7 with
+        transport groups."""
         cfg = self.cfg
+        nh = cfg.n_hashes
         scale = float(math.sqrt(2.0 * cfg.num_w_per_dist))
-        hashed = static_hash(h.t(), coords.t(), self.static_alpha, scale)
-        rows = [t % cfg.n_hashes for t in range(self.total_rounds)]
+        hashed = static_hash(h.t(), coords.t(), self.static_alpha, scale,
+                             "coords" if cfg.static_keys == "coords" else "x0",
+                             cfg.static_and_bins)
+        if cfg.canon_residual and self.total_rounds != nh:
+            rows = [0] + [1 + t % (nh - 1) for t in range(self.total_rounds - 1)]
+        else:
+            rows = [t % nh for t in range(self.total_rounds)]
         codes0 = codes[:, 0][torch.as_tensor(rows, device=codes.device)]
         return static_bucket_plan(hashed, codes0, invalid, coords.t(),
                                   sort_events=cfg.sort_events, sort_pack=cfg.sort_pack,
-                                  coords_f32=cfg.kernel_center)
+                                  coords_f32=cfg.kernel_center, canonical=cfg.canon_residual,
+                                  group_size=cfg.transport_groups)
 
     def layer_plan(self, plan, layer: int):
-        nh = self.cfg.n_hashes
-        idx = torch.as_tensor([(layer * nh + j) % self.total_rounds for j in range(nh)],
-                              device=plan[0].device)
+        """Layer `layer`'s n_hashes rounds of the plan: rounds (layer * nh +
+        j) % total_rounds, or under canon_residual round 0 and nh - 1 rounds
+        cycled over 1..total_rounds - 1 (round 0 stays each layer's
+        canonical round)."""
+        nh, total = self.cfg.n_hashes, self.total_rounds
+        if self.cfg.canon_residual and total != nh:
+            rounds = [0] + [1 + (layer * (nh - 1) + j) % (total - 1) for j in range(nh - 1)]
+        else:
+            rounds = [(layer * nh + j) % total for j in range(nh)]
+        idx = torch.as_tensor(rounds, device=plan[0].device)
         return tuple(a[idx] for a in plan)
 
     def _block(self, block: AttnBlock, h, generator, perms, record_perms, **kw):
@@ -607,8 +668,8 @@ class HeptTransformer(nn.Module):
                 rotations: list | None = None, prepared=None):
         """`generator` draws the dropout masks (no generator: no dropout)
         and the LSH baselines' random rotations (no generator: a fixed
-        draw). Static plan: `plan` overrides the step's bucket plan (src,
-        inv, scoords) of `total_rounds` rounds, as built by `build_plan`.
+        draw). Static plan: `plan` overrides the step's bucket plan of
+        `total_rounds` rounds, the tuple `build_plan` builds.
         Dynamic keys: `perms` overrides each layer's (q_src, k_src)
         permutations, and `record_perms` (a list) receives them, one pair
         per layer (shared by the heads: one (c, n) src a layer). Reformer /
@@ -637,8 +698,20 @@ class HeptTransformer(nn.Module):
             x = torch.cat([x[:, :-1], self.pids_enc(pids)], dim=-1)
         h = self.feat_enc_1(torch.relu(self.feat_enc_0(x)))
         static = cfg.attn_type == "hept" and cfg.static_keys
-        if static and plan is None:
-            plan = self.build_plan(h, coords, codes, invalid)
+        entry = None
+        if static:
+            if plan is None:
+                plan = self.build_plan(h, coords, codes, invalid)
+            if cfg.transport_groups > 1:
+                entry, plan = plan[5:7], plan[:5]
+            elif cfg.canon_residual:
+                entry = plan[0][:1], plan[1][:1]  # global round 0
+            if entry is not None:
+                # the residual stream and the pad mask ride in round 0's (or
+                # sigma's) order from here to the head
+                h = permute_rows(h, entry[0], entry[1], cfg.sort_events)
+                invalid = torch.gather(invalid.reshape(cfg.sort_events, -1), 1,
+                                       entry[0][0]).reshape(-1)
         layers = [h]
         for i, block in enumerate(self.blocks):
             out = self._block(block, h, generator, perms=None if perms is None else perms[i],
@@ -656,6 +729,8 @@ class HeptTransformer(nn.Module):
         out = out + dropout(self.mlp_out(out), cfg.dropout, generator)
         if cfg.task == "pileup":
             out = torch.sigmoid(self.out_proj(out))
+        if entry is not None:
+            out = permute_rows(out, entry[1], entry[0], cfg.sort_events)  # back to point order
         return out
 
 

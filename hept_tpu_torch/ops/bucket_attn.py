@@ -9,7 +9,10 @@ sum num / sum denom. The paths:
   per step (`static_hash`), one sort builds every round's permutation
   (`static_bucket_plan`), and each layer gathers its x columns by the plan,
   projects them after the gather, runs the bucket kernel and unsorts
-  [num|denom] with a row gather (`hept_attention_core_xcols`);
+  [num|denom] with a row gather (`hept_attention_core_xcols`); the plan's
+  family: the "coords" hash and an AND-composed second direction
+  (`static_and_bins`), the residual stream in round 0's order
+  (canon_residual) or in a (cell, Morton) order with transport groups;
 - dynamic keys after the sort (qkv_post_sort): each layer hashes [x |
   coords] once per round for every head (share_heads) or per (round, head)
   with the hashes composed through the projections, sorts it (for q and k
@@ -21,8 +24,8 @@ sum num / sum denom. The paths:
 - dynamic keys (the reference-parity `hept` profile): each layer hashes its
   own projected q and k per head, sorts them by their own keys and unsorts
   by the q permutation (`hept_attention_core_cols`);
-The bf16 modes (sort_pack, unsort_pack, kernel_bf16, kernel_center) run on
-every path that JAX runs them on.
+The bf16 modes (sort_pack, unsort_pack, kernel_bf16, kernel_center), and
+the fp8 unsort (unsort_pack "fp8"), run on every path that JAX runs them on.
 - the same pipeline on row-major (h, n, d) operands, the one the JAX package
   exports and shards over heads (`hept_attention_core`, kernel K10).
 The column kernel is chosen by `attn_impl` (`bucket_attn_cuda`).
@@ -94,30 +97,81 @@ def stable_ratio(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
 
 
 def static_hash(x0_cols: torch.Tensor, coords_cols: torch.Tensor, alpha: torch.Tensor,
-                scale: float) -> torch.Tensor:
-    """Layer-invariant bucket hashes: one hash per step in [x0|coords] space
-    (the "x0" variant): x0 standardised per point, over its d_model
-    features, plus the coords scaled by `scale`.
+                scale: float, variant: str = "x0", and_bins: int = 0) -> torch.Tensor:
+    """Layer-invariant bucket hashes: one hash per step in [x0|coords] space.
 
     Args:
       x0_cols: (d_model, n) encoder-output columns.
       coords_cols: (cd, n).
-      alpha: (1, d_model + cd, c) E2LSH directions.
+      alpha: (1 or 2, d_model + cd, c) E2LSH directions (two rows when
+        and_bins > 0: the primary and the secondary direction).
+      scale: the coords part's weight.
+      variant: "x0" hashes x0 standardised per point (over its d_model
+        features) plus the coords scaled by `scale`; "coords" hashes the
+        scaled coords alone.
+      and_bins: > 0: a second direction, quantised into this many bins over
+        its range, is AND-composed above the primary hash: key = h1 + bin *
+        1.001 * span(h1) (strictly above the span, so that a bin's top key
+        sorts below the next bin's bottom one).
     Returns: (c, n) hash values, detached.
     """
     with torch.no_grad():
         d_model = x0_cols.shape[0]
-        a1, a2 = alpha[0, :d_model, :], alpha[0, d_model:, :]
-        mu = x0_cols.mean(dim=0, keepdim=True)
-        sd = torch.sqrt(((x0_cols - mu) ** 2).mean(dim=0, keepdim=True) + 1e-6)
-        return (torch.einsum("rc,rn->cn", scale * a2, coords_cols)
-                + torch.einsum("ec,en->cn", a1, (x0_cols - mu) / sd))
+        xs = None
+        if variant == "x0":
+            mu = x0_cols.mean(dim=0, keepdim=True)
+            sd = torch.sqrt(((x0_cols - mu) ** 2).mean(dim=0, keepdim=True) + 1e-6)
+            xs = (x0_cols - mu) / sd
+
+        def one(a):  # (d_model + cd, c) -> (c, n)
+            h = torch.einsum("rc,rn->cn", scale * a[d_model:], coords_cols)
+            if xs is not None:
+                h = h + torch.einsum("ec,en->cn", a[:d_model], xs)
+            return h
+
+        hashed = one(alpha[0])
+        if and_bins:
+            h2 = one(alpha[1])
+            lo = h2.amin(dim=1, keepdim=True)
+            hi = h2.amax(dim=1, keepdim=True)
+            q2 = torch.clamp(torch.floor((h2 - lo) / (hi - lo + 1e-12) * and_bins),
+                             0, and_bins - 1)
+            span = 1.001 * (hashed.amax(dim=1, keepdim=True) - hashed.amin(dim=1, keepdim=True))
+            hashed = hashed + q2 * span
+        return hashed
+
+
+def _quantise_rank(a: torch.Tensor, bits: int) -> torch.Tensor:
+    """(n_ev, ne) -> integer ranks in [0, 2^bits - 1] over each row's range
+    of finite values below 1e30 (an invalid row's coordinate sentinel)."""
+    ok = torch.isfinite(a) & (a.abs() < 1e30)
+    lo = torch.where(ok, a, float("inf")).amin(dim=1, keepdim=True)
+    hi = torch.where(ok, a, float("-inf")).amax(dim=1, keepdim=True)
+    q = torch.floor((a - lo) / (hi - lo + 1e-9) * (2 ** bits - 1))
+    return torch.clamp(q, 0, 2 ** bits - 1).to(torch.int64)
+
+
+def morton_order(cell: torch.Tensor, eta: torch.Tensor, phi: torch.Tensor, bits: int = 10):
+    """The transport groups' storage order sigma of each event row: sorted
+    by (AND cell, Morton code of the 10-bit ranks of (eta, phi)), ties by
+    position (JAX's sort is unstable there). cell, eta, phi: (n_ev, ne).
+    Returns (src0, inv0), each (n_ev, ne) int64."""
+    qe, qp = _quantise_rank(eta, bits), _quantise_rank(phi, bits)
+    mort = torch.zeros_like(qe)
+    for i in range(bits):
+        mort = mort | (((qe >> i) & 1) << (2 * i + 1))
+        mort = mort | (((qp >> i) & 1) << (2 * i))
+    by_mort = torch.argsort(mort, dim=-1, stable=True)
+    by_cell = torch.argsort(torch.gather(cell, 1, by_mort), dim=-1, stable=True)
+    src0 = torch.gather(by_mort, 1, by_cell)
+    return src0, invert_permutation(src0)
 
 
 def static_bucket_plan(hashed: torch.Tensor, codes0: torch.Tensor,
                        invalid: torch.Tensor | None, coords_cols: torch.Tensor,
                        sort_events: int = 1, sort_pack: bool = False,
-                       coords_f32: bool = False):
+                       coords_f32: bool = False, canonical: bool = False,
+                       group_size: int = 1):
     """The once-per-step bucket plan of the static-keys mode.
 
     key = hash + code * span(hash) per round; invalid rows key to +BIG so
@@ -136,14 +190,28 @@ def static_bucket_plan(hashed: torch.Tensor, codes0: torch.Tensor,
       sort_pack: round the sorted coords through bf16 (returned as bf16)
         unless `coords_f32`.
       coords_f32: carry the sorted coords exactly (kernel_center).
+      canonical: canon_residual: also the maps relative to round 0's order
+        (the canonical order the residual stream rides in): f[r] = inv_0 o
+        src_r takes round r's sorted slot to its canonical position (f[0]
+        the identity) and finv[r] = inv_r o src_0 is its inverse.
+      group_size: transport groups (g > 1, not with `canonical`): the
+        storage order becomes sigma (`morton_order` of round 0's AND cell
+        and (eta, phi)); groups are g consecutive points of sigma, each
+        round sorts the groups by their smallest member key, and every
+        permutation is relative to sigma.
     Returns: (src, inv, scoords): (c, n_ev, ne) int64 permutations within
       each event row (sorted slot s holds row src[s]; row j sits at slot
-      inv[j]) and (c, n_ev, cd, ne) sorted coords, ne = n / sort_events.
+      inv[j]) and (c, n_ev, cd, ne) sorted coords, ne = n / sort_events;
+      canonical: (src, inv, scoords, f, finv); groups: (src, inv, scoords,
+      gsrc, ginv, src0, inv0) with src / inv the per-point expansions
+      gsrc * g + r of the (c, n_ev, ne / g) group permutations gsrc / ginv,
+      and (1, n_ev, ne) sigma's entry map src0 and its inverse inv0 (JAX's
+      tuples, `hept_tpu/ops/bucket_attn.py:370-549`).
 
     Ties occur only between rows with identical payloads (replication pads
     copy a real row exactly; inert pads share +BIG), so the sorted coords do
-    not depend on how ties break. The JAX package sorts unstably; this sort
-    is stable.
+    not depend on how ties break; sigma and the group keys can tie between
+    distinct points. The JAX package sorts unstably; these sorts are stable.
     """
     with torch.no_grad():
         c, n = hashed.shape
@@ -156,15 +224,43 @@ def static_bucket_plan(hashed: torch.Tensor, codes0: torch.Tensor,
         key = hashed + codes_s * hash_shift
         if invalid is not None:
             key = torch.where(invalid[None, :], torch.full_like(key, _BIG_KEY), key)
-        src = torch.argsort(key.reshape(c, n_ev, ne), dim=-1, stable=True)  # (c, n_ev, ne)
-        inv = torch.argsort(src, dim=-1)
         pack = sort_pack and not coords_f32
         coords = coords_cols.to(torch.bfloat16) if pack else coords_cols.to(torch.float32)
         rows = coords.reshape(-1, n_ev, ne).permute(1, 0, 2)  # (n_ev, cd, ne)
         cd = rows.shape[1]
-        scoords = torch.gather(rows[None].expand(c, n_ev, cd, ne), 3,
-                               src[:, :, None, :].expand(c, n_ev, cd, ne))
-        return src, inv, scoords.contiguous()
+
+        def sort_coords(perm):  # (c, n_ev, ne) -> (c, n_ev, cd, ne)
+            return torch.gather(rows[None].expand(c, n_ev, cd, ne), 3,
+                                perm[:, :, None, :].expand(c, n_ev, cd, ne)).contiguous()
+
+        if group_size > 1:
+            if canonical:
+                raise ValueError("transport groups have their own storage order (sigma)")
+            g = group_size
+            if ne % g:
+                raise ValueError(f"ne={ne} is not a multiple of group_size={g}")
+            cell = codes_s[0].reshape(n_ev, ne)
+            if invalid is not None:
+                cell = torch.where(invalid.reshape(n_ev, ne), _BIG_KEY, cell)
+            f32 = coords_cols.to(torch.float32)
+            src0, inv0 = morton_order(cell, f32[0].reshape(n_ev, ne), f32[1].reshape(n_ev, ne))
+            key3 = key.reshape(c, n_ev, ne)
+            key_s = torch.gather(key3, 2, src0[None].expand(c, n_ev, ne))
+            gkey = key_s.reshape(c, n_ev, ne // g, g).amin(dim=-1)
+            gsrc, ginv = argsort_keys(gkey)  # (c, n_ev, ng)
+            off = torch.arange(g, device=gsrc.device)
+            src = (gsrc[..., None] * g + off).reshape(c, n_ev, ne)
+            inv = (ginv[..., None] * g + off).reshape(c, n_ev, ne)
+            rows = torch.gather(rows, 2, src0[:, None, :].expand(n_ev, cd, ne))  # sigma order
+            return src, inv, sort_coords(src), gsrc, ginv, src0[None], inv0[None]
+        src = torch.argsort(key.reshape(c, n_ev, ne), dim=-1, stable=True)  # (c, n_ev, ne)
+        inv = torch.argsort(src, dim=-1)
+        scoords = sort_coords(src)
+        if not canonical:
+            return src, inv, scoords
+        f = torch.gather(inv[:1].expand(c, n_ev, ne), 2, src)
+        finv = torch.gather(inv, 2, src[:1].expand(c, n_ev, ne))
+        return src, inv, scoords, f, finv
 
 
 def share_heads_keys(x_cols: torch.Tensor, coords_cols: torch.Tensor, sqrt_w: torch.Tensor,
@@ -341,55 +437,112 @@ def combine_rounds(rows: torch.Tensor) -> torch.Tensor:
     return stable_ratio(combined[..., :dv], combined[..., dv:])
 
 
-def unsort_heads(od: torch.Tensor, q_src: torch.Tensor, pack: bool = False,
-                 inv: torch.Tensor | None = None, hash_group=None) -> torch.Tensor:
+def ratio_rows(od: torch.Tensor, axis: int) -> torch.Tensor:
+    """The fp8 unsort's reparametrisation: [num | denom] along `axis` ->
+    [num / denom | denom]. The per-round ratio is a convex combination of
+    values, bounded by max|v|, where the raw numerators pass e4m3's range
+    (JAX's `hept_tpu/ops/bucket_attn.py:981-994`)."""
+    dv = od.shape[axis] - 1
+    num, den = od.narrow(axis, 0, dv), od.narrow(axis, dv, 1)
+    return torch.cat([stable_ratio(num, den), den], dim=axis)
+
+
+def unsort_heads(od: torch.Tensor, q_src: torch.Tensor, pack=False,
+                 inv: torch.Tensor | None = None, hash_group=None,
+                 ratio: bool = True) -> torch.Tensor:
     """Unsort per-head [num | denom] by each (round, head)'s q permutation
     and OR-combine them (the per-head dynamic-key paths).
 
     Args: od (c, h, dv + 1, n) in sorted order; q_src (c, h, n); pack: move
-      the rows through bf16; inv: q_src's inverse, when the caller has it;
-      hash_group: under hash sharding, the sums over this rank's rounds are
-      summed over the group before the ratio (JAX: a psum over `hash_axis`,
-      `hept_tpu/ops/bucket_attn.py:299-303`).
+      the rows through bf16, or "fp8" (e4m3 numerators, bf16 denominator);
+      inv: q_src's inverse, when the caller has it; hash_group: under hash
+      sharding, the sums over this rank's rounds are summed over the group
+      before the ratio (JAX: a psum over `hash_axis`,
+      `hept_tpu/ops/bucket_attn.py:299-303`); ratio: under "fp8", carry
+      [num / denom | denom] and rebuild num = ratio * denom from the
+      rounded denominator after the unsort (the post-sort core); False
+      carries [num | denom] as it is (the pre-sort core, JAX `:290-295`).
     Returns: (n, h * dv) output rows. One row gather of (n, dv + 1) rows per
     (round, head) (K5 on CUDA tensors), which is also JAX's unsort_rows
     gather of this path (`:1026-1050`).
     """
     c, h, w, n = od.shape
     dv = w - 1
+    fp8 = pack == "fp8" and ratio
+    if fp8:
+        od = ratio_rows(od, 2)
     rows = unsort_carry(q_src, od.transpose(2, 3).contiguous(), pack=pack, inv=inv)
+    if fp8:
+        rows = torch.cat([rows[..., :dv] * rows[..., dv:], rows[..., dv:]], dim=-1)
     combined = all_reduce_fwd(rows.sum(dim=0), hash_group)  # (h, n, dv + 1)
     out = stable_ratio(combined[..., :dv], combined[..., dv:])
     return out.permute(1, 0, 2).reshape(n, h * dv)
 
 
 def unsort_combine(od: torch.Tensor, src: torch.Tensor, unsort_rows: bool = False,
-                   pack: bool = False, inv: torch.Tensor | None = None) -> torch.Tensor:
-    """Unsort the share_heads path's (c, h, dv + 1, n) [num | denom] by the
-    rounds' permutations src (c, n) and OR-combine them; every unsort is an
-    exact row gather (K5 on CUDA tensors).
+                   pack=False, inv: torch.Tensor | None = None, keep_first: bool = False,
+                   group: int = 1) -> torch.Tensor:
+    """Unsort the share_heads paths' [num | denom] by the rounds'
+    permutations, shared by the heads, and OR-combine them; every unsort is
+    an exact row gather (K5 on CUDA tensors).
 
-    unsort_rows: one gather of each round's merged (n, h * (dv + 1)) rows
-    (JAX's `hept_tpu/ops/bucket_attn.py:1054-1066`), combined on those rows;
-    else the permutation broadcast to every head, a gather of (n, dv + 1)
-    rows per (round, head) (JAX's head-broadcast carry, `:1145-1155`). The
-    row gather moves each value exactly, so this is also JAX's
-    `fold_unsort` result (one merged-row unsort per round, `:1134-1144`),
-    rounded once a value under `pack` and combined in the same order. pack:
-    move the rows through bf16; inv: src's inverse, when the caller has it.
+    Args:
+      od: (c, h, dv + 1, n) [num | denom] in each round's sorted order, or
+        (c, n_ev, h, dv + 1, ne) with `sort_events` event rows.
+      src: (c, n) or (c, n_ev, ne) permutations (sorted slot s holds point
+        src[s]), at group level under `group` > 1: (c, n_ev, ne / group).
+      unsort_rows: one gather of each round's merged (n, h * (dv + 1)) rows
+        (JAX's `hept_tpu/ops/bucket_attn.py:1054-1105`); else the
+        permutation broadcast to every head, a gather of (n, dv + 1) rows
+        per (round, head) (JAX's head-broadcast carry, `:1145-1155`). The
+        row gather moves each value exactly and the rounds are summed in
+        one layout, so both give the same bits, which are also JAX's
+        `fold_unsort` result (one merged-row unsort per round,
+        `:1134-1144`).
+      pack: move the rows through bf16, or "fp8" (head-broadcast only: e4m3
+        [num / denom], bf16 denom, then num = ratio * denom; JAX `:981-994,
+        1166-1167`).
+      inv: src's inverse, when the caller has it.
+      keep_first: canon_residual: round 0 is already in the output order
+        and is neither moved nor rounded; src / inv are the canonical maps
+        f / finv (JAX `:1065-1075, 1106-1133`).
+      group: transport groups (merged rows only): ne / group rows of group *
+        h * (dv + 1) values move as units (JAX `:1076-1089`).
     Returns: (n, h * dv) output rows.
     """
-    c, h, w, n = od.shape
+    if od.dim() == 4:
+        od, src = od[:, None], src[:, None]
+        inv = None if inv is None else inv[:, None]
+    c, n_ev, h, w, ne = od.shape
     dv = w - 1
+    fp8 = pack == "fp8"
+    if fp8:
+        od = ratio_rows(od, 3)
     inv = invert_permutation(src) if inv is None else inv
-    if unsort_rows:
-        rows = od.permute(0, 3, 1, 2).reshape(c, n, h * w)
-        rows = permute_gather_rows(rows, inv, src, pack=pack)  # (c, n, h * w)
-        combined = rows.sum(dim=0).reshape(n, h, w)
-        return stable_ratio(combined[..., :dv], combined[..., dv:]).reshape(n, h * dv)
-    rows = unsort_carry(src[:, None].expand(c, h, n), od.transpose(2, 3).contiguous(),
-                        pack=pack, inv=inv[:, None].expand(c, h, n))
-    return combine_rounds(rows).permute(1, 0, 2).reshape(n, h * dv)
+    first = 1 if keep_first else 0
+    m = c - first
+    parts = [od[:1].permute(0, 1, 4, 2, 3).to(torch.float32)] if first else []
+    if m:
+        moved, idx, back = od[first:], inv[first:].reshape(m * n_ev, -1), \
+            src[first:].reshape(m * n_ev, -1)
+        if unsort_rows:
+            rows = moved.permute(0, 1, 4, 2, 3).reshape(m * n_ev, ne // group, group * h * w)
+            rows = permute_gather_rows(rows, idx, back, pack=pack).reshape(m, n_ev, ne, h, w)
+        else:
+            rows = moved.permute(0, 1, 2, 4, 3).reshape(m * n_ev * h, ne, w)
+
+            def heads(p):  # (m * n_ev, ne) -> (m * n_ev * h, ne)
+                return p[:, None].expand(m * n_ev, h, ne).reshape(m * n_ev * h, ne)
+
+            rows = permute_gather_rows(rows, heads(idx), heads(back), pack=pack)
+            rows = rows.reshape(m, n_ev, h, ne, w).permute(0, 1, 3, 2, 4)
+        parts.append(rows)
+    rows = (torch.cat(parts) if len(parts) > 1 else parts[0]).contiguous()
+    if fp8:
+        rows = torch.cat([rows[..., :dv] * rows[..., dv:], rows[..., dv:]], dim=-1)
+    combined = rows.sum(dim=0)  # (n_ev, ne, h, dv + 1)
+    out = stable_ratio(combined[..., :dv], combined[..., dv:])
+    return out.reshape(n_ev * ne, h * dv)
 
 
 def hept_attention_core_xcols(
@@ -407,11 +560,14 @@ def hept_attention_core_xcols(
     block_size: int,
     impl: str = "slab2",
     sort_pack: bool = False,
-    unsort_pack: bool = False,
+    unsort_pack=False,
     kernel_bf16: bool = False,
     kernel_center: bool = False,
     sort_events: int = 1,
     unsort_rows: bool = False,
+    fold_unsort: bool = False,
+    canon: bool = False,
+    plan_groups: int = 1,
     share_heads: bool = True,
     shared_sort: bool = False,
     gather_sort: bool = False,
@@ -423,9 +579,12 @@ def hept_attention_core_xcols(
     of q_hat and k_hat compose through them).
 
     The ways to the bucket grid:
-    - a static plan (`plan`; the `hept_acc` path, share_heads, unsort_rows;
-      one event, or `sort_events` stacked events of n / sort_events
-      points, each its own row of the plan and the kernels);
+    - a static plan (`plan`; the `hept_acc` path, share_heads; one event,
+      or `sort_events` stacked events of n / sort_events points, each its
+      own row of the plan and the kernels): x gathered by the plan, the
+      plan's sorted coords, the unsort by its inverse (`unsort_combine`);
+      under `canon` x arrives in round 0's order, under `plan_groups` in
+      sigma's (`static_bucket_plan`);
     - dynamic keys shared by the heads (`plan` None, share_heads): each call
       hashes [x | coords] with the one-head `alpha` (`share_heads_keys`),
       sorts it once per round, projects, runs the bucket kernel and unsorts
@@ -448,11 +607,15 @@ def hept_attention_core_xcols(
         d + cd, c) without (dynamic keys; the plan does not read it).
       codes: (c, h, n) AND codes (dynamic keys).
       invalid: optional (n,) bool rows (zeroed; dynamic keys sort them last).
-      plan: (src, inv, scoords) from `static_bucket_plan`, c rounds.
+      plan: (src, inv, scoords) from `static_bucket_plan`, c rounds; with
+        `canon` its 5-tuple (+ f, finv), with `plan_groups` its 7-tuple
+        (the entry maps are the model's; the core reads the first five).
       impl: the bucket kernels' `attn_impl` mode (`bucket_rbf_attention_cols`).
       sort_pack: move x (with dynamic keys [x | coords]) through bf16 and
         project in bf16.
-      unsort_pack: move the [num|denom] rows through bf16 in the unsort.
+      unsort_pack: move the [num|denom] rows through bf16 in the unsort;
+        "fp8": JAX's e4m3 ratio transport (`unsort_combine`, `unsort_heads`;
+        not with the merged rows of unsort_rows or fold_unsort).
       kernel_bf16: feed the bucket kernels bf16 operands.
       kernel_center: subtract a per-bucket mean from the RPE columns of q
         and k before any bf16 cast (exact in f32: the RBF logits are
@@ -460,8 +623,14 @@ def hept_attention_core_xcols(
         (the plan, share_heads or shared_sort).
       sort_events: the plan's event rows (n must divide by sort_events *
         block_size).
-      unsort_rows: share_heads dynamic keys: the merged-row unsort, else the
-        head-broadcast one (the static plan always unsorts by rows).
+      unsort_rows: share_heads (plan or dynamic keys): the merged-row
+        unsort, else the head-broadcast one (`unsort_combine`).
+      fold_unsort: the plan: JAX's one merged-row unsort a round, which the
+        row gather gives as `unsort_rows` does.
+      canon: canon_residual: x arrives and the output leaves in round 0's
+        sorted order; the plan is `static_bucket_plan(canonical=True)`'s.
+      plan_groups: transport groups of this many points (the plan is
+        `static_bucket_plan(group_size=...)`'s; unsort by merged rows).
       share_heads / shared_sort: dynamic keys: see above.
       gather_sort: dynamic keys: row gathers instead of the sort-carry.
       src: dynamic keys: permutations applied instead of sorting by the keys
@@ -518,7 +687,7 @@ def hept_attention_core_xcols(
             return unsort_combine(od, q_src[:, 0], unsort_rows, pack=unsort_pack,
                                   inv=q_inv[:, 0])
         return unsort_heads(od, q_src, pack=unsort_pack, inv=q_inv)
-    src, inv, scoords = plan
+    src, inv, scoords = plan[:3]
     c = src.shape[0]
     n_ev = sort_events
     ne = n // n_ev
@@ -530,8 +699,16 @@ def hept_attention_core_xcols(
     ptype = torch.bfloat16 if kernel_bf16 else torch.float32
 
     x_rows = x_cols.reshape(d_model, n_ev, ne).permute(1, 0, 2)  # (n_ev, d_model, ne)
-    sxs = permute_gather(x_rows, src, inv, pack=sort_pack,
-                         out_bf16=sort_pack)  # (c, n_ev, d_model, ne)
+    if canon:
+        # x arrives in round 0's sorted order: round 0 takes no gather, the
+        # other rounds gather by the composed maps f / finv
+        fmap, finv = plan[3], plan[4]
+        x0 = (x_rows.to(torch.bfloat16) if sort_pack else x_rows)[None]
+        sxs = x0 if c == 1 else torch.cat([
+            x0, permute_gather(x_rows, fmap[1:], finv[1:], pack=sort_pack, out_bf16=sort_pack)])
+    else:  # under transport groups: the per-point expansions, relative to sigma
+        sxs = permute_gather(x_rows, src, inv, pack=sort_pack,
+                             out_bf16=sort_pack)  # (c, n_ev, d_model, ne)
     # the rpe columns are the same for q and k (both sqrt_w * coords of the
     # same sorted copy): compute and centre once
     rpe = sqrt_w[None, None, :, :, None] * scoords[:, :, None].to(torch.float32)
@@ -554,17 +731,16 @@ def hept_attention_core_xcols(
 
     denom, so = bucket_rbf_attention_cols(sq.contiguous(), sk.contiguous(),
                                           sv.contiguous(), block_size, impl)
-
-    # row-major unsort: one transpose makes every head's [num|denom] a
-    # contiguous (h*(dv+1))-feature row, then natural position j takes round
-    # r's sorted slot inv[r, j] (backward gathers by src)
     od = torch.cat([so, denom], dim=1).reshape(c, n_ev, h, dv + 1, ne)
-    rows = od.permute(0, 1, 4, 2, 3).reshape(c * n_ev, ne, h * (dv + 1))
-    rows = permute_gather_rows(rows, inv.reshape(c * n_ev, ne), src.reshape(c * n_ev, ne),
-                               pack=unsort_pack)
-    combined = rows.reshape(c, n, h * (dv + 1)).sum(dim=0).reshape(n, h, dv + 1)
-    out = stable_ratio(combined[..., :dv], combined[..., dv:])
-    return out.reshape(n, h * dv)
+    # the unsort: natural (canonical, sigma) position j takes round r's slot
+    # inv[r, j] (finv; group slot ginv), backward by src (f; gsrc)
+    if plan_groups > 1:
+        return unsort_combine(od, plan[3], True, pack=unsort_pack, inv=plan[4],
+                              group=plan_groups)
+    if canon:
+        return unsort_combine(od, fmap, unsort_rows or fold_unsort, pack=unsort_pack, inv=finv,
+                              keep_first=True)
+    return unsort_combine(od, src, unsort_rows or fold_unsort, pack=unsort_pack, inv=inv)
 
 
 def hept_attention_core_cols(
@@ -641,7 +817,7 @@ def hept_attention_core_cols(
     denom, so = bucket_rbf_attention_cols(sq.reshape(c * h, d, n), sk.reshape(c * h, d, n),
                                           sv.reshape(c * h, dv, n), block_size, impl)
     od = torch.cat([so, denom], dim=1).reshape(c, h, dv + 1, n)
-    return unsort_heads(od, q_src, pack=unsort_pack, hash_group=hash_group)
+    return unsort_heads(od, q_src, pack=unsort_pack, hash_group=hash_group, ratio=False)
 
 
 def dense_rbf_attention(q_hat: torch.Tensor, k_hat: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

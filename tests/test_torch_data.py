@@ -1,7 +1,7 @@
 """hept_tpu_torch.data against hept_tpu.data: the packed arrays of identical
 events are equal exactly. The generators draw the same points from the same
-seed; their supervision pairs may differ (the JAX side may use its native
-grid-hash backend), so pairs are compared only through `pack_events`."""
+seed; pairs are compared here through `pack_events`, and whole, with the
+backend both packages pick, in `test_torch_native.py`."""
 
 import numpy as np
 import pytest

@@ -344,13 +344,13 @@ def test_parity_train_step_matches_jax():
 
 @pytest.mark.parametrize("bad", [
     dict(shared_sort=True),  # shared_sort without the post-sort projections
-    # a static plan without unsort_rows (2b's static-plan family)
-    dict(qkv_post_sort=True, shared_sort=True, share_heads=True, static_keys="x0"),
+    # the post-sort paths under head TP (item 2b's side items)
+    dict(qkv_post_sort=True, shared_sort=True, head_shards=2),
     dict(gather_sort=True),  # JAX's pre-sort core takes no gather_sort
-    dict(canon_residual=True),
-    dict(transport_groups=4),
-    dict(static_and_bins=4),
-    dict(sort_pack="fp8"),  # F1: the fp8 transport
+    dict(use_ckpt=True, hash_shards=2),  # use_ckpt under sharding (item 2b)
+    dict(transport_groups=4),  # JAX ignores it without a plan
+    dict(static_and_bins=4),  # likewise
+    dict(sort_pack="fp8"),  # the e4m3 encoding is the unsort's
     dict(kernel_bf16=True),  # JAX's pre-sort core takes no kernel_bf16
 ])
 def test_unported_modes_name_the_roadmap(bad):

@@ -153,29 +153,33 @@ def test_model_tie_free_takes_jax_orders(monkeypatch):
 
 @pytest.mark.parametrize("bad,reason", [
     (dict(num_and_hashes=3), "regions.py:106"),
-    (dict(STATIC, unsort_rows=False), "item 2b"),
-    (dict(STATIC, canon_residual=True), "item 2b"),
-    (dict(STATIC, transport_groups=4), "item 2b"),
-    (dict(STATIC, static_keys="coords"), "item 2b"),
-    (dict(STATIC, static_and_bins=4), "item 2b"),
-    (dict(STATIC, unsort_pack="fp8"), "item 2b"),
-    (dict(STATIC, fold_unsort=True), "item 2b"),
+    (dict(STATIC, canon_residual=True, transport_groups=2), "sigma is the groups' own"),
+    (dict(STATIC, unsort_rows=False, transport_groups=2), "transport_groups needs unsort_rows"),
+    (dict(STATIC, transport_groups=3), "transport_groups divides block_size"),
+    (dict(STATIC, static_keys="morton"), "static_keys in"),
+    (dict(transport_groups=2), "without static_keys"),
+    (dict(STATIC, unsort_pack="fp8"), "bucket_attn.py:1011"),
+    (dict(STATIC, sort_pack="fp8"), "Not queued"),
     (dict(POST, kernel_center=True), "shared q/k bucket grid"),
     (dict(POST, fold_unsort=True), "needs share_heads"),
-    (dict(SHARE_HEADS, fold_unsort=True, unsort_pack="fp8"), "item 2b"),
+    (dict(SHARE_HEADS, fold_unsort=True, unsort_pack="fp8"), ":989"),
     (dict(POST, head_shards=2), "item 2b"),
     (dict(kernel_bf16=True), "Not queued"),
     (dict(SHARE_HEADS, use_ckpt=True, bucket_shards=2), "item 2b"),
     (dict(SHARE_HEADS, padding_mode="zero", bucket_shards=2), "make_bucket_train_step"),
-], ids=["num_and_hashes_3", "plan_without_unsort_rows", "canon_residual", "transport_groups",
-        "static_keys_coords", "static_and_bins", "fp8_unsort", "static_fold_unsort",
-        "kernel_center_per_head", "fold_unsort_per_head", "fold_unsort_fp8",
-        "post_sort_head_tp", "pre_sort_kernel_bf16", "use_ckpt_bucket_sp",
-        "zero_padding_bucket_sp"])
+    (dict(static_and_bins=4), "without static_keys"),
+], ids=["num_and_hashes_3", "canon_with_groups", "groups_without_unsort_rows",
+        "groups_not_dividing_block_size", "static_keys_unknown", "groups_without_plan",
+        "fp8_unsort_rows", "fp8_sort_pack", "kernel_center_per_head", "fold_unsort_per_head",
+        "fold_unsort_fp8", "post_sort_head_tp", "pre_sort_kernel_bf16", "use_ckpt_bucket_sp",
+        "zero_padding_bucket_sp", "and_bins_without_plan"])
 def test_refusals_name_their_reason(bad, reason):
-    """What stays refused on the HEPT path names its reason, or queue 1,
-    item 2b of ROADMAP.md where it is still to port (the static-plan
-    family)."""
+    """What stays refused on the HEPT path names its reason: JAX's own
+    asserts against the static-plan family's combinations (canon with
+    groups, groups without unsort_rows or dividing no bucket, fp8 with the
+    merged-row unsorts), what JAX ignores or leaves undocumented (groups
+    and AND bins without a plan, a sort_pack "fp8": ROADMAP.md, queue 1,
+    'Not queued'), or queue 1, item 2b where it is still to port."""
     with pytest.raises(NotImplementedError, match=reason):
         TransformerConfig(in_dim=10, coords_dim=6, **dict(BASE, **bad)).check_supported()
 

@@ -1,8 +1,8 @@
 """The port's dynamic-key share_heads path (qkv_post_sort + shared_sort +
 share_heads without a static plan, f32: the path the bucket-axis SP runs)
 against the JAX package's, and the refusals around it (fault F1: a
-non-bool `sort_pack` / `unsort_pack`, e.g. "fp8", is refused on every
-path).
+`sort_pack` / `unsort_pack` that is neither a bool nor, for the unsort, JAX's
+"fp8", is refused on every path).
 
 JAX runs `hept_attention_core_xcols` on its f32 einsum (`attn_impl: "xla"`,
 the kernel `parallel/bp.py`'s core runs), the port K6 / K7 v1's plain
@@ -228,11 +228,16 @@ BASE = dict(h_dim=8, num_heads=2, n_layers=2, block_size=BS, n_hashes=2, num_reg
                                                             "static_plan"])
 @pytest.mark.parametrize("flag", ["unsort_pack", "sort_pack"])
 def test_fp8_transport_is_refused(path, flag):
-    """Fault F1: `unsort_pack: "fp8"` (JAX's e4m3 ratio transport) and any
-    other non-bool sort_pack / unsort_pack are refused on every path,
-    naming the roadmap item, instead of running as the bf16 transport."""
-    cfg = TransformerConfig(in_dim=10, coords_dim=6, **BASE, **path, **{flag: "fp8"})
-    with pytest.raises(NotImplementedError, match="queue 1, item 2b"):
+    """Fault F1 and the fp8 unsort: `unsort_pack: "fp8"` (JAX's e4m3 ratio
+    transport) runs where JAX runs it (`test_torch_static_family.py`) and
+    is refused, on every path, with the merged-row unsorts JAX asserts
+    against (fold_unsort, and unsort_rows after the sort); a sort_pack
+    "fp8" (JAX documents the encoding for the unsort only) is refused on
+    every path, instead of running as the bf16 transport."""
+    extra = dict(fold_unsort=True) if flag == "unsort_pack" else {}
+    cfg = TransformerConfig(in_dim=10, coords_dim=6, **BASE, **path, **extra, **{flag: "fp8"})
+    reason = "merged-row unsorts" if flag == "unsort_pack" else "Not queued"
+    with pytest.raises(NotImplementedError, match=reason):
         cfg.check_supported()
 
 

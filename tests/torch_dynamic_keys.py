@@ -55,12 +55,12 @@ def close(got, want, tol, name=""):
     np.testing.assert_allclose(got, want, rtol=tol, atol=tol * scale, err_msg=name)
 
 
-def event(n_points: int = 378, seed: int = 5) -> dict:
-    """One synthetic event packed to a multiple of BS: 378 points leave 6
-    pads, 384 none."""
+def event(n_points: int = 378, seed: int = 5, block_size: int = BS) -> dict:
+    """One synthetic event packed to a multiple of `block_size`: at BS, 378
+    points leave 6 pads, 384 none."""
     ev = synthetic_tracking_event(np.random.default_rng(seed), n_points=n_points,
                                   pairs_per_point=8)
-    return pack_events([ev], block_size=BS, window_pairs=128)
+    return pack_events([ev], block_size=block_size, window_pairs=128)
 
 
 class Record(list):
@@ -77,7 +77,7 @@ def record_jax_sorts(monkeypatch):
     sort of JAX's two dynamic-key cores: the sort-carries
     (`grouped_sort_carry`, one entry per key group) and gather_sort's
     argsorts (`_argsort_keys`); and each static plan the model builds
-    (`static_bucket_plan`'s (src, inv, scoords), in `.plans`). The unsorts
+    (`static_bucket_plan`'s tuple, in `.plans`). The unsorts
     sort integer keys and are skipped. Yields the list; entries are numpy
     arrays."""
     rec = Record()
@@ -100,7 +100,7 @@ def record_jax_sorts(monkeypatch):
 
     def recording_plan(*args, **kw):
         out = plan(*args, **kw)
-        jax.debug.callback(lambda *a: rec.plans.append([np.asarray(x) for x in a]), *out[:3],
+        jax.debug.callback(lambda *a: rec.plans.append([np.asarray(x) for x in a]), *out,
                            ordered=True)
         return out
 
@@ -114,6 +114,20 @@ def record_jax_sorts(monkeypatch):
     finally:
         for core in (jba.hept_attention_core_xcols, jba.hept_attention_core_cols):
             core.clear_cache()
+
+
+def plan_tensors(plan) -> tuple:
+    """A recorded JAX plan as the port's: int64 permutations, float32
+    coords."""
+    return tuple(t(a, torch.int64) if np.issubdtype(np.asarray(a).dtype, np.integer)
+                 else torch.as_tensor(np.array(a, np.float32)) for a in plan)
+
+
+def check_plan(got, want) -> None:
+    """The port's plan equals JAX's recorded one: every array exactly."""
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, plan_tensors(want))):
+        assert torch.equal(g.to(w.dtype), w), f"plan array {i} differs"
 
 
 def layer_perms(rec: list, kw: dict, c: int, h: int, n: int) -> list:
@@ -151,9 +165,20 @@ def tpu_kernels(monkeypatch, mode: str):
     return pltpu.force_tpu_interpret_mode()
 
 
+def jit0(fn, *args):
+    """fn(*args) as one jitted call compiled at XLA's optimisation level 0,
+    waited for: a reference compiled once and run once spends most of its
+    time in the compile (`test_torch_baselines.py:_jit_run`)."""
+    compiled = jax.jit(fn).lower(*args).compile(
+        {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True})
+    return jax.block_until_ready(compiled(*args))
+
+
 def compare_model(monkeypatch, kw: dict, fwd_tol: float, grad_tol: float, *,
                   jax_impl: str = "xla", port_impl: str = "pallas", kernels: str | None = None,
-                  n_points: int = 378, port_kw: dict | None = None, whole_grad: bool = False):
+                  n_points: int = 378, port_kw: dict | None = None, whole_grad: bool = False,
+                  own_plan: bool = False, base: dict | None = None, fwd_flips: int = 0,
+                  whole_tol: float = 1e-3, quick: bool = False):
     """JAX's model and the port's (`kw` over BASE), JAX's weights and
     constants carried over: output to `fwd_tol` and every parameter gradient
     of sum(out * w) to `grad_tol` of its scale, the port on JAX's sort orders
@@ -166,18 +191,26 @@ def compare_model(monkeypatch, kw: dict, fwd_tol: float, grad_tol: float, *,
     f32 check alike): a bf16 rounding that flips between two f32 sums of
     other orders moves gradient elements by the same absolute amount in
     every tensor, and at init the q / k projection weights' gradients are
-    100-400 times smaller than the largest.
+    100-400 times smaller than the largest. `own_plan`: the port builds its
+    own static plan, which must equal JAX's (`check_plan`). `base`: the
+    widths instead of BASE. `fwd_flips` (an e4m3 transport of raw values):
+    at most this many output elements may miss `fwd_tol`, each within 5 x
+    `fwd_tol` of scale: f32 noise between the two packages can move a value
+    across an e4m3 rounding boundary, and one e4m3 step is 6-12 % of the
+    value moved. `whole_tol`: `whole_grad`'s relative L2 (default 1e-3).
+    `quick`: JAX's init and step compile at optimisation level 0 (`jit0`).
     Returns (port model, its output, JAX's output)."""
     assert "padding_mode" in kw  # JAX's default is "zero", the port's "replicate"
-    batch = event(n_points)
+    base = BASE if base is None else base
+    batch = event(n_points, block_size=base["block_size"])
     x, coords, valid = batch["x"][0], batch["coords"][0], batch["valid"][0]
-    jcfg = JaxConfig(in_dim=10, coords_dim=6, attn_impl=jax_impl, **BASE, **kw)
+    jcfg = JaxConfig(in_dim=10, coords_dim=6, attn_impl=jax_impl, **base, **kw)
     jmodel = JaxHept(jcfg)
     w_out = np.random.default_rng(2).normal(size=(x.shape[0], 4)).astype(np.float32)
     ctx = tpu_kernels(monkeypatch, kernels) if kernels else contextlib.nullcontext()
     with record_jax_sorts(monkeypatch) as rec, ctx:
-        variables = jax.block_until_ready(jax.jit(jmodel.init)(jax.random.PRNGKey(1), x, coords,
-                                                               valid))
+        run = jit0 if quick else (lambda f, *a: jax.block_until_ready(jax.jit(f)(*a)))
+        variables = run(jmodel.init, jax.random.PRNGKey(1), x, coords, valid)
         jax.effects_barrier()
         rec.clear()  # the sorts of init's forward
         rec.plans.clear()
@@ -187,30 +220,41 @@ def compare_model(monkeypatch, kw: dict, fwd_tol: float, grad_tol: float, *,
                                x_, coords_, valid_)
             return jnp.sum(out * w_out), out
 
-        (_, jout), jgrads = jax.block_until_ready(jax.jit(jax.value_and_grad(
-            jloss, has_aux=True))(variables["params"], x, coords, valid))
+        (_, jout), jgrads = run(jax.value_and_grad(jloss, has_aux=True), variables["params"], x,
+                                coords, valid)
         jax.effects_barrier()
     cfg = TransformerConfig(in_dim=10, coords_dim=6, attn_impl=port_impl,
-                            **dict(BASE, **kw, **(port_kw or {})))
+                            **dict(base, **kw, **(port_kw or {})))
     model = HeptTransformer(cfg, torch.Generator().manual_seed(0))
     model.load_state_dict(from_jax_variables(variables))
-    fwd = {}
-    if kw.get("static_keys"):
+    fwd, built = {}, []
+    if kw.get("static_keys") and own_plan:
+        build = model.build_plan
+        model.build_plan = lambda *a: built.append(build(*a)) or built[-1]
+    elif kw.get("static_keys"):
         (plan,) = rec.plans
-        fwd["plan"] = tuple(t(a, torch.int64) for a in plan[:2]) + (t(plan[2]).float(),)
+        fwd["plan"] = plan_tensors(plan)
     else:
         one = kw.get("qkv_post_sort") and (kw.get("shared_sort") or kw.get("share_heads"))
-        assert len(rec) == BASE["n_layers"] * (1 if one else 2)
-        fwd["perms"] = layer_perms(rec, kw, BASE["n_hashes"], BASE["num_heads"], x.shape[0])
+        assert len(rec) == base["n_layers"] * (1 if one else 2)
+        fwd["perms"] = layer_perms(rec, kw, kw.get("n_hashes", base["n_hashes"]),
+                                   base["num_heads"], x.shape[0])
     out = model(t(x), t(coords), t(valid), **fwd)
-    close(out, jout, fwd_tol, "output")
+    if built:
+        check_plan(built[0], rec.plans[0])
+    if fwd_flips:
+        d = (out.detach() - t(jout)).abs() / float(np.abs(jout).max())
+        assert int((d > fwd_tol).sum()) <= fwd_flips and float(d.max()) <= 5 * fwd_tol, \
+            (int((d > fwd_tol).sum()), float(d.max()))
+    else:
+        close(out, jout, fwd_tol, "output")
     torch.sum(out * t(w_out)).backward()
     ref = from_jax_variables({"params": jgrads, "constants": variables["constants"]})
     if not whole_grad:
         for name, p in model.named_parameters():
             close(p.grad, ref[name], grad_tol, name)
         return model, out, np.asarray(jout)
-    check_bf16_grads({n: p.grad for n, p in model.named_parameters()}, ref, grad_tol, 1e-3)
+    check_bf16_grads({n: p.grad for n, p in model.named_parameters()}, ref, grad_tol, whole_tol)
     return model, out, np.asarray(jout)
 
 
