@@ -239,6 +239,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
 import json
 import math
 import statistics
@@ -2433,7 +2434,8 @@ def spawn_ranks(world: int, inputs: dict) -> list:
 def rank_worker(torch, args) -> int:
     """One rank of the two-rank phases (`spawn_ranks`): DP (an event a rank,
     hept_acc), head-TP (the parity profile, its heads split over the ranks)
-    and the head-sharded core (K10). Each task runs twice: the first call's
+    and the head-sharded core (K10); or, given phase 37's inputs, that
+    phase's arms (`rank_sharded`). Each task runs twice: the first call's
     launches and results go to the main process to check, and both calls'
     ms (the first in a fresh process includes library and communicator
     set-up)."""
@@ -2477,6 +2479,11 @@ def rank_worker(torch, args) -> int:
     def cpu(tensors: dict) -> dict:
         return {k: v.detach().cpu().clone() for k, v in tensors.items()}
 
+    if "phase37" in inp:
+        out = rank_sharded(torch, trainer, inp["phase37"], world, counted, cpu)
+        torch.save(out, d / f"out_{rank}.pt")
+        dist.destroy_process_group()
+        return 0
     out = {}
     # DP: an event a rank, Adam steps, dropout off
     cfg = profile_config("hept_acc", device=DEVICE, num_epochs=1)
@@ -3357,6 +3364,348 @@ def hept_tpu_torch_root() -> str:
     return str(Path(hept_tpu_torch.__file__).parent.parent)
 
 
+# 37. the modes the port once refused: post-sort dynamic keys under head /
+# hash TP, use_ckpt under sharding, zero padding under the bucket SP
+BF16_DYNAMIC = {"sort_pack": True, "unsort_pack": True, "kernel_bf16": True,
+                "kernel_center": True}
+
+
+def sharded_arms() -> dict:
+    """Phase 37's TP models, (config, (hash shards, head shards)): (a) the
+    parity YAML + qkv_post_sort, with and without shared_sort, 4 heads a
+    rank; (b) phase 28's share_heads model at hept_fast's OR width 2 (the
+    parity YAML's 3 does not split over 2 ranks), f32 and with phase 34's
+    bf16 modes, one round a rank."""
+    fast = dynamic_config(**SHARE_HEADS, n_hashes=2, **BF16_DYNAMIC)
+    fast.attn_impl = "hybrid2"
+    return {"post head tp": (dynamic_config(qkv_post_sort=True), (1, 2)),
+            "shared_sort head tp": (dynamic_config(qkv_post_sort=True, shared_sort=True),
+                                    (1, 2)),
+            "share_heads hash tp": (dynamic_config(**SHARE_HEADS, n_hashes=2), (2, 1)),
+            "share_heads bf16 hash tp": (fast, (2, 1))}
+
+
+# (c): the arms repeated with use_ckpt, dropout on
+CKPT_ARMS = ("post head tp", "share_heads hash tp")
+
+
+def local_perms(perms: list, hash_rank: int, head_rank: int, lcfg) -> list:
+    """This (hash, head) shard's slice of a single-process run's recorded
+    sort orders: rounds [hash_rank * c, ...) and, per head, heads
+    [head_rank * h, ...); share_heads' (c, n) orders have no head axis."""
+    c, h = lcfg.n_hashes, lcfg.num_heads
+
+    def cut(p):
+        p = p[hash_rank * c:(hash_rank + 1) * c]
+        return (p if p.dim() == 2 else p[:, head_rank * h:(head_rank + 1) * h]).to(DEVICE)
+
+    return [tuple(cut(p) for p in pr) if isinstance(pr, tuple) else cut(pr) for pr in perms]
+
+
+def sharded_reference(torch, trainer, batch100_np, batch_pad_np, seed: int) -> tuple:
+    """37's single-process references and the ranks' inputs: each TP arm's
+    loss and gradients (one step, dropout off) with its sort orders
+    recorded; the zero-padded share_heads model's on the padded event; the
+    distributed transport's fullest cell on that event's orders at cap
+    factor 2.0."""
+    from hept_tpu_torch.parallel.dsort import cell_fill
+
+    inputs = {"tp": {}, "batch": batch100_np, "batch_pad": batch_pad_np, "seed": seed}
+    ref = {"tp": {}}
+    for arm, (cfg, sizes) in sharded_arms().items():
+        batch = trainer.batch_to_device(batch100_np, DEVICE)
+        model = trainer.build_model(cfg, batch100_np["x"].shape[2],
+                                    batch100_np["coords"].shape[2],
+                                    torch.Generator(device=DEVICE).manual_seed(seed), DEVICE)
+        state = {k: v.cpu().clone() for k, v in model.state_dict().items()}
+        perms = []
+        loss, grads = loss_and_grads(torch, model, trainer.make_loss_fn(cfg), batch,
+                                     record_perms=perms)
+        inputs["tp"][arm] = {"cfg": cfg, "sizes": sizes, "state": state,
+                             "perms": [tuple(p.cpu() for p in pr) if isinstance(pr, tuple)
+                                       else pr.cpu() for pr in perms]}
+        ref["tp"][arm] = {"loss": loss, "grads": grads}
+        del model, batch
+        torch.cuda.empty_cache()
+    cfg = share_heads_config(padding_mode="zero")
+    batch = trainer.batch_to_device(batch_pad_np, DEVICE)
+    model = trainer.build_model(cfg, batch_pad_np["x"].shape[2], batch_pad_np["coords"].shape[2],
+                                torch.Generator(device=DEVICE).manual_seed(seed), DEVICE)
+    state = {k: v.cpu().clone() for k, v in model.state_dict().items()}
+    perms = []
+    loss, grads = loss_and_grads(torch, model, trainer.make_loss_fn(cfg), batch,
+                                 record_perms=perms)
+    inputs["bucket_zero"] = {"cfg": cfg, "state": state, "perms": [p.cpu() for p in perms]}
+    ref["bucket_zero"] = {"loss": loss, "grads": grads}
+    n = perms[0].shape[-1]
+    cells = {}
+    for p_ in (2, 4, 8):
+        cap = max(1, -(-int(2.0 * n) // (p_ * p_)))
+        full = max(int(cell_fill(s, p_).amax()) for s in perms)
+        cells[p_] = {"fullest": full, "cap": cap, "overflow": full > cap}
+    ref["cells"] = cells
+    pads = int((~batch["valid"][0]).sum())
+    log(f"  distributed transport on the zero-padded event ({pads} pad rows, {n} rows, the 4 "
+        "layers' orders), fullest (source, destination) cell / cap at cap factor 2.0: "
+        + ", ".join(f"{p_} ranks {c['fullest']} / {c['cap']}"
+                    + (" OVERFLOW" if c["overflow"] else "") for p_, c in cells.items()))
+    del model, batch
+    torch.cuda.empty_cache()
+    return inputs, ref
+
+
+def rank_sharded(torch, trainer, inp: dict, world: int, counted, cpu) -> dict:
+    """37 on one rank of `rank_worker`: (a) / (b) one Adam step of each TP
+    arm, dropout off, on the single-process run's sort orders (this shard's
+    slice); (c) the CKPT_ARMS' step with dropout, without and with use_ckpt,
+    from the same weights and generator: the same bits, the generator's
+    state after it, and each step's peak memory on this process; (d) the
+    zero-padded share_heads model's bucket step over the ranks, each
+    transport, on the single process's orders, without and with use_ckpt."""
+    from hept_tpu_torch.parallel import tp
+    from hept_tpu_torch.parallel.bp import make_bucket_model, make_bucket_train_step
+    from hept_tpu_torch.parallel.dp import train_step
+    from hept_tpu_torch.parallel.mesh import TP_AXES, make_mesh
+
+    out = {}
+    b = trainer.batch_to_device(inp["batch"], DEVICE)
+    shape = (b["x"].shape[2], b["coords"].shape[2])
+    for arm, a in inp["tp"].items():
+        cfg, (hashes, heads) = a["cfg"], a["sizes"]
+        mesh = make_mesh(world, TP_AXES, (world // (hashes * heads), hashes, heads),
+                         device=DEVICE)
+        model = tp.make_tp_model(cfg.model_config(*shape), mesh, None, DEVICE,
+                                 state_dict=a["state"])
+        perms = local_perms(a["perms"], mesh.rank("hashes"), mesh.rank("heads"), model.cfg)
+        opt = trainer.make_optimizer(model.parameters(), cfg.optimizer_name,
+                                     cfg.optimizer_kwargs["lr"])
+
+        def apply(m_, b_, g_, perms=perms):
+            return m_(b_["x"][0], b_["coords"][0], b_["valid"][0], g_, perms=perms)[None]
+
+        out[f"tp {arm}"] = counted(
+            f"tp {arm}", lambda: train_step(model, opt, trainer.make_loss_fn(cfg), apply, b,
+                                            mesh.group("data"), None,
+                                            sharded_norm=tp.sharded_global_norm(mesh)),
+            lambda m: {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                       "grads": cpu(tp.gather_state_dict(
+                           {k: p.grad for k, p in model.named_parameters()}, mesh))})
+        del model, opt
+        torch.cuda.empty_cache()
+        if arm not in CKPT_ARMS:
+            continue
+        runs = {}
+        for ckpt in (False, True):
+            model = tp.make_tp_model(dataclasses.replace(cfg.model_config(*shape),
+                                                         use_ckpt=ckpt),
+                                     mesh, None, DEVICE, state_dict=a["state"])
+            opt = trainer.make_optimizer(model.parameters(), cfg.optimizer_name,
+                                         cfg.optimizer_kwargs["lr"])
+            gen = tp.dropout_generator(inp["seed"], mesh.rank("data"), DEVICE)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            m = trainer.train_step(model, opt, trainer.make_loss_fn(cfg), b, gen,
+                                   data_group=mesh.group("data"),
+                                   sharded_norm=tp.sharded_global_norm(mesh))
+            runs[ckpt] = {"metrics": (float(m["loss"]), float(m["grad_norm"])),
+                          "state": copy.deepcopy(model.state_dict()), "gen": gen.get_state(),
+                          "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+            del model, opt
+        same = runs[False]["metrics"] == runs[True]["metrics"] and all(
+            torch.equal(v, runs[True]["state"][k]) for k, v in runs[False]["state"].items())
+        out[f"ckpt {arm}"] = {"same_bits": same,
+                              "same_gen": torch.equal(runs[False]["gen"], runs[True]["gen"]),
+                              "metrics": runs[False]["metrics"],
+                              "peak_gib": (runs[False]["peak_gib"], runs[True]["peak_gib"])}
+        print(f"ckpt {arm}: same bits {same}, (loss, grad_norm) {runs[False]['metrics']} / "
+              f"{runs[True]['metrics']}, peak GiB {runs[False]['peak_gib']:.3f} / "
+              f"{runs[True]['peak_gib']:.3f}", flush=True)
+        del runs
+        torch.cuda.empty_cache()
+    del b
+    bz = inp["bucket_zero"]
+    b = trainer.batch_to_device(inp["batch_pad"], DEVICE)
+    mesh = make_mesh(world, ("data", "buckets"), (1, world), device=DEVICE)
+    perms = [p_.to(DEVICE) for p_ in bz["perms"]]
+    cfg = bz["cfg"]
+
+    def apply(m_, b_, g_):
+        return m_(b_["x"][0], b_["coords"][0], b_["valid"][0], g_, perms=perms)[None]
+
+    for transport in BUCKET_TRANSPORTS:
+        for ckpt in (False, True):
+            tcfg = dataclasses.replace(cfg.model_config(*shape), use_ckpt=ckpt)
+            model = make_bucket_model(tcfg, mesh, None, DEVICE, bz["state"], transport)
+            opt = trainer.make_optimizer(model.parameters(), cfg.optimizer_name,
+                                         cfg.optimizer_kwargs["lr"])
+            step = make_bucket_train_step(model, opt, trainer.make_loss_fn(cfg), mesh,
+                                          apply_fn=apply)
+            label = f"bucket zero {transport}" + (" ckpt" if ckpt else "")
+            out[label] = counted(
+                label, lambda: step(b),
+                lambda m: {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                           "grads": cpu({k: p.grad for k, p in model.named_parameters()})})
+            del model, opt, step
+            torch.cuda.empty_cache()
+    return out
+
+
+def check_sharded_ranks(torch, outs: list, ref: dict) -> None:
+    """37's checks on the ranks' results. (a) / (b): each TP arm's loss 1e-4
+    and each parameter gradient 1e-3 of its scale (floored at 1e-3 of the
+    largest; phase 26's gates) against the single process, the bf16 arm's
+    loss 1e-3 and whole gradient 1e-2 relative L2; K6 / K7 4 each a rank on
+    their route (f32: K6 f32 and K7 v1; bf16: K6 bf16 and K7 v2), K5 8.
+    (c): use_ckpt's bits and generator equal to the plain step's on every
+    rank. (d): each transport's zero-padded bucket step, loss rtol 1e-5 and
+    each gradient 1e-4 of its scale floored at 1e-3 of the largest (phase
+    30's gates), K6 / K7 4 each, K5 8 replicated and 0 distributed; its
+    use_ckpt run the same bits, with K6 re-run by the recompute (8)."""
+    for arm, r in ref["tp"].items():
+        bf16 = "bf16" in arm
+        fwd, bwd = ("cols_fwd_tc", "cols_bwd_tc") if bf16 else ("cols_fwd", "cols_bwd")
+        for rank, o in enumerate(outs):
+            res = o[f"tp {arm}"]
+            check_launches(f"tp {arm} rank {rank}", res["launches"],
+                           {fwd: 4, bwd: 4, "row_gather": 8, **{k: 0 for k in NO_K6_K7
+                                                                if k not in (fwd, bwd)}})
+        t = outs[0][f"tp {arm}"]
+        if any(o[f"tp {arm}"]["loss"] != t["loss"] for o in outs):
+            raise AssertionError(f"tp {arm}: the ranks' losses differ")
+        g = {k: v.to(DEVICE) for k, v in t["grads"].items()}
+        if bf16:
+            check(f"tp {arm} loss vs the single process |d| / |loss|",
+                  abs(t["loss"] - r["loss"]) / abs(r["loss"]), 1e-3)
+            check(f"tp {arm} gradient vs the single process, relative L2",
+                  rel_l2(torch, g, r["grads"]), 1e-2)
+            continue
+        check(f"tp {arm} loss vs the single process |d| / |loss|",
+              abs(t["loss"] - r["loss"]) / abs(r["loss"]), 1e-4)
+        floor = 1e-3 * max(scale(gg) for gg in r["grads"].values())
+        ratios = {k: max_err(g[k], r["grads"][k]) / max(scale(r["grads"][k]), floor)
+                  for k in r["grads"]}
+        worst = max(ratios, key=ratios.get)
+        check(f"tp {arm}: all {len(ratios)} parameter gradients vs the single process, worst "
+              f"{worst}", ratios[worst], 1e-3)
+    for arm in CKPT_ARMS:
+        for rank, o in enumerate(outs):
+            c = o[f"ckpt {arm}"]
+            if not (c["same_bits"] and c["same_gen"]):
+                raise AssertionError(f"ckpt {arm} rank {rank}: use_ckpt changed the step "
+                                     f"(bits {c['same_bits']}, generator {c['same_gen']})")
+        log(f"  ckpt {arm}: use_ckpt the plain step's bits and generator on every rank (loss, "
+            f"grad_norm {outs[0][f'ckpt {arm}']['metrics']}); peak GiB a rank plain / use_ckpt "
+            + ", ".join(f"{o[f'ckpt {arm}']['peak_gib'][0]:.3f} / "
+                        f"{o[f'ckpt {arm}']['peak_gib'][1]:.3f}" for o in outs))
+    r = ref["bucket_zero"]
+    floor = 1e-3 * max(scale(g) for g in r["grads"].values())
+    for rank, o in enumerate(outs):
+        for transport in BUCKET_TRANSPORTS:
+            res, ck = o[f"bucket zero {transport}"], o[f"bucket zero {transport} ckpt"]
+            k5 = 8 if transport == "replicated" else 0
+            check_launches(f"bucket zero {transport} rank {rank}", res["launches"],
+                           {"cols_fwd": 4, "cols_bwd": 4, "cols_fwd_tc": 0, "cols_bwd_tc": 0,
+                            "row_gather": k5})
+            check_launches(f"bucket zero {transport} ckpt rank {rank}", ck["launches"],
+                           {"cols_fwd": 8, "cols_bwd": 4, "cols_fwd_tc": 0, "cols_bwd_tc": 0,
+                            "row_gather": k5 * 3 // 2})
+            check(f"bucket zero {transport} rank {rank} loss |d| / |loss|",
+                  abs(res["loss"] - r["loss"]) / abs(r["loss"]), 1e-5)
+            ratios = {k: max_err(res["grads"][k].to(DEVICE), g) / max(scale(g), floor)
+                      for k, g in r["grads"].items()}
+            worst = max(ratios, key=ratios.get)
+            check(f"bucket zero {transport} rank {rank}: all {len(ratios)} parameter "
+                  f"gradients, worst {worst}", ratios[worst], 1e-4)
+            if (ck["loss"], ck["grad_norm"]) != (res["loss"], res["grad_norm"]) or not all(
+                    torch.equal(ck["grads"][k], v) for k, v in res["grads"].items()):
+                raise AssertionError(f"bucket zero {transport} rank {rank}: use_ckpt changed "
+                                     "the step's bits")
+            log(f"  bucket zero {transport} rank {rank}: use_ckpt the same bits (loss, "
+                "grad_norm, every gradient)")
+
+
+def phase_bucket_zero_nccl(torch, trainer, batch_pad_np, seed: int, zero_counts,
+                           read_counts) -> dict:
+    """37 (d) at world 1 over NCCL, as phase 29: the zero-padded share_heads
+    model's single-device step (dropout on) and its bucket step on a
+    one-rank ("data", "buckets") mesh, each transport, without and with
+    use_ckpt, from the same weights and dropout seed: the single device's
+    bits (loss, grad_norm, every parameter). Launches: K6 / K7 4 each, K5 8
+    replicated and 0 distributed; under use_ckpt K6 8 and K5 12 / 0."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from hept_tpu_torch.parallel.bp import make_bucket_model, make_bucket_train_step
+    from hept_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = share_heads_config(padding_mode="zero")
+    ref = dynamic_steps(torch, trainer, cfg, batch_pad_np, 1, seed, zero_counts, read_counts,
+                        "zero-padded share_heads (single device)", cols_launches(1),
+                        profile=False, compare=False)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=120))
+    res = {}
+    try:
+        mesh = make_mesh(1, ("data", "buckets"), (1, 1), device=DEVICE)
+        batch = trainer.batch_to_device(batch_pad_np, DEVICE)
+        base = cfg.model_config(batch_pad_np["x"].shape[2], batch_pad_np["coords"].shape[2])
+        for transport in BUCKET_TRANSPORTS:
+            for ckpt in (False, True):
+                model = make_bucket_model(dataclasses.replace(base, use_ckpt=ckpt), mesh, None,
+                                          DEVICE, ref["init_state"], transport)
+                opt = trainer.make_optimizer(model.parameters(), cfg.optimizer_name,
+                                             cfg.optimizer_kwargs["lr"])
+                step = make_bucket_train_step(model, opt, trainer.make_loss_fn(cfg), mesh,
+                                              seed=seed + 1)
+                torch.cuda.synchronize()
+                zero_counts()
+                m = step(batch)
+                metrics = [(float(m["loss"]), float(m["grad_norm"]))]
+                torch.cuda.synchronize()
+                launches = read_counts()
+                label = f"bucket zero nccl {transport}" + (" ckpt" if ckpt else "")
+                k5 = 8 if transport == "replicated" else 0
+                check_launches(label, launches, dict(
+                    cols_launches(1, k5 * 3 // 2 if ckpt else k5),
+                    cols_fwd=8 if ckpt else 4))
+                same_run(torch, f"{label} vs the single device", ref,
+                         {"metrics": metrics, "final_state": model.state_dict()})
+                res[label] = launches
+                del model, opt, step
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_sharded_modes(torch, trainer, batch100_np, seed: int, zero_counts,
+                        read_counts) -> dict:
+    """37. The modes the port once refused, on one card: (a) head TP 2 of
+    the per-head post-sort models, (b) hash TP 2 of the share_heads models,
+    (c) use_ckpt under both, (d) zero padding under the bucket SP (an event
+    of `points - 50` points in the bs-100 event's rows) over two gloo ranks
+    sharing the card (`spawn_ranks`) and at world 1 over NCCL. Correctness
+    only: one card measures no scaling."""
+    n = batch100_np["x"].shape[1]
+    _, batch_pad = make_batch(n - 50, seed, 100)
+    if batch_pad["x"].shape[1] != n or int((~batch_pad["valid"]).sum()) != 50:
+        raise AssertionError("the padded event does not hold 50 pad rows in the bs-100 rows")
+    nccl = phase_bucket_zero_nccl(torch, trainer, batch_pad, seed, zero_counts, read_counts)
+    inputs, ref = sharded_reference(torch, trainer, batch100_np, batch_pad, seed)
+    t0 = time.perf_counter()
+    outs = spawn_ranks(2, {"phase37": inputs})
+    log(f"  two ranks: 2 processes on the card (gloo), {time.perf_counter() - t0:.1f} s wall "
+        "including their start")
+    check_sharded_ranks(torch, outs, ref)
+    keys = [k for k in outs[0] if "launches" in outs[0][k]]
+    return {"launches": {k: [o[k]["launches"] for o in outs] for k in keys},
+            "ms": {k: [o[k]["ms"] for o in outs] for k in keys},
+            "ckpt": {arm: [o[f"ckpt {arm}"]["peak_gib"] for o in outs] for arm in CKPT_ARMS},
+            "nccl": nccl, "cells": ref["cells"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=5)
@@ -3831,6 +4180,26 @@ def main(argv=None) -> int:
         r = fam[k]
         log(f"  {k} | {r['steady_ms']:.1f} | {r['busy_ms']:.2f} | {r['peak_gib']:.2f} | "
             f"{r['launches']['row_gather'] // args.profile_steps}")
+
+    # 37. post-sort keys under head / hash TP, use_ckpt under sharding, zero
+    # padding under the bucket SP
+    log("phase 37 the sharded modes:")
+    sh37 = phase_sharded_modes(torch, trainer, batch100, args.seed, zero_counts, read_counts)
+    for key, names in (("K6", ("cols_fwd", "cols_fwd_tc")), ("K7", ("cols_bwd", "cols_bwd_tc")),
+                       ("K5p", ("row_gather",))):
+        rows[key]["sharded_launches"] = {
+            k: [{n: ln.get(n, 0) for n in names} for ln in per_rank]
+            for k, per_rank in sh37["launches"].items()}
+        rows[key]["sharded_launches_in"] = ("phase 37, one step of each run, by rank (two gloo "
+                                            "ranks on one card)")
+        rows[key]["sharded_nccl_launches"] = {k: {n: ln.get(n, 0) for n in names}
+                                              for k, ln in sh37["nccl"].items()}
+        rows[key]["sharded_nccl_launches_in"] = "phase 37, one world-1 bucket step a run"
+    log(f"phase sharded modes ({smi}): run | ms by rank (first, warm) | launches rank 0")
+    for k, ms in sh37["ms"].items():
+        log(f"  {k} | {[[round(x, 1) for x in m] for m in ms]} | {sh37['launches'][k][0]}")
+    log("  use_ckpt peak GiB a rank (plain, use_ckpt): " + "; ".join(
+        f"{arm} {[tuple(round(x, 3) for x in r) for r in v]}" for arm, v in sh37["ckpt"].items()))
 
     # K11 (row_gather_vreg) has K5's contract and runs on K5's kernel
     rows["K11"] = dict(rows["K5"], name="K11 row_gather_vreg", ported_by="K5",

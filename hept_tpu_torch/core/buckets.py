@@ -165,7 +165,9 @@ def permute_gather_rows(rows: torch.Tensor, idx: torch.Tensor, inv: torch.Tensor
         last of the W columns through bfloat16, the others through e4m3.
     Returns: (R, ne, W) float32.
     """
-    return _PermuteGatherRows.apply(rows, idx, inv, pack_mode(pack))
+    # an index broadcast over heads from one round (a hash shard's) reshapes
+    # to a stride-0 view; K5 takes contiguous indices
+    return _PermuteGatherRows.apply(rows, idx.contiguous(), inv.contiguous(), pack_mode(pack))
 
 
 class _GatherCopies(torch.autograd.Function):
@@ -206,7 +208,8 @@ def gather_copies(cols: torch.Tensor, src: torch.Tensor, inv: torch.Tensor,
       out_bf16: with pack, return bfloat16 instead of float32.
     Returns: (R, d, n).
     """
-    return _GatherCopies.apply(cols, src, inv, bool(pack), bool(out_bf16))
+    return _GatherCopies.apply(cols, src.contiguous(), inv.contiguous(), bool(pack),
+                               bool(out_bf16))
 
 
 def sort_carry(keys: torch.Tensor | None, payload: torch.Tensor,

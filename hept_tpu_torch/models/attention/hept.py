@@ -38,11 +38,14 @@ class HeptAttention(nn.Module):
     d + cd, n_hashes) hashes each head.
 
     Under tensor parallelism (dynamic keys; `groups` {"heads", "hashes"})
-    the module holds its rank's heads and OR rounds: q_hat / k_hat / v enter
-    the core through `copy_to_group` over hashes (their gradient sums the
-    rounds' shards), the core sums the OR-combine over hashes, and the
-    (n, h_local * d) output is all-gathered over heads into `out_linear`,
-    which stays whole (JAX: `hept_tpu/models/attention/hept.py:264-267`).
+    the module holds its rank's heads and OR rounds: the operands of this
+    rank's heads enter the core through `copy_to_group` over hashes (their
+    gradient sums the rounds' shards: q_hat / k_hat / v before the sort, the
+    kernels and RPE scales after it), the core sums the OR-combine over
+    hashes, and the (n, h_local * d) output is all-gathered over heads into
+    `out_linear`, which stays whole (JAX: `hept_tpu/models/attention/
+    hept.py:215-216, 264-267`). share_heads' one-head `e2lsh_alpha` shards
+    over hashes only.
     """
 
     def __init__(self, cfg, generator=None, device=None, groups: dict | None = None):
@@ -75,10 +78,16 @@ class HeptAttention(nn.Module):
         share_heads `e2lsh_alpha` is (h, d + cd, n_hashes) and the orders are
         (q_src, k_src) pairs of (c, h, n).
         Under bucket sharding (`groups["buckets"]`) the dynamic-key layer
-        runs `parallel/bp.py:bucket_sharded_core` over the group. Returns
-        (n, d)."""
+        runs `parallel/bp.py:bucket_sharded_core` over the group. Under
+        head / hash sharding (dynamic keys) the caller's `x_normed` carries
+        the sum over both groups in its gradient; the kernels and RPE scales
+        of this rank's heads enter through `copy_to_group` over hashes, the
+        core sums the OR-combine over hashes, and the (n, h_local * d)
+        output is all-gathered over heads into `out_linear` (JAX:
+        `hept_tpu/models/attention/hept.py:201, 215-216`). Returns (n, d)."""
         cfg = self.cfg
         sqrt_w = self._sqrt_w(w_rpe)
+        wq, wk, wv, sqrt_w = (copy_to_group(t, self.hash_group) for t in (wq, wk, wv, sqrt_w))
         if self.bucket_group is not None:
             from ...parallel.bp import bucket_sharded_core
 
@@ -97,9 +106,9 @@ class HeptAttention(nn.Module):
                 canon=cfg.canon_residual, plan_groups=cfg.transport_groups,
                 share_heads=cfg.share_heads,
                 shared_sort=cfg.shared_sort, gather_sort=cfg.gather_sort, src=perms,
-                record_perms=record_perms,
+                record_perms=record_perms, hash_group=self.hash_group,
             )  # (n, h * d) rows
-        return self.out_linear(out)
+        return self.out_linear(all_gather(out, 1, self.head_group))
 
     def prep_qkv(self, query, key, value, coords, invalid, w_rpe):
         """The pre-sort path's q_hat, k_hat (h, d + cd, n) and v (h, d, n)

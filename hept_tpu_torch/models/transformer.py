@@ -79,7 +79,6 @@ from .attention.sb import SBAttention
 from .attention.smyrf import SmyrfAttention
 from .mlp import FeedForward, OutMLP, TorchLinear, dropout, layer_norm, uniform_
 
-_ROADMAP = "ROADMAP.md queue 1, item 2b (the refused modes)"
 BASELINES = ("performer", "flt", "reformer", "smyrf", "sb", "pct", "flatformer")
 # the baselines that draw random rotations / E2LSH directions every forward
 LSH_BASELINES = ("reformer", "smyrf", "sb")
@@ -106,9 +105,13 @@ class TransformerConfig:
     is also JAX's fold_unsort result, so that flag selects nothing more.
     The bf16 modes
     (sort_pack, unsort_pack, kernel_bf16, kernel_center) and the fp8 unsort
-    (unsort_pack "fp8") run wherever JAX runs them. `use_ckpt` recomputes
-    each block in the backward, on every attn_type. The seven baseline
-    attentions (`BASELINES`)
+    (unsort_pack "fp8") run wherever JAX runs them. Every dynamic-key path
+    runs under head and hash sharding in any mix (`parallel/tp.py`), but
+    share_heads under head sharding, which JAX's TP step refuses; the static
+    plan runs under neither. The bucket-axis SP (`parallel/bp.py`) runs
+    share_heads' dynamic keys with either padding. `use_ckpt` recomputes
+    each block in the backward, on every attn_type and under every kind of
+    sharding. The seven baseline attentions (`BASELINES`)
     read the baseline fields at the end and none of hept's modes.
     `attn_impl` selects the bucket kernels
     (`ops/bucket_attn_cuda.py:cols_routes`): every mode of the JAX package
@@ -181,17 +184,18 @@ class TransformerConfig:
 
     def check_supported(self) -> None:
         need = {
-            "task in ('tracking', 'pileup')": self.task in ("tracking", "pileup"),
-            f"attn_type in {('hept',) + BASELINES}": self.attn_type in ("hept",) + BASELINES,
+            "task in ('tracking', 'pileup') (hept_tpu/models/transformer.py:40; another value "
+            "runs JAX's tracking head)": self.task in ("tracking", "pileup"),
+            f"attn_type in {('hept',) + BASELINES} (hept_tpu/models/transformer.py:381 raises "
+            "NotImplementedError(attn_type))": self.attn_type in ("hept",) + BASELINES,
         }
         tp = self.head_shards > 1 or self.hash_shards > 1
         bucket = self.bucket_shards > 1 or self.bucket_transport != "replicated"
-        need["use_ckpt without head / hash / bucket sharding (not held against JAX's sharded "
-             f"steps: {_ROADMAP})"] = not (self.use_ckpt and (tp or bucket))
         if self.attn_type != "hept":
             need["head / hash sharding targets HEPT (hept_tpu/parallel/tp.py:125)"] = not tp
             need["bucket sharding targets HEPT (hept_tpu/parallel/bp.py:305)"] = not bucket
-            need["sort_events == 1 (stacked batching is the static plan's)"] = \
+            need["sort_events == 1 (stacked batching is the static plan's, "
+                 "hept_tpu/models/transformer.py:659)"] = \
                 self.sort_events == 1
             self._refuse(need)
             return
@@ -199,17 +203,20 @@ class TransformerConfig:
         need.update({
             "sort_pack is a bool and unsort_pack a bool or 'fp8' (a sort_pack 'fp8' or another "
             "value must not run as the bf16 transport; JAX documents the e4m3 encoding for the "
-            "[num|denom] unsort only; ROADMAP.md, queue 1, 'Not queued')":
+            "[num|denom] unsort only, hept_tpu/ops/bucket_attn.py:981-994; ROADMAP.md, queue 1, "
+            "'Not queued')":
                 isinstance(self.sort_pack, bool)
                 and (isinstance(self.unsort_pack, bool) or fp8),
             "unsort_pack 'fp8' not with the merged-row unsorts: unsort_rows after the sort "
             "(hept_tpu/ops/bucket_attn.py:1011) or fold_unsort (:989)":
                 not (fp8 and (self.fold_unsort or (self.unsort_rows and self.qkv_post_sort))),
-            "padding_mode in ('replicate', 'zero')": self.padding_mode in ("replicate", "zero"),
+            "padding_mode in ('replicate', 'zero') (hept_tpu/models/transformer.py:51, 821; "
+            "another value runs JAX's replicate plan)": self.padding_mode in ("replicate", "zero"),
             "num_and_hashes == 2 (JAX's region_codes reshapes the regions to (2, c * h), "
             "hept_tpu/core/regions.py:106, so its model cannot be built with another value "
             "and there is nothing to hold a port against)": self.num_and_hashes == 2,
             f"attn_impl in {ATTN_IMPLS} ('xla' is the JAX package's kernel-free einsum + "
+            "autodiff path, hept_tpu/ops/bucket_attn.py:971-978, "
             "autodiff path, not run by the port: on the card every bucket call launches a "
             "kernel, and its autodiff backward of a bf16 forward breaks the gradient contract "
             "of ROADMAP.md's North star)": self.attn_impl in ATTN_IMPLS,
@@ -232,18 +239,26 @@ class TransformerConfig:
                 "hash shard keeps the whole replicated static_alpha while its AND codes "
                 "shard, hept_tpu/parallel/tp.py:34-78, so a layer's rounds are not the "
                 "single-device model's)": self.hash_shards == 1,
-                "static_keys in (True, 'x0', 'coords')": self.static_keys in (True, "x0", "coords"),
-                "static plan: qkv_post_sort": bool(self.qkv_post_sort),
-                "static plan: share_heads": bool(self.share_heads),
-                "static_rounds a multiple of n_hashes (canon_residual: 1 + k * (n_hashes - 1))":
+                "static_keys in (True, 'x0', 'coords') (hept_tpu/models/transformer.py:638 runs "
+                "any other value as 'x0')": self.static_keys in (True, "x0", "coords"),
+                "static plan: qkv_post_sort (hept_tpu/models/transformer.py:608-609)":
+                    bool(self.qkv_post_sort),
+                "static plan: share_heads (hept_tpu/models/transformer.py:608-609)":
+                    bool(self.share_heads),
+                "static_rounds a multiple of n_hashes (canon_residual: 1 + k * (n_hashes - 1); "
+                "hept_tpu/models/transformer.py:615-628)":
                     self.canon_residual or rounds % self.n_hashes == 0,
-                "static_and_bins >= 0": self.static_and_bins >= 0,
-                "transport_groups >= 1": g >= 1,
-                # hept_tpu/models/transformer.py:652-656
+                "static_and_bins >= 0 (hept_tpu/ops/bucket_attn.py:351 runs a negative value "
+                "as AND bins)": self.static_and_bins >= 0,
+                "transport_groups >= 1 (hept_tpu/models/transformer.py:652 runs a smaller "
+                "value as 1)": g >= 1,
                 "transport_groups not with canon_residual (sigma is the groups' own storage "
-                "order)": g == 1 or not self.canon_residual,
-                "transport_groups needs unsort_rows": g == 1 or bool(self.unsort_rows),
-                "transport_groups divides block_size": self.block_size % g == 0,
+                "order; hept_tpu/models/transformer.py:653-654)":
+                    g == 1 or not self.canon_residual,
+                "transport_groups needs unsort_rows (hept_tpu/models/transformer.py:655)":
+                    g == 1 or bool(self.unsort_rows),
+                "transport_groups divides block_size (hept_tpu/models/transformer.py:656)":
+                    self.block_size % g == 0,
             })
         else:
             need.update({
@@ -260,7 +275,8 @@ class TransformerConfig:
             shared = bool(self.share_heads or self.shared_sort)
             need.update({
                 "dynamic keys: share_heads needs qkv_post_sort (the pre-sort path hashes each "
-                "head)": post or not self.share_heads,
+                "head, hept_tpu/models/attention/hept.py:153, 249-262)":
+                    post or not self.share_heads,
                 "pre-sort dynamic keys (qkv_post_sort off): no shared_sort, gather_sort, "
                 "fold_unsort, kernel_bf16 or kernel_center (JAX's pre-sort core takes none of "
                 "them and runs as if they were off, hept_tpu/models/attention/hept.py:249-262; "
@@ -270,12 +286,16 @@ class TransformerConfig:
                 "kernel_center needs a shared q/k bucket grid (share_heads or shared_sort; "
                 "hept_tpu/ops/bucket_attn.py:881-883)": not self.kernel_center or shared,
                 "fold_unsort folds the heads of one shared grid: it needs share_heads (JAX's "
-                "per-head path ignores it)": not self.fold_unsort or bool(self.share_heads),
-                "post-sort dynamic keys: no head / hash sharding (share_heads: e2lsh_alpha is "
-                "one head wide, as on the static plan; per-head keys: not held against JAX's "
-                f"TP step, {_ROADMAP})": not (post and tp),
+                "per-head path ignores it, hept_tpu/ops/bucket_attn.py:1156-1160)":
+                    not self.fold_unsort or bool(self.share_heads),
+                "share_heads: no head sharding (e2lsh_alpha is one head wide and JAX's "
+                "make_tp_train_step shards it over heads, hept_tpu/parallel/tp.py:70-72; its "
+                "shard_map refuses it: \"ValueError: shard_map applied to the function "
+                "'local_loss' was given argument arrays with axis sizes that are not evenly "
+                "divisible by the corresponding mesh axis sizes\", on e2lsh_alpha)":
+                    not (self.share_heads and self.head_shards > 1),
                 "dynamic keys: sort_events == 1 (the dynamic-key core sorts the whole flat "
-                "row; hept_tpu/ops/bucket_attn.py:hept_attention_core_cols takes no "
+                "row; hept_tpu/ops/bucket_attn.py:216, hept_attention_core_cols, takes no "
                 "sort_events)": self.sort_events == 1,
             })
         if bucket:
@@ -284,21 +304,23 @@ class TransformerConfig:
             # core runs f32 whatever the kernel flags say
             need.update({
                 "bucket shards: the dynamic-key share_heads path (qkv_post_sort + share_heads, "
-                "no static plan)": bool(self.share_heads) and not self.static_keys,
-                "bucket shards: f32 transport (no sort_pack / unsort_pack)":
+                "no static plan; hept_tpu/models/attention/hept.py:174-175)":
+                    bool(self.share_heads) and not self.static_keys,
+                "bucket shards: f32 transport (no sort_pack / unsort_pack; "
+                "hept_tpu/models/attention/hept.py:176-178)":
                     not (self.sort_pack or self.unsort_pack),
                 "bucket shards: f32 kernels (no kernel_bf16 / kernel_center: JAX's bucket core "
-                "ignores them and runs f32)": not (self.kernel_bf16 or self.kernel_center),
+                "ignores them and runs f32, hept_tpu/parallel/bp.py:152-162)":
+                    not (self.kernel_bf16 or self.kernel_center),
                 "bucket shards: no gather_sort / fold_unsort (JAX's bucket core, "
-                "hept_tpu/parallel/bp.py:bucket_sharded_core, takes neither)":
+                "hept_tpu/parallel/bp.py:49-51, takes neither)":
                     not (self.gather_sort or self.fold_unsort),
-                "bucket shards: sort_events == 1 (the bucket SP shards one event)":
+                "bucket shards: sort_events == 1 (the bucket SP shards one event; "
+                "hept_tpu/models/attention/hept.py:179)":
                     self.sort_events == 1,
-                "bucket shards: replicate padding (zero padding is not held against JAX's "
-                f"make_bucket_train_step; {_ROADMAP})": self.padding_mode == "replicate",
-                "bucket shards: no head / hash sharding (hept_tpu/parallel/bp.py:"
-                "make_bucket_train_step has no TP)": not tp,
-                "bucket_transport in ('replicated', 'distributed')":
+                "bucket shards: no head / hash sharding (hept_tpu/parallel/bp.py:261, "
+                "make_bucket_train_step, has no TP)": not tp,
+                "bucket_transport in ('replicated', 'distributed') (hept_tpu/parallel/bp.py:82)":
                     self.bucket_transport in ("replicated", "distributed"),
             })
         self._refuse(need)
@@ -469,6 +491,7 @@ class AttnBlock(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.head_group = (groups or {}).get("heads")
+        self.hash_group = (groups or {}).get("hashes")
         h, d = cfg.num_heads, cfg.h_dim
         rpe_in = cfg.num_w_per_dist * (cfg.coords_dim - 1)
         self.w_rpe = nn.Parameter(torch.empty((h * d, rpe_in), device=device))
@@ -512,6 +535,10 @@ class AttnBlock(nn.Module):
         else:
             xn = self.norm1(x if pe is None else x + pe)
             if t == "hept" and self.cfg.qkv_post_sort:
+                # the replicated normed state is sorted and projected on
+                # this rank's (round, head) slice: its gradient is summed
+                # over the head and the hash shards
+                xn = copy_to_group(copy_to_group(xn, self.head_group), self.hash_group)
                 aggr = self.attn.forward_post_sort(xn, coords, codes, invalid, plan, self.w_rpe,
                                                    self._heads(self.w_q), self._heads(self.w_k),
                                                    self._heads(self.w_v), perms, record_perms)

@@ -481,7 +481,7 @@ def unsort_heads(od: torch.Tensor, q_src: torch.Tensor, pack=False,
 
 def unsort_combine(od: torch.Tensor, src: torch.Tensor, unsort_rows: bool = False,
                    pack=False, inv: torch.Tensor | None = None, keep_first: bool = False,
-                   group: int = 1) -> torch.Tensor:
+                   group: int = 1, hash_group=None) -> torch.Tensor:
     """Unsort the share_heads paths' [num | denom] by the rounds'
     permutations, shared by the heads, and OR-combine them; every unsort is
     an exact row gather (K5 on CUDA tensors).
@@ -508,6 +508,9 @@ def unsort_combine(od: torch.Tensor, src: torch.Tensor, unsort_rows: bool = Fals
         f / finv (JAX `:1065-1075, 1106-1133`).
       group: transport groups (merged rows only): ne / group rows of group *
         h * (dv + 1) values move as units (JAX `:1076-1089`).
+      hash_group: under hash sharding, the sums over this rank's rounds are
+        summed over the group before the ratio (JAX: a psum over
+        `hash_axis`, `:1101-1103, 1169-1171`).
     Returns: (n, h * dv) output rows.
     """
     if od.dim() == 4:
@@ -540,7 +543,7 @@ def unsort_combine(od: torch.Tensor, src: torch.Tensor, unsort_rows: bool = Fals
     rows = (torch.cat(parts) if len(parts) > 1 else parts[0]).contiguous()
     if fp8:
         rows = torch.cat([rows[..., :dv] * rows[..., dv:], rows[..., dv:]], dim=-1)
-    combined = rows.sum(dim=0)  # (n_ev, ne, h, dv + 1)
+    combined = all_reduce_fwd(rows.sum(dim=0), hash_group)  # (n_ev, ne, h, dv + 1)
     out = stable_ratio(combined[..., :dv], combined[..., dv:])
     return out.reshape(n_ev * ne, h * dv)
 
@@ -573,6 +576,7 @@ def hept_attention_core_xcols(
     gather_sort: bool = False,
     src=None,
     record_perms: list | None = None,
+    hash_group=None,
 ) -> torch.Tensor:
     """Post-sort-projection HEPT attention: [x | coords] is sorted, then
     projected per head (the q/k/v projections are bias-free, so the hashes
@@ -637,6 +641,9 @@ def hept_attention_core_xcols(
         (to hold two runs on the same permutations): (c, n) with
         share_heads, else (q_src, k_src), each (c, h, n).
       record_perms: dynamic keys: optional list; src is appended to it.
+      hash_group: dynamic keys under hash sharding: the process group of the
+        OR rounds' shards; the OR-combine's sums are summed over it
+        (`unsort_combine`, `unsort_heads`).
     Returns: (n, h * d) attention output rows.
     """
     h, d_model, d = wq.shape
@@ -685,8 +692,8 @@ def hept_attention_core_xcols(
                             kernel_bf16=kernel_bf16, kernel_center=kernel_center)
         if share_heads:
             return unsort_combine(od, q_src[:, 0], unsort_rows, pack=unsort_pack,
-                                  inv=q_inv[:, 0])
-        return unsort_heads(od, q_src, pack=unsort_pack, inv=q_inv)
+                                  inv=q_inv[:, 0], hash_group=hash_group)
+        return unsort_heads(od, q_src, pack=unsort_pack, inv=q_inv, hash_group=hash_group)
     src, inv, scoords = plan[:3]
     c = src.shape[0]
     n_ev = sort_events

@@ -1,11 +1,17 @@
 """Data-parallel train step (port of `hept_tpu/parallel/dp.py`).
 
 Each rank of the "data" axis runs its own slice of the event batch
-(`shard_batch`), back-propagates the mean loss over its events, and the
-gradients are averaged over the data axis by ONE all-reduce of a flat
-buffer holding every gradient. Then every rank clips (optax's formula,
-`train/optim.py:clip_by_global_norm_`) and steps its own optimizer on the
-same averaged gradients, so the replicas stay equal without a broadcast.
+(`shard_batch`), back-propagates the mean loss over its events divided by
+the data ranks, and the gradients are summed over the data axis by ONE
+all-reduce of a flat buffer holding every gradient. The division comes
+before the backward, as JAX's pmean of the loss puts it: every cotangent
+then has the single-process step's scale, which the e4m3 transport of the
+fp8 unsort (whose subnormal range flushes small values) does not ignore.
+Elsewhere, over a power-of-two count of ranks, dividing first or last
+gives the same bits wherever values stay in the normal range. Then every
+rank clips (optax's formula, `train/optim.py:clip_by_global_norm_`) and
+steps its own optimizer on the same averaged gradients, so the replicas
+stay equal without a broadcast.
 
 Why not `DistributedDataParallel`: its bucketed all-reduce overlaps the
 backward, which buys nothing for a model of tens of thousands of
@@ -28,16 +34,13 @@ from ..train.optim import clip_by_global_norm_, global_norm
 from .collectives import all_reduce_, group_size
 
 
-def flat_all_reduce_mean_(tensors: list, group) -> None:
-    """Average `tensors` in place over `group` with one all-reduce of their
+def flat_all_reduce_(tensors: list, group) -> None:
+    """Sum `tensors` in place over `group` with one all-reduce of their
     concatenation."""
-    n = group_size(group)
     if group is None or not tensors:
         return
     flat = torch.cat([t.reshape(-1) for t in tensors])
     all_reduce_(flat, group)
-    if n > 1:
-        flat.div_(n)
     off = 0
     for t in tensors:
         t.copy_(flat[off:off + t.numel()].view_as(t))
@@ -65,12 +68,15 @@ def train_step(model, optimizer, loss_fn, apply_fn, batch: dict, data_group,
     model ranks). Returns detached {"loss", "grad_norm"}: the global
     batch's mean loss and the averaged gradients' norm before clipping."""
     optimizer.zero_grad(set_to_none=True)
+    n = group_size(data_group)
     loss = loss_fn(apply_fn(model, batch, generator), batch)
+    if n > 1:
+        loss = loss / n
     loss.backward()
     params = [p for p in model.parameters() if p.grad is not None]
     grads = [p.grad for p in params]
     loss_avg = loss.detach().reshape(1).clone()
-    flat_all_reduce_mean_(grads + [loss_avg], data_group)
+    flat_all_reduce_(grads + [loss_avg], data_group)
     grad_norm = global_norm(grads) if sharded_norm is None else sharded_norm(model, grads)
     if clip_norm:
         clip_by_global_norm_(grads, grad_norm, clip_norm)

@@ -46,18 +46,24 @@ def invert_perm(src: torch.Tensor) -> torch.Tensor:
     return torch.empty_like(src).scatter_(-1, src, ar.expand_as(src).contiguous())
 
 
-def permute_overflows(perm: torch.Tensor, n_shards: int, cap: int) -> torch.Tensor:
-    """Does any (source, destination) cell of the routed permutation (c, n)
-    exceed `cap` points? A 0-d bool tensor (no host read); True means
-    `route_local` would be wrong."""
+def cell_fill(perm: torch.Tensor, n_shards: int) -> torch.Tensor:
+    """The points of each (source, destination) cell of the routed
+    permutation (c, n) over `n_shards` ranks: (c, P * P) int64, cell
+    source * P + destination."""
     with torch.no_grad():
         c, n = perm.shape
         ne = n // n_shards
         dst = torch.arange(n, device=perm.device) // ne
         cell = (perm // ne) * n_shards + dst[None, :]
         counts = torch.zeros((c, n_shards * n_shards), dtype=torch.int64, device=perm.device)
-        counts.scatter_add_(1, cell, torch.ones_like(cell))
-        return counts.amax() > cap
+        return counts.scatter_add_(1, cell, torch.ones_like(cell))
+
+
+def permute_overflows(perm: torch.Tensor, n_shards: int, cap: int) -> torch.Tensor:
+    """Does any (source, destination) cell of the routed permutation (c, n)
+    exceed `cap` points? A 0-d bool tensor (no host read); True means
+    `route_local` would be wrong."""
+    return cell_fill(perm, n_shards).amax() > cap
 
 
 def _route_plan(perm: torch.Tensor, n_shards: int, me: int):

@@ -21,12 +21,17 @@ ones counted once); clip; the optimizer on every rank. Dropout differs per
 data rank and is the same on every model rank (`dropout_generator`).
 
 What JAX's `make_tp_train_step` accepts, and so the port: the dynamic-key
-HEPT path (the parity `hept` profiles), head and hash sharding in any
-mix. The static plan is refused under head sharding (JAX's shard_map
-refuses it: `e2lsh_alpha` is one head wide under share_heads) and under hash
-sharding (JAX runs it, but a hash shard keeps the whole replicated
-`static_alpha` while its AND codes shard, so its layers' rounds are not
-the single-device model's): `TransformerConfig.check_supported`.
+HEPT paths with head and hash sharding in any mix: the pre-sort per-head
+keys (the parity `hept` profiles) and the post-sort per-head keys (with or
+without shared_sort), each with its modes (gather_sort, the bf16 and fp8
+transports, kernel_bf16 / kernel_center, use_ckpt). The post-sort
+share_heads keys run under hash sharding only: their `e2lsh_alpha` is one
+head wide, sharded over hashes (`shard_dims`), and JAX's shard_map refuses
+to split it over heads. The static plan is refused under head sharding
+(the same refusal) and under hash sharding (JAX runs it, but a hash shard
+keeps the whole replicated `static_alpha` while its AND codes shard, so
+its layers' rounds are not the single-device model's):
+`TransformerConfig.check_supported`.
 """
 
 from __future__ import annotations
@@ -47,9 +52,10 @@ def shard_dims(name: str) -> tuple:
     """(dim, axis) pairs a state-dict entry is sharded over, the port's
     counterpart of `param_specs` (`hept_tpu/parallel/tp.py:34-78`, in
     nn.Linear's (out, in) layout): w_q / w_k / w_v and w_rpe rows over
-    heads; e2lsh_alpha (h, d, c) over heads on dim 0 and hashes on dim 2;
-    regions (c, and, h) over hashes on dim 0 and heads on dim 2; the rest
-    replicated."""
+    heads; e2lsh_alpha (h, d, c) over heads on dim 0 and hashes on dim 2
+    (share_heads' one-head alpha splits over hashes alone: it runs with
+    one head shard); regions (c, and, h) over hashes on dim 0 and heads on
+    dim 2; the rest replicated."""
     if _HEAD_ROWS.fullmatch(name):
         return ((0, "heads"),)
     if name.endswith("attn.e2lsh_alpha"):

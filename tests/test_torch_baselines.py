@@ -588,13 +588,17 @@ def test_baseline_yaml_equals_jax(attn_type, task):
 
 
 def test_check_supported_accepts_the_baselines_and_refuses_use_ckpt():
-    """Every attn_type runs, with use_ckpt too (`test_torch_ckpt.py`);
-    use_ckpt stays refused under sharding, naming ROADMAP.md."""
+    """Every attn_type runs, with use_ckpt too (`test_torch_ckpt.py`), and
+    HEPT's use_ckpt under head sharding (`test_torch_tp_post_sort.py`);
+    use_ckpt with a baseline's head sharding is refused, as JAX's TP step
+    refuses any baseline (naming hept_tpu/parallel/tp.py:125)."""
     for t in ("hept",) + BASELINES:
         TransformerConfig(in_dim=5, coords_dim=4, attn_type=t).check_supported()
         TransformerConfig(in_dim=5, coords_dim=4, attn_type=t, use_ckpt=True).check_supported()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TransformerConfig(in_dim=5, coords_dim=4, attn_type="hept", use_ckpt=True,
+    TransformerConfig(in_dim=5, coords_dim=4, attn_type="hept", use_ckpt=True,
+                      head_shards=2).check_supported()
+    with pytest.raises(NotImplementedError, match="tp.py:125"):
+        TransformerConfig(in_dim=5, coords_dim=4, attn_type="performer", use_ckpt=True,
                           head_shards=2).check_supported()
     with pytest.raises(NotImplementedError, match="attn_type"):
         TransformerConfig(in_dim=5, coords_dim=4, attn_type="gcn").check_supported()

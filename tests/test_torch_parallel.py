@@ -212,39 +212,46 @@ def test_head_sharded_attention_world2_matches_jax(tmp_path):
 def test_shard_state_dict_matches_param_specs():
     """The port's slice of carried weights (`from_jax_variables` with a
     mesh's sizes and coordinates) equals the slice JAX's `param_specs`
-    gives every leaf, at each (hashes, heads) coordinate of a 2 x 2 mesh."""
+    gives every leaf, at each (hashes, heads) coordinate of a 2 x 2 mesh,
+    and, for a share_heads model (its e2lsh_alpha one head wide, so JAX's
+    TP step runs it with one head shard), of a 2 x 1 mesh."""
     import jax
     from jax.sharding import PartitionSpec
 
     from hept_tpu.parallel.tp import param_specs
 
     batch = _batch((90, 75), seed=0)
-    _, _, variables = _jax_init(dict(model_kwargs=DYNAMIC_MK, attn_impl="pallas"), batch)
-    sizes = {"data": 1, "hashes": 2, "heads": 2}
-    specs = {col: param_specs(variables[col], "heads", "hashes") for col in variables}
+    share_heads = dict(DYNAMIC_MK, qkv_post_sort=True, shared_sort=True, share_heads=True)
+    for mk, heads in ((DYNAMIC_MK, 2), (share_heads, 1)):
+        _, _, variables = _jax_init(dict(model_kwargs=mk, attn_impl="pallas"), batch)
+        sizes = {"data": 1, "hashes": 2, "heads": heads}
+        specs = {col: param_specs(variables[col], "heads", "hashes") for col in variables}
 
-    def take(leaf, spec, coords):
-        a = np.asarray(leaf)
-        for dim, axis in enumerate(spec):
-            if axis is not None:
-                w = a.shape[dim] // sizes[axis]
-                a = np.take(a, range(coords[axis] * w, (coords[axis] + 1) * w), axis=dim)
-        return a
+        def take(leaf, spec, coords):
+            a = np.asarray(leaf)
+            for dim, axis in enumerate(spec):
+                if axis is not None:
+                    w = a.shape[dim] // sizes[axis]
+                    a = np.take(a, range(coords[axis] * w, (coords[axis] + 1) * w), axis=dim)
+            return a
 
-    sharded_any = False
-    for hh in range(2):
-        for hd in range(2):
-            coords = {"data": 0, "hashes": hh, "heads": hd}
-            sliced = {col: jax.tree_util.tree_map(
-                lambda x, s: take(x, s, coords), variables[col], specs[col],
-                is_leaf=lambda s: isinstance(s, PartitionSpec)) for col in variables}
-            want = from_jax_variables(sliced)
-            got = from_jax_variables(variables, sizes, coords)
-            assert set(got) == set(want)
-            for name in want:
-                assert torch.equal(got[name], want[name]), name
-                sharded_any |= got[name].shape != from_jax_variables(variables)[name].shape
-    assert sharded_any
+        sharded_any = False
+        for hh in range(2):
+            for hd in range(heads):
+                coords = {"data": 0, "hashes": hh, "heads": hd}
+                sliced = {col: jax.tree_util.tree_map(
+                    lambda x, s: take(x, s, coords), variables[col], specs[col],
+                    is_leaf=lambda s: isinstance(s, PartitionSpec)) for col in variables}
+                want = from_jax_variables(sliced)
+                got = from_jax_variables(variables, sizes, coords)
+                assert set(got) == set(want)
+                for name in want:
+                    assert torch.equal(got[name], want[name]), name
+                    sharded_any |= got[name].shape != from_jax_variables(variables)[name].shape
+        assert sharded_any
+        if heads == 1:  # the one-head alpha splits its rounds over the hash shards
+            alpha = from_jax_variables(variables, sizes, {"data": 0, "hashes": 1, "heads": 0})
+            assert alpha["blocks.0.attn.e2lsh_alpha"].shape == (1, mk["h_dim"] + 6, 1)
 
 
 def test_static_plan_tp_is_refused():

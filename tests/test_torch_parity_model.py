@@ -344,10 +344,7 @@ def test_parity_train_step_matches_jax():
 
 @pytest.mark.parametrize("bad", [
     dict(shared_sort=True),  # shared_sort without the post-sort projections
-    # the post-sort paths under head TP (item 2b's side items)
-    dict(qkv_post_sort=True, shared_sort=True, head_shards=2),
     dict(gather_sort=True),  # JAX's pre-sort core takes no gather_sort
-    dict(use_ckpt=True, hash_shards=2),  # use_ckpt under sharding (item 2b)
     dict(transport_groups=4),  # JAX ignores it without a plan
     dict(static_and_bins=4),  # likewise
     dict(sort_pack="fp8"),  # the e4m3 encoding is the unsort's
@@ -356,6 +353,17 @@ def test_parity_train_step_matches_jax():
 def test_unported_modes_name_the_roadmap(bad):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TransformerConfig(in_dim=10, coords_dim=6, **dict(SMALL, **bad)).check_supported()
+
+
+@pytest.mark.parametrize("mode", [
+    dict(qkv_post_sort=True, shared_sort=True, head_shards=2),
+    dict(use_ckpt=True, hash_shards=2),
+], ids=["post_sort_head_tp", "use_ckpt_hash_tp"])
+def test_formerly_refused_modes_are_accepted(mode):
+    """Two modes this test file once held refused (post-sort keys under head
+    TP, use_ckpt under hash TP) now pass `check_supported`; they are held
+    against JAX's TP step in `test_torch_tp_post_sort.py`."""
+    TransformerConfig(in_dim=10, coords_dim=6, **dict(SMALL, **mode)).check_supported()
 
 
 def test_supported_paths():

@@ -163,25 +163,36 @@ def test_model_tie_free_takes_jax_orders(monkeypatch):
     (dict(POST, kernel_center=True), "shared q/k bucket grid"),
     (dict(POST, fold_unsort=True), "needs share_heads"),
     (dict(SHARE_HEADS, fold_unsort=True, unsort_pack="fp8"), ":989"),
-    (dict(POST, head_shards=2), "item 2b"),
     (dict(kernel_bf16=True), "Not queued"),
-    (dict(SHARE_HEADS, use_ckpt=True, bucket_shards=2), "item 2b"),
-    (dict(SHARE_HEADS, padding_mode="zero", bucket_shards=2), "make_bucket_train_step"),
+    (dict(SHARE_HEADS, head_shards=2), "not evenly divisible by the corresponding mesh axis"),
     (dict(static_and_bins=4), "without static_keys"),
 ], ids=["num_and_hashes_3", "canon_with_groups", "groups_without_unsort_rows",
         "groups_not_dividing_block_size", "static_keys_unknown", "groups_without_plan",
         "fp8_unsort_rows", "fp8_sort_pack", "kernel_center_per_head", "fold_unsort_per_head",
-        "fold_unsort_fp8", "post_sort_head_tp", "pre_sort_kernel_bf16", "use_ckpt_bucket_sp",
-        "zero_padding_bucket_sp", "and_bins_without_plan"])
+        "fold_unsort_fp8", "pre_sort_kernel_bf16", "share_heads_head_tp",
+        "and_bins_without_plan"])
 def test_refusals_name_their_reason(bad, reason):
     """What stays refused on the HEPT path names its reason: JAX's own
     asserts against the static-plan family's combinations (canon with
     groups, groups without unsort_rows or dividing no bucket, fp8 with the
-    merged-row unsorts), what JAX ignores or leaves undocumented (groups
-    and AND bins without a plan, a sort_pack "fp8": ROADMAP.md, queue 1,
-    'Not queued'), or queue 1, item 2b where it is still to port."""
+    merged-row unsorts), JAX's own error (share_heads under head TP: its
+    shard_map cannot split the one-head e2lsh_alpha), or what JAX ignores
+    or leaves undocumented (groups and AND bins without a plan, a sort_pack
+    "fp8": ROADMAP.md, queue 1, 'Not queued')."""
     with pytest.raises(NotImplementedError, match=reason):
         TransformerConfig(in_dim=10, coords_dim=6, **dict(BASE, **bad)).check_supported()
+
+
+@pytest.mark.parametrize("mode", [
+    dict(POST, head_shards=2),
+    dict(SHARE_HEADS, use_ckpt=True, bucket_shards=2),
+    dict(SHARE_HEADS, padding_mode="zero", bucket_shards=2),
+], ids=["post_sort_head_tp", "use_ckpt_bucket_sp", "zero_padding_bucket_sp"])
+def test_formerly_refused_modes_are_accepted(mode):
+    """Three modes this test file once held refused now pass
+    `check_supported`; they are held against JAX's sharded steps in
+    `test_torch_tp_post_sort.py` and `test_torch_bucket_padding.py`."""
+    TransformerConfig(in_dim=10, coords_dim=6, **dict(BASE, **mode)).check_supported()
 
 
 def test_dynamic_key_modes_are_supported():

@@ -246,23 +246,33 @@ def test_fp8_transport_is_refused(path, flag):
     dict(qkv_post_sort=True, kernel_center=True),  # no shared q/k copy
     dict(SHARED, sort_pack=True, bucket_shards=2),
     dict(SHARED, unsort_pack=True, bucket_shards=2),
-    dict(qkv_post_sort=True, shared_sort=True, head_shards=2),  # post-sort without share_heads
-    dict(qkv_post_sort=True, hash_shards=2),
     dict(share_heads=True),  # share_heads needs the post-sort projections
     dict(SHARED, gather_sort=True, bucket_shards=2),
     dict(SHARED, head_shards=2),
-], ids=["kernel_bf16", "kernel_center", "sort_pack", "unsort_pack", "no_share_heads",
-        "post_sort_alone", "pre_sort_share_heads", "gather_sort", "head_shards"])
+], ids=["kernel_bf16", "kernel_center", "sort_pack", "unsort_pack", "pre_sort_share_heads",
+        "gather_sort", "head_shards"])
 def test_dynamic_share_heads_refusals(bad):
     """What stays refused around the dynamic-key post-sort paths: the bf16
     modes and gather_sort under bucket shards (JAX's bucket core runs f32
     and takes no gather_sort), kernel_center without a shared q/k copy,
-    head / hash sharding of the post-sort paths, share_heads without the
-    post-sort projections. (The bf16 modes, gather_sort and the paths
-    without share_heads themselves run: `test_torch_post_sort.py`,
-    `test_torch_gather_sort.py`, `test_torch_dynamic_bf16.py`.)"""
+    share_heads under head sharding (JAX's shard_map cannot split its
+    one-head e2lsh_alpha), share_heads without the post-sort projections.
+    (The bf16 modes, gather_sort and the paths without share_heads
+    themselves run: `test_torch_post_sort.py`, `test_torch_gather_sort.py`,
+    `test_torch_dynamic_bf16.py`.)"""
     with pytest.raises(NotImplementedError):
         TransformerConfig(in_dim=10, coords_dim=6, **dict(BASE, **bad)).check_supported()
+
+
+@pytest.mark.parametrize("mode", [
+    dict(qkv_post_sort=True, shared_sort=True, head_shards=2),  # post-sort without share_heads
+    dict(qkv_post_sort=True, hash_shards=2),
+], ids=["no_share_heads", "post_sort_alone"])
+def test_formerly_refused_sharded_post_sort_is_accepted(mode):
+    """Head / hash sharding of the post-sort paths without share_heads,
+    once refused here, passes `check_supported`; it is held against JAX's
+    TP step in `test_torch_tp_post_sort.py`."""
+    TransformerConfig(in_dim=10, coords_dim=6, **dict(BASE, **mode)).check_supported()
 
 
 @pytest.mark.parametrize("bad", [

@@ -1,5 +1,6 @@
-"""Rank processes of `test_torch_parallel.py`, `test_torch_dsort.py` and
-`test_torch_bucket_sp.py` (imports torch and the port, never JAX):
+"""Rank processes of `test_torch_parallel.py`, `test_torch_dsort.py`,
+`test_torch_bucket_sp.py`, `test_torch_tp_post_sort.py` and
+`test_torch_bucket_padding.py` (imports torch and the port, never JAX):
 `python tests/torch_parallel_workers.py TASK RANK WORLD DIR`.
 
 Each rank joins a gloo group through `DIR/rendezvous` (a file, so that test
@@ -66,6 +67,45 @@ def tp_task(inp, rank):
     m = _step(inp, mesh, model, opt)
     return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
             "state_dict": tp.gather_state_dict(model.state_dict(), mesh), "single": single}
+
+
+def tp_modes_task(inp, rank):
+    """Each run of inp["modes"] (key -> {"exp", "state", "batch", "seed",
+    "single"}) on one ("data", "hashes", "heads") mesh of inp["sizes"]: one
+    SGD step of the TP model from inp["states"][state] on
+    inp["batches"][batch], dropout drawn from `seed` (None: none); the
+    loss, gradient norm, whole model after the step and the dropout
+    generator's state. Rank 0 also takes the single-process step on the
+    whole batch where `single` (`single`)."""
+    mesh = make_mesh(None, TP_AXES, inp["sizes"], device="cpu")
+    res = {}
+    for name, mode in inp["modes"].items():
+        cfg = ExperimentConfig(**mode["exp"])
+        state = inp["states"][mode["state"]]
+        batch = inp["batches"][mode["batch"]]
+        out = {"single": None}
+        if rank == 0 and mode["single"]:
+            ref = trainer.build_model(cfg, inp["in_dim"], inp["coords_dim"], None, "cpu")
+            ref.load_state_dict(state)
+            m = trainer.train_step(ref, torch.optim.SGD(ref.parameters(), lr=inp["lr"]),
+                                   trainer.make_loss_fn(cfg),
+                                   trainer.batch_to_device(batch, "cpu"))
+            out["single"] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                             "state_dict": ref.state_dict()}
+        model = tp.make_tp_model(cfg.model_config(inp["in_dim"], inp["coords_dim"]), mesh,
+                                 None, "cpu", state_dict=state)
+        gen = None if mode["seed"] is None else \
+            tp.dropout_generator(mode["seed"], mesh.rank("data"), "cpu")
+        b = shard_batch(batch, mesh.rank("data"), mesh.size("data"))
+        m = trainer.train_step(model, torch.optim.SGD(model.parameters(), lr=inp["lr"]),
+                               trainer.make_loss_fn(cfg), trainer.batch_to_device(b, "cpu"),
+                               gen, 0.0, cfg.batch_mode, mesh.group("data"),
+                               tp.sharded_global_norm(mesh))
+        out.update(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                   state_dict=tp.gather_state_dict(model.state_dict(), mesh),
+                   gen=None if gen is None else gen.get_state())
+        res[name] = out
+    return res
 
 
 def sp_task(inp, rank):
@@ -154,21 +194,22 @@ def _bucket_core(inp, group):
     return res
 
 
-def _bucket_step(inp, mesh):
-    """One DP x bucket-SP Adam step per transport: loss, grad norm and the
-    gradients."""
+def _bucket_runs(st, mesh):
+    """Each run of st["runs"] (key -> {"exp", "transport"}) as one DP x
+    bucket-SP Adam step of st["state_dict"] on st["batch"]: loss, grad norm
+    and the gradients."""
     from hept_tpu_torch.parallel.bp import make_bucket_model, make_bucket_train_step
 
-    cfg = ExperimentConfig(**inp["exp"])
     res = {}
-    for transport in ("replicated", "distributed"):
-        model = make_bucket_model(cfg.model_config(inp["in_dim"], inp["coords_dim"]), mesh,
-                                  None, "cpu", inp["state_dict"], transport, 4.0)
-        opt = trainer.make_optimizer(model.parameters(), lr=inp["lr"])
-        step = make_bucket_train_step(model, opt, trainer.make_loss_fn(cfg), mesh)
-        m = step(trainer.batch_to_device(inp["batch"], "cpu"))
-        res[transport] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
-                          "grads": {k: p.grad.clone() for k, p in model.named_parameters()}}
+    for key, run in st["runs"].items():
+        cfg = ExperimentConfig(**run["exp"])
+        model = make_bucket_model(cfg.model_config(st["in_dim"], st["coords_dim"]), mesh, None,
+                                  "cpu", st["state_dict"], run["transport"], 4.0)
+        opt = trainer.make_optimizer(model.parameters(), lr=st["lr"])
+        m = make_bucket_train_step(model, opt, trainer.make_loss_fn(cfg), mesh)(
+            trainer.batch_to_device(st["batch"], "cpu"))
+        res[key] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                    "grads": {k: p.grad.clone() for k, p in model.named_parameters()}}
     return res
 
 
@@ -178,12 +219,26 @@ def bucket_sp_task(inp, rank):
     inp["step"]["sizes"]."""
     mesh = make_mesh(None, ("buckets",), device="cpu")
     core = _bucket_core(inp["core"], mesh.group("buckets"))
-    step_mesh = make_mesh(None, ("data", "buckets"), inp["step"]["sizes"], device="cpu")
-    return {"core": core, "step": _bucket_step(inp["step"], step_mesh)}
+    st = inp["step"]
+    step_mesh = make_mesh(None, ("data", "buckets"), st["sizes"], device="cpu")
+    runs = {t: {"exp": st["exp"], "transport": t} for t in ("replicated", "distributed")}
+    return {"core": core, "step": _bucket_runs(dict(st, runs=runs), step_mesh)}
 
 
-TASKS = {"dp": dp_task, "tp": tp_task, "sp": sp_task, "run": run_task,
-         "collectives": collectives_task, "dsort": dsort_task, "bucket_sp": bucket_sp_task}
+def bucket_padding_task(inp, rank):
+    """The bucket-axis SP on padded events: the layer-level core over all
+    the ranks with invalid rows (inp["core"]), then each run of
+    inp["step"]["runs"] on a ("data", "buckets") mesh of
+    inp["step"]["sizes"]."""
+    group = make_mesh(None, ("buckets",), device="cpu").group("buckets")
+    core = _bucket_core(inp["core"], group)
+    mesh = make_mesh(None, ("data", "buckets"), inp["step"]["sizes"], device="cpu")
+    return {"core": core, "step": _bucket_runs(inp["step"], mesh)}
+
+
+TASKS = {"dp": dp_task, "tp": tp_task, "tp_modes": tp_modes_task, "sp": sp_task,
+         "run": run_task, "collectives": collectives_task, "dsort": dsort_task,
+         "bucket_sp": bucket_sp_task, "bucket_padding": bucket_padding_task}
 
 
 def main():
