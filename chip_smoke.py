@@ -213,7 +213,17 @@ Phases, one line each (plus per-kernel lines):
      the CPU, values past 464 and +-inf included; the twins' forward bits:
      static + fold_unsort and static + unsort_rows against static, canon
      against the plain plan with packing and the bf16 kernels off (and
-     that pair's gradients at the f32 gates).
+     that pair's gradients at the f32 gates);
+ 37. the sharded modes (`phase_sharded_modes`): post-sort dynamic keys
+     under head / hash TP, use_ckpt under sharding, zero padding under the
+     bucket SP, on two gloo ranks sharing the card and at world 1 (NCCL);
+ 38. attn_impl "xla" (the JAX package's default; `phase_xla_impl`): the
+     parity YAML (f32: K6 f32 / K7 v1) and hept_fast (K6 exact-bias bf16 on
+     the tensor cores, K7 v1 on bf16) with "xla", `--profile-steps` steps
+     each, busy ms, peak GiB, the first step against plain, and each the
+     same bits as its "hybrid" twin; one step each of the models of a bare
+     TransformerConfig(in_dim, coords_dim) (zero padding, "xla") and of
+     ExperimentConfig() ("pallas") against plain at the f32 gates.
 Before the last line: one JSON line of per-kernel numbers (K5 once per row
 shape, K3 at d = 1 as K3d1, K4 with its yardsticks as extra keys; K3 / K4
 with the baselines', the GNNs' and the loss options' launches at d = 12,
@@ -221,6 +231,7 @@ K3d1 and K4's `d1_launches` with theirs at d = 1; K1 / K2 with the flat
 and DP phases' launches, K6 / K7 with the TP ranks', K10 with the SP
 ranks'; K6 / K7 / K5p with the share_heads steps', the world-1 bucket
 steps' and the bucket ranks', and the dynamic-key runs' of phases 32-34;
+K6 / K7 with the sharded runs' of phase 37 and the "xla" runs' of 38;
 K5g / K5gb, gather_sort's 120 B and 60 B rows, with its runs'; K5h50,
 K5g2r, K5g4r and K5e96, the static family's 50 B head-broadcast, 800 /
 1600 B group and 96 B entry rows, with phase 36's runs'), and the
@@ -2533,7 +2544,7 @@ def rank_worker(torch, args) -> int:
     def sp_run():
         o = head_sharded_attention(*ins, sp["alpha"], sp["codes"], sp["invalid"],
                                    mesh.group("heads"), block_size=sp["block_size"],
-                                   perms=tuple(p.to(DEVICE) for p in sp["perms"]))
+                                   impl="pallas", perms=tuple(p.to(DEVICE) for p in sp["perms"]))
         return o, torch.autograd.grad((o * sp["cot"]).sum(), ins)
 
     out["sp"] = counted("sp", sp_run, lambda r: {"out": r[0].detach().cpu(),
@@ -2634,7 +2645,8 @@ def bucket_reference(torch, trainer, batch_np, seed: int, state: dict) -> tuple[
     alpha = blk.attn.e2lsh_alpha.detach()
     seen = []
     out = hept_attention_core_xcols(*ins, alpha, codes, invalid, None, block_size=bs,
-                                    impl="pallas", unsort_rows=False, record_perms=seen)
+                                    impl="pallas", share_heads=True, unsort_rows=False,
+                                    record_perms=seen)
     grads = torch.autograd.grad((out * cot).sum(), ins)
     ref = {"core": {"out": out.detach(), "grads": grads, "src": seen[0]}}
     perms = []
@@ -2951,7 +2963,7 @@ def dynamic_steps(torch, trainer, cfg, batch_np, steps: int, seed: int, zero_cou
                                 torch.Generator(device=DEVICE).manual_seed(seed), DEVICE)
     init_state = copy.deepcopy(model.state_dict())
     opt = trainer.make_optimizer(model.parameters(), cfg.optimizer_name,
-                                 cfg.optimizer_kwargs["lr"])
+                                 cfg.optimizer_kwargs.get("lr", 1e-3))
     loss_fn = trainer.make_loss_fn(cfg)
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 1)
     torch.cuda.synchronize()
@@ -3706,6 +3718,51 @@ def phase_sharded_modes(torch, trainer, batch100_np, seed: int, zero_counts,
             "nccl": nccl, "cells": ref["cells"]}
 
 
+def phase_xla_impl(torch, trainer, batch100_np, steps: int, seed: int, zero_counts,
+                   read_counts) -> dict:
+    """38. attn_impl "xla" at full width on the bs-100 event, each run
+    through `dynamic_steps` (launches, busy ms, peak GiB, the first step
+    against plain): (a) the parity YAML with "xla", f32 (K6 f32 / K7 v1 4
+    each a step), at the f32 gates, and its "hybrid" twin with the same bits;
+    (b) hept_fast with "xla" (K6 exact-bias bf16 on the tensor cores, K7 v1
+    on bf16), at the bf16 gates, and its "hybrid" twin with the same bits;
+    (c) the model of a bare TransformerConfig(in_dim, coords_dim) (zero
+    padding, "xla", bs 100, 3 hashes) and that of ExperimentConfig()
+    (replicate padding, "pallas"), trained by ExperimentConfig()'s loss and
+    optimizer: one step each, at the f32 gates."""
+    from hept_tpu_torch.models.transformer import TransformerConfig
+    from hept_tpu_torch.train.config import ExperimentConfig
+
+    out = {}
+    # K6 on the f32 or the tensor-core route, K7 v1 (cols_bwd) either way
+    for label, profile, fwd in (("parity xla", "hept", "cols_fwd"),
+                                ("hept_fast xla", "hept_fast", "cols_fwd_tc")):
+        want = cols_launches(steps, fwd=fwd)
+        out[label] = dynamic_steps(torch, trainer,
+                                   dynamic_config(profile, {"attn_impl": "xla"}), batch100_np,
+                                   steps, seed, zero_counts, read_counts, label, want)
+        twin = label.replace("xla", "hybrid")
+        out[twin] = dynamic_steps(torch, trainer,
+                                  dynamic_config(profile, {"attn_impl": "hybrid"}), batch100_np,
+                                  steps, seed, zero_counts, read_counts, twin, want,
+                                  profile=False, compare=False)
+        same_run(torch, f"{label} vs {twin}", out[label], out[twin])
+    in_dim, coords_dim = batch100_np["x"].shape[2], batch100_np["coords"].shape[2]
+    bare = ExperimentConfig(padding_mode="zero", attn_impl="xla")
+    if bare.model_config(in_dim, coords_dim) != TransformerConfig(in_dim, coords_dim):
+        raise AssertionError("the zero / xla experiment does not build the bare "
+                             "TransformerConfig's model")
+    for label, cfg in (("TransformerConfig() defaults", bare),
+                       ("ExperimentConfig() defaults", ExperimentConfig())):
+        mc = cfg.model_config(in_dim, coords_dim)
+        log(f"  {label}: padding {mc.padding_mode}, attn_impl {mc.attn_impl}, bs "
+            f"{mc.block_size}, {mc.n_hashes} hashes, {mc.n_layers} layers, {mc.num_heads} "
+            f"heads, h_dim {mc.h_dim}")
+        out[label] = dynamic_steps(torch, trainer, cfg, batch100_np, 1, seed, zero_counts,
+                                   read_counts, label, cols_launches(1))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=5)
@@ -4200,6 +4257,25 @@ def main(argv=None) -> int:
         log(f"  {k} | {[[round(x, 1) for x in m] for m in ms]} | {sh37['launches'][k][0]}")
     log("  use_ckpt peak GiB a rank (plain, use_ckpt): " + "; ".join(
         f"{arm} {[tuple(round(x, 3) for x in r) for r in v]}" for arm, v in sh37["ckpt"].items()))
+
+    # 38. attn_impl "xla" and the bare configs' defaults
+    log("phase 38 attn_impl xla and the default configs:")
+    xla = phase_xla_impl(torch, trainer, batch100, args.profile_steps, args.seed, zero_counts,
+                         read_counts)
+    for key, names in (("K6", ("cols_fwd", "cols_fwd_tc")), ("K7", ("cols_bwd", "cols_bwd_tc"))):
+        rows[key]["xla_launches"] = {k: {n: r["launches"][n] for n in names}
+                                     for k, r in xla.items()}
+        rows[key]["xla_launches_in"] = (f"phase 38, {args.profile_steps} steps a run (the bare "
+                                        "configs' runs: one step), by route counter")
+    log(f"phase xla ({smi}): run | step ms (median after the first) | busy ms | peak GiB | "
+        "K6 / K7 a step")
+    for k, r in xla.items():
+        busy = "not profiled" if r["busy_ms"] is None else f"{r['busy_ms']:.2f}"
+        n_steps = len(r["metrics"])
+        log(f"  {k} | {r['steady_ms']:.1f} | {busy} | {r['peak_gib']:.2f} | "
+            + ", ".join(f"{n} {r['launches'][n] // n_steps}"
+                        for n in ("cols_fwd", "cols_fwd_tc", "cols_bwd", "cols_bwd_tc")
+                        if r["launches"][n]))
 
     # K11 (row_gather_vreg) has K5's contract and runs on K5's kernel
     rows["K11"] = dict(rows["K5"], name="K11 row_gather_vreg", ported_by="K5",

@@ -186,7 +186,8 @@ class DGCNNConv(nn.Module):
     of [x_i, x_j - x_i] (Linear, LayerNorm, ReLU, twice), mean over the k
     neighbours."""
 
-    def __init__(self, f: int, h_dim: int, k: int, knn_dim: int, generator=None, device=None):
+    def __init__(self, f: int, h_dim: int, k: int = 8, knn_dim: int = 4, generator=None,
+                 device=None):
         super().__init__()
         kw = dict(generator=generator, device=device)
         self.k = k
@@ -210,7 +211,8 @@ class GravNetConv(nn.Module):
     """GravNet: a kNN graph in a learned space, Gaussian edge weights
     exp(-d^2 exp(w)), mean and max of the weighted projected features."""
 
-    def __init__(self, f: int, h_dim: int, k: int, knn_dim: int, generator=None, device=None):
+    def __init__(self, f: int, h_dim: int, k: int = 8, knn_dim: int = 4, generator=None,
+                 device=None):
         super().__init__()
         kw = dict(generator=generator, device=device)
         self.k = k

@@ -114,11 +114,14 @@ class TransformerConfig:
     sharding. The seven baseline attentions (`BASELINES`)
     read the baseline fields at the end and none of hept's modes.
     `attn_impl` selects the bucket kernels
-    (`ops/bucket_attn_cuda.py:cols_routes`): every mode of the JAX package
-    but "xla", its kernel-free einsum path; "slab" and "hybrid_slab" run the
-    contracts of its slab kernels (K8/K9) on K6/K7. `sort_ops` and
-    `scan_layers` select TPU implementations of the same math and are
-    ignored, and `shared_sort` is implied by `share_heads`.
+    (`ops/bucket_attn_cuda.py:cols_routes`), every mode of the JAX package:
+    "xla", its einsum forward with autodiff's backward, runs "hybrid"'s K6
+    and K7 v1; "slab" and "hybrid_slab" run the contracts of its slab
+    kernels (K8/K9) on K6/K7. `sort_ops` and `scan_layers` select TPU
+    implementations of the same math and are ignored, and `shared_sort` is
+    implied by `share_heads`. Every default is the JAX config's; JAX's mesh
+    axis names `head_axis` / `hash_axis` are the shard counts `head_shards`
+    / `hash_shards` here, and its `bucket_axis` the model's "buckets" group.
     """
 
     in_dim: int
@@ -135,8 +138,8 @@ class TransformerConfig:
     num_w_per_dist: int = 10
     num_and_hashes: int = 2
     dropout: float = 0.1
-    padding_mode: str = "replicate"
-    attn_impl: str = "slab2"
+    padding_mode: str = "zero"
+    attn_impl: str = "xla"
     sort_pack: bool = False
     sort_ops: int = 1
     unsort_pack: bool = False
@@ -215,11 +218,8 @@ class TransformerConfig:
             "num_and_hashes == 2 (JAX's region_codes reshapes the regions to (2, c * h), "
             "hept_tpu/core/regions.py:106, so its model cannot be built with another value "
             "and there is nothing to hold a port against)": self.num_and_hashes == 2,
-            f"attn_impl in {ATTN_IMPLS} ('xla' is the JAX package's kernel-free einsum + "
-            "autodiff path, hept_tpu/ops/bucket_attn.py:971-978, "
-            "autodiff path, not run by the port: on the card every bucket call launches a "
-            "kernel, and its autodiff backward of a bf16 forward breaks the gradient contract "
-            "of ROADMAP.md's North star)": self.attn_impl in ATTN_IMPLS,
+            f"attn_impl in {ATTN_IMPLS} (the JAX package's modes, "
+            "hept_tpu/ops/bucket_attn.py:971-978)": self.attn_impl in ATTN_IMPLS,
         })
         if self.canon_residual and not self.static_keys:
             # hept_tpu/models/transformer.py:707-708

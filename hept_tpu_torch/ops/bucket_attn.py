@@ -561,7 +561,7 @@ def hept_attention_core_xcols(
     plan=None,
     *,
     block_size: int,
-    impl: str = "slab2",
+    impl: str = "xla",
     sort_pack: bool = False,
     unsort_pack=False,
     kernel_bf16: bool = False,
@@ -571,7 +571,7 @@ def hept_attention_core_xcols(
     fold_unsort: bool = False,
     canon: bool = False,
     plan_groups: int = 1,
-    share_heads: bool = True,
+    share_heads: bool = False,
     shared_sort: bool = False,
     gather_sort: bool = False,
     src=None,
@@ -756,10 +756,10 @@ def hept_attention_core_cols(
     v: torch.Tensor,
     alpha: torch.Tensor,
     codes: torch.Tensor,
-    invalid: torch.Tensor | None,
+    invalid: torch.Tensor | None = None,
     *,
     block_size: int,
-    impl: str = "pallas",
+    impl: str = "xla",
     sort_pack: bool = False,
     unsort_pack: bool = False,
     perms=None,
@@ -847,7 +847,7 @@ def hept_attention_core(
     invalid: torch.Tensor | None = None,
     *,
     block_size: int,
-    impl: str = "pallas",
+    impl: str = "xla",
     sort_pack: bool = False,
     perms=None,
     record_perms: list | None = None,

@@ -47,9 +47,8 @@ SUPPORTED_DIMS = ((30, 24), (7, 5))
 # and for the column kernels K6 / K7 (HEPT_COLS_DIMS): also the pileup width,
 # coords_dim 4
 COLS_DIMS = SUPPORTED_DIMS + ((28, 24),)
-# attn_impl modes the port runs (`cols_routes`); the JAX package's "xla" is
-# its kernel-free einsum + autodiff path, which the port does not run
-ATTN_IMPLS = ("slab2", "hybrid", "hybrid2", "hybrid2l", "pallas", "loop2", "slab",
+# the attn_impl modes (`cols_routes`): every mode of the JAX package
+ATTN_IMPLS = ("xla", "slab2", "hybrid", "hybrid2", "hybrid2l", "pallas", "loop2", "slab",
               "hybrid_slab")
 # launches of each kernel since the last reset (plain integer counters);
 # K1 / K2, K6 and K7 count per route: "_tc" the tensor-core kernels, the bare
@@ -367,7 +366,7 @@ def cols_routes(mode: str, n: int, block_size: int, dtype: torch.dtype) -> tuple
 
         slab2, g >= 2                        K1          K2
         slab2 otherwise, hybrid2, hybrid2l   K6          K7 v2
-        hybrid, hybrid_slab                  K6          K7 v1
+        xla, hybrid, hybrid_slab             K6          K7 v1
         pallas, slab                         K6 (hilo)   K7 v1
         loop2                                K6          K7 v2
 
@@ -378,14 +377,15 @@ def cols_routes(mode: str, n: int, block_size: int, dtype: torch.dtype) -> tuple
     mask zeroes every cross-bucket term (`_fwd_slab_kernel`,
     `_bwd_slab_kernel`, which upcasts its operands to f32); the slab is a
     TPU device against a serial per-bucket MXU chain, so `slab` and
-    `hybrid_slab` run K6/K7 for every block size.
+    `hybrid_slab` run K6/K7 for every block size. Off a TPU the JAX package
+    runs `xla` for every mode: its einsum forward, which is `hybrid`'s, and
+    autodiff's backward; `xla` runs `hybrid`'s kernels, whose K7 v1 is the
+    gradient of that forward (f32-upcast operands), as the bf16-gradient
+    contract asks.
     """
     if mode not in ATTN_IMPLS:
-        raise NotImplementedError(
-            f"attn_impl {mode!r} is not run by the port (ROADMAP.md North star): 'xla' is "
-            "the JAX package's kernel-free einsum + autodiff path, while on the card every "
-            "bucket call launches a kernel, and its autodiff backward of a bf16 forward is "
-            f"not the gradient of that forward; modes: {ATTN_IMPLS}")
+        raise NotImplementedError(f"attn_impl {mode!r}: not a mode of the JAX package; "
+                                  f"modes: {ATTN_IMPLS}")
     bf16 = dtype == torch.bfloat16
     if mode == "slab2" and _slab128_g(n // block_size, block_size) >= 2:
         return "K1", "K2"

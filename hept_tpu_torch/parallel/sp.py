@@ -19,7 +19,7 @@ from .collectives import all_gather, copy_to_group, group_rank, group_size
 def head_sharded_attention(q_hat: torch.Tensor, k_hat: torch.Tensor, v: torch.Tensor,
                            alpha: torch.Tensor, codes: torch.Tensor,
                            invalid: torch.Tensor | None, group, *, block_size: int,
-                           impl: str = "pallas", perms=None) -> torch.Tensor:
+                           impl: str = "xla", perms=None) -> torch.Tensor:
     """`ops/bucket_attn.py:hept_attention_core` with its heads split over
     `group`: every rank passes the whole inputs, runs the core (kernel K10
     on CUDA tensors) on its equal head slice and gets the whole

@@ -57,7 +57,7 @@ class ExperimentConfig:
 
     # "cuda" (default) | "cpu"
     device: Optional[str] = None
-    attn_impl: str = "slab2"
+    attn_impl: str = "pallas"
     padding_mode: str = "replicate"
     # train-time random supervision-pair augmentation fraction
     pair_aug_p: float = 0.2

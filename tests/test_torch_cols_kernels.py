@@ -21,7 +21,6 @@ from hept_tpu.ops.bucket_attn_pallas import (  # noqa: E402
     _pick_group_loop,
     bucket_rbf_attention_cols_pallas,
 )
-from hept_tpu_torch.models.transformer import TransformerConfig  # noqa: E402
 from hept_tpu_torch.ops import bucket_attn_cuda as ba  # noqa: E402
 from hept_tpu_torch.ops.bucket_attn import bucket_rbf_attention_cols  # noqa: E402
 
@@ -249,17 +248,6 @@ def test_profiler_maps_kernel_names(name, want):
     from hept_tpu_torch.utils.profiling import port_kernel
 
     assert port_kernel(name) == want
-
-
-@pytest.mark.parametrize("mode", ["xla"])
-def test_unported_modes_raise(mode):
-    """`xla` is the JAX package's kernel-free einsum + autodiff path: the
-    port runs a kernel for every bucket call, so it refuses the mode."""
-    x = torch.zeros((1, 7, 16))
-    with pytest.raises(NotImplementedError, match="kernel-free einsum"):
-        bucket_rbf_attention_cols(x, x, torch.zeros((1, 5, 16)), 8, mode)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TransformerConfig(in_dim=10, coords_dim=6, attn_impl=mode).check_supported()
 
 
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])

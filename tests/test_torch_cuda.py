@@ -579,14 +579,16 @@ def test_core_runs_k10_and_k5(dev):
     w = rn(h, n, dv)
     before = {**ba.LAUNCHES, **rg.LAUNCHES}
     perms = []
-    out = hept_attention_core(*ins, alpha, codes, block_size=bs, record_perms=perms)
+    out = hept_attention_core(*ins, alpha, codes, block_size=bs, impl="pallas",
+                              record_perms=perms)
     grads = torch.autograd.grad((out * w).sum(), ins)
     after = {k: v - before[k] for k, v in {**ba.LAUNCHES, **rg.LAUNCHES}.items()}
     assert after == {"bucket_attn_fwd_tc": 0, "bucket_attn_bwd_tc": 0, "bucket_attn_fwd": 0,
                      "bucket_attn_bwd": 0, "cols_fwd_tc": 0, "cols_fwd": 0, "cols_bwd_tc": 0,
                      "cols_bwd": 0, "rows_fwd": 1, "rows_bwd": 1, "row_gather": 8}
     with plain_reference():
-        out_p = hept_attention_core(*ins, alpha, codes, block_size=bs, perms=perms[0])
+        out_p = hept_attention_core(*ins, alpha, codes, block_size=bs, impl="pallas",
+                                    perms=perms[0])
         grads_p = torch.autograd.grad((out_p * w).sum(), ins)
     torch.testing.assert_close(out, out_p, rtol=1e-5, atol=1e-5 * out_p.abs().max().item())
     for a, b in zip(grads, grads_p):
@@ -756,7 +758,7 @@ def test_dp_world1_nccl_step_is_the_plain_step(dev):
             h_dim=24, num_heads=8, n_layers=2, block_size=128, n_hashes=2, static_rounds=4,
             qkv_post_sort=True, shared_sort=True, share_heads=True, static_keys="x0",
             unsort_rows=True, sort_pack=True, unsort_pack=True, kernel_bf16=True,
-            kernel_center=True), optimizer_kwargs=dict(lr=1e-2))
+            kernel_center=True), optimizer_kwargs=dict(lr=1e-2), attn_impl="slab2")
         m0 = trainer.build_model(cfg, 10, 6, torch.Generator(device=dev).manual_seed(0), dev)
         m1 = copy.deepcopy(m0)
         opts = [trainer.make_optimizer(m.parameters(), lr=1e-2) for m in (m0, m1)]

@@ -99,7 +99,7 @@ def _compare_eval(modes, loss_rtol, metric_atol, ctx=None):
         want = jax_evaluate(jcfg, make_model_apply(jmodel), variables, jds, "test", BS, n_max, 0,
                             eval_step=_waited(make_eval_step(jcfg, make_model_apply(jmodel))))
 
-    cfg = ExperimentConfig(device="cpu", **kw)
+    cfg = ExperimentConfig(device="cpu", attn_impl="slab2", **kw)
     model = trainer.build_model(cfg, 10, 6, torch.Generator().manual_seed(0), "cpu")
     model.load_state_dict(from_jax_variables(variables))
     model.train()
@@ -147,7 +147,8 @@ def test_run_one_seed_checkpoint_round_trip(tmp_path):
     tds, _ = _datasets(seed=7, sizes=(300, 280, 310, 290, 270))
     tds.train, tds.valid, tds.test = tds.train + tds.valid[:1], tds.test[:1], tds.test[1:]
     cfg = ExperimentConfig(model_kwargs=dict(MODEL, **F32_MODES), device="cpu", num_epochs=2,
-                           optimizer_kwargs=dict(lr=1e-2), log_dir=str(tmp_path / "a"))
+                           optimizer_kwargs=dict(lr=1e-2), log_dir=str(tmp_path / "a"),
+                           attn_impl="slab2")
     res, lines = _run(cfg, tds)
     (run_dir,) = (tmp_path / "a").iterdir()
     assert CheckpointManager(run_dir / "ckpt").latest_step() is not None

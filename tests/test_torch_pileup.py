@@ -241,7 +241,7 @@ def _port_model(variables, modes, attn_impl):
     from hept_tpu_torch.models.transformer import TransformerConfig
 
     cfg = TransformerConfig(in_dim=IN_DIM, coords_dim=COORDS_DIM, task="pileup",
-                            attn_impl=attn_impl, **modes)
+                            attn_impl=attn_impl, padding_mode="replicate", **modes)
     model = HeptTransformer(cfg, torch.Generator().manual_seed(0))
     model.load_state_dict(from_jax_variables(variables))
     return model
@@ -366,7 +366,8 @@ def test_pileup_head_init_and_pid_embedding():
     replication pads carrying their source row's PID, inert slots PID 0."""
     from hept_tpu_torch.models.transformer import TransformerConfig, prepare_event
 
-    cfg = TransformerConfig(in_dim=IN_DIM, coords_dim=COORDS_DIM, task="pileup", **PARITY)
+    cfg = TransformerConfig(in_dim=IN_DIM, coords_dim=COORDS_DIM, task="pileup",
+                            attn_impl="slab2", padding_mode="replicate", **PARITY)
     model = HeptTransformer(cfg, torch.Generator().manual_seed(3))
     assert tuple(model.pids_enc.weight.shape) == (7, 10)
     assert tuple(model.feat_enc_0.weight.shape) == (8, IN_DIM - 1 + 10)

@@ -127,7 +127,8 @@ def test_core_matches_jax(monkeypatch, unsort_rows, ties):
     ins = [_t(a).requires_grad_(True) for a in diff]
     seen = []
     out = hept_attention_core_xcols(*ins, _t(alpha), _t(codes), _t(invalid), None,
-                                    block_size=BS, impl="pallas", unsort_rows=unsort_rows,
+                                    block_size=BS, impl="pallas", share_heads=True,
+                                    unsort_rows=unsort_rows,
                                     src=_t(rec[0], torch.int64) if ties else None,
                                     record_perms=seen)
     if not ties:

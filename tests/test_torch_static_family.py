@@ -246,9 +246,10 @@ def test_canon_core_equals_static_core_after_reordering():
     plan = static_bucket_plan(t(hashed), ta[7][:, 0], None, ta[1], canonical=True)
     src0 = plan[0][0, 0]
     plain = hept_attention_core_xcols(*ta, None, plan[:3], block_size=BS, impl="pallas",
-                                      unsort_rows=True)
+                                      share_heads=True, unsort_rows=True)
     canon = hept_attention_core_xcols(ta[0][:, src0], *ta[1:], None, plan, block_size=BS,
-                                      impl="pallas", canon=True, unsort_rows=True)
+                                      impl="pallas", share_heads=True, canon=True,
+                                      unsort_rows=True)
     close(canon[plan[1][0, 0]], plain.numpy(), 1e-6)
 
 

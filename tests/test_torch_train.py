@@ -65,7 +65,7 @@ def test_train_step_matches_jax_single_device_step():
     step = make_single_device_train_step(make_model_apply(jmodel), jax_make_loss_fn(jcfg), tx)
     new_state, jm = step(state, jax.tree_util.tree_map(jnp.asarray, batch))
 
-    cfg = ExperimentConfig(model_kwargs=dict(MODEL), device="cpu",
+    cfg = ExperimentConfig(model_kwargs=dict(MODEL), device="cpu", attn_impl="slab2",
                            loss_kwargs=dict(tau=0.05, dist_metric="l2_rbf"))
     model = trainer.build_model(cfg, 10, 6, torch.Generator().manual_seed(0), "cpu")
     model.load_state_dict(from_jax_variables(variables))

@@ -200,7 +200,7 @@ def compare_model(monkeypatch, kw: dict, fwd_tol: float, grad_tol: float, *,
     value moved. `whole_tol`: `whole_grad`'s relative L2 (default 1e-3).
     `quick`: JAX's init and step compile at optimisation level 0 (`jit0`).
     Returns (port model, its output, JAX's output)."""
-    assert "padding_mode" in kw  # JAX's default is "zero", the port's "replicate"
+    assert "padding_mode" in kw  # each test names the padding it holds
     base = BASE if base is None else base
     batch = event(n_points, block_size=base["block_size"])
     x, coords, valid = batch["x"][0], batch["coords"][0], batch["valid"][0]

@@ -113,7 +113,8 @@ def sp_task(inp, rank):
     mesh = make_mesh(None, ("heads",), device="cpu")
     q, k, v = (inp[n].clone().requires_grad_(True) for n in ("q", "k", "v"))
     out = head_sharded_attention(q, k, v, inp["alpha"], inp["codes"], inp["invalid"],
-                                 mesh.group("heads"), block_size=inp["block_size"])
+                                 mesh.group("heads"), block_size=inp["block_size"],
+                                 impl="pallas")
     torch.sum(out * inp["cot"]).backward()
     return {"out": out.detach(), "dq": q.grad, "dk": k.grad, "dv": v.grad}
 
